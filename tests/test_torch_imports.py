@@ -1,0 +1,62 @@
+"""visrag_tpu_torch imports and runs without JAX or Flax."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_PROGRAM = r"""
+import sys
+before = set(sys.modules)
+import numpy as np
+import torch
+from PIL import Image
+import visrag_tpu_torch.driver.eval_retriever
+from visrag_tpu_torch.config import ModelConfig
+from visrag_tpu_torch.preprocess import MockTokenizer, build_encode_batch
+from visrag_tpu_torch.driver.common import build_visrag_ret
+from visrag_tpu_torch.preprocess.device import (finish_encode_batch,
+                                                pos_table_tensor)
+from visrag_tpu_torch.retrieval.search import topk_single
+
+model, pcfg = build_visrag_ret(ModelConfig(), tiny=True, device="cpu")
+rng = np.random.default_rng(0)
+items = [("", Image.fromarray(rng.integers(0, 255, (40, 30, 3),
+                                           dtype=np.uint8))),
+         ("a text query", None)]
+raw = build_encode_batch(MockTokenizer(), items, pcfg, device_mode=True)
+with torch.inference_mode():
+    reps = model(finish_encode_batch(raw, pos_table_tensor(pcfg.src_grid,
+                                                           "cpu")))
+assert reps.shape == (2, 64) and torch.isfinite(reps).all()
+topk_single(reps, reps, 2)
+added = sorted(m for m in set(sys.modules) - before
+               if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+print("ADDED", added)
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ADDED []" in proc.stdout, proc.stdout
+
+
+def test_no_jax_import_in_port_sources():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
+    offenders = [str(p) for p in (ROOT / "visrag_tpu_torch").rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the shared host modules through the port."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|visrag_tpu)\b",
+                         re.M)
+    assert not pattern.search((ROOT / "chip_smoke.py").read_text())

@@ -1,0 +1,388 @@
+// Valid-length flash attention forward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `_fwd_kernel_grid` in
+// visrag_tpu/ops/attention_lengths.py (launched by flash_fwd_lengths and
+// flash_fwd_lengths_flat). For each batch row b, head h and query row i:
+//
+//   o[i] = softmax_j(scale * q[i].k[j] : j < len[b] and (!causal or j <= i)) . v
+//
+// bf16 in and out; scores, running max/sum and the accumulator in fp32; the
+// online softmax runs in base 2 with scale*log2(e) folded into the q tile.
+// Query rows at or past len[b] are not part of the contract (callers mask
+// them); this kernel writes attention over the valid keys there, and zeros
+// when len[b] == 0.
+//
+// Layout: q/k/v/o are base pointers plus element strides (batch, row, head)
+// with a contiguous head dim. The ViT's flat fused-qkv tensor (n*S, 3*H*D)
+// and the LM's stacked (B, S, H, D) tensors are the same kernel with other
+// strides, so neither caller relayouts anything.
+//
+// What bounds it: at the slice's shapes (S = 576..1152, d = 64/72) each
+// block reuses its q tile across every K/V tile, so HBM traffic is small
+// next to the work on the (64 x 64) score tile: two tensor-core products
+// plus the per-element mask, exp2 and rescale. So that work stays in
+// registers: each warp owns 16 query rows, runs S = Q K^T and O += P V as
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate), and keeps S, P, the running
+// max/sum and O in the accumulator fragments; the S fragment is re-packed
+// in place as the A operand of P V. Only the q tile and two stages of k/v
+// tiles live in shared memory (56 KB at d=72), and cp.async fills the next
+// K/V stage while the current one is used. The K/V loop stops at
+// ceil(len/64) tiles and, when causal, at the diagonal, so padded keys cost
+// nothing. d is padded to a multiple of 16 in shared memory only.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 64;        // keys per K/V tile
+constexpr int NWARPS = 4;     // each warp owns 16 query rows
+constexpr int NTHREADS = NWARPS * 32;
+
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  const int* lengths;
+  int seq;
+  long long q_sb, q_sr, q_sh;
+  long long k_sb, k_sr, k_sh;
+  long long v_sb, v_sr, v_sh;
+  long long o_sb, o_sr, o_sh;
+  float scale_log2;
+};
+
+template <int D>
+struct Tile {
+  static constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to k16
+  static constexpr int KSTEPS = DP / 16;          // k steps of Q K^T
+  static constexpr int NT = DP / 8;               // n8 tiles of O
+  static constexpr int CH = D / 8;                // 16-byte chunks per row
+  static constexpr int LDH = DP + 8;              // bf16 row pitch (no bank
+                                                  // conflicts on fragments)
+  static constexpr size_t TILE_BYTES = size_t(64) * LDH * 2;
+  static constexpr size_t BYTES = 5 * TILE_BYTES;  // q, 2 x (k, v)
+};
+
+__device__ __forceinline__ uint4 zero4() { return make_uint4(0, 0, 0, 0); }
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a * b for one m16n8k16 tile: a row-major 16x16, b column-major 16x8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lane L gives the
+// address of row L%8 of matrix L/8.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 16-byte global -> shared copy that does not hold the thread; with
+// valid == false it reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Starts copying rows [r0, r0 + 64) of one head into a shared tile; rows at
+// or past `limit` become zeros. Pad columns [D, DP) are zeroed once up front.
+template <int D>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long row_stride, int r0,
+                                                int limit) {
+  using T = Tile<D>;
+  for (int idx = threadIdx.x; idx < 64 * T::CH; idx += NTHREADS) {
+    const int r = idx / T::CH, c = idx % T::CH;
+    const int row = r0 + r;
+    const bool valid = row < limit;
+    cp_async16(dst + r * T::LDH + c * 8,
+               valid ? src + row * row_stride + c * 8 : src, valid);
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NTHREADS)
+lengths_attention_fwd_kernel(const Params p) {
+  using T = Tile<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // q, then two stages of (k, v): the next K/V tile loads while this one
+  // is used
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK0 = sQ + 64 * T::LDH;
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;       // fragment row group
+  const int t = lane & 3;        // thread in group
+  const int seq = p.seq;
+  const int kv_end = min(max(p.lengths[b], 0), seq);
+
+  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+
+  // zero the tiles so pad columns stay zero
+  for (size_t i = tid; i < T::BYTES / 16; i += NTHREADS)
+    reinterpret_cast<uint4*>(smem)[i] = zero4();
+  __syncthreads();
+
+  // q tile, pre-scaled by scale*log2(e) in fp32 and rounded back to bf16
+  for (int idx = tid; idx < BQ * T::CH; idx += NTHREADS) {
+    const int r = idx / T::CH, c = idx % T::CH;
+    const int row = q0 + r;
+    uint4 val = zero4();
+    if (row < seq) {
+      val = *reinterpret_cast<const uint4*>(qb + row * p.q_sr + c * 8);
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float2 f = __bfloat1622float2(h2[e]);
+        h2[e] = __floats2bfloat162_rn(f.x * p.scale_log2, f.y * p.scale_log2);
+      }
+    }
+    *reinterpret_cast<uint4*>(sQ + r * T::LDH + c * 8) = val;
+  }
+  __syncthreads();
+
+  // this warp's q rows as A fragments, kept in registers
+  const int wrow = warp * 16;
+  uint32_t qf[T::KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < T::KSTEPS; ++kk) {
+    const __nv_bfloat16* a = sQ + (wrow + g) * T::LDH + kk * 16 + 2 * t;
+    qf[kk][0] = ld32(a);
+    qf[kk][1] = ld32(a + 8 * T::LDH);
+    qf[kk][2] = ld32(a + 8);
+    qf[kk][3] = ld32(a + 8 * T::LDH + 8);
+  }
+
+  float o[T::NT][4];
+#pragma unroll
+  for (int n = 0; n < T::NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // rows r_lo = wrow + g and r_hi = r_lo + 8: running max and this
+  // thread's share of the running sum (the quad's shares add up at the end)
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  const int qrow_lo = q0 + wrow + g, qrow_hi = qrow_lo + 8;
+
+  int hi = kv_end;
+  if (CAUSAL) hi = min(hi, q0 + BQ);
+  const int ntiles = (hi + BK - 1) / BK;
+
+  auto stage_k = [&](int st) { return sK0 + st * 2 * 64 * T::LDH; };
+  auto stage_v = [&](int st) { return stage_k(st) + 64 * T::LDH; };
+  if (ntiles > 0) {
+    load_tile_async<D>(stage_k(0), kb, p.k_sr, 0, kv_end);
+    load_tile_async<D>(stage_v(0), vb, p.v_sr, 0, kv_end);
+    cp_async_commit();
+  }
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int k0 = tile * BK;
+    const __nv_bfloat16* sK = stage_k(tile & 1);
+    const __nv_bfloat16* sV = stage_v(tile & 1);
+    if (tile + 1 < ntiles) {
+      // the other stage was released by the barrier that ended tile - 1
+      load_tile_async<D>(stage_k((tile + 1) & 1), kb, p.k_sr, k0 + BK, kv_end);
+      load_tile_async<D>(stage_v((tile + 1) & 1), vb, p.v_sr, k0 + BK, kv_end);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile has landed for every thread
+
+    // S = Q K^T: 16 rows x 64 keys as eight n8 tiles
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk) {
+        const __nv_bfloat16* bp = sK + (8 * j + g) * T::LDH + kk * 16 + 2 * t;
+        mma_bf16(s[j], qf[kk], ld32(bp), ld32(bp + 8));
+      }
+    }
+
+    // mask (keys past the length; above the diagonal when causal)
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + 2 * t + e;
+        const bool ok_lo = col < kv_end && (!CAUSAL || col <= qrow_lo);
+        const bool ok_hi = col < kv_end && (!CAUSAL || col <= qrow_hi);
+        s[j][e] = ok_lo ? s[j][e] : -INFINITY;
+        s[j][2 + e] = ok_hi ? s[j][2 + e] : -INFINITY;
+        mx_lo = fmaxf(mx_lo, s[j][e]);
+        mx_hi = fmaxf(mx_hi, s[j][2 + e]);
+      }
+    }
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+
+    // online softmax, base 2; a row with no valid key yet keeps max -inf
+    // and uses 0 as its reference so every exp2 stays finite (0 or 1)
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float ref_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+    const float ref_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+    const float corr_lo = exp2f(m_lo - ref_lo);
+    const float corr_hi = exp2f(m_hi - ref_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = exp2f(s[j][0] - ref_lo);
+      s[j][1] = exp2f(s[j][1] - ref_lo);
+      s[j][2] = exp2f(s[j][2] - ref_hi);
+      s[j][3] = exp2f(s[j][3] - ref_hi);
+      sum_lo += s[j][0] + s[j][1];
+      sum_hi += s[j][2] + s[j][3];
+    }
+    l_lo = l_lo * corr_lo + sum_lo;
+    l_hi = l_hi * corr_hi + sum_hi;
+#pragma unroll
+    for (int n = 0; n < T::NT; ++n) {
+      o[n][0] *= corr_lo;
+      o[n][1] *= corr_lo;
+      o[n][2] *= corr_hi;
+      o[n][3] *= corr_hi;
+    }
+
+    // O += P V: P re-packed from the S fragments as A, V through
+    // ldmatrix.trans as B (two n8 tiles of d per load)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const int mat = lane >> 3;
+      const __nv_bfloat16* vrow =
+          sV + (kk * 16 + (mat & 1) * 8 + (lane & 7)) * T::LDH + (mat >> 1) * 8;
+#pragma unroll
+      for (int np = 0; np < T::NT / 2; ++np) {
+        uint32_t vb4[4];
+        ldmatrix_x4_trans(vb4, vrow + np * 16);
+        mma_bf16(o[2 * np], pa, vb4[0], vb4[1]);
+        mma_bf16(o[2 * np + 1], pa, vb4[2], vb4[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // epilogue: o / l over the quad's summed l (l == 0 gives zeros)
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
+  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (qrow_lo < seq)
+      *reinterpret_cast<uint32_t*>(ob + qrow_lo * p.o_sr + col) =
+          pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
+    if (qrow_hi < seq)
+      *reinterpret_cast<uint32_t*>(ob + qrow_hi * p.o_sr + col) =
+          pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
+  }
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
+  auto kernel = lengths_attention_fwd_kernel<D, CAUSAL>;
+  const size_t bytes = Tile<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + BQ - 1) / BQ, heads, batch);
+  kernel<<<grid, NTHREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_causal(const Params& p, int batch, int heads,
+                            int causal, cudaStream_t stream) {
+  return causal ? launch<D, true>(p, batch, heads, stream)
+                : launch<D, false>(p, batch, heads, stream);
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes. Returns a cudaError_t (0 = launched).
+extern "C" int visrag_lengths_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, const int* lengths,
+    int batch, int seq, int heads, int head_dim,
+    long long q_sb, long long q_sr, long long q_sh,
+    long long k_sb, long long k_sr, long long k_sh,
+    long long v_sb, long long v_sr, long long v_sh,
+    long long o_sb, long long o_sr, long long o_sh,
+    int causal, float scale_log2, void* stream) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lengths = lengths;
+  p.seq = seq;
+  p.q_sb = q_sb; p.q_sr = q_sr; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_sr = k_sr; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_sr = v_sr; p.v_sh = v_sh;
+  p.o_sb = o_sb; p.o_sr = o_sr; p.o_sh = o_sh;
+  p.scale_log2 = scale_log2;
+  if (batch <= 0 || seq <= 0 || heads <= 0) return int(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (head_dim) {
+    case 64: err = dispatch_causal<64>(p, batch, heads, causal, s); break;
+    case 72: err = dispatch_causal<72>(p, batch, heads, causal, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return int(err);
+}

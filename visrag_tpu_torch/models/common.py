@@ -1,0 +1,145 @@
+"""Shared model building blocks.
+
+Counterpart of visrag_tpu/models/common.py: fp32 RMSNorm/LayerNorm cast
+back to the input dtype, rotary embeddings (plain, linear and dynamic-NTK
+scaling) applied in fp32, and the 2-D sin-cos position tables. Linear
+layers are plain `nn.Linear` with the torch (out, in) weight layout, which
+is the layout the JAX package's `Dense` stores.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with fp32 math, output in the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
+
+    def forward(self, x):
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + self.eps)
+                * self.weight.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with fp32 math, output in the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     scaling: Optional[dict] = None,
+                     max_positions: int = 4096,
+                     seq_len: Optional[int] = None) -> np.ndarray:
+    """Shared inv_freq (D/2,). scaling: None or {"type": "linear"|"dynamic",
+    "factor": f}; dynamic NTK rescales theta from the static seq_len (paths
+    with per-row lengths use dynamic_ntk_inv_freq instead)."""
+    if scaling:
+        kind = scaling.get("type")
+        if kind == "dynamic" and seq_len and seq_len > max_positions:
+            factor = float(scaling["factor"])
+            theta = theta * ((factor * seq_len / max_positions)
+                             - (factor - 1.0)) ** (head_dim / (head_dim - 2))
+        elif kind not in ("linear", "dynamic"):
+            raise ValueError(f"unsupported rope_scaling type {kind!r} "
+                             "(expected linear|dynamic)")
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                                / head_dim))
+    return inv_freq.astype(np.float32)
+
+
+def dynamic_ntk_inv_freq(head_dim: int, theta: float, factor: float,
+                         max_positions: int, seq_lens):
+    """Per-row NTK inv_freq (B, D/2) from live lengths (B,); rows at or
+    under max_positions keep the base theta."""
+    s = seq_lens.float()
+    scaled = theta * ((factor * s / max_positions) - (factor - 1.0)) \
+        ** (head_dim / (head_dim - 2))
+    t = torch.where(s > max_positions, scaled, torch.full_like(s, theta))
+    exp = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                       device=s.device) / head_dim
+    return 1.0 / (t[:, None] ** exp[None, :])
+
+
+def apply_rope(q, k, positions, inv_freq, scaling: Optional[dict] = None):
+    """q, k: (B, S, H, D); positions (B, S) int; inv_freq (D/2,) shared or
+    (B, D/2) per row. Rotation in fp32, cast back."""
+    pos = positions.float()
+    if scaling and scaling.get("type") == "linear":
+        pos = pos / float(scaling["factor"])
+    inv_freq = inv_freq.to(pos.device)
+    if inv_freq.dim() == 2:
+        freqs = pos[..., None] * inv_freq[:, None, :]
+    else:
+        freqs = pos[..., None] * inv_freq[None, None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    cos = torch.cos(emb)[:, :, None, :]
+    sin = torch.sin(emb)[:, :, None, :]
+
+    def rot(x):
+        x1, x2 = x.chunk(2, dim=-1)
+        return torch.cat([-x2, x1], dim=-1)
+
+    qf, kf = q.float(), k.float()
+    return ((qf * cos + rot(qf) * sin).to(q.dtype),
+            (kf * cos + rot(kf) * sin).to(k.dtype))
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_h: int,
+                            grid_w: int) -> np.ndarray:
+    """2-D sin-cos table (grid_h*grid_w, embed_dim), MAE convention: the
+    first half encodes the meshgrid's w coordinate, the second half h."""
+    def one_dim(dim, pos):
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        omega = 1.0 / 10000 ** omega
+        out = np.einsum("m,d->md", pos.reshape(-1).astype(np.float64), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    gh = np.arange(grid_h, dtype=np.float32)
+    gw = np.arange(grid_w, dtype=np.float32)
+    grid = np.stack(np.meshgrid(gw, gh), axis=0).reshape(2, -1)
+    emb_h = one_dim(embed_dim // 2, grid[0])
+    emb_w = one_dim(embed_dim // 2, grid[1])
+    return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
+
+
+def sincos_2d_device(embed_dim: int, grid_h, grid_w, max_len: int):
+    """Batched on-device 2-D sin-cos for per-slice (h, w) grids: grid_h,
+    grid_w (N,) int → (N, max_len, embed_dim) fp32, row-major over the grid.
+    Rows past h*w are garbage for the caller to mask. The row index follows
+    from the width alone, so grid_h is not read (as in the JAX version)."""
+    idx = torch.arange(max_len, device=grid_w.device)
+    w = grid_w.long()[:, None]
+    row = torch.div(idx[None, :], w, rounding_mode="floor").float()
+    col = (idx[None, :] % w).float()
+    half = embed_dim // 2
+
+    def one_dim(dim, pos):
+        omega = torch.arange(dim // 2, dtype=torch.float32,
+                             device=pos.device) / (dim / 2.0)
+        omega = 1.0 / 10000 ** omega
+        out = pos[..., None] * omega
+        return torch.cat([torch.sin(out), torch.cos(out)], dim=-1)
+
+    return torch.cat([one_dim(half, col), one_dim(half, row)], dim=-1)

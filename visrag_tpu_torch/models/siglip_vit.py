@@ -1,0 +1,127 @@
+"""SigLIP-SO400M ViT vision tower.
+
+Counterpart of visrag_tpu/models/siglip_vit.py (the flat attention path).
+Every slice arrives pre-patchified as a (MAX_P, 3*14*14) row buffer with a
+validity mask, and the bicubic pos-embed resample is a per-slice operator,
+pos = pos_matrix @ pos_embed, so slices of any grid batch together.
+
+Arch: patch 14, width 1152, 26 blocks (the 27th is dropped), 16 heads of
+d=72, MLP 4304, LayerNorm eps 1e-6, exact (erf) GELU, qkv bias. Attention
+is the fused qkv GEMM → flat lengths kernel (ops/attention_lengths.py) →
+projection GEMM, all in the (N*P, ...) layout; d=72 goes to the kernel
+unpadded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention_lengths import flash_fwd_lengths_flat
+from .common import LayerNorm
+
+
+@dataclasses.dataclass(frozen=True)
+class SiglipViTConfig:
+    patch_size: int = 14
+    embed_dim: int = 1152
+    depth: int = 26
+    num_heads: int = 16
+    mlp_dim: int = 4304
+    pos_grid: int = 27
+    ln_eps: float = 1e-6
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def patch_dim(self) -> int:
+        return 3 * self.patch_size * self.patch_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @classmethod
+    def tiny(cls, **kw):
+        defaults = dict(embed_dim=32, depth=2, num_heads=2, mlp_dim=64,
+                        pos_grid=4, patch_size=2, dtype=torch.float32)
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+class Attention(nn.Module):
+    def __init__(self, c: SiglipViTConfig):
+        super().__init__()
+        e = c.embed_dim
+        self.heads, self.head_dim = c.num_heads, c.head_dim
+        self.qkv = nn.Linear(e, 3 * e, dtype=c.dtype)
+        self.proj = nn.Linear(e, e, dtype=c.dtype)
+
+    def forward(self, y, lengths):
+        n, p, e = y.shape
+        qkv = self.qkv(y.reshape(n * p, e))
+        o = flash_fwd_lengths_flat(qkv, lengths, n, p, self.heads,
+                                   self.head_dim, False,
+                                   self.head_dim ** -0.5)
+        return self.proj(o).reshape(n, p, e)
+
+
+class Mlp(nn.Module):
+    def __init__(self, c: SiglipViTConfig):
+        super().__init__()
+        self.fc1 = nn.Linear(c.embed_dim, c.mlp_dim, dtype=c.dtype)
+        self.fc2 = nn.Linear(c.mlp_dim, c.embed_dim, dtype=c.dtype)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, c: SiglipViTConfig):
+        super().__init__()
+        self.norm1 = LayerNorm(c.embed_dim, c.ln_eps, dtype=c.dtype)
+        self.attn = Attention(c)
+        self.norm2 = LayerNorm(c.embed_dim, c.ln_eps, dtype=c.dtype)
+        self.mlp = Mlp(c)
+
+    def forward(self, x, lengths):
+        x = x + self.attn(self.norm1(x), lengths)
+        return x + self.mlp(self.norm2(x))
+
+
+class PatchEmbed(nn.Module):
+    """The timm conv patch embed as a matmul over flattened patches (an
+    fp32 Conv2d would run through cuDNN in TF32)."""
+
+    def __init__(self, c: SiglipViTConfig):
+        super().__init__()
+        self.proj = nn.Linear(c.patch_dim, c.embed_dim, dtype=c.dtype)
+
+    def forward(self, patches):
+        return self.proj(patches)
+
+
+class SiglipViT(nn.Module):
+    """patches (N, MAX_P, 3*ps*ps), mask (N, MAX_P) valid-prefix 0/1,
+    pos_matrix (N, MAX_P, pos_grid²) → (N, MAX_P, embed_dim); rows where
+    mask == 0 are garbage for the caller to mask."""
+
+    def __init__(self, cfg: SiglipViTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.patch_embed = PatchEmbed(cfg)
+        self.pos_embed = nn.Parameter(torch.empty(
+            cfg.pos_grid * cfg.pos_grid, cfg.embed_dim, dtype=cfg.dtype))
+        self.blocks = nn.ModuleList(ViTBlock(cfg) for _ in range(cfg.depth))
+        self.norm = LayerNorm(cfg.embed_dim, cfg.ln_eps, dtype=cfg.dtype)
+
+    def forward(self, patches, mask, pos_matrix):
+        dtype = self.cfg.dtype
+        x = self.patch_embed(patches.to(dtype))
+        x = x + (pos_matrix.float() @ self.pos_embed.float()).to(dtype)
+        lengths = mask.sum(dim=1, dtype=torch.int32)
+        for block in self.blocks:
+            x = block(x, lengths)
+        return self.norm(x)

@@ -1,0 +1,66 @@
+"""Device-side finish of raw encode batches.
+
+Counterpart of visrag_tpu/preprocess/device.py. The host stops at uint8
+patch pixels and per-slice grid dims (the shared
+`visrag_tpu.preprocess.pipeline.build_encode_batch(..., device_mode=True)`);
+this module uploads them and, on the device,
+
+  * normalises pixels: (x / 255 - 0.5) / 0.5 in fp32;
+  * builds each slice's bicubic pos-resample operator from the
+    `transform.bicubic_table` constant: A[p] = T[gh, p // gw],
+    B[p] = T[gw, p % gw], operator = A ⊗ B, shape (N, P, G²).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from visrag_tpu.preprocess.transform import bicubic_table
+
+from ..models.visrag_ret import EncodeBatch
+
+
+def pos_table_tensor(src_grid: int, device) -> torch.Tensor:
+    """The bicubic table as a device tensor; upload it once per run and pass
+    it to every finish_encode_batch call."""
+    return torch.from_numpy(bicubic_table(src_grid)).to(device)
+
+
+def finish_encode_batch(raw: dict, pos_table: torch.Tensor) -> EncodeBatch:
+    """raw: numpy dict from build_encode_batch(device_mode=True) (or tensors).
+    pos_table: pos_table_tensor(src_grid, device). → EncodeBatch on the
+    table's device."""
+    device = pos_table.device
+
+    def put(name):
+        x = raw[name]
+        x = torch.from_numpy(np.ascontiguousarray(x)) \
+            if isinstance(x, np.ndarray) else x
+        return x.to(device, non_blocking=True)
+
+    pixels = put("pixels")
+    grid_h, grid_w = put("grid_h"), put("grid_w")
+    patches = (pixels.float() / 255.0 - 0.5) / 0.5
+    pos_matrix = _pos_operators(pos_table, grid_h, grid_w, pixels.shape[1])
+    return EncodeBatch(
+        input_ids=put("input_ids"), attention_mask=put("attention_mask"),
+        patches=patches, patch_mask=put("patch_mask"), pos_matrix=pos_matrix,
+        grid_h=grid_h, grid_w=grid_w, slot_map=put("slot_map"))
+
+
+def _pos_operators(table, gh, gw, p: int):
+    """(N,) grids → dense (N, p, G²) pos-resample operators; rows past
+    gh*gw are zero."""
+    maxd, g = table.shape[1], table.shape[2]
+    gh, gw = gh.long(), gw.long()
+    rows = torch.arange(p, device=table.device)
+    gw_safe = gw.clamp(min=1)[:, None]
+    ih = torch.clamp(torch.div(rows[None, :], gw_safe, rounding_mode="floor"),
+                     max=maxd - 1)
+    iw = torch.clamp(rows[None, :] % gw_safe, max=maxd - 1)
+    valid = rows[None, :] < (gh * gw)[:, None]
+    pos_a = table[gh[:, None], ih] * valid[..., None]
+    pos_b = table[gw[:, None], iw]
+    return torch.einsum("npa,npb->npab", pos_a, pos_b).reshape(
+        pos_a.shape[0], p, g * g)

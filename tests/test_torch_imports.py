@@ -1,4 +1,4 @@
-"""visrag_tpu_torch imports and runs without JAX or Flax."""
+"""visrag_tpu_torch imports and runs without JAX, Flax or visrag_tpu."""
 
 import os
 import pathlib
@@ -15,12 +15,15 @@ import numpy as np
 import torch
 from PIL import Image
 import visrag_tpu_torch.driver.eval_retriever
+import visrag_tpu_torch.driver.train_retriever
 from visrag_tpu_torch.config import ModelConfig
 from visrag_tpu_torch.preprocess import MockTokenizer, build_encode_batch
 from visrag_tpu_torch.driver.common import build_visrag_ret
 from visrag_tpu_torch.preprocess.device import (finish_encode_batch,
                                                 pos_table_tensor)
 from visrag_tpu_torch.retrieval.search import topk_single
+from visrag_tpu_torch.training import (checkpoint, contrastive, lora, optim,
+                                       trainer)
 
 model, pcfg = build_visrag_ret(ModelConfig(), tiny=True, device="cpu")
 rng = np.random.default_rng(0)
@@ -34,12 +37,18 @@ with torch.inference_mode():
 assert reps.shape == (2, 64) and torch.isfinite(reps).all()
 topk_single(reps, reps, 2)
 added = sorted(m for m in set(sys.modules) - before
-               if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "visrag_tpu"))
 print("ADDED", added)
 """
 
+# an import of jax, flax or visrag_tpu (not visrag_tpu_torch)
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|visrag_tpu(?!_torch))\b", re.M)
+
 
 def test_port_runs_without_jax():
+    """Importing the drivers and training modules and encoding a batch
+    loads no module of jax, flax or visrag_tpu."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
@@ -49,14 +58,21 @@ def test_port_runs_without_jax():
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
     offenders = [str(p) for p in (ROOT / "visrag_tpu_torch").rglob("*.py")
-                 if pattern.search(p.read_text())]
+                 if _FORBIDDEN.search(p.read_text())]
     assert not offenders, offenders
 
 
+def test_forbidden_pattern():
+    for line in ("import jax", "from jax import numpy", "import flax.linen",
+                 "from visrag_tpu.config import X", "import visrag_tpu",
+                 "    from visrag_tpu.models import y"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("from visrag_tpu_torch.config import X",
+                 "import visrag_tpu_torch", "# from visrag_tpu import x",
+                 "import jaxlike"):
+        assert not _FORBIDDEN.search(line), line
+
+
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the shared host modules through the port."""
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|visrag_tpu)\b",
-                         re.M)
-    assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+    assert not _FORBIDDEN.search((ROOT / "chip_smoke.py").read_text())

@@ -206,3 +206,82 @@ def test_minicpm_model_matches_jax(causal):
         out = mod(_t(ids), attention_mask=_t(mask)).numpy()
     valid = _masks(lengths, s)
     np.testing.assert_allclose(out[valid], ref[valid], rtol=1e-4, atol=1e-4)
+
+
+def _input_grads_match_jax(jm, jparams, jinputs, mod, tinputs, w, mask_valid,
+                           call, tol):
+    """jax.grad and torch autograd of sum(out * w) over valid rows, with
+    respect to the first input; `call(model, *inputs)` runs either side."""
+    def jloss(x):
+        return (call(jm, {"params": jparams}, x, *jinputs[1:]) * w).sum()
+
+    want = np.asarray(jax.grad(jloss)(jinputs[0]))
+    x = tinputs[0].clone().requires_grad_(True)
+    out = call(mod, None, x, *tinputs[1:])
+    (got,) = torch.autograd.grad((out * _t(w)).sum(), (x,))
+    np.testing.assert_allclose(got.numpy()[mask_valid], want[mask_valid],
+                               **tol)
+    return got
+
+
+@pytest.mark.parametrize("remat", [False, True, "mlp"])
+def test_siglip_vit_grads_match_jax(remat):
+    """The ViT's backward (the plain lengths attention's autograd on the
+    CPU) with and without recomputation against jax.grad through the JAX
+    tower with the same remat setting; grads w.r.t. the patches of valid
+    rows, 1e-3 abs/rel (fast_gelu's derivative differs from exact GELU's
+    in the last digits)."""
+    rng = np.random.default_rng(11)
+    n, p, g = 3, 24, 4
+    jcfg = JSiglipViTConfig.tiny(patch_size=14, remat=remat)
+    patches = rng.uniform(-1, 1, (n, p, jcfg.patch_dim)).astype(np.float32)
+    lengths = [24, 13, 0]
+    mask = _masks(lengths, p).astype(np.int32)
+    pos = rng.uniform(0, 0.3, (n, p, g * g)).astype(np.float32)
+    w = (rng.standard_normal((n, p, jcfg.embed_dim)).astype(np.float32)
+         * mask[:, :, None])
+    jm = JSiglipViT(jcfg)
+    jargs = [jnp.asarray(a) for a in (patches, mask, pos)]
+    params = jm.init(jax.random.PRNGKey(1), *jargs)["params"]
+    mod = _load(SiglipViT(SiglipViTConfig.tiny(patch_size=14, remat=remat)),
+                export_siglip_vit(params, prefix=""))
+
+    def call(m, variables, *args):
+        return m.apply(variables, *args) if variables else m(*args)
+
+    _input_grads_match_jax(jm, params, jargs, mod,
+                           [_t(a) for a in (patches, mask, pos)], w,
+                           _masks(lengths, p), call,
+                           dict(rtol=1e-3, atol=1e-3))
+
+
+@pytest.mark.parametrize("remat", [False, True, "mlp"])
+def test_minicpm_grads_match_jax(remat):
+    """The LM's backward with and without recomputation against jax.grad
+    through the JAX LM (same remat setting, which on the JAX side also
+    routes attention through the flash path); grads w.r.t. the input
+    embeddings, 1e-4 abs/rel."""
+    rng = np.random.default_rng(12)
+    b, s = 3, 16
+    jcfg = JMiniCPMConfig.tiny(remat=remat)
+    emb = rng.standard_normal((b, s, jcfg.hidden_size)).astype(np.float32)
+    lengths = [16, 9, 1]
+    mask = _masks(lengths, s).astype(np.int32)
+    w = (rng.standard_normal((b, s, jcfg.hidden_size)).astype(np.float32)
+         * mask[:, :, None])
+    jm = JMiniCPMModel(jcfg)
+    ids = jnp.asarray(rng.integers(0, 256, (b, s)).astype(np.int32))
+    params = jm.init(jax.random.PRNGKey(2), ids,
+                     attention_mask=jnp.asarray(mask))["params"]
+    mod = _load(MiniCPMModel(MiniCPMConfig.tiny(remat=remat)),
+                export_minicpm_lm(params))
+
+    def call(m, variables, x, attention_mask):
+        if variables:
+            return m.apply(variables, inputs_embeds=x,
+                           attention_mask=attention_mask)
+        return m(inputs_embeds=x, attention_mask=attention_mask)
+
+    _input_grads_match_jax(jm, params, [jnp.asarray(emb), jnp.asarray(mask)],
+                           mod, [_t(emb), _t(mask)], w, _masks(lengths, s),
+                           call, dict(rtol=1e-4, atol=1e-4))

@@ -12,6 +12,13 @@
 // them); this kernel writes attention over the valid keys there, and zeros
 // when len[b] == 0.
 //
+// With the LSE template flag (training: the backward in
+// attention_lengths_bwd.cu reads it) it also writes the natural-log
+// log-sum-exp of each row's scores, fp32 (B, H, S) contiguous; rows at or
+// past len[b], and rows with no valid key, get the +LARGE sentinel LSE_PAD
+// so that the backward's exp(s - lse) is exactly 0 there. Without the flag
+// (inference) the LSE is neither computed nor written.
+//
 // Layout: q/k/v/o are base pointers plus element strides (batch, row, head)
 // with a contiguous head dim. The ViT's flat fused-qkv tensor (n*S, 3*H*D)
 // and the LM's stacked (B, S, H, D) tensors are the same kernel with other
@@ -30,25 +37,20 @@
 // ceil(len/64) tiles and, when causal, at the diagonal, so padded keys cost
 // nothing. d is padded to a multiple of 16 in shared memory only.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_lengths_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per K/V tile
-constexpr int NWARPS = 4;     // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
+using namespace visrag;
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;            // (B, H, S) or null
   const int* lengths;
-  int seq;
+  int seq, heads;
   long long q_sb, q_sr, q_sh;
   long long k_sb, k_sr, k_sh;
   long long v_sb, v_sr, v_sh;
@@ -57,86 +59,11 @@ struct Params {
 };
 
 template <int D>
-struct Tile {
-  static constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to k16
-  static constexpr int KSTEPS = DP / 16;          // k steps of Q K^T
-  static constexpr int NT = DP / 8;               // n8 tiles of O
-  static constexpr int CH = D / 8;                // 16-byte chunks per row
-  static constexpr int LDH = DP + 8;              // bf16 row pitch (no bank
-                                                  // conflicts on fragments)
-  static constexpr size_t TILE_BYTES = size_t(64) * LDH * 2;
-  static constexpr size_t BYTES = 5 * TILE_BYTES;  // q, 2 x (k, v)
-};
-
-__device__ __forceinline__ uint4 zero4() { return make_uint4(0, 0, 0, 0); }
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return 5 * Tile<D>::TILE_BYTES;  // q, 2 x (k, v)
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one m16n8k16 tile: a row-major 16x16, b column-major 16x8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed: lane L gives the
-// address of row L%8 of matrix L/8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte global -> shared copy that does not hold the thread; with
-// valid == false it reads nothing and writes zeros.
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Starts copying rows [r0, r0 + 64) of one head into a shared tile; rows at
-// or past `limit` become zeros. Pad columns [D, DP) are zeroed once up front.
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long row_stride, int r0,
-                                                int limit) {
-  using T = Tile<D>;
-  for (int idx = threadIdx.x; idx < 64 * T::CH; idx += NTHREADS) {
-    const int r = idx / T::CH, c = idx % T::CH;
-    const int row = r0 + r;
-    const bool valid = row < limit;
-    cp_async16(dst + r * T::LDH + c * 8,
-               valid ? src + row * row_stride + c * 8 : src, valid);
-  }
-}
-
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(NTHREADS)
 lengths_attention_fwd_kernel(const Params p) {
   using T = Tile<D>;
@@ -163,8 +90,7 @@ lengths_attention_fwd_kernel(const Params p) {
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
 
   // zero the tiles so pad columns stay zero
-  for (size_t i = tid; i < T::BYTES / 16; i += NTHREADS)
-    reinterpret_cast<uint4*>(smem)[i] = zero4();
+  zero_smem(smem, fwd_smem_bytes<D>());
   __syncthreads();
 
   // q tile, pre-scaled by scale*log2(e) in fp32 and rounded back to bf16
@@ -189,13 +115,8 @@ lengths_attention_fwd_kernel(const Params p) {
   const int wrow = warp * 16;
   uint32_t qf[T::KSTEPS][4];
 #pragma unroll
-  for (int kk = 0; kk < T::KSTEPS; ++kk) {
-    const __nv_bfloat16* a = sQ + (wrow + g) * T::LDH + kk * 16 + 2 * t;
-    qf[kk][0] = ld32(a);
-    qf[kk][1] = ld32(a + 8 * T::LDH);
-    qf[kk][2] = ld32(a + 8);
-    qf[kk][3] = ld32(a + 8 * T::LDH + 8);
-  }
+  for (int kk = 0; kk < T::KSTEPS; ++kk)
+    load_a(qf[kk], sQ, T::LDH, wrow, kk * 16, g, t);
 
   float o[T::NT][4];
 #pragma unroll
@@ -239,8 +160,9 @@ lengths_attention_fwd_kernel(const Params p) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < T::KSTEPS; ++kk) {
-        const __nv_bfloat16* bp = sK + (8 * j + g) * T::LDH + kk * 16 + 2 * t;
-        mma_bf16(s[j], qf[kk], ld32(bp), ld32(bp + 8));
+        uint32_t b0, b1;
+        load_b_nk(b0, b1, sK, T::LDH, 8 * j, kk * 16, g, t);
+        mma_bf16(s[j], qf[kk], b0, b1);
       }
     }
 
@@ -301,13 +223,10 @@ lengths_attention_fwd_kernel(const Params p) {
                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int mat = lane >> 3;
-      const __nv_bfloat16* vrow =
-          sV + (kk * 16 + (mat & 1) * 8 + (lane & 7)) * T::LDH + (mat >> 1) * 8;
 #pragma unroll
       for (int np = 0; np < T::NT / 2; ++np) {
         uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, vrow + np * 16);
+        load_b_kn_x2(vb4, sV, T::LDH, kk * 16, np * 16, lane);
         mma_bf16(o[2 * np], pa, vb4[0], vb4[1]);
         mma_bf16(o[2 * np + 1], pa, vb4[2], vb4[3]);
       }
@@ -332,33 +251,47 @@ lengths_attention_fwd_kernel(const Params p) {
       *reinterpret_cast<uint32_t*>(ob + qrow_hi * p.o_sr + col) =
           pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
   }
+  if (LSE && t == 0) {
+    // natural log: m is the base-2 max of the scaled scores
+    float* lb = p.lse + (static_cast<long long>(b) * p.heads + h) * seq;
+    if (qrow_lo < seq)
+      lb[qrow_lo] = (qrow_lo < kv_end && l_lo > 0.f)
+                        ? (m_lo + log2f(l_lo)) * LN2 : LSE_PAD;
+    if (qrow_hi < seq)
+      lb[qrow_hi] = (qrow_hi < kv_end && l_hi > 0.f)
+                        ? (m_hi + log2f(l_hi)) * LN2 : LSE_PAD;
+  }
 }
 
-template <int D, bool CAUSAL>
-cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
-  auto kernel = lengths_attention_fwd_kernel<D, CAUSAL>;
-  const size_t bytes = Tile<D>::BYTES;
+template <int D, bool CAUSAL, bool LSE>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  auto kernel = lengths_attention_fwd_kernel<D, CAUSAL, LSE>;
+  const size_t bytes = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq + BQ - 1) / BQ, heads, batch);
+  const dim3 grid((p.seq + BQ - 1) / BQ, p.heads, batch);
   kernel<<<grid, NTHREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch_causal(const Params& p, int batch, int heads,
-                            int causal, cudaStream_t stream) {
-  return causal ? launch<D, true>(p, batch, heads, stream)
-                : launch<D, false>(p, batch, heads, stream);
+cudaError_t dispatch(const Params& p, int batch, int causal,
+                     cudaStream_t stream) {
+  if (p.lse)
+    return causal ? launch<D, true, true>(p, batch, stream)
+                  : launch<D, false, true>(p, batch, stream);
+  return causal ? launch<D, true, false>(p, batch, stream)
+                : launch<D, false, false>(p, batch, stream);
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. Returns a cudaError_t (0 = launched).
+// Plain C entry point for ctypes. lse: fp32 (batch, heads, seq) contiguous,
+// or null for no LSE. Returns a cudaError_t (0 = launched).
 extern "C" int visrag_lengths_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, const int* lengths,
-    int batch, int seq, int heads, int head_dim,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const int* lengths, int batch, int seq, int heads, int head_dim,
     long long q_sb, long long q_sr, long long q_sh,
     long long k_sb, long long k_sr, long long k_sh,
     long long v_sb, long long v_sr, long long v_sh,
@@ -369,8 +302,10 @@ extern "C" int visrag_lengths_attention_fwd(
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.lengths = lengths;
   p.seq = seq;
+  p.heads = heads;
   p.q_sb = q_sb; p.q_sr = q_sr; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_sr = k_sr; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_sr = v_sr; p.v_sh = v_sh;
@@ -378,11 +313,9 @@ extern "C" int visrag_lengths_attention_fwd(
   p.scale_log2 = scale_log2;
   if (batch <= 0 || seq <= 0 || heads <= 0) return int(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (head_dim) {
-    case 64: err = dispatch_causal<64>(p, batch, heads, causal, s); break;
-    case 72: err = dispatch_causal<72>(p, batch, heads, causal, s); break;
-    default: err = cudaErrorInvalidValue;
+    case 64: return int(dispatch<64>(p, batch, causal, s));
+    case 72: return int(dispatch<72>(p, batch, causal, s));
+    default: return int(cudaErrorInvalidValue);
   }
-  return int(err);
 }

@@ -15,10 +15,13 @@ layers:
     resampler in_proj: xavier uniform; resampler proj: normal(E^-1/2);
     the resampler's query pos embed: the fixed 8×8 2-D sin-cos table.
 
-Full width is bf16, `tiny` fp32.
+Full width is bf16, `tiny` fp32. `ModelConfig.remat` switches on
+whole-block recomputation in the ViT and the LM when gradients are on.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -88,6 +91,10 @@ def build_visrag_ret(model_cfg: ModelConfig, *, tiny: bool = False,
         raise NotImplementedError(_NO_CHECKPOINTS)
     cfg = VisRAGRetConfig.tiny() if tiny else VisRAGRetConfig(
         pooling=model_cfg.pooling, normalize=model_cfg.normalize)
+    bb = cfg.backbone
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        bb, vit=dataclasses.replace(bb.vit, remat=model_cfg.remat),
+        llm=dataclasses.replace(bb.llm, remat=model_cfg.remat)))
     device = torch.device(device)
     with torch.device("meta"):
         model = VisRAGRet(cfg)

@@ -42,16 +42,14 @@ def main(argv=None):
                     help="torch device for the model and the search")
     args = ap.parse_args(argv)
 
-    from visrag_tpu.data.datasets import InferenceDataset, batched
-    from visrag_tpu.retrieval.trec import (load_beir_qrels, load_from_trec,
-                                           save_as_trec)
-
     from ..config import EvalConfig, load_config
+    from ..data.datasets import InferenceDataset, batched
     from ..preprocess import build_encode_batch, pick_patch_bucket
     from ..preprocess.device import finish_encode_batch, pos_table_tensor
     from ..retrieval import evaluate_run
     from ..retrieval.encode import EmbeddingWriter, encode_dataset
     from ..retrieval.search import StreamingSearcher, build_run
+    from ..retrieval.trec import load_beir_qrels, load_from_trec, save_as_trec
     from .common import build_tokenizer, build_visrag_ret
 
     cfg = load_config(EvalConfig, yaml_path=args.config, dotlist=args.set)

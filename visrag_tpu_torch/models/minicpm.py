@@ -1,4 +1,4 @@
-"""MiniCPM-2B language model (Llama family with MUP scalings), forward only.
+"""MiniCPM-2B language model (Llama family with MUP scalings).
 
 Counterpart of visrag_tpu/models/minicpm.py (MiniCPMConfig, MiniCPMModel):
 
@@ -8,7 +8,10 @@ Counterpart of visrag_tpu/models/minicpm.py (MiniCPMConfig, MiniCPMModel):
   * RMSNorm eps 1e-5; RoPE theta 10000 in fp32, with linear or dynamic-NTK
     scaling (per-row live lengths drive the NTK theta);
   * right-padded attention through the stacked lengths kernel
-    (ops/attention_lengths.flash_fwd_lengths), causal per config.
+    (ops/attention_lengths.flash_fwd_lengths), causal per config, in
+    training as in inference (its backward is K2);
+  * `remat` as in the ViT: True recomputes whole layers in the backward,
+    "mlp" only each layer's MLP (torch.utils.checkpoint, non-reentrant).
 
 Decode, the LM head and generation are not ported yet.
 """
@@ -16,10 +19,12 @@ Decode, the LM head and generation are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_lengths import flash_fwd_lengths
 from .common import (RMSNorm, apply_rope, dynamic_ntk_inv_freq,
@@ -43,6 +48,7 @@ class MiniCPMConfig:
     max_position_embeddings: int = 4096
     is_causal: bool = True
     dtype: torch.dtype = torch.bfloat16
+    remat: Any = False          # False | True (whole layers) | "mlp"
 
     def __post_init__(self):
         if self.num_key_value_heads != self.num_attention_heads:
@@ -124,6 +130,7 @@ class MiniCPMDecoderLayer(nn.Module):
 
     def __init__(self, c: MiniCPMConfig):
         super().__init__()
+        self.remat_mlp = c.remat == "mlp"
         self.self_attn = MiniCPMAttention(c)
         self.mlp = MiniCPMMLP(c)
         self.input_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps,
@@ -132,11 +139,17 @@ class MiniCPMDecoderLayer(nn.Module):
                                                 dtype=c.dtype)
         self.depth_scale = c.scale_depth / c.num_hidden_layers ** 0.5
 
+    def _mlp_part(self, x):
+        return self.mlp(self.post_attention_layernorm(x))
+
     def forward(self, x, positions, lengths, inv_freq):
         x = x + self.self_attn(self.input_layernorm(x), positions, lengths,
                                inv_freq) * self.depth_scale
-        return x + self.mlp(self.post_attention_layernorm(x)) \
-            * self.depth_scale
+        if self.remat_mlp and torch.is_grad_enabled():
+            m = checkpoint(self._mlp_part, x, use_reentrant=False)
+        else:
+            m = self._mlp_part(x)
+        return x + m * self.depth_scale
 
 
 class MiniCPMModel(nn.Module):
@@ -169,6 +182,10 @@ class MiniCPMModel(nn.Module):
             lengths = attention_mask.sum(dim=1, dtype=torch.int32)
         inv_freq = rope_inv_freq(self.cfg, s, lengths, device)
         x = inputs_embeds.to(self.cfg.dtype)
+        remat = self.cfg.remat and self.cfg.remat != "mlp" \
+            and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, positions, lengths, inv_freq)
+            x = checkpoint(layer, x, positions, lengths, inv_freq,
+                           use_reentrant=False) if remat \
+                else layer(x, positions, lengths, inv_freq)
         return self.norm(x)

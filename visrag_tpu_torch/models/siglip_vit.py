@@ -9,16 +9,22 @@ Arch: patch 14, width 1152, 26 blocks (the 27th is dropped), 16 heads of
 d=72, MLP 4304, LayerNorm eps 1e-6, exact (erf) GELU, qkv bias. Attention
 is the fused qkv GEMM → flat lengths kernel (ops/attention_lengths.py) →
 projection GEMM, all in the (N*P, ...) layout; d=72 goes to the kernel
-unpadded.
+unpadded, and its gradient (K2) comes back in the same flat layout.
+
+`remat` trades compute for memory when gradients are on, through
+torch.utils.checkpoint (non-reentrant): True recomputes whole blocks in the
+backward (attention included), "mlp" only each block's MLP, False nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_lengths import flash_fwd_lengths_flat
 from .common import LayerNorm
@@ -34,6 +40,7 @@ class SiglipViTConfig:
     pos_grid: int = 27
     ln_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    remat: Any = False          # False | True (whole blocks) | "mlp"
 
     @property
     def patch_dim(self) -> int:
@@ -81,14 +88,20 @@ class Mlp(nn.Module):
 class ViTBlock(nn.Module):
     def __init__(self, c: SiglipViTConfig):
         super().__init__()
+        self.remat_mlp = c.remat == "mlp"
         self.norm1 = LayerNorm(c.embed_dim, c.ln_eps, dtype=c.dtype)
         self.attn = Attention(c)
         self.norm2 = LayerNorm(c.embed_dim, c.ln_eps, dtype=c.dtype)
         self.mlp = Mlp(c)
 
+    def _mlp_part(self, x):
+        return self.mlp(self.norm2(x))
+
     def forward(self, x, lengths):
         x = x + self.attn(self.norm1(x), lengths)
-        return x + self.mlp(self.norm2(x))
+        if self.remat_mlp and torch.is_grad_enabled():
+            return x + checkpoint(self._mlp_part, x, use_reentrant=False)
+        return x + self._mlp_part(x)
 
 
 class PatchEmbed(nn.Module):
@@ -122,6 +135,9 @@ class SiglipViT(nn.Module):
         x = self.patch_embed(patches.to(dtype))
         x = x + (pos_matrix.float() @ self.pos_embed.float()).to(dtype)
         lengths = mask.sum(dim=1, dtype=torch.int32)
+        remat = self.cfg.remat and self.cfg.remat != "mlp" \
+            and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, lengths)
+            x = checkpoint(block, x, lengths, use_reentrant=False) if remat \
+                else block(x, lengths)
         return self.norm(x)

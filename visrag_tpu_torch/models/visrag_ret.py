@@ -3,7 +3,9 @@
 Counterpart of visrag_tpu/models/visrag_ret.py: one shared encoder for
 queries and pages; last hidden states pooled ("wmean" by default) and
 L2-normalised, in fp32 when `feature_fp32` is set. Tokenisation and
-slicing happen on the host; the model consumes EncodeBatch tensors.
+slicing happen on the host; the model consumes EncodeBatch tensors. In
+training mode (`model.train()`) the drop_* pooling modes draw their
+dropout from the generator passed to forward.
 """
 
 from __future__ import annotations
@@ -51,13 +53,16 @@ class VisRAGRet(nn.Module):
         self.cfg = cfg
         self.backbone = MiniCPMV(cfg.backbone)
 
-    def forward(self, batch: EncodeBatch) -> torch.Tensor:
-        """→ (B, hidden) embeddings, L2-normalised when cfg.normalize."""
+    def forward(self, batch: EncodeBatch, generator=None) -> torch.Tensor:
+        """→ (B, hidden) embeddings, L2-normalised when cfg.normalize.
+        generator: the torch.Generator of the pooling's dropout (drop_*
+        modes in training mode)."""
         hidden = self.backbone(
             batch.input_ids, batch.attention_mask, batch.patches,
             batch.patch_mask, batch.pos_matrix, batch.grid_h, batch.grid_w,
             batch.slot_map)
         if self.cfg.feature_fp32:
             hidden = hidden.float()
-        reps = pool(hidden, batch.attention_mask, self.cfg.pooling)
+        reps = pool(hidden, batch.attention_mask, self.cfg.pooling,
+                    training=self.training, generator=generator)
         return l2_normalize(reps) if self.cfg.normalize else reps

@@ -2,9 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 for Hopper (sm_90a) into `visrag_tpu_torch/build/` at first use, then loaded
-with ctypes. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale build is never loaded.
-Nothing here runs at import time.
+with ctypes. The library's file name carries a hash of the source, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt
+and a stale build is never loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,11 +15,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
+SOURCES = ("attention_lengths", "attention_lengths_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,9 +45,11 @@ def build(name: str) -> Path:
     compiler's report (registers, shared memory, spills) is kept in
     build/<name>.log."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -59,6 +63,12 @@ def build(name: str) -> Path:
     (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_all(names=SOURCES) -> list:
+    """Build every source at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        return list(ex.map(build, names))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,24 +1,42 @@
-"""Valid-length (right-padded) flash attention forward.
+"""Valid-length (right-padded) flash attention, forward and backward.
 
-Counterpart of visrag_tpu/ops/attention_lengths.py. The kernel is
-csrc/attention_lengths.cu (CUDA C++ for sm_90a, bound with ctypes); it
-replaces the TPU kernel `_fwd_kernel_grid` in both of its forms:
+Counterpart of visrag_tpu/ops/attention_lengths.py. The kernels are CUDA
+C++ for sm_90a, bound with ctypes:
+
+  * K1, csrc/attention_lengths.cu, replaces the TPU kernel
+    `_fwd_kernel_grid`, with or without the log-sum-exp (LSE) that the
+    backward needs;
+  * K2, csrc/attention_lengths_bwd.cu, replaces `_dq_kernel` and
+    `_dkv_kernel`: one kernel for dq (it also computes delta = rowsum(o·do)
+    and stores it) and one for dk/dv, launched in that order.
+
+Two public forms:
 
   * stacked, `flash_fwd_lengths`: q/k/v/o (B, S, H, D) — the MiniCPM LM,
     causal over right-padded prompts;
   * flat, `flash_fwd_lengths_flat`: the fused qkv GEMM output
-    (n*S, 3*H*D) → o (n*S, H*D) — the SigLIP ViT, bidirectional.
+    (n*S, 3*H*D) → o (n*S, H*D) — the SigLIP ViT, bidirectional; its
+    gradient is one (n*S, 3*H*D) buffer.
 
-Both go to the same kernel with other strides, so there is no relayout on
-either side. Valid rows (< length) hold the masked softmax attention; rows
-at or past the length are outside the contract (the plain version writes
-zeros there, the kernel attention over the valid keys) and every caller
-masks them.
+Every kernel takes (batch, row, head) element strides, so neither form is
+relaid out, forward or backward. Valid rows (< length) hold the masked
+softmax attention; rows at or past the length are outside the contract
+(the plain version writes zeros there, the kernel attention over the
+valid keys), every caller masks them, and their gradient is zero: the
+backward ignores the caller's `do` on pad rows and writes zero dq there,
+and pad keys get zero dk and dv.
 
 A CPU tensor takes `lengths_attention_reference`, the plain PyTorch
-version. A CUDA tensor launches the kernel or raises; there is no fallback.
-`flat_launches` and `stacked_launches` count each wrapper's kernel launches
-(one per call, covering all rows and heads).
+version, and autograd through it is the plain backward. A CUDA tensor
+launches the kernels or raises; there is no fallback. When a gradient is
+wanted (grad mode on and an input that requires grad) the call goes
+through a `torch.autograd.Function` whose forward is K1 with the LSE and
+whose backward is K2; otherwise K1 runs without the LSE.
+
+Launch counters, one per kernel entry point (each launch covers all rows
+and heads): `flat_launches` and `stacked_launches` (K1 without the LSE, by
+form), `fwd_lse_launches` (K1 with the LSE, either form), `dq_launches`
+and `dkv_launches` (K2).
 """
 
 from __future__ import annotations
@@ -28,29 +46,66 @@ import ctypes
 import torch
 
 LOG2E = 1.4426950408889634
+LSE_PAD = 0.7 * 3.4028234663852886e38   # LSE of a row with no valid key
 KERNEL_HEAD_DIMS = (64, 72)     # the LM's and the ViT's
 SOURCE = "visrag_tpu_torch/csrc/attention_lengths.cu"
+BWD_SOURCE = "visrag_tpu_torch/csrc/attention_lengths_bwd.cu"
 
-flat_launches = 0      # kernel launches by flash_fwd_lengths_flat
-stacked_launches = 0   # kernel launches by flash_fwd_lengths
+flat_launches = 0      # K1 without the LSE, by flash_fwd_lengths_flat
+stacked_launches = 0   # K1 without the LSE, by flash_fwd_lengths
+fwd_lse_launches = 0   # K1 with the LSE, by flash_fwd_lse
+dq_launches = 0        # K2 dq, by flash_bwd_dq
+dkv_launches = 0       # K2 dk/dv, by flash_bwd_dkv
+
+
+def reset_launch_counts() -> None:
+    global flat_launches, stacked_launches, fwd_lse_launches
+    global dq_launches, dkv_launches
+    flat_launches = stacked_launches = fwd_lse_launches = 0
+    dq_launches = dkv_launches = 0
+
+
+def launch_counts() -> dict:
+    return {"flat": flat_launches, "stacked": stacked_launches,
+            "fwd_lse": fwd_lse_launches, "dq": dq_launches,
+            "dkv": dkv_launches}
+
+
+def _allowed(s, lengths, causal, device):
+    pos = torch.arange(s, device=device)
+    allow = pos[None, None, None, :] < lengths.to(device)[:, None, None, None]
+    if causal:
+        allow = allow & (pos[:, None] >= pos[None, :])[None, None]
+    return allow
 
 
 def lengths_attention_reference(q, k, v, lengths, causal: bool,
                                 sm_scale: float):
     """Plain PyTorch version: (B, S, H, D) → (B, S, H, D) in q's dtype.
-    fp32 scores and softmax; rows at or past each length are zeros."""
+    fp32 scores and softmax; rows at or past each length are zeros.
+    Differentiable: autograd through it is the plain backward."""
     b, s, h, d = q.shape
-    pos = torch.arange(s, device=q.device)
-    lengths = lengths.to(q.device)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
-    allow = pos[None, None, None, :] < lengths[:, None, None, None]
-    if causal:
-        allow = allow & (pos[:, None] >= pos[None, :])[None, None]
-    scores = scores.masked_fill(~allow, -1e30)
+    scores = scores.masked_fill(~_allowed(s, lengths, causal, q.device),
+                                -1e30)
     o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1),
                      v.float())
-    valid = pos[None, :] < lengths[:, None]
+    valid = torch.arange(s, device=q.device)[None, :] \
+        < lengths.to(q.device)[:, None]
     return (o * valid[:, :, None, None]).to(q.dtype)
+
+
+def lengths_lse_reference(q, k, lengths, causal: bool, sm_scale: float):
+    """Plain version of K1's LSE: (B, H, S) fp32 natural-log log-sum-exp of
+    each row's masked scores; LSE_PAD at or past the length."""
+    b, s, h, d = q.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    scores = scores.masked_fill(~_allowed(s, lengths, causal, q.device),
+                                float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)
+    valid = torch.arange(s, device=q.device)[None, None, :] \
+        < lengths.to(q.device)[:, None, None]
+    return torch.where(valid, lse, torch.full_like(lse, LSE_PAD))
 
 
 def _check_cuda(name, t):
@@ -67,39 +122,185 @@ def _check_cuda(name, t):
                          "off 16-byte alignment")
 
 
-def _launch(q, k, v, o, lengths, *, seq, heads, head_dim, strides, causal,
-            sm_scale):
-    """strides: four (batch, row, head) element-stride triples for q, k, v,
-    o. Tensors are already checked. Raises unless the kernel launched."""
-    from ._build import load_library
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} not compiled into the kernel "
+def _check_launch(q, lengths, *fp32):
+    b, s, h, d = q.shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not compiled into the kernel "
                          f"(have {KERNEL_HEAD_DIMS})")
     if lengths.device != q.device or lengths.dtype != torch.int32 \
-            or not lengths.is_contiguous():
-        raise ValueError("lengths must be a contiguous int32 tensor on the "
-                         "same device as q")
+            or not lengths.is_contiguous() or lengths.shape != (b,):
+        raise ValueError("lengths must be a contiguous (B,) int32 tensor on "
+                         "the same device as q")
+    for t in fp32:
+        if t.dtype != torch.float32 or t.shape != (b, h, s) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"lse/delta must be contiguous fp32 "
+                             f"{(b, h, s)} on {q.device}")
+
+
+def _strides(*tensors):
+    return [int(x) for t in tensors for x in t.stride()[:3]]
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_fwd_lse(q, k, v, lengths, causal: bool, sm_scale: float, o):
+    """K1 with the LSE on (B, S, H, D) views (any strides with a contiguous
+    head dim) into `o`; → lse (B, H, S) fp32. CUDA only."""
+    global fwd_lse_launches
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        _check_cuda(name, t)
+    b, s, h, d = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _fwd(q, k, v, o, lse, lengths, causal, sm_scale)
+    fwd_lse_launches += 1
+    return lse
+
+
+def _fwd(q, k, v, o, lse, lengths, causal, sm_scale):
+    """Launches K1; lse None for the inference variant. Raises unless the
+    kernel launched."""
+    from ._build import load_library
+    _check_launch(q, lengths, *([lse] if lse is not None else []))
+    b, s, h, d = q.shape
     fn = load_library("attention_lengths").visrag_lengths_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    flat_strides = [int(x) for triple in strides for x in triple]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lengths.data_ptr(), lengths.shape[0], seq, heads, head_dim,
-                *flat_strides, int(causal), float(sm_scale * LOG2E), stream)
+                None if lse is None else lse.data_ptr(), lengths.data_ptr(),
+                b, s, h, d, *_strides(q, k, v, o), int(causal),
+                float(sm_scale * LOG2E), _stream(q))
     if rc != 0:
         raise RuntimeError(f"attention_lengths kernel launch failed: CUDA "
                            f"error {rc}")
     return o
 
 
+def _bwd(entry, q, k, v, o, do, lse, delta, lengths, causal, sm_scale,
+         dq, dk, dv):
+    from ._build import load_library
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
+                    ("dq", dq), ("dk", dk), ("dv", dv)):
+        _check_cuda(name, t)
+    _check_launch(q, lengths, lse, delta)
+    b, s, h, d = q.shape
+    fn = getattr(load_library("attention_lengths_bwd"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+                b, s, h, d, ctypes.cast(strides, ctypes.c_void_p),
+                int(causal), float(sm_scale), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"attention_lengths backward ({entry}) launch "
+                           f"failed: CUDA error {rc}")
+
+
+def flash_bwd_dq(q, k, v, o, do, lse, delta, lengths, causal: bool,
+                 sm_scale: float, dq):
+    """K2's dq kernel on (B, S, H, D) views: writes dq and delta
+    (B, H, S) fp32 = rowsum(o·do), which flash_bwd_dkv reads. CUDA only."""
+    global dq_launches
+    _bwd("visrag_lengths_attention_bwd_dq", q, k, v, o, do, lse, delta,
+         lengths, causal, sm_scale, dq, dq, dq)
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, o, do, lse, delta, lengths, causal: bool,
+                  sm_scale: float, dk, dv):
+    """K2's dk/dv kernel; run after flash_bwd_dq on the same stream (it
+    reads the delta that one writes). CUDA only."""
+    global dkv_launches
+    _bwd("visrag_lengths_attention_bwd_dkv", q, k, v, o, do, lse, delta,
+         lengths, causal, sm_scale, dk, dk, dv)
+    dkv_launches += 1
+    return dk, dv
+
+
+def _backward(q, k, v, o, do, lse, lengths, causal, sm_scale, dq, dk, dv):
+    b, s, h, d = q.shape
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    flash_bwd_dq(q, k, v, o, do, lse, delta, lengths, causal, sm_scale, dq)
+    flash_bwd_dkv(q, k, v, o, do, lse, delta, lengths, causal, sm_scale,
+                  dk, dv)
+
+
+class _StackedAttention(torch.autograd.Function):
+    """q/k/v (B, S, H, D) → o (B, S, H, D): K1 with the LSE, backward K2."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal, sm_scale):
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = flash_fwd_lse(q, k, v, lengths, causal, sm_scale, o)
+        ctx.save_for_backward(q, k, v, o, lse, lengths)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, lengths = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                      for _ in range(3))
+        _backward(q, k, v, o, do, lse, lengths, ctx.causal, ctx.sm_scale,
+                  dq, dk, dv)
+        return dq, dk, dv, None, None, None
+
+
+def _flat_views(t, n, seq, parts, heads, d):
+    """(n*seq, parts*heads*d) → `parts` (n, seq, heads, d) strided views."""
+    return t.unflatten(0, (n, seq)).unflatten(2, (parts, heads, d)).unbind(2)
+
+
+class _FlatAttention(torch.autograd.Function):
+    """qkv (n*S, 3*H*D) → o (n*S, H*D): K1 with the LSE, backward K2 into
+    one (n*S, 3*H*D) buffer."""
+
+    @staticmethod
+    def forward(ctx, qkv, lengths, n, seq, heads, d, causal, sm_scale):
+        q, k, v = _flat_views(qkv, n, seq, 3, heads, d)
+        o = torch.empty((n * seq, heads * d), dtype=qkv.dtype,
+                        device=qkv.device)
+        lse = flash_fwd_lse(q, k, v, lengths, causal, sm_scale,
+                            o.view(n, seq, heads, d))
+        ctx.save_for_backward(qkv, o, lse, lengths)
+        ctx.shape = (n, seq, heads, d)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, lse, lengths = ctx.saved_tensors
+        n, seq, heads, d = ctx.shape
+        dqkv = torch.empty((n * seq, 3 * heads * d), dtype=qkv.dtype,
+                           device=qkv.device)
+        _backward(*_flat_views(qkv, n, seq, 3, heads, d),
+                  o.view(n, seq, heads, d),
+                  do.contiguous().view(n, seq, heads, d), lse, lengths,
+                  ctx.causal, ctx.sm_scale,
+                  *_flat_views(dqkv, n, seq, 3, heads, d))
+        return dqkv, None, None, None, None, None, None, None
+
+
 def _device_kind(t):
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+def _wants_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_fwd_lengths(q, k, v, lengths, causal: bool, sm_scale: float):
@@ -116,10 +317,10 @@ def flash_fwd_lengths(q, k, v, lengths, causal: bool, sm_scale: float):
         return lengths_attention_reference(q, k, v, lengths, causal, sm_scale)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda(name, t)
+    if _wants_grad(q, k, v):
+        return _StackedAttention.apply(q, k, v, lengths, causal, sm_scale)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    strides = [(t.stride(0), t.stride(1), t.stride(2)) for t in (q, k, v, o)]
-    _launch(q, k, v, o, lengths, seq=s, heads=h, head_dim=d, strides=strides,
-            causal=causal, sm_scale=sm_scale)
+    _fwd(q, k, v, o, None, lengths, causal, sm_scale)
     stacked_launches += 1
     return o
 
@@ -136,18 +337,15 @@ def flash_fwd_lengths_flat(qkv, lengths, n: int, seq: int, heads: int,
     if lengths.shape != (n,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({n},)")
     if _device_kind(qkv) == "cpu":
-        parts = qkv.view(n, seq, 3, heads, d)
-        o = lengths_attention_reference(parts[:, :, 0], parts[:, :, 1],
-                                        parts[:, :, 2], lengths, causal,
-                                        sm_scale)
+        q, k, v = _flat_views(qkv, n, seq, 3, heads, d)
+        o = lengths_attention_reference(q, k, v, lengths, causal, sm_scale)
         return o.reshape(n * seq, hd)
     _check_cuda("qkv", qkv)
+    if _wants_grad(qkv):
+        return _FlatAttention.apply(qkv, lengths, n, seq, heads, d, causal,
+                                    sm_scale)
     o = torch.empty((n * seq, hd), dtype=qkv.dtype, device=qkv.device)
-    row = qkv.stride(0)
-    in_strides = (seq * row, row, d)
-    strides = [in_strides, in_strides, in_strides, (seq * hd, hd, d)]
-    _launch(qkv, qkv[:, hd:], qkv[:, 2 * hd:], o, lengths, seq=seq,
-            heads=heads, head_dim=d, strides=strides, causal=causal,
-            sm_scale=sm_scale)
+    q, k, v = _flat_views(qkv, n, seq, 3, heads, d)
+    _fwd(q, k, v, o.view(n, seq, heads, d), None, lengths, causal, sm_scale)
     flat_launches += 1
     return o

@@ -11,13 +11,19 @@ fp32 and the result is cast back to the hidden dtype.
                      the batch is left-padded).
   simple_lasttoken — position -1.
   cls              — position 0.
-
-The training-only drop_wmean/drop_mean modes are not ported yet.
+  drop_wmean/drop_mean — wmean/mean with Dropout1d(0.3) on the weighted
+                     token rows in training: whole (batch, seq) rows are
+                     zeroed and the kept ones scaled by 1/(1 - 0.3). The
+                     keep mask comes from the caller's torch.Generator, so
+                     a replay from the same generator state drops the same
+                     rows. Outside training they equal wmean/mean.
 """
 
 from __future__ import annotations
 
 import torch
+
+DROPOUT_RATE = 0.3
 
 
 def wmean_pool(hidden, mask):
@@ -39,11 +45,34 @@ def last_token_pool(hidden, mask):
     return hidden[torch.arange(b, device=hidden.device), idx]
 
 
-def pool(hidden, mask, mode: str = "wmean"):
+def dropout1d(x, rate: float, generator=None):
+    """torch Dropout1d on (B, S, D) as the reference feeds it (S acts as
+    channels): each (b, s) row is kept with probability 1 - rate and
+    scaled by 1/(1 - rate)."""
+    keep = torch.rand(x.shape[:2], generator=generator,
+                      device=x.device) < 1.0 - rate
+    return x * keep[:, :, None].to(x.dtype) / (1.0 - rate)
+
+
+def _drop_pool(hidden, w, training, generator):
+    h = hidden.float() * w[:, :, None]
+    if training:
+        h = dropout1d(h, DROPOUT_RATE, generator)
+    return (h.sum(dim=1) / w.sum(dim=1, keepdim=True)).to(hidden.dtype)
+
+
+def pool(hidden, mask, mode: str = "wmean", *, training: bool = False,
+         generator=None):
+    """training and generator matter only to the drop_* modes."""
     if mode == "wmean":
         return wmean_pool(hidden, mask)
     if mode == "mean":
         return mean_pool(hidden, mask)
+    if mode == "drop_wmean":
+        return _drop_pool(hidden, (mask * torch.cumsum(mask, dim=1)).float(),
+                          training, generator)
+    if mode == "drop_mean":
+        return _drop_pool(hidden, mask.float(), training, generator)
     if mode == "lasttoken":
         return last_token_pool(hidden, mask)
     if mode == "simple_lasttoken":

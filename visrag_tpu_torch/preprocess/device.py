@@ -1,8 +1,8 @@
 """Device-side finish of raw encode batches.
 
 Counterpart of visrag_tpu/preprocess/device.py. The host stops at uint8
-patch pixels and per-slice grid dims (the shared
-`visrag_tpu.preprocess.pipeline.build_encode_batch(..., device_mode=True)`);
+patch pixels and per-slice grid dims
+(`preprocess.pipeline.build_encode_batch(..., device_mode=True)`);
 this module uploads them and, on the device,
 
   * normalises pixels: (x / 255 - 0.5) / 0.5 in fp32;
@@ -16,9 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from visrag_tpu.preprocess.transform import bicubic_table
-
 from ..models.visrag_ret import EncodeBatch
+from .transform import bicubic_table
 
 
 def pos_table_tensor(src_grid: int, device) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Encoding and exact top-k search on the GPU; the metrics are
-visrag_tpu's jax-free evaluation, shared as it is."""
+"""Encoding and exact top-k search on the GPU, IR metrics and TREC run
+files (copies of visrag_tpu's jax-free modules)."""
 
-from visrag_tpu.retrieval.metrics import evaluate_run
+from .metrics import evaluate_run
 
 __all__ = ["evaluate_run"]

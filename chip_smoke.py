@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's VisRAG-Ret paths once on one GPU: page
-embedding → retrieval, and retriever training.
+"""Drive the PyTorch/CUDA port's paths once on one GPU: VisRAG-Ret page
+embedding → retrieval, retriever training, and EVisRAG serving.
 
     python3 chip_smoke.py
 
@@ -49,13 +49,42 @@ is non-zero; no phase catches an error and carries on):
      K2 dq and dk/dv once per layer). Then, from one set of weights, one
      direct step and one GradCache step (micro-batch 2) on 4 pairs must give
      parameter gradients within 2e-2 relative of each other, and three
-     direct steps at lr 1e-4 must lower the loss on that fixed batch.
+     direct steps at lr 1e-4 must lower the loss on that fixed batch;
+  6. the retriever freed, the six serving requests of phase 7 assembled by
+     evisrag_predict.assemble_request with StandInTokenizer (Qwen's
+     special-token ids; no tokenizer files are in the repository), then K3
+     (banded segment attention) at the first 3-page request's window and
+     image segments and an edge case (a 1-token segment, segments
+     straddling tile edges, a pad tail; pad rows exactly 0), K1 stacked
+     causal with grouped kv heads (28/4, d = 128) at the whole and batched
+     prefill shapes and at lengths 0, 1, 63, 64, 65 and full, and K5 (paged
+     decode) at the engine's decode shape (a table with null blocks past
+     each length) and at lengths 1, bs and bs + 1, each against its plain
+     version (2e-2 relative Frobenius error, finite) and timed beside its
+     plain version and the library call (SDPA with a block-diagonal mask;
+     SDPA with enable_gqa and a causal length mask; none for K5, gather +
+     SDPA noted); then one full-width vision block and one 7B text layer,
+     bf16 on the card against fp32 on the CPU;
+  7. Qwen2.5-VL-7B at full width on random weights from seed 0 and the
+     engine from evisrag_predict.build_engine (4 slots, 16k tokens, 2048-
+     token chunked prefill, prefix cache): six requests, one of them an
+     n = 2 group (three 3-page prompts → chunked prefill, one small page →
+     whole prefill, two text prompts → one batched prefill), greedy with
+     repetition penalty 1.05 and the image token banned, 64 new tokens each
+     (the driver's default is 2048). Checks complete outputs without the
+     image token, a schedule with P, C/c and D, launch counts of exactly
+     32 K3 per vision-tower run, 28 K1 per whole or batched prefill and 28
+     K5 per decode step, and decode logits over the paged pool within 2e-2
+     relative of a full causal pass at the same positions, after a whole
+     and after a chunked prefill; prints the vision tower's ms per request,
+     time to first token, prefill tokens/s, decode ms/step, output
+     tokens/s and peak memory.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq,
-K2 dk/dv: launches on its main path, ms, plain_ms, library_ms = sdpa_ms,
-bound_ms, max_abs_err; every checked shape under "checks"), and
-{"ok": true, "device": {...}}.
+K2 dk/dv, K1 stacked GQA, K3, K5: launches on its main path, ms, plain_ms,
+library_ms, bound_ms, max_abs_err; every checked shape under "checks"),
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -87,7 +116,9 @@ PEAK_FLOPS = 989e12     # H100 SXM bf16 dense
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 REPLACES = {"fwd": "visrag_tpu/ops/attention_lengths.py:47",
             "dq": "visrag_tpu/ops/attention_lengths.py:153",
-            "dkv": "visrag_tpu/ops/attention_lengths.py:204"}
+            "dkv": "visrag_tpu/ops/attention_lengths.py:204",
+            "kvgrid": "visrag_tpu/ops/attention_kvgrid.py:94",
+            "paged": "visrag_tpu/serving/paged_kv.py:238"}
 
 
 def log(msg):
@@ -130,16 +161,18 @@ def _bound(flops, nbytes):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def attention_bound(kind, lens, s, h, d, causal):
+def attention_bound(kind, lens, s, h, d, causal, kv_heads=None):
     """Least time for one kernel's work on this run's lengths: `kind` fwd
     (QK^T, PV), fwd_lse, dq (S, dP, dQ) or dkv (S, dP, dV, dK); inputs
-    counted on valid rows, every output row written once."""
+    counted on valid rows (K/V of the forward at kv_heads heads when those
+    are shared), every output row written once."""
     pairs, valid_rows = _pairs(lens, causal), sum(lens)
     b = len(lens)
     row_in, row_out = valid_rows * h * d * 2, b * s * h * d * 2
+    kv_in = valid_rows * (kv_heads or h) * d * 2
     stat_in, stat_out = valid_rows * h * 4, b * h * s * 4
     matmuls, nbytes = {
-        "fwd": (2, 3 * row_in + row_out),
+        "fwd": (2, row_in + 2 * kv_in + row_out),
         "fwd_lse": (2, 3 * row_in + row_out + stat_out),
         "dq": (3, 5 * row_in + stat_in + row_out + stat_out),
         "dkv": (4, 4 * row_in + 2 * stat_in + 2 * row_out),
@@ -825,6 +858,536 @@ def phase5_training(setup):
     torch.cuda.empty_cache()
     return launches
 
+# ---------------------------------------------------------------------------
+# Phases 6-7: EVisRAG serving (Qwen2.5-VL-7B, paged KV engine)
+# ---------------------------------------------------------------------------
+
+DEV = "cuda"
+SERVE_MAX_TOKENS = 64    # the driver's default is 2048
+DECODE_CHECK_STEPS = 3
+
+
+class StandInTokenizer:
+    """A tokenizer with Qwen2.5-VL's special-token ids and its chat layout:
+    each special token is one id, every other word hashes into the text
+    vocabulary. It stands in for the checkpoint's tokenizer, which is not in
+    the repository; `image_token` makes the driver ban the image token."""
+
+    SPECIAL = {"<|im_start|>": 151644, "<|im_end|>": 151645,
+               "<|vision_start|>": 151652, "<|vision_end|>": 151653,
+               "<|image_pad|>": 151655}
+    image_token = "<|image_pad|>"
+    eos_token_id = 151645
+
+    def __init__(self, text_vocab: int = 151643):
+        import re
+        self.text_vocab = text_vocab
+        self._split = re.compile("(" + "|".join(
+            re.escape(t) for t in self.SPECIAL) + ")")
+
+    def apply_chat_template(self, messages, tokenize=False,
+                            add_generation_prompt=True):
+        out = "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
+        for m in messages:
+            body = "".join(
+                "<|vision_start|><|image_pad|><|vision_end|>"
+                if c["type"] == "image" else c["text"]
+                for c in m["content"])
+            out += f"<|im_start|>{m['role']}\n{body}<|im_end|>\n"
+        return out + ("<|im_start|>assistant\n" if add_generation_prompt
+                      else "")
+
+    def convert_tokens_to_ids(self, token):
+        return self.SPECIAL[token]
+
+    def encode(self, text):
+        import zlib
+        ids = []
+        for part in self._split.split(text):
+            if part in self.SPECIAL:
+                ids.append(self.SPECIAL[part])
+            else:
+                ids.extend(zlib.crc32(w.encode()) % self.text_vocab
+                           for w in part.split())
+        return ids
+
+
+def _serving_requests(tok, cfg, seed=0):
+    """The six requests of phase 7, assembled by the driver's own
+    assemble_request: three with 3 pages (chunked prefill), one with one
+    small page (whole prefill, K1), two text-only prompts of one bucket
+    (batched prefill). → [(name, kwargs of Engine.add_request, n)]."""
+    import numpy as np
+    from PIL import Image
+
+    from visrag_tpu_torch.driver.evisrag_predict import assemble_request
+    from visrag_tpu_torch.generation.prompts import build_prompt
+    rng = np.random.default_rng(seed)
+
+    def page(w, h):
+        return Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8))
+
+    query = ("what was the total revenue reported for the fourth quarter "
+             "and how did it compare with the previous year")
+    prompt = build_prompt("evidence_prompt_grpo", query)
+    out = []
+    for i, third in enumerate(PAGE_SIZES[2:] + PAGE_SIZES[:1]):
+        pages = [page(*PAGE_SIZES[0]), page(*PAGE_SIZES[1]), page(*third)]
+        out.append((f"pages3_{i}", assemble_request(tok, tok, cfg, pages,
+                                                    prompt), 1))
+    out.insert(0, ("page1_small", assemble_request(
+        tok, tok, cfg, [page(448, 448)], prompt), 2))
+    for i, n_words in enumerate((300, 420)):
+        text = prompt + " " + " ".join(f"context{j}" for j in range(n_words))
+        out.insert(i, (f"text{i}", assemble_request(tok, tok, cfg, [], text),
+                       1))
+    return out
+
+
+def _vision_tensors(req):
+    return {k: torch.as_tensor(v, device=DEV)
+            for k, v in req["vision_batch"].items()}
+
+
+def _timed_check(tag, label, kern, plain, lib, out, ref, rows, bound):
+    """A kernel's output against its plain version's on `rows`: finite, and
+    within RTOL_BLOCK relative (Frobenius) error; then kernel, plain and
+    library times (lib None: no single call computes the function)."""
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out.float()).all())
+    rel = _rel(out[rows], ref[rows])
+    max_abs = (out[rows].float() - ref[rows].float()).abs().max().item()
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    lib_ms = cuda_ms(lib) if lib is not None else None
+    log(f"[6] {tag} {label}: rel_err {rel:.4g} (bound {RTOL_BLOCK}), "
+        f"max_abs_err {max_abs:.4g}, finite {finite} | kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}) (median of 10, CUDA events) | "
+        f"{smi()}")
+    if not finite or rel > RTOL_BLOCK:
+        raise RuntimeError(f"{tag} {label}: kernel disagrees with its plain "
+                           f"version (rel_err {rel}, finite {finite})")
+    return {"shape": label, "max_abs_err": max_abs, "rel_err": rel,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def phase6_serving_kernels(gen, reqs, cfg):
+    """K3, K1 (stacked causal, GQA 28/4, d = 128) and K5 against their plain
+    versions on the card at the serving path's shapes and at edge cases;
+    one full-width vision block and one 7B text layer against fp32 on the
+    CPU. → {"kvgrid": [...], "gqa": [...], "paged": [...]}."""
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.serving import paged_kv as pk
+    vc, tc = cfg.vision, cfg.text
+    res = {"kvgrid": [], "gqa": [], "paged": []}
+
+    # K3 at the first 3-page request's window and image segments
+    by = {name: req for name, req, _ in reqs}
+    vb = by["pages3_0"]["vision_batch"]
+    h, d = vc.num_heads, vc.head_dim
+    edge = torch.tensor([1] + [2] * 63 + [3] * 65 + [4] + [5] * 130
+                        + [6] * 700 + [0] * 37, dtype=torch.int32)
+    for label, seg in (("seg_window", vb["seg_window"]),
+                       ("seg_full", vb["seg_full"]), ("edge", edge)):
+        seg = torch.as_tensor(seg, dtype=torch.int32, device=DEV)[None]
+        s = seg.shape[1]
+        q, k, v = (torch.randn(1, s, h, d, generator=gen, device=DEV)
+                   .bfloat16() for _ in range(3))
+        kern = lambda: kg.flash_attention_kvgrid(q, k, v, seg)
+        plain = lambda: kg.flash_attention_kvgrid_reference(q, k, v, seg)
+        out, ref = kern(), plain()
+        real = seg[0] > 0
+        if not bool((out[0][~real] == 0).all()):
+            raise RuntimeError(f"K3 {label}: pad rows are not exactly 0")
+        ids = seg[0].long()
+        allow = (ids[:, None] == ids[None, :]) & (ids[:, None] > 0)
+        allow |= torch.eye(s, dtype=torch.bool, device=DEV)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=allow)
+        sizes = torch.unique_consecutive(ids[ids > 0], return_counts=True)[1]
+        pairs = int((sizes.long() ** 2).sum())
+        nreal = int(real.sum())
+        bound = _bound(2 * 2 * pairs * h * d,
+                       nreal * 3 * h * d * 2 + s * h * d * 2 + s * 4)
+        res["kvgrid"].append(_timed_check(
+            "K3", f"{label} S={s} H={h} d={d} segments {len(sizes)} "
+            f"(largest {int(sizes.max())}) pad {s - nreal}; pad rows exactly "
+            f"0", kern, plain, lib, out[0], ref[0], real, bound))
+        del q, k, v, out, ref, allow, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # K1 stacked causal with grouped kv heads, at the whole and batched
+    # prefill shapes of phase 7 and at edge lengths
+    h, kvh, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    whole = [len(by["page1_small"]["input_ids"])]
+    batched = [len(by["text0"]["input_ids"]), len(by["text1"]["input_ids"])]
+    for label, lens, s in (("whole prefill", whole, 4096),
+                           ("batched prefill", batched, 4096),
+                           ("edge", [0, 1, 63, 64, 65, 4096], 4096)):
+        b = len(lens)
+        q = torch.randn(b, s, h, d, generator=gen, device=DEV).bfloat16()
+        k, v = (torch.randn(b, s, kvh, d, generator=gen, device=DEV)
+                .bfloat16() for _ in range(2))
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        kern = lambda: al.flash_fwd_lengths(q, k, v, lens_t, True, d ** -0.5)
+
+        def plain():     # one row at a time: (28, S, S) fp32 scores
+            return torch.cat([al.lengths_attention_reference(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], lens_t[i:i + 1], True,
+                d ** -0.5) for i in range(b)])
+        out, ref = kern(), plain()
+        valid = torch.arange(s, device=DEV)[None] < lens_t[:, None]
+        mask = _sdpa_mask(lens_t, s, True, DEV)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=d ** -0.5, enable_gqa=True)
+        res["gqa"].append(_timed_check(
+            "K1 GQA", f"{label} B={b} S={s} H={h}/{kvh} d={d} lengths "
+            f"{lens}", kern, plain, lib, out, ref, valid,
+            attention_bound("fwd", lens, s, h, d, True, kv_heads=kvh)))
+        del q, k, v, out, ref, mask, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # K5 at the engine's decode shape: the four live requests' lengths at
+    # the end of generation, a power-of-two table width, null blocks past
+    # each length; then lengths 1, bs, bs + 1
+    bs, n_blocks = 128, 513
+    kp, vp = (torch.randn(n_blocks, kvh, bs, d, generator=gen, device=DEV)
+              .bfloat16() for _ in range(2))
+    live = [len(by[n]["input_ids"]) + SERVE_MAX_TOKENS
+            for n in ("pages3_0", "pages3_1", "pages3_2", "page1_small")]
+    perm = torch.randperm(n_blocks - 1, device=DEV)
+    for label, lens in (("decode", live), ("edge", [1, bs, bs + 1, 4000])):
+        mb = 1
+        while mb * bs < max(lens) + 17:
+            mb *= 2
+        table = torch.full((4, mb), n_blocks - 1, dtype=torch.int32,
+                           device=DEV)
+        for i, n in enumerate(lens):
+            used = -(-n // bs)
+            table[i, :used] = perm[i * 40:i * 40 + used].int()
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        q = torch.randn(4, h, d, generator=gen, device=DEV).bfloat16()
+        kern = lambda: pk.paged_decode_attention(q, kp, vp, table, lens_t)
+        plain = lambda: pk.paged_decode_reference(q, kp, vp, table, lens_t,
+                                                  d ** -0.5)
+        out, ref = kern(), plain()
+        keep = (torch.arange(mb * bs, device=DEV)[None]
+                < lens_t[:, None])[:, None, None, :]
+        gather_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kp[table.long()].transpose(1, 2).reshape(
+                4, kvh, -1, d), vp[table.long()].transpose(1, 2).reshape(
+                4, kvh, -1, d), attn_mask=keep, enable_gqa=True))
+        tokens = sum(lens)
+        bound = _bound(2 * 2 * tokens * h * d,
+                       tokens * kvh * d * 2 * 2 + 2 * 4 * h * d * 2
+                       + table.numel() * 4)
+        check = _timed_check(
+            "K5", f"{label} slots=4 H={h}/{kvh} d={d} bs={bs} table width "
+            f"{mb} lengths {lens}", kern, plain, None, out, ref, slice(None),
+            bound)
+        check["gather_sdpa_ms"] = gather_sdpa
+        log(f"[6] K5 {label}: gather + SDPA (not one call) {gather_sdpa:.4f} "
+            f"ms")
+        res["paged"].append(check)
+        del keep
+    del kp, vp
+    torch.cuda.empty_cache()
+    _qwen_full_width_blocks(gen, cfg, vb)
+    return res
+
+
+def _qwen_full_width_blocks(gen, cfg, vb):
+    """One window-layer vision block on the first page's patches and one 7B
+    text layer, bf16 kernels on the card against fp32 plain on the CPU."""
+    import numpy as np
+
+    from visrag_tpu_torch.driver.common import init_weights_
+    from visrag_tpu_torch.models.mrope import mrope_cos_sin
+    from visrag_tpu_torch.models.qwen25_vl import (QwenTextBlock,
+                                                   QwenVisionBlock)
+    vc, tc = cfg.vision, cfg.text
+    # the first page's patches lead the window-ordered stream
+    n = int((np.asarray(vb["seg_full"]) == 1).sum())
+    with torch.device(DEV):
+        block = QwenVisionBlock(vc)
+    init_weights_(block, gen)
+    x = torch.randn(n, vc.hidden_size, generator=gen, device=DEV)
+    cos = torch.as_tensor(vb["rot_cos"][:n], device=DEV)
+    sin = torch.as_tensor(vb["rot_sin"][:n], device=DEV)
+    seg = torch.as_tensor(vb["seg_window"][:n], device=DEV)
+    with torch.inference_mode():
+        out = block(x.bfloat16(), cos, sin, seg)
+        ref = copy.deepcopy(block).float().cpu()(x.cpu(), cos.cpu(),
+                                                 sin.cpu(), seg.cpu())
+    e_vis = _rel_err(out, ref, slice(None))
+    del block, out
+
+    with torch.device(DEV):
+        layer = QwenTextBlock(tc)
+    init_weights_(layer, gen)
+    s, length = 512, 450
+    x = torch.randn(1, s, tc.hidden_size, generator=gen, device=DEV)
+    pos = torch.arange(s)[None, None].expand(3, 1, s)
+    inv = 1.0 / (tc.rope_theta ** (torch.arange(0, tc.head_dim, 2,
+                                                dtype=torch.float32)
+                                   / tc.head_dim))
+    lens = torch.tensor([length], dtype=torch.int32)
+    with torch.inference_mode():
+        cs = mrope_cos_sin(pos.to(DEV), inv.to(DEV), tc.mrope_section)
+        out, _ = layer(x.bfloat16(), *cs, lens.to(DEV))
+        cs = mrope_cos_sin(pos, inv, tc.mrope_section)
+        ref, _ = copy.deepcopy(layer).float().cpu()(x.cpu(), *cs, lens)
+    e_txt = _rel_err(out, ref, torch.arange(s)[None] < length)
+    log(f"[6] full-width blocks, bf16 kernels on the card vs fp32 plain on "
+        f"the CPU: vision block (window layer, one page, S={n}) rel_err "
+        f"{e_vis:.3g}, 7B text layer (S={s}, length {length}) rel_err "
+        f"{e_txt:.3g} (bound {RTOL_BLOCK})")
+    if max(e_vis, e_txt) > RTOL_BLOCK:
+        raise RuntimeError("full-width Qwen block disagrees with its fp32 "
+                           "plain version")
+
+
+class _SyncTimer:
+    """Wall time of an engine method, bracketed by device syncs."""
+
+    def __init__(self, engine, name):
+        self.calls, self.seconds = 0, 0.0
+        fn = getattr(engine, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        setattr(engine, name, timed)
+
+
+def _decode_vs_full(model, req, chunked, chunk_tokens=2048, bs=128):
+    """Prefill one request into a fresh pool (whole through K1, or chunk by
+    chunk), take DECODE_CHECK_STEPS greedy decode steps over the pool (K5),
+    and compare each step's logits with a full causal pass over prompt +
+    generated tokens (K1) at the same positions. → max relative error."""
+    import numpy as np
+
+    from visrag_tpu_torch.serving.paged_kv import write_prefill
+    cfg = model.cfg.text
+    ids = np.asarray(req["input_ids"])
+    s = len(ids)
+    pos = np.asarray(req.get("positions", np.broadcast_to(np.arange(s),
+                                                          (3, s))))
+    vision = req.get("vision_batch")
+    vb = _vision_tensors(req) if vision is not None else None
+    steps = DECODE_CHECK_STEPS
+    grid = -(-s // chunk_tokens) * chunk_tokens if chunked \
+        else -(-s // bs) * bs
+    n_blocks = grid // bs + 2
+    shape = (cfg.num_hidden_layers, n_blocks, cfg.num_key_value_heads, bs,
+             cfg.head_dim)
+    kc = torch.zeros(shape, dtype=torch.bfloat16, device=DEV)
+    vc = torch.zeros_like(kc)
+    table = torch.arange(n_blocks - 1, dtype=torch.int32,
+                         device=DEV)[None].contiguous()
+    ids_p = np.zeros((1, grid), np.int64)
+    ids_p[0, :s] = ids
+    sm = None
+    if vb is not None:
+        sm = np.full((1, grid), -1, np.int64)
+        sm[0, :s] = req["slot_map"]
+        sm = torch.as_tensor(sm, device=DEV)
+    ids_t = torch.as_tensor(ids_p, device=DEV)
+    with torch.inference_mode():
+        if chunked:
+            emb = model.embed_prompt(ids_t, vb, sm)
+            for lo in range(0, grid, chunk_tokens):
+                hi = min(lo + chunk_tokens, s)
+                cpos = np.zeros((3, 1, chunk_tokens), np.int64)
+                cpos[:, 0, :hi - lo] = pos[:, lo:hi]
+                cpos[:, 0, hi - lo:] = cpos[:, 0, hi - lo - 1:hi - lo] + \
+                    np.arange(1, chunk_tokens - (hi - lo) + 1)
+                rows = torch.arange(lo // bs, (lo + chunk_tokens) // bs,
+                                    device=DEV)
+                logits = model.prefill_chunk(
+                    ids_t[:, lo:lo + chunk_tokens],
+                    torch.as_tensor(cpos, device=DEV), kc, vc, rows,
+                    torch.arange((lo + chunk_tokens) // bs, device=DEV),
+                    torch.tensor(lo, device=DEV),
+                    last_pos=torch.tensor([s - 1 - lo], device=DEV)
+                    if hi >= s else None,
+                    inputs_embeds=emb[:, lo:lo + chunk_tokens])
+        else:
+            mask = torch.as_tensor((np.arange(grid) < s)[None], device=DEV)
+            ppos = np.zeros((3, 1, grid), np.int64)
+            ppos[:, 0, :s] = pos
+            logits, k, v = model.prefill(
+                ids_t, attention_mask=mask,
+                positions=torch.as_tensor(ppos, device=DEV), vision_batch=vb,
+                slot_map=sm, last_pos=torch.tensor([s - 1], device=DEV))
+            write_prefill(kc, vc, k, v, list(range(grid // bs)), grid)
+            del k, v
+        dec = [logits[0].float()]
+        toks = []
+        cur = int(pos.max()) + 1
+        for t in range(steps):
+            tok = int(dec[-1].argmax())
+            toks.append(tok)
+            lg = model.decode(
+                torch.tensor([[tok]], device=DEV),
+                torch.full((3, 1, 1), cur + t, device=DEV), kc, vc,
+                torch.tensor([s + t + 1], dtype=torch.int32, device=DEV),
+                table)
+            dec.append(lg[0].float())
+        full_ids = np.concatenate([ids, toks]).astype(np.int64)[None]
+        full_pos = np.concatenate(
+            [pos, np.broadcast_to(cur + np.arange(steps), (3, steps))],
+            axis=1)[:, None]
+        fsm = None
+        if vb is not None:
+            fsm = np.full(full_ids.shape, -1, np.int64)
+            fsm[0, :s] = req["slot_map"]
+            fsm = torch.as_tensor(fsm, device=DEV)
+        hidden = model.model(
+            inputs_embeds=model._embed(torch.as_tensor(full_ids, device=DEV),
+                                       vb, fsm),
+            positions=torch.as_tensor(full_pos, device=DEV))
+        full = model.compute_logits(hidden[0, s - 1:s + steps]).float()
+    errs = [(torch.linalg.norm(dec[i] - full[i])
+             / torch.linalg.norm(full[i])).item() for i in range(steps + 1)]
+    del kc, vc
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase7_serving(reqs, cfg):
+    """The full-width serving slice: Qwen2.5-VL-7B at random from seed 0,
+    the engine built by the driver's build_engine, the six requests (one
+    as an n = 2 group) through it. Checks complete outputs without the
+    image token, a schedule with prefills, chunk steps and decode chunks,
+    the exact launch counts, and decode logits against the full forward.
+    → launch counts of the run."""
+    from visrag_tpu_torch.driver.common import build_qwen25_vl
+    from visrag_tpu_torch.driver.evisrag_predict import (build_engine,
+                                                         sampling_params)
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.serving import paged_kv as pk
+    tok = StandInTokenizer()
+    t0 = time.perf_counter()
+    model = build_qwen25_vl(cfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = build_engine(model, tok.eos_token_id)
+    engine.record_schedule = True
+    sp = sampling_params(tok, tok, 0.0, SERVE_MAX_TOKENS)
+    timers = {name: _SyncTimer(engine, name) for name in (
+        "_prefill_one", "_prefill_many", "_advance_chunk", "_decode_chunk",
+        "_start_chunked")}
+    names = {}
+    for name, req, n in reqs:
+        rid = engine.add_request(sampling=sp, n=n, **req)
+        for r in (rid if isinstance(rid, list) else [rid]):
+            names[r] = name
+    requests = list(engine.queue)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    al.reset_launch_counts()
+    kg.reset_launch_counts()
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
+                "paged": pk.launches, "flat": al.flat_launches,
+                "fwd_lse": al.fwd_lse_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    image_id = StandInTokenizer.SPECIAL["<|image_pad|>"]
+    for r in requests:
+        o = r.output_ids
+        if not r.done or not (len(o) == SERVE_MAX_TOKENS or
+                              (o and o[-1] == tok.eos_token_id)):
+            raise RuntimeError(f"{names[r.request_id]}: incomplete output "
+                               f"({len(o)} tokens)")
+        if image_id in o:
+            raise RuntimeError(f"{names[r.request_id]}: image token emitted")
+    log_s = "".join(engine.sched_log)
+    if "P" not in log_s or not ({"C", "c"} & set(log_s)) or "D" not in log_s:
+        raise RuntimeError(f"schedule lacks P, C/c or D: {log_s}")
+    vision_runs = sum(1 for _, req, _ in reqs if "vision_batch" in req)
+    whole = timers["_prefill_one"].calls + timers["_prefill_many"].calls
+    steps = log_s.count("D") * engine.chunk
+    layers = cfg.text.num_hidden_layers
+    want = {"stacked": layers * whole,
+            "kvgrid": cfg.vision.depth * vision_runs,
+            "paged": layers * steps, "flat": 0, "fwd_lse": 0}
+    if launches != want:
+        raise RuntimeError(f"serving launches {launches} != {want}")
+
+    # latencies and rates of the run
+    by_kind = {"chunked": [], "whole": []}
+    for name, req, _ in reqs:
+        by_kind["chunked" if len(req["input_ids"]) > engine.chunk_tokens
+                else "whole"].append(len(req["input_ids"]))
+    chunk_s = timers["_advance_chunk"].seconds + \
+        timers["_start_chunked"].seconds
+    whole_s = timers["_prefill_one"].seconds + timers["_prefill_many"].seconds
+    dec = timers["_decode_chunk"]
+    out_tokens = sum(len(r.output_ids) for r in requests)
+    ttft = {f"{names[r.request_id]}#{r.request_id}":
+            round((r.t_first - r.t_enqueue) * 1e3, 1) for r in requests}
+    log(f"[7] Qwen2.5-VL-7B full width bf16, {n_params / 1e9:.3f}B params "
+        f"(init {init_s:.1f} s), engine {engine.num_slots} slots, max_len "
+        f"{engine.max_len}, chunked prefill {engine.chunk_tokens}, prefix "
+        f"cache on, pool {engine.k_cache.shape[1]} blocks x {layers} layers "
+        f"({2 * engine.k_cache.numel() * 2 / 1e9:.2f} GB) | {len(requests)} "
+        f"requests (prompt tokens "
+        f"{[len(req['input_ids']) for _, req, _ in reqs]}), {out_tokens} "
+        f"output tokens in {run_s:.2f} s = {out_tokens / run_s:.2f} output "
+        f"tokens/s | schedule {log_s} | launches {launches} (= {want}) | "
+        f"prefix hits {engine.prefix_hits}")
+    log(f"[7] prefill: chunked {sum(by_kind['chunked'])} tokens in "
+        f"{chunk_s:.3f} s (vision tower included) = "
+        f"{sum(by_kind['chunked']) / chunk_s:.1f} tokens/s; whole/batched "
+        f"{sum(by_kind['whole'])} tokens in {whole_s:.3f} s = "
+        f"{sum(by_kind['whole']) / whole_s:.1f} tokens/s | decode "
+        f"{dec.calls} chunks x {engine.chunk} steps, "
+        f"{dec.seconds / max(steps, 1) * 1e3:.2f} ms/step | TTFT ms {ttft} "
+        f"| peak memory {peak_gb:.2f} GB | {smi()}")
+
+    # the vision tower per request, and decode against the full forward
+    tower = {}
+    with torch.inference_mode():
+        for name, req, _ in reqs:
+            if "vision_batch" in req:
+                vb = _vision_tensors(req)
+                tower[name] = round(cuda_ms(lambda: model.encode_images(vb),
+                                            reps=3), 2)
+    by = {name: req for name, req, _ in reqs}
+    errs = {"whole": _decode_vs_full(model, by["page1_small"], False),
+            "chunked": _decode_vs_full(model, by["pages3_0"], True)}
+    log(f"[7] vision tower ms per request (median of 3) {tower} | decode "
+        f"logits over the paged pool (K5) vs a full causal pass (K1) at the "
+        f"same positions, relative error per step (first = prompt end): "
+        f"whole prefill {[round(e, 5) for e in errs['whole']]}, chunked "
+        f"prefill {[round(e, 5) for e in errs['chunked']]} (bound "
+        f"{RTOL_BLOCK})")
+    if max(max(v) for v in errs.values()) > RTOL_BLOCK:
+        raise RuntimeError(f"decode logits disagree with the full forward: "
+                           f"{errs}")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main():
     # full fp32 wherever fp32 is asked for (pos embed, the fp32 references)
@@ -838,7 +1401,23 @@ def main():
     serve_launches = phase3_slice(setup)
     train_results = phase4_training_kernels(gen, setup)
     train_launches = phase5_training(setup)
+    del setup                       # the retriever: its memory goes to 7B
+    gc.collect()
+    torch.cuda.empty_cache()
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    qcfg = Qwen25VLConfig.b7()
+    t0 = time.perf_counter()
+    reqs = _serving_requests(StandInTokenizer(), qcfg)
+    log(f"[6] six serving requests assembled by the driver in "
+        f"{time.perf_counter() - t0:.2f} s (prompt tokens "
+        f"{[len(r['input_ids']) for _, r, _ in reqs]})")
+    qwen_results = phase6_serving_kernels(gen, reqs, qcfg)
+    qwen_launches = phase7_serving(reqs, qcfg)
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.serving import paged_kv as pk
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
     kernels = []
     for form, name in (("flat", "flash_fwd_lengths_flat"),
                        ("stacked", "flash_fwd_lengths")):
@@ -846,9 +1425,7 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": al.SOURCE,
                         "replaces": REPLACES["fwd"],
                         "launches": serve_launches[form],
-                        **{k: page[k] for k in (
-                            "max_abs_err", "ms", "plain_ms", "library_ms",
-                            "bound_ms", "bound_by")},
+                        **{k: page[k] for k in keys},
                         "sdpa_ms": page["library_ms"],
                         "checks": results[form]})
     for kind, name, source, replaces in (
@@ -859,11 +1436,22 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": train_launches[kind],
-                        **{k: page[k] for k in (
-                            "max_abs_err", "ms", "plain_ms", "library_ms",
-                            "bound_ms", "bound_by")},
+                        **{k: page[k] for k in keys},
                         "sdpa_ms": page["library_ms"],
                         "checks": train_results[kind]})
+    for kind, name, source, replaces, count in (
+            ("gqa", "flash_fwd_lengths (GQA 28/4, d=128)", al.SOURCE,
+             REPLACES["fwd"], "stacked"),
+            ("kvgrid", "flash_attention_kvgrid", kg.SOURCE,
+             REPLACES["kvgrid"], "kvgrid"),
+            ("paged", "paged_decode_attention", pk.SOURCE,
+             REPLACES["paged"], "paged")):
+        first = qwen_results[kind][0]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": qwen_launches[count],
+                        **{k: first[k] for k in keys},
+                        "checks": qwen_results[kind]})
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,15 @@ import numpy as np
 import torch
 from PIL import Image
 import visrag_tpu_torch.driver.eval_retriever
+import visrag_tpu_torch.driver.evisrag_eval
+import visrag_tpu_torch.driver.evisrag_predict
 import visrag_tpu_torch.driver.train_retriever
+from visrag_tpu_torch.driver.common import build_qwen25_vl
+from visrag_tpu_torch.generation import prompts, qa_eval
+from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+from visrag_tpu_torch.ops import attention, attention_kvgrid
+from visrag_tpu_torch.serving import kv_cache, paged_kv, sampling
+from visrag_tpu_torch.serving.engine import Engine
 from visrag_tpu_torch.config import ModelConfig
 from visrag_tpu_torch.preprocess import MockTokenizer, build_encode_batch
 from visrag_tpu_torch.driver.common import build_visrag_ret
@@ -36,6 +44,11 @@ with torch.inference_mode():
                                                            "cpu")))
 assert reps.shape == (2, 64) and torch.isfinite(reps).all()
 topk_single(reps, reps, 2)
+qwen = build_qwen25_vl(Qwen25VLConfig.tiny(), device="cpu")
+outs = Engine(qwen, num_slots=2, max_len=64, prompt_buckets=(16,)).generate(
+    [dict(input_ids=np.arange(5, dtype=np.int32))],
+    sampling=sampling.SamplingParams(temperature=0.0, max_tokens=3))
+assert len(outs[0]) == 3
 added = sorted(m for m in set(sys.modules) - before
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "visrag_tpu"))
 print("ADDED", added)
@@ -47,8 +60,9 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_runs_without_jax():
-    """Importing the drivers and training modules and encoding a batch
-    loads no module of jax, flax or visrag_tpu."""
+    """Importing the drivers, the training and serving modules, encoding a
+    batch and generating with the serving engine loads no module of jax,
+    flax or visrag_tpu."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,

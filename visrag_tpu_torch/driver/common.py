@@ -110,3 +110,84 @@ def build_visrag_ret(model_cfg: ModelConfig, *, tiny: bool = False,
         scale_resolution=8 if tiny else bb.scale_resolution,
         max_patches=64 if tiny else 1152)
     return model, pcfg
+
+
+# --- Qwen2.5-VL (EVisRAG generation) ---------------------------------------
+
+
+def get_tokenizer(model_path: str, **kwargs):
+    """The checkpoint's HF tokenizer (transformers, imported here), with
+    pad_token := eos_token when the checkpoint ships none."""
+    from transformers import AutoTokenizer
+    tok = AutoTokenizer.from_pretrained(model_path, **kwargs)
+    if tok.pad_token_id is None:
+        tok.pad_token = tok.eos_token
+    return tok
+
+
+def get_processor(model_path: str, **kwargs):
+    """The checkpoint's HF multimodal processor, or None for a checkpoint
+    without one (AutoProcessor then raises, or returns a bare tokenizer). A
+    directory that has a preprocessor_config.json and still fails raises."""
+    import os
+
+    from transformers import AutoProcessor
+    try:
+        processor = AutoProcessor.from_pretrained(model_path, **kwargs)
+    except (OSError, ValueError):
+        if os.path.isdir(model_path) and os.path.exists(
+                os.path.join(model_path, "preprocessor_config.json")):
+            raise
+        return None
+    if "Processor" not in type(processor).__name__:
+        return None
+    return processor
+
+
+def load_safetensors_dir(path: str) -> dict:
+    """Every *.safetensors file of an HF checkpoint dir → one flat dict of
+    numpy arrays."""
+    import glob
+    import os
+
+    from safetensors import safe_open
+    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no safetensors under {path}")
+    state = {}
+    for f in files:
+        with safe_open(f, framework="np") as sf:
+            for k in sf.keys():
+                state[k] = sf.get_tensor(k)
+    return state
+
+
+def qwen_config_from_checkpoint(checkpoint: str, state=None):
+    """Qwen25VLConfig of a checkpoint dir: from its config.json (any
+    geometry), else the preset whose text width matches the embeddings."""
+    import json
+    import os
+
+    from ..models.qwen25_vl import Qwen25VLConfig
+    cfg_json = os.path.join(checkpoint, "config.json")
+    if os.path.exists(cfg_json):
+        with open(cfg_json) as f:
+            return Qwen25VLConfig.from_hf(json.load(f))
+    hid = state[[k for k in state if "embed_tokens" in k][0]].shape[1]
+    return {3584: Qwen25VLConfig.b7}.get(hid, Qwen25VLConfig.b3)()
+
+
+def build_qwen25_vl(cfg, *, device="cuda", seed: int = 0, state=None):
+    """Qwen25VL in eval mode on `device`: HF-named weights from `state`, or
+    (state None) random ones from `seed` by init_weights_."""
+    from ..models.hf_loader import load_qwen25_vl_state
+    from ..models.qwen25_vl import Qwen25VL
+    device = torch.device(device)
+    with torch.device("meta"):
+        model = Qwen25VL(cfg)
+    model = model.to_empty(device=device)
+    if state is None:
+        init_weights_(model, torch.Generator(device=device).manual_seed(seed))
+    else:
+        load_qwen25_vl_state(model, state)
+    return model.eval()

@@ -1,4 +1,5 @@
-"""Load MiniCPM-V / VisRAG-Ret weights by their HF names into the port.
+"""Load MiniCPM-V / VisRAG-Ret and Qwen2.5-VL weights by their HF names into
+the port.
 
 The port's module tree carries the HF names (`vpm.*` timm ViT,
 `resampler.*`, `llm.*` with the decoder stack directly under `llm`, as in
@@ -15,6 +16,11 @@ dicts of numpy arrays and renames it itself, with this module's own copy of
 the JAX package's HF export mapping (the port imports nothing of
 visrag_tpu). Unlike that exporter, it reshapes the patch embed by the
 model's own patch size, so a tiny ViT with patch 2 loads too.
+
+Qwen2.5-VL: `load_qwen25_vl_state` takes an HF state dict in either key
+layout the JAX package's convert_qwen25_vl takes; `qwen_from_jax_params`
+renames a JAX Qwen25VL parameter tree with this module's copy of the JAX
+package's export_qwen25_vl mapping.
 """
 
 from __future__ import annotations
@@ -112,3 +118,105 @@ def from_jax_params(model, params: Mapping) -> None:
         params = params["params"]
     load_visrag_ret_state(model, jax_params_to_state(
         params, model.cfg.backbone.vit.patch_size))
+
+
+# --- Qwen2.5-VL ------------------------------------------------------------
+
+_QWEN_VISION_RENAME = {
+    "attn_qkv": "attn.qkv", "attn_proj": "attn.proj",
+    "mlp_gate": "mlp.gate_proj", "mlp_up": "mlp.up_proj",
+    "mlp_down": "mlp.down_proj",
+}
+_QWEN_TEXT_RENAME = {
+    "attn_q": "self_attn.q_proj", "attn_k": "self_attn.k_proj",
+    "attn_v": "self_attn.v_proj", "attn_o": "self_attn.o_proj",
+    "mlp_gate": "mlp.gate_proj", "mlp_up": "mlp.up_proj",
+    "mlp_down": "mlp.down_proj",
+}
+
+
+def _qwen_port_name(key: str) -> str:
+    """An HF Qwen2.5-VL name, in either layout (`model.language_model.*` /
+    `model.visual.*` from transformers 4.52 on, `model.*` / `visual.*`
+    before), → the port's module name."""
+    key = key.replace("model.language_model.", "model.", 1)
+    if key.startswith("model.visual."):
+        key = key[len("model."):]
+    return key.replace("visual.patch_embed.proj.", "visual.patch_embed.")
+
+
+def load_qwen25_vl_state(model, state: Mapping[str, np.ndarray]) -> None:
+    """Copy an HF-named Qwen2.5-VL state dict (numpy arrays or tensors)
+    into the port's Qwen25VL, casting to each parameter's dtype and device.
+    The conv patch embed (D, 3, t, ps, ps) becomes the (D, patch_dim)
+    matmul weight; a tied checkpoint's lm_head copy is skipped. An unknown
+    or a missing name raises."""
+    target = model.state_dict()
+    converted, unexpected = {}, []
+    for key, value in state.items():
+        name = _qwen_port_name(key)
+        if name == "lm_head.weight" and name not in target \
+                and model.cfg.text.tie_word_embeddings:
+            continue
+        if name not in target:
+            unexpected.append(key)
+            continue
+        t = value if torch.is_tensor(value) else torch.tensor(np.asarray(value))
+        if name == "visual.patch_embed.weight":
+            t = t.reshape(target[name].shape)
+        converted[name] = t
+    missing = sorted(set(target) - set(converted))
+    if unexpected or missing:
+        raise KeyError(f"state does not match Qwen25VL: unexpected "
+                       f"{unexpected[:10]} ({len(unexpected)}), missing "
+                       f"{missing[:10]} ({len(missing)})")
+    model.load_state_dict(converted, strict=True)
+
+
+def qwen_jax_params_to_state(params: Mapping, vision_cfg) -> Dict[str,
+                                                                  np.ndarray]:
+    """visrag_tpu Qwen25VL flax params (nested dicts of numpy arrays) → HF
+    names (the modern layout), as the JAX package's export_qwen25_vl maps
+    them. The patch embed is reshaped by the config's temporal and spatial
+    patch sizes."""
+    state = {}
+    for key, v in _flatten(params.get("visual", {})).items():
+        if key == "patch_embed.weight":
+            ps, tps = vision_cfg.patch_size, vision_cfg.temporal_patch_size
+            state["model.visual.patch_embed.proj.weight"] = v.reshape(
+                v.shape[0], 3, tps, ps, ps)
+        elif key.startswith("blocks_"):
+            block, rest = key.split(".", 1)
+            mod, _, leaf = rest.rpartition(".")
+            state[f"model.visual.blocks.{block[len('blocks_'):]}."
+                  f"{_QWEN_VISION_RENAME.get(mod, mod)}.{leaf}"] = v
+        elif key == "merger_ln_q.weight":
+            state["model.visual.merger.ln_q.weight"] = v
+        elif key.startswith("merger_fc1."):
+            state["model.visual.merger.mlp.0." + key.split(".")[-1]] = v
+        elif key.startswith("merger_fc2."):
+            state["model.visual.merger.mlp.2." + key.split(".")[-1]] = v
+        else:
+            raise KeyError(f"unknown vision parameter {key}")
+    for key, v in _flatten(params.get("model", {})).items():
+        if key == "embed_tokens.embedding":
+            state["model.language_model.embed_tokens.weight"] = v
+        elif key.startswith("layers_"):
+            layer, rest = key.split(".", 1)
+            mod, _, leaf = rest.rpartition(".")
+            state[f"model.language_model.layers.{layer[len('layers_'):]}."
+                  f"{_QWEN_TEXT_RENAME.get(mod, mod)}.{leaf}"] = v
+        else:
+            state["model.language_model." + key] = v
+    if "lm_head" in params:
+        state["lm_head.weight"] = np.asarray(params["lm_head"]["weight"])
+    return state
+
+
+def qwen_from_jax_params(model, params: Mapping) -> None:
+    """Load visrag_tpu Qwen25VL flax params (with or without the "params"
+    root) given as nested dicts of numpy arrays into the port's Qwen25VL."""
+    if "params" in params:
+        params = params["params"]
+    load_qwen25_vl_state(model, qwen_jax_params_to_state(params,
+                                                         model.cfg.vision))

@@ -1,0 +1,140 @@
+"""Banded segment attention (K3): the Qwen2.5-VL vision tower's window and
+full-attention layers.
+
+Counterpart of visrag_tpu/ops/attention_kvgrid.py (`flash_attention_kvgrid`,
+its TPU kernel `_fwd_kernel_banded` and the band bounds `_band_bounds`).
+The kernel is CUDA C++ for sm_90a, csrc/attention_kvgrid.cu, bound with
+ctypes; it computes each 64-row query tile's key band itself, by binary
+search over the segment ids.
+
+Contract: q (B, S, H, D), k/v (B, S, H_kv, D) with H_kv dividing H,
+non-causal; segment ids (B, S) int are CONTIGUOUS ascending runs over the
+real tokens (1, 1, ..., 2, 2, ...) with padding (<= 0) only after them. A
+(query, key) pair attends iff the ids are equal and > 0. Rows with id <= 0
+are exact zeros. Unlike the JAX wrapper, no `max_seg_len` is taken: the band
+is exact, so nothing can be cut.
+
+A CPU tensor takes `flash_attention_kvgrid_reference`, the plain PyTorch
+version; a CUDA tensor launches the kernel or raises. The kernel has no
+backward (the vision tower is frozen wherever the port runs it). Launch
+counter: `launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .attention_lengths import LOG2E, _check_cuda, _repeat_kv, _stream, \
+    _strides
+
+KERNEL_HEAD_DIM = 80      # every Qwen2.5-VL vision tower: 1280 / 16
+SOURCE = "visrag_tpu_torch/csrc/attention_kvgrid.cu"
+
+launches = 0
+
+
+def reset_launch_counts() -> None:
+    global launches
+    launches = 0
+
+
+def band_bounds(seg, block: int = 64):
+    """Per-query-tile [start, end) key range from contiguous ascending ids:
+    seg (B, S) → two (B, ceil(S/block)) int64 tensors, in keys (not key
+    tiles). start = #keys with 0 < id < the tile's least real id, end =
+    #keys with 0 < id <= its greatest; a tile with no real row gets an
+    empty band (0, 0). The kernel computes the same in-kernel."""
+    b, s = seg.shape
+    nq = -(-s // block)
+    pad = nq * block - s
+    segp = torch.nn.functional.pad(seg.long(), (0, pad), value=0)
+    tiles = segp.view(b, nq, block)
+    real = tiles > 0
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(real, tiles, torch.full_like(tiles, big)).amin(dim=2)
+    hi = torch.where(real, tiles, torch.zeros_like(tiles)).amax(dim=2)
+    keys = seg.long()
+    kreal = keys > 0
+    start = ((keys[:, None, :] < lo[:, :, None]) & kreal[:, None, :]).sum(2)
+    end = ((keys[:, None, :] <= hi[:, :, None]) & kreal[:, None, :]).sum(2)
+    empty = ~real.any(dim=2)
+    return start.masked_fill(empty, 0), end.masked_fill(empty, 0)
+
+
+def flash_attention_kvgrid_reference(q, k, v, seg, sm_scale=None,
+                                     rows: int = 1024):
+    """Plain PyTorch version: fp32 scores and softmax over the keys of the
+    row's own segment; rows with id <= 0 (or no key) are zeros. → (B, S, H,
+    D) in q's dtype. Queries go `rows` at a time against every key, so the
+    score buffer stays (B, H, rows, S) at the vision tower's 18k patches."""
+    b, s, h, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    kf, vf = _repeat_kv(k, h).float(), _repeat_kv(v, h).float()
+    qs = ks = seg.to(q.device).long()
+    out = []
+    for r0 in range(0, s, rows):
+        qr = qs[:, r0:r0 + rows]
+        allow = (qr[:, :, None] == ks[:, None, :]) & (qr[:, :, None] > 0)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:r0 + rows].float(),
+                              kf) * sm_scale
+        scores = scores.masked_fill(~allow[:, None], float("-inf"))
+        p = torch.softmax(scores, dim=-1)
+        p = torch.where(allow.any(-1)[:, None, :, None], p,
+                        torch.zeros_like(p))
+        out.append(torch.einsum("bhqk,bkhd->bqhd", p, vf))
+    return torch.cat(out, dim=1).to(q.dtype)
+
+
+def _launch(q, k, v, seg, sm_scale):
+    from ._build import load_library
+    b, s, h, d = q.shape
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(f"head_dim {d} not compiled into the kernel "
+                         f"(have {KERNEL_HEAD_DIM})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_cuda(name, t)
+    if seg.device != q.device or seg.dtype != torch.int32 \
+            or not seg.is_contiguous() or tuple(seg.shape) != (b, s):
+        raise ValueError("segment ids must be a contiguous (B, S) int32 "
+                         "tensor on the same device as q")
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    fn = load_library("attention_kvgrid").visrag_kvgrid_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_float,
+                                                  ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                seg.data_ptr(), b, s, h, k.shape[2], d,
+                *_strides(q, k, v, o), float(sm_scale * LOG2E), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"attention_kvgrid kernel launch failed: CUDA "
+                           f"error {rc}")
+    return o
+
+
+def flash_attention_kvgrid(q, k, v, seg, *, sm_scale=None):
+    """Banded segment attention, (B, S, H, D) layout, non-causal, one
+    (B, S) id row for queries and keys; see the module docstring."""
+    global launches
+    b, s, h, d = q.shape
+    if k.dim() != 4 or v.shape != k.shape or k.shape[:2] != q.shape[:2] \
+            or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"q (B, S, H, D) and k/v (B, S, H_kv, D) expected, "
+                         f"got {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    if tuple(seg.shape) != (b, s):
+        raise ValueError(f"segment ids shape {tuple(seg.shape)} != "
+                         f"({b}, {s})")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_kvgrid_reference(q, k, v, seg, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    o = _launch(q, k, v, seg, sm_scale)
+    launches += 1
+    return o

@@ -12,8 +12,11 @@ C++ for sm_90a, bound with ctypes:
 
 Two public forms:
 
-  * stacked, `flash_fwd_lengths`: q/k/v/o (B, S, H, D) — the MiniCPM LM,
-    causal over right-padded prompts;
+  * stacked, `flash_fwd_lengths`: q/o (B, S, H, D), k/v (B, S, H_kv, D)
+    with H_kv dividing H — the MiniCPM LM (H_kv = H) and the Qwen2.5-VL
+    text prefill (grouped-query attention, d = 128), causal over
+    right-padded prompts. K/V are not repeated: query head h reads kv head
+    h // (H / H_kv) inside the kernel;
   * flat, `flash_fwd_lengths_flat`: the fused qkv GEMM output
     (n*S, 3*H*D) → o (n*S, H*D) — the SigLIP ViT, bidirectional; its
     gradient is one (n*S, 3*H*D) buffer.
@@ -31,7 +34,8 @@ version, and autograd through it is the plain backward. A CUDA tensor
 launches the kernels or raises; there is no fallback. When a gradient is
 wanted (grad mode on and an input that requires grad) the call goes
 through a `torch.autograd.Function` whose forward is K1 with the LSE and
-whose backward is K2; otherwise K1 runs without the LSE.
+whose backward is K2; otherwise K1 runs without the LSE. K2 takes equal head
+counts and d in BWD_HEAD_DIMS only, and raises for anything else.
 
 Launch counters, one per kernel entry point (each launch covers all rows
 and heads): `flat_launches` and `stacked_launches` (K1 without the LSE, by
@@ -47,7 +51,8 @@ import torch
 
 LOG2E = 1.4426950408889634
 LSE_PAD = 0.7 * 3.4028234663852886e38   # LSE of a row with no valid key
-KERNEL_HEAD_DIMS = (64, 72)     # the LM's and the ViT's
+KERNEL_HEAD_DIMS = (64, 72, 128)   # MiniCPM LM, SigLIP ViT, Qwen2.5 text
+BWD_HEAD_DIMS = (64, 72)           # K2 (retriever training)
 SOURCE = "visrag_tpu_torch/csrc/attention_lengths.cu"
 BWD_SOURCE = "visrag_tpu_torch/csrc/attention_lengths_bwd.cu"
 
@@ -79,12 +84,20 @@ def _allowed(s, lengths, causal, device):
     return allow
 
 
+def _repeat_kv(t, heads):
+    """(B, S, H_kv, D) → (B, S, H, D): kv head j serves query heads
+    j*rep .. j*rep + rep - 1."""
+    return t if t.shape[2] == heads else \
+        t.repeat_interleave(heads // t.shape[2], dim=2)
+
+
 def lengths_attention_reference(q, k, v, lengths, causal: bool,
                                 sm_scale: float):
-    """Plain PyTorch version: (B, S, H, D) → (B, S, H, D) in q's dtype.
-    fp32 scores and softmax; rows at or past each length are zeros.
-    Differentiable: autograd through it is the plain backward."""
+    """Plain PyTorch version: q (B, S, H, D), k/v (B, S, H_kv, D) → (B, S,
+    H, D) in q's dtype. fp32 scores and softmax; rows at or past each length
+    are zeros. Differentiable: autograd through it is the plain backward."""
     b, s, h, d = q.shape
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     scores = scores.masked_fill(~_allowed(s, lengths, causal, q.device),
                                 -1e30)
@@ -99,6 +112,7 @@ def lengths_lse_reference(q, k, lengths, causal: bool, sm_scale: float):
     """Plain version of K1's LSE: (B, H, S) fp32 natural-log log-sum-exp of
     each row's masked scores; LSE_PAD at or past the length."""
     b, s, h, d = q.shape
+    k = _repeat_kv(k, h)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     scores = scores.masked_fill(~_allowed(s, lengths, causal, q.device),
                                 float("-inf"))
@@ -122,11 +136,11 @@ def _check_cuda(name, t):
                          "off 16-byte alignment")
 
 
-def _check_launch(q, lengths, *fp32):
+def _check_launch(q, lengths, *fp32, head_dims=KERNEL_HEAD_DIMS):
     b, s, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in head_dims:
         raise ValueError(f"head_dim {d} not compiled into the kernel "
-                         f"(have {KERNEL_HEAD_DIMS})")
+                         f"(have {head_dims})")
     if lengths.device != q.device or lengths.dtype != torch.int32 \
             or not lengths.is_contiguous() or lengths.shape != (b,):
         raise ValueError("lengths must be a contiguous (B,) int32 tensor on "
@@ -167,13 +181,13 @@ def _fwd(q, k, v, o, lse, lengths, causal, sm_scale):
     b, s, h, d = q.shape
     fn = load_library("attention_lengths").visrag_lengths_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 None if lse is None else lse.data_ptr(), lengths.data_ptr(),
-                b, s, h, d, *_strides(q, k, v, o), int(causal),
+                b, s, h, k.shape[2], d, *_strides(q, k, v, o), int(causal),
                 float(sm_scale * LOG2E), _stream(q))
     if rc != 0:
         raise RuntimeError(f"attention_lengths kernel launch failed: CUDA "
@@ -187,7 +201,10 @@ def _bwd(entry, q, k, v, o, do, lse, delta, lengths, causal, sm_scale,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
                     ("dq", dq), ("dk", dk), ("dv", dv)):
         _check_cuda(name, t)
-    _check_launch(q, lengths, lse, delta)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("the backward kernels take equal q/k/v head counts, "
+                         f"got {tuple(q.shape)} {tuple(k.shape)}")
+    _check_launch(q, lengths, lse, delta, head_dims=BWD_HEAD_DIMS)
     b, s, h, d = q.shape
     fn = getattr(load_library("attention_lengths_bwd"), entry)
     fn.restype = ctypes.c_int
@@ -304,12 +321,15 @@ def _wants_grad(*tensors):
 
 
 def flash_fwd_lengths(q, k, v, lengths, causal: bool, sm_scale: float):
-    """Stacked form: q/k/v (B, S, H, D), lengths (B,) int → o (B, S, H, D)."""
+    """Stacked form: q (B, S, H, D), k/v (B, S, H_kv, D) with H_kv dividing
+    H, lengths (B,) int → o (B, S, H, D)."""
     global stacked_launches
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q/k/v must share one (B, S, H, D) shape, got "
-                         f"{tuple(q.shape)} {tuple(k.shape)} "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
+            or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q (B, S, H, D) and k/v (B, S, H_kv, D) with H_kv "
+                         f"dividing H expected, got {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
     b, s, h, d = q.shape
     if lengths.shape != (b,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({b},)")
@@ -318,6 +338,10 @@ def flash_fwd_lengths(q, k, v, lengths, causal: bool, sm_scale: float):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda(name, t)
     if _wants_grad(q, k, v):
+        if k.shape != q.shape or d not in BWD_HEAD_DIMS:
+            raise ValueError(f"no backward kernel for q {tuple(q.shape)}, "
+                             f"k {tuple(k.shape)}: K2 takes equal head "
+                             f"counts and d in {BWD_HEAD_DIMS}")
         return _StackedAttention.apply(q, k, v, lengths, causal, sm_scale)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     _fwd(q, k, v, o, None, lengths, causal, sm_scale)

@@ -1,0 +1,196 @@
+"""Paged KV cache: a pool of head-major blocks, a block table per slot, and
+the decode attention kernel that reads through it (K5).
+
+Counterpart of visrag_tpu/serving/paged_kv.py (bf16 pools; the int8 KVQuant
+pools and the kernel's quantized variant are not ported). K/V live in a
+block pool of shape (layers, n_blocks, kv_heads, block_size, d), head-major
+inside a block, and each slot owns a list of block ids handed out by
+`BlockAllocator`. The JAX package keeps one pool per layer only so that XLA
+updates them in place; here every write is an in-place index write into the
+one preallocated tensor, and a layer's pool is the view `pool[layer]`.
+
+`paged_decode_attention` launches csrc/paged_decode.cu on a CUDA tensor
+(a split-table partial kernel and a combine kernel; the launch counter
+`launches` counts calls) or raises; a CPU tensor takes
+`paged_decode_reference`, the plain PyTorch version of `_xla_paged_decode`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import List
+
+import torch
+
+SOURCE = "visrag_tpu_torch/csrc/paged_decode.cu"
+KERNEL_HEAD_DIM = 128
+KERNEL_BLOCK_SIZE = 128
+TARGET_BLOCKS = 264     # partial-kernel blocks to aim for: 2 per H100 SM
+
+launches = 0
+
+
+def reset_launch_counts() -> None:
+    global launches
+    launches = 0
+
+
+class BlockAllocator:
+    """Host-side free list over the pool's block ids, with refcounts so
+    prompt blocks can be shared read-only across the n decode forks of one
+    prompt group."""
+
+    def __init__(self, n_blocks: int):
+        self.free: List[int] = list(range(n_blocks - 1, -1, -1))
+        self.ref = [0] * n_blocks
+
+    def alloc(self, n: int) -> List[int]:
+        if n > len(self.free):
+            raise RuntimeError(
+                f"KV pool exhausted: need {n} blocks, {len(self.free)} free")
+        out = [self.free.pop() for _ in range(n)]
+        for b in out:
+            self.ref[b] = 1
+        return out
+
+    def retain(self, blocks: List[int]) -> None:
+        """Add one reference to each block (sharing an allocation)."""
+        for b in blocks:
+            assert self.ref[b] > 0, f"retain of free block {b}"
+            self.ref[b] += 1
+
+    def release(self, blocks: List[int]) -> None:
+        """Drop one reference; blocks return to the free list at zero."""
+        for b in blocks:
+            assert self.ref[b] > 0, f"double release of block {b}"
+            self.ref[b] -= 1
+            if self.ref[b] == 0:
+                self.free.append(b)
+
+
+def pool_shape(n_blocks: int, block_size: int, kvh: int, d: int) -> tuple:
+    """One layer's pool shape (head-major blocks)."""
+    return (n_blocks, kvh, block_size, d)
+
+
+def pool_write_rows(pool, rows, xb) -> None:
+    """Write whole head-major blocks xb (nr, kvh, bs, d) at pool rows (nr,)
+    of one layer's pool, in place."""
+    pool[rows] = xb.to(pool.dtype)
+
+
+def pool_gather(pool, rows, dtype=torch.bfloat16):
+    """Pool rows (nr,) of one layer → (nr, kvh, bs, d) in `dtype`."""
+    return pool[rows].to(dtype)
+
+
+def write_prefill(k_pool, v_pool, k, v, rows, bucket: int) -> None:
+    """Scatter prompt K/V into pool blocks, in place. k_pool/v_pool (L,
+    n_blocks, kvh, bs, d); k/v (L, K, bucket, kvh, d) from model.prefill;
+    rows (K, bucket // bs) or (bucket // bs,) pool block ids."""
+    layers, bs = k_pool.shape[0], k_pool.shape[3]
+    nb = bucket // bs
+    rows = torch.as_tensor(rows, device=k_pool.device).reshape(-1).long()
+    kk = k.shape[1]
+    for pool, x in ((k_pool, k), (v_pool, v)):
+        xb = x.reshape(layers, kk * nb, bs, *x.shape[3:]).transpose(2, 3)
+        pool[:, rows] = xb.to(pool.dtype)
+
+
+def write_token(pool, table, pos, x) -> None:
+    """Write one token per slot into one layer's pool (n_blocks, kvh, bs,
+    d), in place: x (slots, kvh, d) at logical positions pos (slots,)."""
+    bs = pool.shape[2]
+    blk = torch.gather(table, 1, (pos // bs)[:, None].to(table.dtype))[:, 0]
+    pool[blk.long(), :, (pos % bs).long()] = x.to(pool.dtype)
+
+
+def paged_decode_reference(q, k_pool, v_pool, table, lengths, sm_scale):
+    """Plain PyTorch version (the JAX package's `_xla_paged_decode`): gather
+    every table entry, fp32 scores, mask at the length, softmax, P rounded
+    to the pool's dtype, fp32 accumulation. → (slots, H, d) in q's dtype."""
+    s, h, d = q.shape
+    mb = table.shape[1]
+    kvh, bs = k_pool.shape[1], k_pool.shape[2]
+    rep = h // kvh
+    idx = table.long()
+    kg = k_pool[idx].transpose(1, 2).reshape(s, kvh, mb * bs, d)
+    vg = v_pool[idx].transpose(1, 2).reshape(s, kvh, mb * bs, d)
+    qg = q.reshape(s, kvh, rep, d)
+    scores = torch.einsum("sgrd,sgld->sgrl", qg.float(), kg.float()) * sm_scale
+    mask = (torch.arange(mb * bs, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])[:, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("sgrl,sgld->sgrd", p.to(vg.dtype).float(), vg.float())
+    return o.reshape(s, h, d).to(q.dtype)
+
+
+def split_plan(slots: int, kvh: int, max_blk: int):
+    """(splits, blocks_per_split): the table's columns cut into equal runs
+    so that slots * kvh * splits partial blocks come near TARGET_BLOCKS."""
+    want = max(1, min(max_blk, -(-TARGET_BLOCKS // (slots * kvh))))
+    per = -(-max_blk // want)
+    return -(-max_blk // per), per
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, lengths, sm_scale=None):
+    """q (slots, H, d); k_pool/v_pool one layer's (n_blocks, kvh, bs, d)
+    pools; table (slots, max_blk) int32 pool rows; lengths (slots,) int32
+    INCLUDING the current token. → (slots, H, d)."""
+    global launches
+    s, h, d = q.shape
+    _, kvh, bs, dk = k_pool.shape
+    if v_pool.shape != k_pool.shape or dk != d or h % kvh \
+            or table.shape[0] != s or lengths.shape != (s,):
+        raise ValueError(f"paged decode shapes: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)} {tuple(v_pool.shape)}, "
+                         f"table {tuple(table.shape)}, lengths "
+                         f"{tuple(lengths.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return paged_decode_reference(q, k_pool, v_pool, table, lengths,
+                                      sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    from ..ops._build import load_library
+    if d != KERNEL_HEAD_DIM or bs != KERNEL_BLOCK_SIZE or h // kvh > 8:
+        raise ValueError(f"the paged decode kernel takes head_dim "
+                         f"{KERNEL_HEAD_DIM}, block size {KERNEL_BLOCK_SIZE} "
+                         f"and at most 8 query heads per kv head; got d={d}, "
+                         f"bs={bs}, {h}/{kvh} heads")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous bfloat16 tensor on "
+                             f"{q.device}")
+    for name, t in (("table", table), ("lengths", lengths)):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{q.device}")
+    mb = table.shape[1]
+    rep = h // kvh
+    splits, per = split_plan(s, kvh, mb)
+    part_o = torch.empty((s, kvh, splits, rep, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((s, kvh, splits, rep, 2), dtype=torch.float32,
+                          device=q.device)
+    o = torch.empty_like(q)
+    fn = load_library("paged_decode").visrag_paged_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                table.data_ptr(), lengths.data_ptr(), part_o.data_ptr(),
+                part_ml.data_ptr(), o.data_ptr(), s, h, kvh, d, bs, mb,
+                splits, per, float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    return o

@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU: VisRAG-Ret page
-embedding → retrieval, retriever training, and EVisRAG serving.
+embedding → retrieval, retriever training, EVisRAG serving, and one
+RS-GRPO training step.
 
     python3 chip_smoke.py
 
@@ -78,11 +79,49 @@ is non-zero; no phase catches an error and carries on):
      relative of a full causal pass at the same positions, after a whole
      and after a chunked prefill; prints the vision tower's ms per request,
      time to first token, prefill tokens/s, decode ms/step, output
-     tokens/s and peak memory.
+     tokens/s and peak memory;
+  8. the 7B model freed, four RL prompts written as a jsonl (two with 3
+     page images, two text-only) and encoded by the RL driver's
+     encode_qwen_prompt_row; then K4 (segment-id attention: forward with
+     the LSE, dq, dk/dv) against its plain version's forward and
+     written-out backward on the card, at the first packed micro-batch the
+     trainer will build from those prompts (first-fit ids, 16/2 heads,
+     d = 128, causal), at one 16640-token row, at the 7B head grouping
+     (28/4), at edge cases (segments of 1, 63, 64 and 65 tokens,
+     non-ascending and negative ids, an all-pad row, Sq != Sk), and K3's
+     backward (K3 forward with the LSE, K4's dq and dk/dv) at the vision
+     tower's window and image ids (d = 80, non-causal): o, dq, dk, dv within
+     2e-2 relative Frobenius error, the LSE within 2e-2 abs, exact zeros on
+     pad rows and keys; timed beside the plain version and SDPA (its causal
+     flag for one segment, a boolean block-diagonal mask for packed rows,
+     enable_gqa; forward, and backward alone), with the bound from the
+     visible pairs;
+  9. Qwen2.5-VL-3B at full width on random weights from seed 0, whole-block
+     remat, a frozen copy as the reference policy (in-loss KL 0.01), through
+     rl_main's build_trainer and run_training: two RS-GRPO steps of 4
+     prompts x n 4, 64 response tokens (the default is 1536), 16384-token
+     packed micro-batches, fp32 AdamW states, the engine as rl_main sets it
+     (8 slots, chunked prefill 2048, prefix cache), rewards from the
+     `hash_reward` scorer below through reward.reward_function. The first
+     run takes one step and writes a checkpoint; the second resumes from it
+     (step, uid counter, rng state, data cursor checked) and takes the
+     second step. Checks the launch counts exactly as reckoned (K4 forward
+     2 x 36 per packed micro-batch, dq and dk/dv 36; K1 36 per prefill
+     dispatch and per log-prob micro-batch; K3 32 per vision-tower run; K5
+     36 per decode step), a finite non-zero grad_norm and no skipped step,
+     changed text weights and a bit-identical tower, an empty prefix cache
+     after each rollout, complete responses without the image token; then
+     one packed micro-batch's loss against the padded forward's (K1, no
+     gradient), and its loss and parameter gradients through 2 layers at
+     full width with the kernels against the plain versions (5e-2 relative),
+     and that the padded update with gradients raises (the valid-length
+     backward does not take d = 128 with grouped kv heads yet); prints each step's time split from the trainer's Timers, tokens/s and
+     peak memory.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq,
-K2 dk/dv, K1 stacked GQA, K3, K5: launches on its main path, ms, plain_ms,
+K2 dk/dv, K1 stacked GQA, K3, K5, K4 forward, K4 dq, K4 dk/dv: launches on
+its main path, ms, plain_ms,
 library_ms, bound_ms, max_abs_err; every checked shape under "checks"),
 and {"ok": true, "device": {...}}.
 """
@@ -1389,14 +1428,631 @@ def phase7_serving(reqs, cfg):
     return launches
 
 
-def main():
+# ---------------------------------------------------------------------------
+# Phases 8-9: the RS-GRPO step (Qwen2.5-VL-3B, K4 forward and backward)
+# ---------------------------------------------------------------------------
+
+RL_RESPONSE_TOKENS = 64  # the config's default is 1536
+RL_STEPS = 2
+RTOL_GRADS = 5e-2        # a micro-batch's parameter gradients, kernels vs
+                         # plain versions, bf16, relative Frobenius
+SEG_REPLACES = {"seg_fwd": "visrag_tpu/ops/attention.py:219",
+                "seg_dq": "visrag_tpu/ops/attention.py:302",
+                "seg_dkv": "visrag_tpu/ops/attention.py:338"}
+
+
+def hash_reward(reward_input):
+    """A scorer for the reward manager's hook (reward.reward_function,
+    reward_type "sequential"): with random weights every in-tree reward is
+    equal within a prompt's group, so the advantages would all be zero;
+    this one differs from response to response."""
+    import zlib
+    return {"overall": zlib.crc32(
+        reward_input["response"].encode()) % 1000 / 1000.0}
+
+
+class RLStandInTokenizer(StandInTokenizer):
+    """StandInTokenizer plus what the RL driver asks of a tokenizer: decoding
+    (the ids as decimal words) and `add_special_tokens`."""
+
+    def encode(self, text, add_special_tokens=True):
+        return super().encode(text)
+
+    def decode(self, ids, skip_special_tokens=False):
+        return " ".join(str(int(i)) for i in ids)
+
+    def batch_decode(self, seqs, skip_special_tokens=False):
+        return [self.decode(s) for s in seqs]
+
+
+def _rl_config(out_dir, steps):
+    """The RL config of phase 9: the defaults (router advantages, dual-clip
+    PPO, fp32 AdamW states, lr 1e-6, 16384-token micro-batches,
+    padding-free) with 4 prompts x n 4 per step, 64 response tokens, an
+    in-loss KL term so that the reference policy's log-probs run, and
+    hash_reward as the scorer."""
+    from visrag_tpu_torch.config import RLConfig
+    cfg = RLConfig()
+    r = dataclasses.replace
+    return r(cfg,
+             rollout=r(cfg.rollout, n=4,
+                       max_response_length=RL_RESPONSE_TOKENS),
+             actor=r(cfg.actor, kl_coef=0.01, micro_batch_tokens=16384),
+             reward=r(cfg.reward, reward_type="sequential",
+                      reward_function=f"{__file__}:hash_reward"),
+             trainer=r(cfg.trainer, rollout_batch_size=4, total_steps=steps,
+                       save_freq=1, output_dir=out_dir))
+
+
+def _rl_rows(tmp):
+    """The RL data of phase 9 as a jsonl of {problem, answer, images}: two
+    3-page prompts (page images written to `tmp`) and two text prompts, the
+    evidence prompt around the question as in phase 7. → the jsonl's
+    path."""
+    import numpy as np
+    from PIL import Image
+
+    from visrag_tpu_torch.generation.prompts import build_prompt
+    rng = np.random.default_rng(1)
+    query = ("what was the total revenue reported for the fourth quarter "
+             "and how did it compare with the previous year")
+    prompt = build_prompt("evidence_prompt_grpo", query)
+    rows = []
+    for i, third in enumerate(PAGE_SIZES[2:]):
+        paths = []
+        for j, (w, h) in enumerate((PAGE_SIZES[0], PAGE_SIZES[1], third)):
+            path = f"{tmp}/rl_page_{i}_{j}.png"
+            Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8)).save(
+                path, compress_level=0)
+            paths.append(path)
+        rows.append({"problem": prompt, "answer": "<answer>42</answer>",
+                     "images": paths})
+    for n_words in (300, 420):
+        rows.insert(len(rows) - 1, {
+            "problem": prompt + " " + " ".join(f"context{j}"
+                                               for j in range(n_words)),
+            "answer": "<answer>42</answer>"})
+    path = f"{tmp}/rl_prompts.jsonl"
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    return path
+
+
+def _packed_ids(seqlens, budget):
+    """Segment ids of the first packed micro-batch the trainer builds from
+    sequences of these lengths: its own grouping and packing functions."""
+    import numpy as np
+
+    from visrag_tpu_torch.rl.packing import pack_sequences
+    from visrag_tpu_torch.rl.seqlen import token_budget_micro_batches
+    width = -(-max(seqlens) // 128) * 128
+    groups, _ = token_budget_micro_batches(seqlens, max(budget, width))
+    packed, _ = pack_sequences([np.ones(seqlens[i], np.int32)
+                                for i in groups[0]], width)
+    return packed.segment_ids.astype(np.int32), len(groups)
+
+
+def _count_pairs(seg, qs, ks, causal):
+    return sum(int(seg._visible(qs, ks, causal, r0,
+                                min(r0 + 2048, qs.shape[1])).sum())
+               for r0 in range(0, qs.shape[1], 2048))
+
+
+def segment_bound(kind, pairs, q_rows, k_rows, b, sq, sk, h, hk, d):
+    """Least time for one K4 kernel's work on this run's ids: the products
+    on the visible pairs (forward QK^T and PV; dq S, dP and dQ; dk/dv S, dP,
+    dV and dK), inputs counted on rows with a positive id (K/V at the kv
+    heads), every output row written once."""
+    q_in, kv_in = q_rows * h * d * 2, k_rows * hk * d * 2
+    q_out, kv_out = b * sq * h * d * 2, b * sk * hk * d * 2
+    stat_in, stat_out = q_rows * h * 4, b * h * sq * 4
+    matmuls, nbytes = {
+        "seg_fwd": (2, q_in + 2 * kv_in + q_out + stat_out),
+        "seg_dq": (3, 3 * q_in + 2 * kv_in + stat_in + q_out + stat_out),
+        "seg_dkv": (4, 2 * q_in + 2 * kv_in + 2 * stat_in + 2 * kv_out),
+    }[kind]
+    return _bound(matmuls * 2 * pairs * h * d, nbytes)
+
+
+def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
+                           banded=False, library=True, timed=True):
+    """K4 forward (+ LSE), dq and dk/dv at one shape against the plain
+    version's forward and written-out backward (bf16 unit-normal q/k/v and a
+    `do` that is non-zero on pad rows): each within RTOL_TRAIN relative
+    Frobenius error on the rows with a positive id, the LSE within 2e-2 abs,
+    every output finite, exact zeros on pad rows and pad keys. banded: the
+    forward is K3 with the LSE (sorted ids) and the backward K4's kernels
+    through K3's autograd. → {kind: record}."""
+    from visrag_tpu_torch.ops import attention as seg
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    b, sq = qs_np.shape
+    sk = ks_np.shape[1]
+    qs = torch.as_tensor(qs_np, device=DEV)
+    ks = torch.as_tensor(ks_np, device=DEV)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEV,
+                               dtype=torch.bfloat16)
+                   for shape in ((b, sq, h, d), (b, sk, hk, d),
+                                 (b, sk, hk, d), (b, sq, h, d)))
+    scale = d ** -0.5
+    q.requires_grad_(True), k.requires_grad_(True), v.requires_grad_(True)
+    if banded:
+        o = kg.flash_attention_kvgrid(q, k, v, qs)
+    else:
+        o = seg.flash_attention(q, k, v, qs, ks, causal=causal)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    q, k, v, o = (t.detach() for t in (q, k, v, o))
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=DEV)
+    delta = torch.empty_like(lse)
+    o2, dq2, dk2, dv2 = (torch.empty_like(t) for t in (o, q, k, v))
+    seg.segment_fwd(q, k, v, qs, ks, causal, scale, o2, lse)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want_o = seg.segment_attention_reference(q, k, v, qs, ks,
+                                                 causal=causal)
+        want_lse = seg.segment_lse_reference(q, k, qs, ks, causal, scale)
+        want = seg.segment_backward_reference(q, k, v, do, qs, ks, causal,
+                                              scale)
+        sees = want_lse[:, 0] != seg.LSE_PAD          # (B, Sq)
+        qreal, kreal = qs > 0, ks > 0
+    got = {"seg_fwd": (o, want_o, sees), "seg_dq": (dq, want[0], sees),
+           "dk": (dk, want[1], kreal), "dv": (dv, want[2], kreal)}
+    errs = {name: (_rel(a[rows], w[rows]) if bool(rows.any()) else 0.0)
+            for name, (a, w, rows) in got.items()}
+    max_abs = {name: ((a[rows].float() - w[rows].float()).abs().max().item()
+                      if bool(rows.any()) else 0.0)
+               for name, (a, w, rows) in got.items()}
+    lse_t = lse.transpose(1, 2)
+    lse_err = (lse_t[sees] - want_lse.transpose(1, 2)[sees]).abs().max() \
+        .item() if bool(sees.any()) else 0.0
+    zeros = bool((o[~sees] == 0).all() and (dq[~sees] == 0).all()
+                 and (dk[~kreal] == 0).all() and (dv[~kreal] == 0).all()
+                 and (lse_t[~sees] == seg.LSE_PAD).all()
+                 and (o2[~sees] == 0).all())
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (o, dq, dk, dv))
+    log(f"[8] K4 {label} (B {b}, Sq {sq}, Sk {sk}, heads {h}/{hk}, d {d}, "
+        f"causal {causal}{', K3 forward' if banded else ''}): rel_err "
+        f"o {errs['seg_fwd']:.4g} dq {errs['seg_dq']:.4g} dk "
+        f"{errs['dk']:.4g} dv {errs['dv']:.4g} (bound {RTOL_TRAIN}), lse "
+        f"max_abs_err {lse_err:.4g}, finite {finite}, exact zeros on pad "
+        f"rows and keys {zeros}")
+    if not finite or not zeros or max(errs.values()) > RTOL_TRAIN \
+            or lse_err > ATOL_KERNEL:
+        raise RuntimeError(f"K4 {label}: kernels disagree with the plain "
+                           f"version: {errs}, lse {lse_err}, zeros {zeros}")
+    records = {}
+    if not timed:
+        for kind in SEG_REPLACES:
+            e = max(errs["dk"], errs["dv"]) if kind == "seg_dkv" \
+                else errs[kind]
+            records[kind] = {"shape": label, "rel_err": e,
+                             "max_abs_err": max(max_abs["dk"], max_abs["dv"])
+                             if kind == "seg_dkv" else max_abs[kind]}
+        return records
+    pairs = _count_pairs(seg, qs, ks, causal)
+    args = (pairs, int(qreal.sum()), int(kreal.sum()), b, sq, sk, h, hk, d)
+    kern = {
+        "seg_fwd": lambda: seg.segment_fwd(q, k, v, qs, ks, causal, scale, o2,
+                                           lse),
+        "seg_dq": lambda: seg.segment_bwd_dq(q, k, v, o, do, lse, delta, qs,
+                                             ks, causal, scale, dq2),
+        "seg_dkv": lambda: seg.segment_bwd_dkv(q, k, v, do, lse, delta, qs,
+                                               ks, causal, scale, dk2, dv2)}
+    with torch.no_grad():
+        plain_f = cuda_ms(lambda: seg.segment_attention_reference(
+            q, k, v, qs, ks, causal=causal), reps=3)
+        plain_b = cuda_ms(lambda: seg.segment_backward_reference(
+            q, k, v, do, qs, ks, causal, scale), reps=3)
+    lib_f = lib_b = None
+    if library:
+        # one segment: SDPA's own causal flag (its flash kernel); packed
+        # rows: a boolean block-diagonal mask (a pad row keeps key 0 so
+        # that no row of the yardstick is all masked)
+        one_segment = bool((qs == 1).all()) and causal and sq == sk
+        mask = None
+        if not one_segment:
+            mask = torch.cat([seg._visible(qs, ks, causal, r0,
+                                           min(r0 + 2048, sq))
+                              for r0 in range(0, sq, 2048)], dim=1)
+            mask[:, :, 0] |= ~mask.any(-1)
+            mask = mask[:, None]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=one_segment,
+                enable_gqa=h != hk)
+        with torch.no_grad():
+            lib_f = cuda_ms(sdpa)
+        out = sdpa()
+        dot = do.transpose(1, 2)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                    retain_graph=True))
+        del out, mask
+    for kind, fn in kern.items():
+        ms = cuda_ms(fn)
+        bound = segment_bound(kind, *args)
+        e = max(errs["dk"], errs["dv"]) if kind == "seg_dkv" else errs[kind]
+        records[kind] = {
+            "shape": label, "rel_err": e,
+            "max_abs_err": max(max_abs["dk"], max_abs["dv"])
+            if kind == "seg_dkv" else max_abs[kind],
+            "ms": ms, "plain_ms": plain_f if kind == "seg_fwd" else plain_b,
+            "library_ms": lib_f if kind == "seg_fwd" else lib_b,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+    fmt = lambda x: "n/a" if x is None else f"{x:.4f}"   # noqa: E731
+    fwd = records["seg_fwd"]
+    log(f"[8] K4 {label}: {pairs} visible pairs per head | forward "
+        f"{fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f} {fwd['bound_by']}"
+        f", plain {plain_f:.4f}, SDPA {fmt(lib_f)}) | dq "
+        f"{records['seg_dq']['ms']:.4f} ms (bound "
+        f"{records['seg_dq']['bound_ms']:.4f}) | dk/dv "
+        f"{records['seg_dkv']['ms']:.4f} ms (bound "
+        f"{records['seg_dkv']['bound_ms']:.4f}) | plain backward (all grads) "
+        f"{plain_b:.4f} ms, SDPA backward {fmt(lib_b)} ms (medians, CUDA "
+        f"events) | {smi()}")
+    return records
+
+
+def phase8_segment_kernels(gen, prompts, cfg):
+    """K4 (forward, dq, dk/dv) and K3's backward against the plain versions
+    at the packed update's shape, the 16640-token row, the 7B head grouping,
+    the vision tower's ids at d = 80, and edge cases. → {kind: [records]},
+    the packed update's shape first."""
+    import numpy as np
+    results = {kind: [] for kind in SEG_REPLACES}
+
+    def run(label, qs, ks, h, hk, d, causal, **kw):
+        for kind, rec in _check_segment_kernels(label, qs, ks, h, hk, d,
+                                                causal, gen, **kw).items():
+            results[kind].append(rec)
+
+    tc = cfg.text
+    h, hk, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    seqlens = [len(p["input_ids"]) + RL_RESPONSE_TOKENS
+               for p in prompts for _ in range(4)]
+    ids, n_micro = _packed_ids(seqlens, 16384)
+    log(f"[8] the packed update of phase 9: {len(seqlens)} sequences of "
+        f"{sorted(set(seqlens))} tokens → {n_micro} micro-batches; the first "
+        f"packs {ids.shape[0]} rows x {ids.shape[1]} with ids "
+        f"{[sorted(set(r[r > 0].tolist())) for r in ids]}")
+    run("packed update", ids, ids, h, hk, d, True)
+    one = np.ones((1, 16640), np.int32)
+    run("one 16640-token row", one, one, h, hk, d, True)
+    run("7B grouping 28/4", ids[:1, :1024], ids[:1, :1024], 28, 4, 128, True,
+        library=False)
+    # edges: segments of 1, 63, 64 and 65 tokens, non-ascending ids, negative
+    # ids, an all-pad row, Sq != Sk
+    edge = np.zeros((2, 300), np.int32)
+    edge[0, :1], edge[0, 1:64], edge[0, 64:128] = 5, 3, 9
+    edge[0, 128:193], edge[0, 200:260] = 2, -4
+    run("edge segments", edge, edge, h, hk, d, True, timed=False)
+    run("edge segments, non-causal d 64", edge, edge, 4, 4, 64, False,
+        timed=False)
+    qid = np.concatenate([np.full(100, 1), np.full(91, 2)])[None]
+    kid = np.concatenate([np.full(150, 2), np.full(107, 1), np.zeros(20)])
+    run("Sq != Sk", qid.astype(np.int32), kid[None].astype(np.int32), h, hk,
+        d, True, timed=False)
+    # K3's backward: the tower's window and image ids of a 3-page prompt
+    vb = next(p["vision_batch"] for p in prompts if "vision_batch" in p)
+    vc = cfg.vision
+    for name in ("seg_window", "seg_full"):
+        vid = np.asarray(vb[name], np.int32)[None]
+        run(f"vision tower {name}, K3 forward + K4 backward", vid, vid,
+            vc.num_heads, vc.num_heads, vc.head_dim, False, banded=True,
+            library=False, timed=name == "seg_window")
+    return results
+
+
+def _count_calls(owner, name, counts):
+    """Wrap owner.name so that counts[name] counts its calls. → undo()."""
+    orig = getattr(owner, name)
+
+    def wrapped(*a, **kw):
+        counts[name] = counts.get(name, 0) + 1
+        return orig(*a, **kw)
+    setattr(owner, name, wrapped)
+    return lambda: setattr(owner, name, orig)
+
+
+def _micro_check(trainer, stash, cfg):
+    """One packed micro-batch of the run, two ways. (a) Its loss through the
+    full model's packed forward (K4) against the same sequences' padded
+    forward (K1), both without gradients. (b) Its loss and parameter
+    gradients through a 2-layer model at full width with the kernels
+    against the same model with the plain versions, on the card."""
+    from visrag_tpu_torch.driver.common import build_qwen25_vl
+    from visrag_tpu_torch.models import qwen25_vl as qmod
+    from visrag_tpu_torch.ops import attention as seg
+    from visrag_tpu_torch.rl.trainer import RLTrainer, _reindex
+    micro, mini, group, total = stash["micro"], stash["mini"], \
+        stash["group"], stash["total"]
+    with torch.no_grad():
+        packed_loss, pm = trainer.micro_loss(micro, total, True)
+        padded = trainer._put_batch(_reindex(mini, list(group)))
+        padded_loss, _ = trainer.micro_loss(padded, total, False)
+    a, b = float(packed_loss), float(padded_loss)
+    tol = RTOL_BLOCK * max(1.0, abs(b))
+    log(f"[9] one packed micro-batch ({tuple(micro['input_ids'].shape)}, "
+        f"{int((micro['segment_ids'] > 0).sum())} tokens): loss packed (K4) "
+        f"{a:.6f} vs padded (K1, no gradient) {b:.6f}, |diff| "
+        f"{abs(a - b):.3g} (bound {tol:.3g}), ppo_kl "
+        f"{float(pm['ppo_kl']):.3g}")
+    if not math.isfinite(a) or abs(a - b) > tol:
+        raise RuntimeError(f"packed loss {a} vs padded loss {b}")
+
+    small = dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=2),
+        vision=dataclasses.replace(cfg.vision, depth=1))
+    model = build_qwen25_vl(small, device=DEV, seed=1)
+    probe = RLTrainer(model, trainer.cfg, tokenizer_decode=lambda ids: "",
+                      tag_token_ids={}, reward_manager=trainer.reward_manager)
+    out = {}
+    for which in ("kernels", "plain"):
+        if which == "plain":
+            qmod.flash_attention = \
+                lambda q, k, v, qs, ks, causal: \
+                seg.segment_attention_reference(q, k, v, qs, ks,
+                                                causal=causal)
+        try:
+            loss, _ = probe.micro_loss(micro, total, True)
+            loss.backward()
+        finally:
+            qmod.flash_attention = seg.flash_attention
+        out[which] = (loss.item(), [p.grad.float().clone()
+                                    for p in probe.train_params])
+        for p in probe.train_params:
+            p.grad = None
+    # the padded update needs the valid-length backward at d = 128 with
+    # grouped kv heads, which K2 does not take yet: it must say so
+    try:
+        probe.micro_loss(padded, total, False)
+    except ValueError as e:
+        if "no backward kernel" not in str(e):
+            raise
+        log(f"[9] the padded update with gradients raises on the card, as "
+            f"documented: {e}")
+    else:
+        raise RuntimeError("the padded update ran on the card without the "
+                           "d = 128 GQA backward kernel")
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    num = math.sqrt(sum(float(((x - y) ** 2).sum()) for x, y in zip(gk, gp)))
+    den = math.sqrt(sum(float((y ** 2).sum()) for y in gp))
+    log(f"[9] the same micro-batch through 2 layers at full width: loss "
+        f"{lk:.6f} (K4) vs {lp:.6f} (plain), parameter gradients rel_err "
+        f"{num / den:.4g} (bound {RTOL_GRADS}), norm {den:.4g}")
+    if abs(lk - lp) > RTOL_BLOCK * max(1.0, abs(lp)) or not den > 0 \
+            or num / den > RTOL_GRADS:
+        raise RuntimeError("micro-batch gradients through the kernels "
+                           "disagree with the plain versions")
+    del model, probe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase9_rl(rows_path, cfg, tmp):
+    """The RS-GRPO slice at Qwen2.5-VL-3B's full width on random weights from
+    seed 0: two steps through rl_main's build_trainer and run_training (the
+    second one resumed from the first one's checkpoint). → launch counts of
+    the run."""
+    from visrag_tpu_torch.driver.common import (build_qwen25_vl,
+                                                encode_qwen_prompt_row)
+    from visrag_tpu_torch.driver.rl_main import build_trainer, run_training
+    from visrag_tpu_torch.ops import attention as seg
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.rl.trainer import RLTrainer
+    from visrag_tpu_torch.serving import paged_kv as pk
+    from visrag_tpu_torch.serving.engine import Engine
+    tok = RLStandInTokenizer()
+    out_dir = f"{tmp}/rl_out"
+    rcfg = _rl_config(out_dir, 1)
+    t0 = time.perf_counter()
+    model = build_qwen25_vl(cfg, device=DEV, seed=0)
+    ref_model = copy.deepcopy(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    trainer = build_trainer(model, rcfg, tok, tok, ref_model=ref_model)
+    n_train = sum(p.numel() for p in trainer.train_params)
+    tower_before = [p.detach().clone() for p in model.visual.parameters()]
+    text_before = [p.detach().double().abs().sum().item()
+                   for p in trainer.train_params]
+
+    def encode_row(row):
+        return encode_qwen_prompt_row(row, tok, tok, cfg, rcfg.rollout)
+
+    counts, stash, rollouts = {}, {}, []
+    undo = [_count_calls(Engine, name, counts) for name in (
+        "_prefill_one", "_prefill_many", "_decode_chunk", "set_params")]
+    undo.append(_count_calls(trainer, "_logp_fn", counts))
+    undo.append(_count_calls(model, "encode_images", counts))
+    pack, roll = trainer._pack_micro, trainer.rollout
+
+    def pack_micro(mini, g, seqlens, width):
+        counts["_pack_micro"] = counts.get("_pack_micro", 0) + 1
+        micro = pack(mini, g, seqlens, width)
+        if "micro" not in stash:
+            stash.update(micro=micro, mini=mini, group=list(g),
+                         total=trainer._put(mini["reward_masks"].sum((0, 2))
+                                            .astype("float32")))
+        return micro
+
+    def rollout(*a, **kw):
+        rb = roll(*a, **kw)
+        rollouts.append(rb)
+        stash["prefix_after_sleep"] = len(trainer._engine._prefix_cache or ())
+        return rb
+    trainer._pack_micro, trainer.rollout = pack_micro, rollout
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (al, kg, pk, seg):
+        mod.reset_launch_counts()
+    history = run_training(trainer, rcfg, rows_path, encode_row)
+    # the second step: a run that resumes from the first one's checkpoint
+    saved = dict(step=trainer.step, uid=trainer._uid_next,
+                 rng=trainer._rng.get_state().clone(),
+                 cursor=trainer.data_iter.state())
+    trainer.step, trainer._uid_next, trainer._rng = 0, 0, None
+    rcfg2 = _rl_config(out_dir, RL_STEPS)
+    rcfg2 = dataclasses.replace(rcfg2, trainer=dataclasses.replace(
+        rcfg2.trainer, save_freq=0))
+    trainer.cfg = rcfg2
+    t0 = time.perf_counter()
+    resumed_ok = []
+    resume = trainer.maybe_resume
+
+    def maybe_resume():
+        ok = resume()
+        resumed_ok.append(
+            ok and trainer.step == saved["step"]
+            and trainer._uid_next == saved["uid"]
+            and torch.equal(trainer._rng.get_state(), saved["rng"])
+            and trainer.data_iter.state() == saved["cursor"])
+        stash["resume_s"] = time.perf_counter() - t0
+        shutil.rmtree(out_dir)          # 32 GB back before the run goes on
+        return ok
+    trainer.maybe_resume = maybe_resume
+    history += run_training(trainer, rcfg2, rows_path, encode_row,
+                            save_final=False)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for u in undo:
+        u()
+    launches = {**al.launch_counts(), "kvgrid": kg.launches,
+                "kvgrid_lse": kg.lse_launches, "paged": pk.launches,
+                **seg.launch_counts()}
+    if resumed_ok != [True]:
+        raise RuntimeError(f"the second run did not resume at step 1 with "
+                           f"the saved rng and data cursor: {resumed_ok}")
+    if [s for s, _ in history] != [1, 2]:
+        raise RuntimeError(f"steps {[s for s, _ in history]} != [1, 2]")
+
+    layers, depth = cfg.text.num_hidden_layers, cfg.vision.depth
+    engine = trainer._engine
+    micro_n = counts["_pack_micro"]
+    want = {"flat": 0, "fwd_lse": 0, "dq": 0, "dkv": 0, "kvgrid_lse": 0,
+            "stacked": layers * (counts.get("_prefill_one", 0)
+                                 + counts.get("_prefill_many", 0)
+                                 + counts["_logp_fn"]),
+            "kvgrid": depth * counts["encode_images"],
+            "paged": layers * counts["_decode_chunk"] * engine.chunk,
+            "seg_fwd": 2 * layers * micro_n, "seg_dq": layers * micro_n,
+            "seg_dkv": layers * micro_n}
+    if launches != want:
+        raise RuntimeError(f"RL launches {launches} != {want} (calls "
+                           f"{counts})")
+    image_id = StandInTokenizer.SPECIAL["<|image_pad|>"]
+    responses = [r for rb in rollouts for r in rb.responses]
+    if any(image_id in r for r in responses) or len(responses) != 32 \
+            or any(not r for r in responses):
+        raise RuntimeError("a response is empty or holds the image token")
+    if stash["prefix_after_sleep"] != 0 or counts["set_params"] != 1:
+        raise RuntimeError(f"prefix cache not empty after the rollout, or "
+                           f"set_params ran {counts['set_params']} times")
+    for step, m in history:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0 and m["grad_skipped"] == 0):
+            raise RuntimeError(f"step {step}: loss {m['loss']}, grad_norm "
+                               f"{m['grad_norm']}, skipped "
+                               f"{m['grad_skipped']}")
+    if not all(torch.equal(a, b) for a, b in
+               zip(tower_before, model.visual.parameters())):
+        raise RuntimeError("the frozen vision tower's weights moved")
+    prompt_tokens = sorted({
+        int(x) for rb in rollouts
+        for x in rb.attention_mask.sum(1) - rb.response_mask.sum(1)})
+    moved = sum(a != p.detach().double().abs().sum().item()
+                for a, p in zip(text_before, trainer.train_params))
+    if moved == 0:
+        raise RuntimeError("no text parameter changed")
+    log(f"[9] Qwen2.5-VL-3B full width bf16, whole-block remat, "
+        f"{n_train / 1e9:.3f}B trained parameters + frozen tower + frozen "
+        f"reference policy (init {init_s:.1f} s), fp32 AdamW states, lr "
+        f"{rcfg.actor.lr} | engine {engine.num_slots} slots, max_len "
+        f"{engine.max_len}, chunked prefill {engine.chunk_tokens}, prefix "
+        f"cache on | {RL_STEPS} steps of 4 prompts x n 4 (prompt tokens "
+        f"{prompt_tokens}), {RL_RESPONSE_TOKENS} response tokens | calls "
+        f"{counts} | launches {launches} (= reckoned) | {moved} of "
+        f"{len(text_before)} text tensors changed, tower bit-identical | "
+        f"checkpoint resumed at step 1 with the saved rng and data cursor "
+        f"({stash['resume_s']:.1f} s to load) | peak memory {peak_gb:.2f} "
+        f"GB | {smi()}")
+    for step, m in history:
+        split = {k[len("timing_s/"):]: round(v, 3) for k, v in m.items()
+                 if k.startswith("timing_s/")}
+        log(f"[9] step {step}: loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.4g}, kl_loss {m.get('kl_loss', 0.0):.3g}, "
+            f"reward_mean {m['reward_mean']:.3f} | seconds {split} | "
+            f"{m['perf/throughput']:.1f} tokens/s")
+    _micro_check(trainer, stash, cfg)
+    del trainer, model, ref_model, engine, stash, rollouts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rl_phases(gen):
+    """Phases 8 and 9. → (K4's check records, the run's launch counts)."""
+    from visrag_tpu_torch.driver.common import encode_qwen_prompt_row
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    rl_cfg = Qwen25VLConfig.b3()
+    rl_cfg = dataclasses.replace(rl_cfg, text=dataclasses.replace(
+        rl_cfg.text, remat=True))
+    work = tempfile.mkdtemp(prefix="visrag_rl_")
+    try:
+        t0 = time.perf_counter()
+        rows_path = _rl_rows(work)
+        tok = RLStandInTokenizer()
+        rollout_cfg = _rl_config(work, 1).rollout
+        with open(rows_path) as f:
+            prompts = [encode_qwen_prompt_row(json.loads(line), tok, tok,
+                                              rl_cfg, rollout_cfg)
+                       for line in f]
+        log(f"[8] four RL prompts written and encoded by the driver's "
+            f"encode_qwen_prompt_row in {time.perf_counter() - t0:.2f} s "
+            f"(prompt tokens {[len(p['input_ids']) for p in prompts]})")
+        seg_results = phase8_segment_kernels(gen, prompts, rl_cfg)
+        del prompts
+        return seg_results, phase9_rl(rows_path, rl_cfg, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def segment_kernel_rows(seg_results, rl_launches):
+    from visrag_tpu_torch.ops import attention as seg
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    return [{"name": name, "route": "cuda", "source": seg.SOURCE,
+             "replaces": SEG_REPLACES[kind], "launches": rl_launches[kind],
+             **{k: seg_results[kind][0][k] for k in keys},
+             "checks": seg_results[kind]}
+            for kind, name in (("seg_fwd", "segment_fwd"),
+                               ("seg_dq", "segment_bwd_dq"),
+                               ("seg_dkv", "segment_bwd_dkv"))]
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rl-only", action="store_true",
+                    help="phases 0, 1, 8 and 9 only, for work on the RL "
+                         "slice; the run then ends without the ok line")
+    args = ap.parse_args(argv)
     # full fp32 wherever fp32 is asked for (pos embed, the fp32 references)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase0_environment()
     phase1_build()
-    setup = phase3_setup()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.rl_only:
+        print(smi())
+        print(json.dumps({"kernels": segment_kernel_rows(*rl_phases(gen))}))
+        print(json.dumps({"ok": False, "partial": "--rl-only"}))
+        return 1
+    setup = phase3_setup()
     results = phase2_kernel(gen, setup)
     serve_launches = phase3_slice(setup)
     train_results = phase4_training_kernels(gen, setup)
@@ -1413,6 +2069,8 @@ def main():
         f"{[len(r['input_ids']) for _, r, _ in reqs]})")
     qwen_results = phase6_serving_kernels(gen, reqs, qcfg)
     qwen_launches = phase7_serving(reqs, qcfg)
+    del reqs
+    seg_results, rl_launches = rl_phases(gen)
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
     from visrag_tpu_torch.serving import paged_kv as pk
@@ -1452,6 +2110,10 @@ def main():
                         "launches": qwen_launches[count],
                         **{k: first[k] for k in keys},
                         "checks": qwen_results[kind]})
+    kernels += segment_kernel_rows(seg_results, rl_launches)
+    for k in kernels:
+        if not k["launches"] > 0:
+            raise RuntimeError(f"{k['name']} was not launched on its path")
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1461,4 +2123,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -17,11 +17,15 @@ from PIL import Image
 import visrag_tpu_torch.driver.eval_retriever
 import visrag_tpu_torch.driver.evisrag_eval
 import visrag_tpu_torch.driver.evisrag_predict
+import visrag_tpu_torch.driver.rl_main
 import visrag_tpu_torch.driver.train_retriever
 from visrag_tpu_torch.driver.common import build_qwen25_vl
 from visrag_tpu_torch.generation import prompts, qa_eval
 from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
 from visrag_tpu_torch.ops import attention, attention_kvgrid
+from visrag_tpu_torch.rl import (advantage, metrics, packing, ppo,
+                                 reward_manager, rewards, seqlen)
+from visrag_tpu_torch.rl.trainer import RLTrainer
 from visrag_tpu_torch.serving import kv_cache, paged_kv, sampling
 from visrag_tpu_torch.serving.engine import Engine
 from visrag_tpu_torch.config import ModelConfig
@@ -49,6 +53,27 @@ outs = Engine(qwen, num_slots=2, max_len=64, prompt_buckets=(16,)).generate(
     [dict(input_ids=np.arange(5, dtype=np.int32))],
     sampling=sampling.SamplingParams(temperature=0.0, max_tokens=3))
 assert len(outs[0]) == 3
+# one RL step through the driver's own wiring: rollout, rewards, log-probs,
+# the packed update, a checkpoint
+import dataclasses, tempfile
+from visrag_tpu_torch.config import RLConfig
+cfg = RLConfig()
+cfg = dataclasses.replace(
+    cfg, rollout=dataclasses.replace(cfg.rollout, n=2, max_response_length=4),
+    trainer=dataclasses.replace(cfg.trainer, total_steps=1, save_freq=1,
+                                rollout_batch_size=2,
+                                output_dir=tempfile.mkdtemp()))
+rl = RLTrainer(qwen, cfg, tokenizer_decode=lambda ids: "wrong" if sum(ids) % 2
+               else "<answer>x</answer>",
+               tag_token_ids={"<think>": [50], "<evidence>": [51],
+                              "<answer>": [52]},
+               engine_kwargs=dict(num_slots=2, max_len=64,
+                                  prompt_buckets=(16,)))
+hist = rl.fit([[dict(input_ids=np.arange(3, 9, dtype=np.int32),
+                     ground_truth="<answer>x</answer>"),
+                dict(input_ids=np.arange(7, dtype=np.int32),
+                     ground_truth="<answer>x</answer>")]])
+assert len(hist) == 1 and np.isfinite(hist[0][1]["loss"])
 added = sorted(m for m in set(sys.modules) - before
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "visrag_tpu"))
 print("ADDED", added)
@@ -60,9 +85,9 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_runs_without_jax():
-    """Importing the drivers, the training and serving modules, encoding a
-    batch and generating with the serving engine loads no module of jax,
-    flax or visrag_tpu."""
+    """Importing the drivers, the training, serving and RL modules, encoding
+    a batch, generating with the serving engine and taking one RLTrainer.fit
+    step load no module of jax, flax or visrag_tpu."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,

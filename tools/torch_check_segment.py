@@ -1,0 +1,172 @@
+"""Build the segment-attention kernels (K4) and K3, print the compiler's
+report, and hold each kernel against its plain PyTorch version on the card.
+
+    python3 tools/torch_check_segment.py [--time]
+
+A short first check for an edited kernel: registers and spills from ptxas,
+then forward, LSE, dq, dk, dv at a few shapes (packed first-fit ids, grouped
+kv heads, Sq != Sk, pad and negative ids, d = 64 / 80 / 128). With --time it
+also times the kernels with CUDA events (median of 10). Needs one CUDA
+card; exits 1 on any disagreement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import torch
+
+from visrag_tpu_torch.ops import _build
+from visrag_tpu_torch.ops import attention as seg
+from visrag_tpu_torch.ops import attention_kvgrid as kg
+
+TOL = dict(o=2e-2, lse=2e-2, dq=4e-2, dk=4e-2, dv=4e-2)
+
+
+def first_fit_ids(rng, rows, width, lens):
+    """Segment ids of first-fit-decreasing packing: runs in a row are
+    contiguous but their ids are not ascending; 0 pads the tail."""
+    order = np.argsort(-np.asarray(lens), kind="stable")
+    used = [0] * rows
+    ids = np.zeros((rows, width), np.int32)
+    for i in order:
+        for r in range(rows):
+            if used[r] + lens[i] <= width:
+                ids[r, used[r]:used[r] + lens[i]] = int(i) + 1
+                used[r] += lens[i]
+                break
+    return ids
+
+
+def median_ms(fn, n=10):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def check(name, q_seg, kv_seg, h, hk, d, causal, do_time, banded=False):
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    b, sq = q_seg.shape
+    sk = kv_seg.shape[1]
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+                   for shape in ((b, sq, h, d), (b, sk, hk, d),
+                                 (b, sk, hk, d), (b, sq, h, d)))
+    qs = torch.from_numpy(q_seg).to(dev)
+    ks = torch.from_numpy(kv_seg).to(dev)
+    scale = d ** -0.5
+    q.requires_grad_(True), k.requires_grad_(True), v.requires_grad_(True)
+    if banded:
+        o = kg.flash_attention_kvgrid(q, k, v, qs)
+    else:
+        o = seg.flash_attention(q, k, v, qs, ks, causal=causal)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want_o = seg.segment_attention_reference(
+            q.float(), k.float(), v.float(), qs, ks, causal=causal,
+            sm_scale=scale)
+        want = seg.segment_backward_reference(q, k, v, do, qs, ks, causal,
+                                              scale)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        seg.segment_fwd(q, k, v, qs, ks, causal, scale, torch.empty_like(o),
+                        lse)
+        want_lse = seg.segment_lse_reference(q, k, qs, ks, causal, scale)
+    err = dict(o=(o.float() - want_o).abs().max().item(),
+               lse=(lse - want_lse).abs().max().item(),
+               dq=(dq.float() - want[0]).abs().max().item(),
+               dk=(dk.float() - want[1]).abs().max().item(),
+               dv=(dv.float() - want[2]).abs().max().item())
+    qpad, kpad = qs <= 0, ks <= 0
+    zeros = bool((o[qpad] == 0).all() and (dq[qpad] == 0).all()
+                 and (dk[kpad] == 0).all() and (dv[kpad] == 0).all()
+                 and (lse.transpose(1, 2)[qpad] == seg.LSE_PAD).all())
+    scale_ref = {kk: max(1.0, float(x.abs().max())) for kk, x in
+                 zip(("dq", "dk", "dv"), want)}
+    ok = zeros and all(
+        err[kk] <= TOL[kk] * scale_ref.get(kk, 1.0) for kk in err)
+    line = f"{name}: " + " ".join(f"{kk}={x:.3g}" for kk, x in err.items()) \
+        + f" pad_zeros={zeros} {'ok' if ok else 'FAIL'}"
+    if do_time and not banded:
+        with torch.no_grad():
+            o2 = torch.empty_like(o)
+            delta = torch.empty_like(lse)
+            dq2, dk2, dv2 = (torch.empty_like(x) for x in (q, k, v))
+            t_f = median_ms(lambda: seg.segment_fwd(q, k, v, qs, ks, causal,
+                                                    scale, o2, lse))
+            t_q = median_ms(lambda: seg.segment_bwd_dq(
+                q, k, v, o, do, lse, delta, qs, ks, causal, scale, dq2))
+            t_kv = median_ms(lambda: seg.segment_bwd_dkv(
+                q, k, v, do, lse, delta, qs, ks, causal, scale, dk2, dv2))
+        line += f" fwd={t_f:.3f}ms dq={t_q:.3f}ms dkv={t_kv:.3f}ms"
+    print(line, flush=True)
+    return ok
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--time", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.time()
+    _build.build_all(("attention_segment", "attention_kvgrid"))
+    print(f"built in {time.time() - t0:.1f}s", flush=True)
+    for name in ("attention_segment", "attention_kvgrid"):
+        print((_build.BUILD_DIR / f"{name}.log").read_text(), flush=True)
+    print(os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip(), flush=True)
+    rng = np.random.default_rng(0)
+    ok = True
+    edge = np.zeros((2, 300), np.int32)
+    edge[0, :1] = 5
+    edge[0, 1:64] = 3
+    edge[0, 64:128] = 9
+    edge[0, 128:193] = 2
+    edge[0, 200:260] = -4           # negative ids match nothing
+    kv_edge = edge.copy()
+    ok &= check("edges d128 causal", edge, kv_edge, 4, 2, 128, True,
+                args.time)
+    ok &= check("edges d64", edge, kv_edge, 2, 2, 64, False, args.time)
+    ids = first_fit_ids(rng, 3, 1280, [900, 700, 500, 300, 260, 200, 64, 1])
+    ok &= check("first-fit 16/2 d128", ids, ids, 16, 2, 128, True, args.time)
+    ok &= check("7B grouping 28/4", ids[:1, :512], ids[:1, :512], 28, 4, 128,
+                True, args.time)
+    qid = np.concatenate([np.full(100, 1), np.full(91, 2)])[None].astype(
+        np.int32)
+    kid = np.concatenate([np.full(150, 2), np.full(107, 1),
+                          np.zeros(20)])[None].astype(np.int32)
+    ok &= check("Sq != Sk", qid, kid, 4, 4, 128, False, args.time)
+    ok &= check("Sq != Sk causal", qid, kid, 4, 1, 128, True, args.time)
+    win = np.repeat(np.arange(1, 41), 64)[:2500]
+    win = np.concatenate([win, np.zeros(60)])[None].astype(np.int32)
+    ok &= check("vision d80 K4", win, win, 16, 16, 80, False, args.time)
+    ok &= check("vision d80 K3 + K4 backward", win, win, 16, 16, 80, False,
+                args.time, banded=True)
+    if args.time:
+        ids = first_fit_ids(rng, 3, 4864, [4800, 4790, 4780, 60, 50, 40])
+        ok &= check("packed update 3x4864", ids, ids, 16, 2, 128, True, True)
+        one = np.ones((1, 16640), np.int32)
+        ok &= check("1x16640", one, one, 16, 2, 128, True, True)
+    print("ALL OK" if ok else "FAILED", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,6 +13,12 @@
 // full-attention layers. Rows with seg <= 0, and rows with no key, are
 // written as exact zeros.
 //
+// With the LSE template flag (training: the backward replays the segment
+// kernels of attention_segment.cu, which read it) it also writes the
+// natural-log log-sum-exp of each row's scores, fp32 (B, H, S) contiguous;
+// rows with no key get the +LARGE sentinel LSE_PAD. Without the flag
+// (inference) the LSE is neither computed nor written.
+//
 // The band. Because the ids are sorted, the keys a 64-row query tile can see
 // form one contiguous range [kstart, kend): the rows whose id lies in the
 // tile's [min real id, max real id]. Thread 0 finds both ends by binary
@@ -47,8 +53,9 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;            // (B, H, S) or null
   const int* seg;        // (B, S) contiguous segment ids
-  int seq, kv_group;
+  int seq, heads, kv_group;
   long long q_sb, q_sr, q_sh;
   long long k_sb, k_sr, k_sh;
   long long v_sb, v_sr, v_sh;
@@ -74,7 +81,7 @@ __device__ int count_below(const int* seg, int seq, int id) {
   return lo;
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(NTHREADS)
 kvgrid_fwd_kernel(const Params p) {
   using T = Tile<D>;
@@ -271,11 +278,19 @@ kvgrid_fwd_kernel(const Params p) {
       *reinterpret_cast<uint32_t*>(ob + qrow_hi * p.o_sr + col) =
           pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
   }
+  if (LSE && t == 0) {
+    // natural log: m is the base-2 max of the scaled scores
+    float* lb = p.lse + (static_cast<long long>(b) * p.heads + h) * seq;
+    if (qrow_lo < seq)
+      lb[qrow_lo] = l_lo > 0.f ? (m_lo + log2f(l_lo)) * LN2 : LSE_PAD;
+    if (qrow_hi < seq)
+      lb[qrow_hi] = l_hi > 0.f ? (m_hi + log2f(l_hi)) * LN2 : LSE_PAD;
+  }
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
-  auto kernel = kvgrid_fwd_kernel<D>;
+  auto kernel = kvgrid_fwd_kernel<D, LSE>;
   const size_t bytes = kvgrid_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -287,10 +302,12 @@ cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry point for ctypes. seg: int32 (batch, seq) contiguous;
-// kv_heads divides heads. Returns a cudaError_t (0 = launched).
+// Plain C entry point for ctypes. seg: int32 (batch, seq) contiguous; lse:
+// fp32 (batch, heads, seq) contiguous, or null for no LSE; kv_heads divides
+// heads. Returns a cudaError_t (0 = launched).
 extern "C" int visrag_kvgrid_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, const int* seg,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const int* seg,
     int batch, int seq, int heads, int kv_heads, int head_dim,
     long long q_sb, long long q_sr, long long q_sh,
     long long k_sb, long long k_sr, long long k_sh,
@@ -302,8 +319,10 @@ extern "C" int visrag_kvgrid_attention_fwd(
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.seg = seg;
   p.seq = seq;
+  p.heads = heads;
   if (kv_heads <= 0 || heads % kv_heads) return int(cudaErrorInvalidValue);
   p.kv_group = heads / kv_heads;
   p.q_sb = q_sb; p.q_sr = q_sr; p.q_sh = q_sh;
@@ -315,5 +334,6 @@ extern "C" int visrag_kvgrid_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // d = 80: every Qwen2.5-VL vision tower (1280 wide, 16 heads)
   if (head_dim != 80) return int(cudaErrorInvalidValue);
-  return int(launch<80>(p, batch, heads, s));
+  return int(p.lse ? launch<80, true>(p, batch, heads, s)
+                   : launch<80, false>(p, batch, heads, s));
 }

@@ -162,6 +162,55 @@ def load_safetensors_dir(path: str) -> dict:
     return state
 
 
+
+def encode_qwen_prompt_row(row, processor, tok, mcfg, rollout_cfg):
+    """RL prompt row → engine-ready dict (the reference RLHFDataset role,
+    rsgrpo/verl/utils/dataset.py:159-296). Text-only rows tokenize the chat
+    template; multimodal rows additionally load/resize images into the
+    rollout pixel budget, expand per-image pad tokens, and attach the uint8
+    device-mode vision batch + mrope positions + flat slot map."""
+    import numpy as np
+    prompt = row.get("problem") or row.get("prompt")
+    images = row.get("images") or row.get("image") or []
+    if not isinstance(images, (list, tuple)):
+        images = [images]
+    images = list(images)[:rollout_cfg.limit_images]
+    content = [{"type": "image"}] * len(images) + [
+        {"type": "text", "text": prompt}]
+    text = processor.apply_chat_template(
+        [{"role": "user", "content": content}],
+        tokenize=False, add_generation_prompt=True)
+    if not images:
+        ids = np.asarray(tok.encode(text), np.int32)
+        return dict(input_ids=ids, ground_truth=row.get("answer", ""))
+
+    from PIL import Image as _Image
+
+    from ..data.datasets import to_pil
+    from ..models.mrope import get_rope_index
+    from ..preprocess.qwen_vision import prepare_vision_batch
+    pil = [(_Image.open(im).convert("RGB") if isinstance(im, str)
+            else to_pil(im).convert("RGB")) for im in images]
+    vb = prepare_vision_batch(
+        pil, head_dim=mcfg.vision.head_dim,
+        min_pixels=rollout_cfg.min_pixels,
+        max_pixels=rollout_cfg.max_pixels, device_mode=True)
+    mu = mcfg.vision.spatial_merge_size ** 2
+    for (t, h, w) in vb.grid_thw:       # expand pads per image, in order
+        text = text.replace("<|image_pad|>",
+                            "<|graft_img|>" * (t * h * w // mu), 1)
+    text = text.replace("<|graft_img|>", "<|image_pad|>")
+    ids = np.asarray(tok.encode(text), np.int32)
+    pos = get_rope_index(ids, vb.grid_thw, mcfg.image_token_id)
+    slot = np.full(ids.shape, -1, np.int32)
+    slot[ids == mcfg.image_token_id] = np.arange(vb.n_tokens)
+    vision_batch = {k: getattr(vb, k) for k in
+                    ("patches", "rot_cos", "rot_sin", "seg_window",
+                     "seg_full", "reverse_index")}
+    return dict(input_ids=ids, positions=pos, vision_batch=vision_batch,
+                slot_map=slot, ground_truth=row.get("answer", ""))
+
+
 def qwen_config_from_checkpoint(checkpoint: str, state=None):
     """Qwen25VLConfig of a checkpoint dir: from its config.json (any
     geometry), else the preset whose text width matches the embeddings."""

@@ -1,8 +1,9 @@
 """Qwen2.5-VL (3B/7B): the EVisRAG generator.
 
 Counterpart of visrag_tpu/models/qwen25_vl.py (configs, vision tower, text
-model, Qwen25VL with prefill / decode / embed_prompt / prefill_chunk;
-`QwenForValue` is not ported). Module names follow the HF checkpoint
+model, Qwen25VL with the training forward and prefill / decode /
+embed_prompt / prefill_chunk; `QwenForValue` and the sequence-parallel
+`sp_mesh` are not ported). Module names follow the HF checkpoint
 (`visual.blocks.{i}.attn.qkv`, `model.layers.{i}.self_attn.q_proj`, ...),
 so loading is a copy by name (models/hf_loader.py).
 
@@ -18,6 +19,16 @@ so loading is a copy by name (models/hf_loader.py).
     pool through K5 (serving/paged_kv.py) or, without a block table, a dense
     cache; chunked prefill writes the chunk into the pool and attends the
     gathered prefix with plain torch ops (ops/attention.chunk_attention).
+  * Training forward (the RL update): `segment_ids` runs packed rows
+    through the segment kernel K4 (ops/attention.flash_attention, causal),
+    whose backward is K4's dq and dk/dv; `attention_mask` rows keep K1.
+    `vision_embeds` + `slot_map` scatter a precomputed table of the frozen
+    tower's outputs. `remat` (text config): True recomputes whole blocks in
+    the backward, "mlp" only each block's MLP, False nothing
+    (torch.utils.checkpoint, non-reentrant, only while gradients are on).
+    `Qwen25VL.forward(..., return_logits=False)` skips the full-sequence LM
+    head: eager PyTorch has no dead-code elimination, and (B, S, vocab)
+    logits of a 16k-token row are 10 GB in fp32.
   * KV writes are in place into the caller's layer-stacked cache tensors
     (layers, ...), which the JAX package threads through as donated
     per-layer buffers instead.
@@ -32,7 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import chunk_attention
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import chunk_attention, flash_attention
 from ..ops.attention_kvgrid import flash_attention_kvgrid
 from ..ops.attention_lengths import flash_fwd_lengths
 from ..preprocess.qwen_vision import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
@@ -54,8 +67,10 @@ class QwenVisionConfig:
     out_hidden_size: int = 2048
     rms_eps: float = 1e-6
     dtype: Any = torch.bfloat16
-    # "auto" / "banded": the banded segment kernel on a card, its plain
-    # version on the CPU. "packed" (the segment kernel K4) is not ported.
+    remat: bool = False       # recompute whole blocks in the backward
+    # "auto" / "banded": the banded segment kernel K3 (its plain version on
+    # the CPU). "packed": the general segment kernel K4, which scans every
+    # key tile's id range instead of searching a band.
     attn_impl: str = "auto"
 
     @property
@@ -88,6 +103,8 @@ class QwenTextConfig:
     mrope_section: Tuple[int, ...] = (16, 24, 24)
     tie_word_embeddings: bool = True
     dtype: Any = torch.bfloat16
+    # False | True (whole-block recomputation) | "mlp" (the MLP only)
+    remat: Any = False
 
     @property
     def head_dim(self) -> int:
@@ -203,7 +220,10 @@ class QwenVisionBlock(nn.Module):
                                                  c.head_dim)
         q, k, v = qkv.unbind(2)                     # (1, S, H, D) views
         q, k = apply_rope_cos_sin(q, k, cos[None], sin[None])
-        o = flash_attention_kvgrid(q, k, v, seg[None])
+        if c.attn_impl == "packed":
+            o = flash_attention(q, k, v, seg[None], seg[None], causal=False)
+        else:
+            o = flash_attention_kvgrid(q, k, v, seg[None])
         x = x + self.attn.proj(o.reshape(s, e))
         return x + self.mlp(self.norm2(x))
 
@@ -234,10 +254,6 @@ class QwenVisionTower(nn.Module):
         if cfg.attn_impl not in ("auto", "banded", "packed"):
             raise ValueError(f"QwenVisionConfig.attn_impl {cfg.attn_impl!r}: "
                              "expected 'auto', 'banded' or 'packed'")
-        if cfg.attn_impl == "packed":
-            raise NotImplementedError(
-                "attn_impl='packed' runs the segment kernel K4, which is not "
-                "ported; use 'auto' or 'banded'")
         self.cfg = cfg
         # HF's conv `patch_embed.proj` (D, 3, t, ps, ps) as a matmul weight
         self.patch_embed = nn.Linear(cfg.patch_dim, cfg.hidden_size,
@@ -252,9 +268,12 @@ class QwenVisionTower(nn.Module):
         x = self.patch_embed(patches.to(c.dtype))
         seg_window = seg_window.to(torch.int32).contiguous()
         seg_full = seg_full.to(torch.int32).contiguous()
+        remat = c.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             seg = seg_full if i in c.fullatt_block_indexes else seg_window
-            x = block(x, rot_cos, rot_sin, seg)
+            x = checkpoint(block, x, rot_cos, rot_sin, seg,
+                           use_reentrant=False) if remat \
+                else block(x, rot_cos, rot_sin, seg)
         return self.merger(x)[reverse_index.long()]
 
 
@@ -297,18 +316,31 @@ class QwenTextBlock(nn.Module):
         q, k = apply_rope_cos_sin(q, k, cos, sin)
         return q, k, v
 
+    def _mlp_part(self, x):
+        return self.mlp(self.post_attention_layernorm(x))
+
     def _residual(self, x, attn_out):
         b, s, _ = x.shape
         x = x + self.self_attn.o_proj(attn_out.reshape(b, s, -1))
-        return x + self.mlp(self.post_attention_layernorm(x))
+        if self.cfg.remat == "mlp" and torch.is_grad_enabled():
+            return x + checkpoint(self._mlp_part, x, use_reentrant=False)
+        return x + self._mlp_part(x)
 
-    def forward(self, x, cos, sin, lengths):
-        """Whole-prompt causal pass over right-padded rows (K1). → (out,
-        (k, v)) with k/v (B, S, kvh, d) after rope."""
+    def forward(self, x, cos, sin, lengths, seg=None):
+        """Whole-row causal pass: right-padded rows with `lengths` (K1), or
+        packed rows with segment ids `seg` (B, S) int32 (K4; lengths is
+        then None). → (out, (k, v)) with k/v (B, S, kvh, d) after rope."""
         q, k, v = self._qkv(x, cos, sin)
-        o = flash_fwd_lengths(q, k, v, lengths, True,
-                              self.cfg.head_dim ** -0.5)
+        if seg is not None:
+            o = flash_attention(q, k, v, seg, seg, causal=True)
+        else:
+            o = flash_fwd_lengths(q, k, v, lengths, True,
+                                  self.cfg.head_dim ** -0.5)
         return self._residual(x, o), (k, v)
+
+    def hidden(self, x, cos, sin, lengths, seg=None):
+        """forward without the K/V (what a recomputed block returns)."""
+        return self.forward(x, cos, sin, lengths, seg)[0]
 
     def prefill_chunk(self, x, cos, sin, kc, vc, chunk_rows, gather_rows,
                       start):
@@ -382,23 +414,34 @@ class QwenTextModel(nn.Module):
         return mrope_cos_sin(positions, inv_freq, c.mrope_section)
 
     def forward(self, input_ids=None, *, inputs_embeds=None, positions=None,
-                attention_mask=None, return_kv=False):
-        """Right-padded causal pass: attention_mask (B, S) contiguous valid
-        prefix per row (None: all valid). → hidden (B, S, E) after the final
-        norm, and with return_kv the per-layer (k, v) list."""
+                attention_mask=None, segment_ids=None, return_kv=False):
+        """Causal pass over right-padded rows (attention_mask (B, S): a
+        contiguous valid prefix per row; None: all valid) or, with
+        segment_ids (B, S), over packed rows whose sequences stay
+        independent (ids <= 0 are padding). → hidden (B, S, E) after the
+        final norm, and with return_kv the per-layer (k, v) list."""
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         b, s, _ = inputs_embeds.shape
         device = inputs_embeds.device
         cos, sin = self.cos_sin(positions, b, s, device)
-        if attention_mask is None:
+        seg = lengths = None
+        if segment_ids is not None:
+            seg = segment_ids.to(device=device, dtype=torch.int32).contiguous()
+        elif attention_mask is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=device)
         else:
             lengths = attention_mask.to(device).sum(dim=1, dtype=torch.int32)
         x = inputs_embeds.to(self.cfg.dtype)
+        remat = self.cfg.remat and self.cfg.remat != "mlp" \
+            and torch.is_grad_enabled() and not return_kv
         kvs = []
         for layer in self.layers:
-            x, kv = layer(x, cos, sin, lengths)
+            if remat:
+                x = checkpoint(layer.hidden, x, cos, sin, lengths, seg,
+                               use_reentrant=False)
+                continue
+            x, kv = layer(x, cos, sin, lengths, seg)
             if return_kv:
                 kvs.append(kv)
         out = self.norm(x)
@@ -464,10 +507,13 @@ class Qwen25VL(nn.Module):
             return hidden @ self.model.embed_tokens.weight.to(hidden.dtype).T
         return self.lm_head(hidden)
 
-    def _embed(self, input_ids, vision_batch=None, slot_map=None):
+    def _embed(self, input_ids, vision_batch=None, slot_map=None,
+               vision_embeds=None):
         embeds = self.model.embed_tokens(input_ids)
-        if vision_batch is not None:
+        vis = vision_embeds
+        if vis is None and vision_batch is not None:
             vis = self.encode_images(vision_batch)
+        if vis is not None:
             slot_map = slot_map.to(embeds.device)
             safe = slot_map.clamp(min=0).reshape(-1)
             gathered = vis[safe].reshape(*slot_map.shape, -1)
@@ -476,12 +522,20 @@ class Qwen25VL(nn.Module):
         return embeds
 
     def forward(self, input_ids, attention_mask=None, positions=None,
-                vision_batch=None, slot_map=None):
-        """→ (logits (B, S, V), hidden (B, S, E))."""
-        hidden = self.model(inputs_embeds=self._embed(input_ids, vision_batch,
-                                                      slot_map),
-                            positions=positions, attention_mask=attention_mask)
-        return self.compute_logits(hidden), hidden
+                vision_batch=None, slot_map=None, segment_ids=None,
+                vision_embeds=None, return_logits=True):
+        """→ (logits (B, S, V), hidden (B, S, E)). vision_embeds: a
+        precomputed (N, E) table of tower outputs that slot_map indexes (the
+        frozen-tower RL update), instead of vision_batch. return_logits
+        False → (None, hidden): the caller projects chunks of hidden
+        itself and the (B, S, V) tensor is never built."""
+        hidden = self.model(
+            inputs_embeds=self._embed(input_ids, vision_batch, slot_map,
+                                      vision_embeds),
+            positions=positions, attention_mask=attention_mask,
+            segment_ids=segment_ids)
+        return (self.compute_logits(hidden) if return_logits else None), \
+            hidden
 
     def prefill(self, input_ids, attention_mask=None, positions=None,
                 vision_batch=None, slot_map=None, last_pos=None):

@@ -1,22 +1,69 @@
-"""Plain attention for the serving path.
+"""Segment-id flash attention (K4), the public `flash_attention`, and the
+plain chunked-prefill attention.
 
-Counterpart of two functions of visrag_tpu/ops/attention.py:
+Counterpart of visrag_tpu/ops/attention.py.
 
+  * K4, csrc/attention_segment.cu (CUDA C++ for sm_90a, bound with ctypes),
+    replaces the TPU kernels `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel`
+    (`_flash_core` and its custom VJP) and the library detour
+    `_flash_library_segment`: one forward kernel that also writes the
+    log-sum-exp, one dq kernel (it also stores delta = rowsum(o*do)) and one
+    dk/dv kernel, launched in that order. What bounds them on the H100 is
+    the work on the 64 x 64 score tile, not HBM, so scores and accumulators
+    stay in tensor-core fragments; K/V (or Q/dO) stream through shared
+    memory 64 rows at a time, so any length runs and the JAX package's
+    `_pick_blocks` and 4096-key bound have no counterpart here. Grouped kv
+    heads are read through strides, and dk/dv sum over a group inside one
+    block, without atomics.
+  * `flash_attention` has the JAX function's dispatch: `lengths` goes to
+    the valid-length kernels (ops/attention_lengths.py, K1/K2), segment ids
+    go to K4.
   * `chunk_attention` (`xla_chunk_attention`): the chunked-prefill
     attention. The JAX package runs it as plain XLA, not as a Pallas kernel,
-    so plain PyTorch is its port: chunk queries at global positions
-    start + arange(C) attend the gathered cache rows [0, L) under the
-    global-position causal mask, with an online softmax over kv blocks so
-    that a long prefix never materializes a (C, L) score plane.
-  * `segment_attention_reference` (`mha_reference`): segment-id masked
-    attention, optionally causal, the oracle the tests hold the kernels to.
+    so plain PyTorch is its port.
+
+The segment contract. q (B, Sq, H, D), k/v (B, Sk, H_kv, D) with H_kv
+dividing H, ids (B, Sq) and (B, Sk) ints in any order. A (query, key) pair
+is visible iff the ids are equal AND POSITIVE (and, when causal, key index
+<= query index). Ids <= 0 mark padding and match nothing, on either side:
+their output rows are exactly 0, their LSE is LSE_PAD, and their dq, dk
+and dv are exactly 0 whatever `do` holds. The same holds for a positive-id
+row that sees no key. On valid rows the result equals the JAX function's;
+the JAX oracle `mha_reference` lets id-0 rows attend id-0 keys instead
+(finite values that every caller masks).
+
+A CPU tensor takes `segment_attention_reference`, the plain PyTorch
+version, and autograd through it is the plain backward. A CUDA tensor
+launches the kernels or raises; there is no fallback. Launch counters, one
+per kernel: `seg_fwd_launches`, `seg_dq_launches`, `seg_dkv_launches`.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .attention_lengths import LSE_PAD, _check_cuda, _stream, _strides, \
+    _wants_grad
+
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+SEG_HEAD_DIMS = (64, 80, 128)   # MiniCPM LM, Qwen vision tower, Qwen text
+SOURCE = "visrag_tpu_torch/csrc/attention_segment.cu"
+
+seg_fwd_launches = 0    # K4 forward, by segment_fwd
+seg_dq_launches = 0     # K4 dq, by segment_bwd_dq
+seg_dkv_launches = 0    # K4 dk/dv, by segment_bwd_dkv
+
+
+def reset_launch_counts() -> None:
+    global seg_fwd_launches, seg_dq_launches, seg_dkv_launches
+    seg_fwd_launches = seg_dq_launches = seg_dkv_launches = 0
+
+
+def launch_counts() -> dict:
+    return {"seg_fwd": seg_fwd_launches, "seg_dq": seg_dq_launches,
+            "seg_dkv": seg_dkv_launches}
 
 
 def _group(q, kvh):
@@ -26,30 +73,76 @@ def _group(q, kvh):
     return q.reshape(b, s, kvh, h // kvh, d)
 
 
+def _visible(q_seg, kv_seg, causal, r0=0, r1=None):
+    """(B, r1 - r0, Sk) bool for query rows [r0, r1): equal positive ids,
+    key index <= query index when causal."""
+    r1 = q_seg.shape[1] if r1 is None else r1
+    qs = q_seg[:, r0:r1, None]
+    allow = (qs == kv_seg[:, None, :]) & (qs > 0)
+    if causal:
+        sk = kv_seg.shape[1]
+        allow = allow & (torch.arange(r0, r1, device=q_seg.device)[:, None]
+                         >= torch.arange(sk, device=q_seg.device)[None, :])
+    return allow
+
+
 def segment_attention_reference(q, k, v, q_seg=None, kv_seg=None, *,
-                                causal=False, sm_scale=None):
-    """q (B, Sq, H, D), k/v (B, Sk, H_kv, D); a pair attends iff the ids are
-    equal (and, when causal, key <= query). Rows that see no key are zeros.
-    fp32 math, → q's dtype."""
+                                causal=False, sm_scale=None,
+                                rows: int = 1024):
+    """Plain PyTorch version of K4's forward: q (B, Sq, H, D), k/v (B, Sk,
+    H_kv, D); a pair attends iff the ids are equal and positive (and, when
+    causal, key <= query). Rows that see no key are zeros. fp32 math, → q's
+    dtype. Queries go `rows` at a time, so the score buffer stays (B, H,
+    rows, Sk). Differentiable: autograd through it is the plain backward."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = d ** -0.5
-    if q_seg is None:
-        q_seg = torch.ones((b, sq), dtype=torch.int32, device=q.device)
-    if kv_seg is None:
-        kv_seg = torch.ones((b, sk), dtype=torch.int32, device=q.device)
-    allow = q_seg[:, :, None] == kv_seg[:, None, :]
-    if causal:
-        allow = allow & (torch.arange(sq, device=q.device)[:, None]
-                         >= torch.arange(sk, device=q.device)[None, :])
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", _group(q.float(), kvh),
-                          k.float()) * sm_scale
-    scores = scores.masked_fill(~allow[:, None, None], MASK_VALUE)
-    p = torch.softmax(scores, dim=-1)
-    p = p * allow.any(-1)[:, None, None, :, None]
-    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
-    return o.reshape(b, sq, h, d).to(q.dtype)
+    q_seg = _ids(q_seg, b, sq, q.device)
+    kv_seg = _ids(kv_seg, b, sk, q.device)
+    kf, vf = k.float(), v.float()
+    out = []
+    for r0 in range(0, sq, rows):
+        allow = _visible(q_seg, kv_seg, causal, r0, min(r0 + rows, sq))
+        scores = torch.einsum("bqgrd,bkgd->bgrqk",
+                              _group(q[:, r0:r0 + rows].float(), kvh),
+                              kf) * sm_scale
+        scores = scores.masked_fill(~allow[:, None, None], MASK_VALUE)
+        p = torch.softmax(scores, dim=-1)
+        p = p * allow.any(-1)[:, None, None, :, None]
+        out.append(torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
+                   .reshape(b, -1, h, d))
+    return torch.cat(out, dim=1).to(q.dtype)
+
+
+def segment_backward_reference(q, k, v, do, q_seg, kv_seg, causal: bool,
+                               sm_scale: float, rows: int = 1024):
+    """Plain PyTorch version of K4's backward, written out (the formulas of
+    the kernels' header, fp32, `rows` queries at a time) so that a long row
+    never holds a (Sq, Sk) plane per head: → (dq, dk, dv) fp32. Equal to
+    autograd through `segment_attention_reference`."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for r0 in range(0, sq, rows):
+        r1 = min(r0 + rows, sq)
+        allow = _visible(q_seg, kv_seg, causal, r0, r1)[:, None, None]
+        qg = _group(q[:, r0:r1].float(), kvh)               # (B,q,g,r,D)
+        dog = _group(do[:, r0:r1].float(), kvh)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * sm_scale
+        s = s.masked_fill(~allow, float("-inf"))
+        p = torch.softmax(s, dim=-1).nan_to_num(0.0)        # no key: zeros
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
+        delta = (o * dog).sum(-1).permute(0, 2, 3, 1)       # (B,g,r,q)
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
+        ds = p * (dp - delta[..., None])
+        dq[:, r0:r1] = (torch.einsum("bgrqk,bkgd->bqgrd", ds, kf)
+                        * sm_scale).reshape(b, r1 - r0, h, d)
+        dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * sm_scale
+        dv += torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+    return dq, dk, dv
 
 
 def chunk_attention(q, k_all, v_all, start, *, sm_scale=None,
@@ -87,3 +180,203 @@ def chunk_attention(q, k_all, v_all, start, *, sm_scale=None,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,g,r,C,D)
     return o.permute(0, 3, 1, 2, 4).reshape(b, cq, h, d).to(q.dtype)
+
+
+def segment_lse_reference(q, k, q_seg, kv_seg, causal: bool, sm_scale: float):
+    """Plain version of K4's LSE: (B, H, Sq) fp32 natural-log log-sum-exp of
+    each row's visible scores; LSE_PAD for a row that sees no key."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    allow = _visible(q_seg, kv_seg, causal)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", _group(q.float(), kvh),
+                          k.float()).reshape(b, h, sq, -1) * sm_scale
+    scores = scores.masked_fill(~allow[:, None], float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)
+    return torch.where(allow.any(-1)[:, None], lse,
+                       torch.full_like(lse, LSE_PAD))
+
+
+def _check_segment(q, k, v, q_seg, kv_seg):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q (B, Sq, H, D) and k/v (B, Sk, H_kv, D) with H_kv "
+                         f"dividing H expected, got {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    b, sq = q.shape[:2]
+    if tuple(q_seg.shape) != (b, sq) or tuple(kv_seg.shape) != (b, k.shape[1]):
+        raise ValueError(f"segment ids {tuple(q_seg.shape)} / "
+                         f"{tuple(kv_seg.shape)} do not match q "
+                         f"{tuple(q.shape)} and k {tuple(k.shape)}")
+
+
+def _launch_segment(entry, q, k, v, q_seg, kv_seg, causal, sm_scale, *,
+                    o=None, do=None, dq=None, dk=None, dv=None, lse=None,
+                    delta=None):
+    """One K4 entry point. The tensors a kernel does not use stay None; the
+    strides of the ones it does are (batch, row, head) in elements. Raises
+    unless the kernel launched."""
+    from ._build import load_library
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if d not in SEG_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not compiled into the segment kernels "
+                         f"(have {SEG_HEAD_DIMS})")
+    bf16 = {"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq, "dk": dk,
+            "dv": dv}
+    for name, t in bf16.items():
+        if t is not None:
+            _check_cuda(name, t)
+    for name, t, shape in (("q_seg", q_seg, (b, sq)),
+                           ("kv_seg", kv_seg, (b, sk))):
+        if t.device != q.device or t.dtype != torch.int32 \
+                or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a contiguous {shape} int32 "
+                             f"tensor on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != (b, h, sq)
+                              or not t.is_contiguous()
+                              or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous fp32 {(b, h, sq)} "
+                             f"on {q.device}")
+    nq, nk = -(-sq // 64), -(-sk // 64)
+    ranges = torch.empty((2 * b * (nq + nk),), dtype=torch.int32,
+                         device=q.device)
+    order = (q, k, v, o, do, dq, dk, dv)
+    ptrs = (ctypes.c_void_p * 13)(*(
+        None if t is None else t.data_ptr()
+        for t in (*order, lse, delta, q_seg, kv_seg, ranges)))
+    strides = (ctypes.c_longlong * 24)(*(
+        x for t in order
+        for x in ((0, 0, 0) if t is None else _strides(t))))
+    dims = (ctypes.c_int * 7)(b, sq, sk, h, kvh, d, int(causal))
+    fn = getattr(load_library("attention_segment"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_float, ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        rc = fn(ctypes.cast(ptrs, ctypes.c_void_p),
+                ctypes.cast(dims, ctypes.c_void_p),
+                ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
+                _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"attention_segment ({entry}) launch failed: CUDA "
+                           f"error {rc}")
+
+
+def segment_fwd(q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float, o,
+                lse=None):
+    """K4 forward on (B, S, H, D) views (any strides with a contiguous head
+    dim) into `o`, and the LSE (B, H, Sq) fp32 into `lse` if given. CUDA
+    only."""
+    global seg_fwd_launches
+    _launch_segment("visrag_segment_attention_fwd", q, k, v, q_seg, kv_seg,
+                    causal, sm_scale, o=o, lse=lse)
+    seg_fwd_launches += 1
+    return o
+
+
+def segment_bwd_dq(q, k, v, o, do, lse, delta, q_seg, kv_seg, causal: bool,
+                   sm_scale: float, dq):
+    """K4's dq kernel: writes dq and delta (B, H, Sq) fp32 = rowsum(o*do),
+    which segment_bwd_dkv reads. CUDA only."""
+    global seg_dq_launches
+    _launch_segment("visrag_segment_attention_bwd_dq", q, k, v, q_seg, kv_seg,
+                    causal, sm_scale, o=o, do=do, dq=dq, lse=lse, delta=delta)
+    seg_dq_launches += 1
+    return dq
+
+
+def segment_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal: bool,
+                    sm_scale: float, dk, dv):
+    """K4's dk/dv kernel (dk, dv shaped like k: one block sums each kv head's
+    group of query heads); run after segment_bwd_dq on the same stream (it
+    reads the delta that one writes). CUDA only."""
+    global seg_dkv_launches
+    _launch_segment("visrag_segment_attention_bwd_dkv", q, k, v, q_seg,
+                    kv_seg, causal, sm_scale, do=do, dk=dk, dv=dv, lse=lse,
+                    delta=delta)
+    seg_dkv_launches += 1
+    return dk, dv
+
+
+def segment_backward(q, k, v, o, do, lse, q_seg, kv_seg, causal, sm_scale):
+    """dq, dk, dv of segment attention from the forward's o and LSE, through
+    K4's two backward kernels. Also the backward of the banded kernel K3
+    (ops/attention_kvgrid.py), which is the same function on sorted ids."""
+    b, sq, h, d = q.shape
+    do = do.contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk, dv = torch.empty_like(k, memory_format=torch.contiguous_format), \
+        torch.empty_like(v, memory_format=torch.contiguous_format)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    segment_bwd_dq(q, k, v, o, do, lse, delta, q_seg, kv_seg, causal,
+                   sm_scale, dq)
+    segment_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, sm_scale,
+                    dk, dv)
+    return dq, dk, dv
+
+
+class _SegmentAttention(torch.autograd.Function):
+    """q (B, Sq, H, D), k/v (B, Sk, H_kv, D) → o: K4 forward with the LSE,
+    backward dq then dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, sm_scale):
+        b, sq, h, d = q.shape
+        o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        segment_fwd(q, k, v, q_seg, kv_seg, causal, sm_scale, o, lse)
+        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
+        dq, dk, dv = segment_backward(q, k, v, o, do, lse, q_seg, kv_seg,
+                                      ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def _ids(seg, b, s, device):
+    if seg is None:
+        return torch.ones((b, s), dtype=torch.int32, device=device)
+    return seg.to(device=device, dtype=torch.int32).contiguous()
+
+
+def flash_attention(q, k, v, q_seg=None, kv_seg=None, *, lengths=None,
+                    causal=False, sm_scale=None):
+    """Flash attention in the (B, S, H, D) layout with grouped kv heads and
+    two masking modes, as the JAX function of the same name:
+
+      lengths (B,) int — contiguous right-padding, Sq == Sk: the
+        valid-length kernels (K1, and K2 for the gradient);
+      q_seg / kv_seg (B, S) int — segment ids of packed rows: K4 (None: one
+        segment). See the module docstring for the contract on ids <= 0.
+    """
+    b, sq, h, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if lengths is not None:
+        if q_seg is not None or kv_seg is not None or k.shape[1] != sq:
+            raise ValueError("lengths excludes segment ids and needs "
+                             "Sq == Sk")
+        from .attention_lengths import flash_fwd_lengths
+        return flash_fwd_lengths(
+            q, k, v, lengths.to(device=q.device, dtype=torch.int32), causal,
+            sm_scale)
+    q_seg = _ids(q_seg, b, sq, q.device)
+    kv_seg = _ids(kv_seg, b, k.shape[1], q.device)
+    _check_segment(q, k, v, q_seg, kv_seg)
+    if q.device.type == "cpu":
+        return segment_attention_reference(q, k, v, q_seg, kv_seg,
+                                           causal=causal, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if _wants_grad(q, k, v):
+        return _SegmentAttention.apply(q, k, v, q_seg, kv_seg, causal,
+                                       sm_scale)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    return segment_fwd(q, k, v, q_seg, kv_seg, causal, sm_scale, o)

@@ -15,9 +15,13 @@ are exact zeros. Unlike the JAX wrapper, no `max_seg_len` is taken: the band
 is exact, so nothing can be cut.
 
 A CPU tensor takes `flash_attention_kvgrid_reference`, the plain PyTorch
-version; a CUDA tensor launches the kernel or raises. The kernel has no
-backward (the vision tower is frozen wherever the port runs it). Launch
-counter: `launches`.
+version, and autograd through it is the plain backward; a CUDA tensor
+launches the kernel or raises. When a gradient is wanted the kernel also
+writes the log-sum-exp (a template flag) and the backward replays the
+segment kernels' dq and dk/dv (ops/attention.py, K4) with q_seg = kv_seg =
+seg, non-causal, as the JAX package's VJP of the banded kernel does: sorted
+ids are one case of arbitrary ids, and K4's tile skipping finds the band.
+Launch counters: `launches` (without the LSE) and `lse_launches` (with it).
 """
 
 from __future__ import annotations
@@ -27,17 +31,18 @@ import ctypes
 import torch
 
 from .attention_lengths import LOG2E, _check_cuda, _repeat_kv, _stream, \
-    _strides
+    _strides, _wants_grad
 
 KERNEL_HEAD_DIM = 80      # every Qwen2.5-VL vision tower: 1280 / 16
 SOURCE = "visrag_tpu_torch/csrc/attention_kvgrid.cu"
 
-launches = 0
+launches = 0        # K3 without the LSE
+lse_launches = 0    # K3 with the LSE (a gradient is wanted)
 
 
 def reset_launch_counts() -> None:
-    global launches
-    launches = 0
+    global launches, lse_launches
+    launches = lse_launches = 0
 
 
 def band_bounds(seg, block: int = 64):
@@ -68,7 +73,8 @@ def flash_attention_kvgrid_reference(q, k, v, seg, sm_scale=None,
     """Plain PyTorch version: fp32 scores and softmax over the keys of the
     row's own segment; rows with id <= 0 (or no key) are zeros. → (B, S, H,
     D) in q's dtype. Queries go `rows` at a time against every key, so the
-    score buffer stays (B, H, rows, S) at the vision tower's 18k patches."""
+    score buffer stays (B, H, rows, S) at the vision tower's 18k patches.
+    Differentiable: autograd through it is the plain backward."""
     b, s, h, d = q.shape
     if sm_scale is None:
         sm_scale = d ** -0.5
@@ -88,7 +94,7 @@ def flash_attention_kvgrid_reference(q, k, v, seg, sm_scale=None,
     return torch.cat(out, dim=1).to(q.dtype)
 
 
-def _launch(q, k, v, seg, sm_scale):
+def _launch(q, k, v, seg, sm_scale, lse=None):
     from ._build import load_library
     b, s, h, d = q.shape
     if d != KERNEL_HEAD_DIM:
@@ -103,17 +109,47 @@ def _launch(q, k, v, seg, sm_scale):
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     fn = load_library("attention_kvgrid").visrag_kvgrid_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    if lse is not None and (lse.dtype != torch.float32
+                            or tuple(lse.shape) != (b, h, s)
+                            or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError(f"lse must be contiguous fp32 {(b, h, s)} on "
+                         f"{q.device}")
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12 + [ctypes.c_float,
                                                   ctypes.c_void_p])
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                seg.data_ptr(), b, s, h, k.shape[2], d,
+                None if lse is None else lse.data_ptr(), seg.data_ptr(),
+                b, s, h, k.shape[2], d,
                 *_strides(q, k, v, o), float(sm_scale * LOG2E), _stream(q))
     if rc != 0:
         raise RuntimeError(f"attention_kvgrid kernel launch failed: CUDA "
                            f"error {rc}")
     return o
+
+
+class _BandedAttention(torch.autograd.Function):
+    """K3 with the LSE; backward K4's dq then dk/dv on the same ids."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, sm_scale):
+        global lse_launches
+        b, s, h, d = q.shape
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        o = _launch(q, k, v, seg, sm_scale, lse)
+        lse_launches += 1
+        ctx.save_for_backward(q, k, v, o, lse, seg)
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from .attention import segment_backward
+        q, k, v, o, lse, seg = ctx.saved_tensors
+        dq, dk, dv = segment_backward(q, k, v, o, do, lse, seg, seg, False,
+                                      ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_kvgrid(q, k, v, seg, *, sm_scale=None):
@@ -135,6 +171,8 @@ def flash_attention_kvgrid(q, k, v, seg, *, sm_scale=None):
         return flash_attention_kvgrid_reference(q, k, v, seg, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if _wants_grad(q, k, v):
+        return _BandedAttention.apply(q, k, v, seg, sm_scale)
     o = _launch(q, k, v, seg, sm_scale)
     launches += 1
     return o

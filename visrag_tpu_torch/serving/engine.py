@@ -22,6 +22,8 @@ Differences from the JAX engine:
   * random draws come from a `torch.Generator` (greedy requests draw none);
   * `_prefill_many` inserts only the cacheable span of each prompt into
     the prefix cache (the JAX engine inserts the whole ids);
+  * `set_params` takes the module (updated in place by the optimizer) and
+    clears the prefix cache; there is no resharding at one card;
   * not ported: tensor parallelism (`mesh`), int8 KV pools, beam search.
 """
 
@@ -190,6 +192,16 @@ class Engine:
         self.k_cache = torch.zeros(self._pool_shape, dtype=torch.bfloat16,
                                    device=self.device)
         self.v_cache = torch.zeros_like(self.k_cache)
+
+    def set_params(self, model) -> None:
+        """Hand the engine the policy after a weight update (the RL
+        trainer → rollout handoff). The optimizer updates the module's
+        tensors in place, so the reference is usually the one the engine
+        already holds; what has to happen is that the prefix cache goes:
+        its KV was computed with the old weights, and serving it would
+        silently corrupt generations."""
+        self._clear_prefix_cache()
+        self.model = model
 
     def _clear_prefix_cache(self) -> None:
         if self._prefix_cache:

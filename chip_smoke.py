@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU: VisRAG-Ret page
-embedding → retrieval, retriever training, EVisRAG serving, and one
-RS-GRPO training step.
+embedding → retrieval (bf16 and int8), retriever training, EVisRAG serving
+(bf16 and int8 KV pools), and one RS-GRPO training step.
 
     python3 chip_smoke.py
 
@@ -23,6 +23,15 @@ is non-zero; no phase catches an error and carries on):
      evaluate_run; checks finite unit-norm embeddings, self-retrieval at
      rank 1, and that every encode batch launched K1 26 (ViT) + 40 (LM)
      times;
+ 3b. the int8 encode: K6 (the w8a8 GEMM) against its plain version (exact
+     int32 product, every bf16 output within one bf16 ulp) at the four
+     GEMM shapes of the page batch (ViT qkv and fc1, 126,208 rows; LM
+     q/k/v/o and gate/up, 11,264 rows), timed beside the plain version and
+     torch._int_mm + scaling; then VisRAG-Ret with quant="int8" in the ViT
+     and the LM on phase 3's weights through encode_dataset: 292 K6
+     launches per batch, per-page cosine to phase 3's bf16 embeddings
+     (>= 0.99), the query top-10 overlap, pages/s beside bf16 in turns and
+     peak memory;
   4. K1 with the LSE and K2 (dq; dk/dv) against the plain version's forward
      and autograd on the card, at the shapes the training step gives them:
      ViT flat at the training micro-batch's pages (4 pages = 40 slice slots
@@ -80,6 +89,14 @@ is non-zero; no phase catches an error and carries on):
      and after a chunked prefill; prints the vision tower's ms per request,
      time to first token, prefill tokens/s, decode ms/step, output
      tokens/s and peak memory;
+ 7b. K5's int8 variant against its plain version (0.0035 relative) at the
+     decode shape and at lengths 1, 127, 128, 129 with a null-block table
+     tail, timed beside K5 on bf16 pools; then the same six requests
+     through build_engine(cache_dtype="int8") on the same 7B weights:
+     complete outputs, K5 int8 28 per decode step, output tokens/s, ms per
+     decode step, peak memory, pool bytes against bf16, and decode logits
+     over int8 pools against phase 7's over bf16 pools at the same steps
+     (0.1 relative);
   8. the 7B model freed, four RL prompts written as a jsonl (two with 3
      page images, two text-only) and encoded by the RL driver's
      encode_qwen_prompt_row; then K4 (segment-id attention: forward with
@@ -95,7 +112,10 @@ is non-zero; no phase catches an error and carries on):
      pad rows and keys; timed beside the plain version and SDPA (its causal
      flag for one segment, a boolean block-diagonal mask for packed rows,
      enable_gqa; forward, and backward alone), with the bound from the
-     visible pairs;
+     visible pairs; then K1 with the LSE and K2 at d = 128 with grouped kv
+     heads (16/2 and 28/4, causal) at the padded update's micro-batch and
+     at lengths 1, 63, 64, 65 and full, against the plain forward and
+     autograd (2e-2 relative), timed beside SDPA with enable_gqa;
   9. Qwen2.5-VL-3B at full width on random weights from seed 0, whole-block
      remat, a frozen copy as the reference policy (in-loss KL 0.01), through
      rl_main's build_trainer and run_training: two RS-GRPO steps of 4
@@ -114,13 +134,15 @@ is non-zero; no phase catches an error and carries on):
      one packed micro-batch's loss against the padded forward's (K1, no
      gradient), and its loss and parameter gradients through 2 layers at
      full width with the kernels against the plain versions (5e-2 relative),
-     and that the padded update with gradients raises (the valid-length
-     backward does not take d = 128 with grouped kv heads yet); prints each step's time split from the trainer's Timers, tokens/s and
+     and the same for the padded update of those sequences (K1 with the
+     LSE, K2 at d = 128 with grouped kv heads, one launch each per layer);
+     prints each step's time split from the trainer's Timers, tokens/s and
      peak memory.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq,
-K2 dk/dv, K1 stacked GQA, K3, K5, K4 forward, K4 dq, K4 dk/dv: launches on
+K2 dk/dv, K1 stacked GQA, K3, K5, K6, K5 int8, K4 forward, K4 dq, K4 dk/dv,
+K1 + LSE, K2 dq and K2 dk/dv at d = 128 with grouped kv heads: launches on
 its main path, ms, plain_ms,
 library_ms, bound_ms, max_abs_err; every checked shape under "checks"),
 and {"ok": true, "device": {...}}.
@@ -203,18 +225,18 @@ def _bound(flops, nbytes):
 def attention_bound(kind, lens, s, h, d, causal, kv_heads=None):
     """Least time for one kernel's work on this run's lengths: `kind` fwd
     (QK^T, PV), fwd_lse, dq (S, dP, dQ) or dkv (S, dP, dV, dK); inputs
-    counted on valid rows (K/V of the forward at kv_heads heads when those
-    are shared), every output row written once."""
+    counted on valid rows (K/V and their gradients at kv_heads heads when
+    those are shared), every output row written once."""
     pairs, valid_rows = _pairs(lens, causal), sum(lens)
-    b = len(lens)
+    b, hk = len(lens), kv_heads or h
     row_in, row_out = valid_rows * h * d * 2, b * s * h * d * 2
-    kv_in = valid_rows * (kv_heads or h) * d * 2
+    kv_in, kv_out = valid_rows * hk * d * 2, b * s * hk * d * 2
     stat_in, stat_out = valid_rows * h * 4, b * h * s * 4
     matmuls, nbytes = {
         "fwd": (2, row_in + 2 * kv_in + row_out),
-        "fwd_lse": (2, 3 * row_in + row_out + stat_out),
-        "dq": (3, 5 * row_in + stat_in + row_out + stat_out),
-        "dkv": (4, 4 * row_in + 2 * stat_in + 2 * row_out),
+        "fwd_lse": (2, row_in + 2 * kv_in + row_out + stat_out),
+        "dq": (3, 3 * row_in + 2 * kv_in + stat_in + row_out + stat_out),
+        "dkv": (4, 2 * row_in + 2 * kv_in + 2 * stat_in + 2 * kv_out),
     }[kind]
     return _bound(matmuls * 2 * pairs * h * d, nbytes)
 
@@ -550,7 +572,174 @@ def phase3_slice(setup):
         f"{json.dumps(metrics)}")
     log(f"[3] steady state: {reps_ms:.1f} ms per {N_PAGES}-page batch = "
         f"{pages_s:.2f} pages/s | peak memory {peak_gb:.2f} GB | {smi()}")
+    setup["reps"] = (page_reps, query_reps)
     return launches
+
+
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
+INT8_REPLACES = "visrag_tpu/ops/matmul_int8.py:34"
+
+
+def int8_gemm_bound(m, k, n):
+    """Least time of one K6 call: 2MKN int8 operations over the int8 peak,
+    or the bytes (xq, wq, the fp32 scales and bias read once, the bf16
+    output written once) over the memory rate."""
+    t_ops = 2 * m * k * n / PEAK_INT8_OPS
+    t_bytes = (m * k + n * k + 4 * m + 8 * n + 2 * m * n) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _check_int8_gemm(gen, label, m, k, n, bias):
+    """K6 against its plain version at one shape (bf16 unit-normal
+    activations and 0.03-scaled weights, quantized as the model does): the
+    int32 product is exact on both sides, so every bf16 output must lie
+    within one bf16 rounding of the plain value; then kernel, plain and
+    torch._int_mm + scaling times and the bound."""
+    from visrag_tpu_torch.ops import matmul_int8 as mi
+    from visrag_tpu_torch.ops import quant
+    x = torch.randn(m, k, generator=gen, device=DEV).bfloat16()
+    w = (torch.randn(n, k, generator=gen, device=DEV) * 0.03).bfloat16()
+    b = torch.randn(n, generator=gen, device=DEV) if bias else None
+    xq, xs = quant.quant_rowwise(x)
+    wq, ws = quant.quant_weight_colwise(w.t())
+    wq = wq.t().contiguous()
+    xs = xs[:, 0].contiguous()
+    kern = lambda: mi.int8_matmul_fused(xq, xs, wq, ws, b)
+    plain = lambda: mi.int8_matmul_reference(xq, xs, wq, ws, b)
+
+    def library():
+        y = torch._int_mm(xq, wq.t()).float() * xs[:, None] * ws[None, :]
+        return (y if b is None else y + b[None, :]).to(torch.bfloat16)
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    ulp = ref.float().abs() * 2 ** -7          # one bf16 ulp, at most
+    ok = bool((diff <= ulp).all()) and bool(torch.isfinite(out.float()).all())
+    max_abs = diff.max().item()
+    exact = int((diff == 0).sum())
+    del out, ref, diff, ulp
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain, reps=3)
+    lib_ms = cuda_ms(library)
+    bound = int8_gemm_bound(m, k, n)
+    log(f"[3b] K6 {label} {m} x {k} -> {n}: max_abs_err {max_abs:.4g}, "
+        f"{exact} of {m * n} outputs bit-equal, all within one bf16 ulp "
+        f"{ok} | kernel {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} TOP/s), "
+        f"plain {plain_ms:.4f} ms, torch._int_mm + scaling {lib_ms:.4f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]}) (CUDA events) | {smi()}")
+    if not ok:
+        raise RuntimeError(f"K6 {label}: kernel disagrees with its plain "
+                           f"version by more than one bf16 ulp")
+    return {"shape": f"{label} {m} x {k} -> {n}", "max_abs_err": max_abs,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def phase3b_int8_encode(gen, setup):
+    """K6 at the int8 encode's four GEMM shapes, then the full-width encode
+    with quant="int8" in the ViT and the LM on phase 3's weights: the same
+    page and query batches through encode_dataset, 292 K6 launches per
+    batch, per-page cosine against phase 3's bf16 embeddings, the top-10
+    overlap of the query rankings, pages/s beside bf16 and peak memory.
+    → (K6 check records, launch counts of the encode)."""
+    import numpy as np
+
+    from visrag_tpu_torch.models.visrag_ret import VisRAGRet
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import matmul_int8 as mi
+    from visrag_tpu_torch.preprocess.device import (finish_encode_batch,
+                                                    pos_table_tensor)
+    from visrag_tpu_torch.retrieval.encode import encode_dataset
+    from visrag_tpu_torch.retrieval.search import StreamingSearcher
+
+    model = setup["model"]
+    bb = model.cfg.backbone
+    raw_pages = setup["batches"]["pages"]
+    raw_queries = setup["batches"]["queries"]
+    m_vit = raw_pages["patch_mask"].size
+    m_lm = raw_pages["input_ids"].size
+    e, hid = bb.vit.embed_dim, bb.llm.hidden_size
+    checks = []
+    for label, m, k, n, bias in (
+            ("ViT qkv", m_vit, e, 3 * e, True),
+            ("ViT fc1", m_vit, e, bb.vit.mlp_dim, True),
+            ("LM q/k/v/o", m_lm, hid, hid, False),
+            ("LM gate/up", m_lm, hid, bb.llm.intermediate_size, False)):
+        checks.append(_check_int8_gemm(gen, label, m, k, n, bias))
+        torch.cuda.empty_cache()
+
+    # inference only: the int8 configs refuse remat, which the driver's
+    # ModelConfig turns on for training
+    cfg = dataclasses.replace(model.cfg, backbone=dataclasses.replace(
+        bb, vit=dataclasses.replace(bb.vit, quant="int8", remat=False),
+        llm=dataclasses.replace(bb.llm, quant="int8", remat=False)))
+    with torch.device("meta"):
+        qmodel = VisRAGRet(cfg)
+    qmodel = qmodel.to_empty(device=DEV)
+    qmodel.load_state_dict(model.state_dict())
+    qmodel.eval()
+    table = pos_table_tensor(setup["pcfg"].src_grid, DEV)
+
+    def stepper(m):
+        @torch.inference_mode()
+        def step(**raw):
+            return m(finish_encode_batch(raw, table))
+        return step
+    step, bstep = stepper(qmodel), stepper(model)
+    step(**raw_pages)                     # warm-up (codes built, not counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    al.reset_launch_counts()
+    mi.reset_launch_counts()
+    page_ids = [f"p{i}" for i in range(N_PAGES)]
+    query_ids = [f"q{i}" for i in range(N_QUERIES)]
+    t0 = time.perf_counter()
+    _, page_reps = encode_dataset(step, [(page_ids, raw_pages)])
+    _, query_reps = encode_dataset(step, [(query_ids, raw_queries)])
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {**al.launch_counts(), "int8_gemm": mi.launches}
+    per_batch = 2 * bb.vit.depth + 6 * bb.llm.num_hidden_layers
+    want = {"flat": 2 * bb.vit.depth, "stacked": 2 * bb.llm.num_hidden_layers,
+            "fwd_lse": 0, "dq": 0, "dkv": 0, "int8_gemm": 2 * per_batch}
+    if launches != want:
+        raise RuntimeError(f"int8 encode launches {launches} != {want}")
+    bf_pages, bf_queries = setup["reps"]
+    if page_reps.shape != bf_pages.shape or not np.isfinite(page_reps).all() \
+            or not np.isfinite(query_reps).all():
+        raise RuntimeError("int8 embeddings: wrong shape or not finite")
+    cos_p = (page_reps * bf_pages).sum(1)
+    cos_q = (query_reps * bf_queries).sum(1)
+    searcher = StreamingSearcher(k=10, device="cuda")
+    _, i8 = searcher.search(query_reps, [(page_reps, 0)])
+    _, ibf = searcher.search(bf_queries, [(bf_pages, 0)])
+    overlap = [len(set(a) & set(b)) / 10 for a, b in zip(i8, ibf)]
+    # steady state, bf16 and int8 in turns on the same batch
+    times = {"bf16": [], "int8": []}
+    for name, fn in (("bf16", bstep), ("int8", step), ("int8", step),
+                     ("bf16", bstep)):
+        times[name].append(cuda_ms(lambda: fn(**raw_pages), reps=3))
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    log(f"[3b] VisRAG-Ret full width, quant=int8 (ViT qkv + fc1, LM q/k/v/o "
+        f"+ gate/up through K6), phase 3's weights: encode_dataset pages + "
+        f"queries {e2e_s:.2f} s | launches {launches} (= {per_batch} K6 per "
+        f"batch) | per-page cosine to bf16 min {cos_p.min():.5f} mean "
+        f"{cos_p.mean():.5f}, per-query min {cos_q.min():.5f} | query top-10 "
+        f"overlap with bf16 mean {statistics.mean(overlap):.3f} min "
+        f"{min(overlap):.1f} | steady state {ms['int8']:.1f} ms per "
+        f"{N_PAGES}-page batch = {N_PAGES / ms['int8'] * 1e3:.2f} pages/s "
+        f"(bf16 in the same turns {ms['bf16']:.1f} ms = "
+        f"{N_PAGES / ms['bf16'] * 1e3:.2f} pages/s) | peak memory "
+        f"{peak_gb:.2f} GB | {smi()}")
+    if cos_p.min() < 0.99:
+        raise RuntimeError(f"int8 page embeddings drift from bf16: cosine "
+                           f"{cos_p.min()}")
+    del qmodel, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return checks, launches
 
 
 def _rel(a, b):
@@ -596,8 +785,12 @@ def phase4_training_kernels(gen, setup):
 
 
 def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
-                            dev):
+                            dev, kv_heads=None, tag="[4]"):
+    """K1 + LSE, K2 dq and K2 dk/dv at one shape against the plain forward
+    and its autograd; kv_heads (stacked form): grouped kv heads, whose
+    gradients the kernel sums over each group. → {kind: record}."""
     b, scale = len(lens), d ** -0.5
+    hk = kv_heads or h
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     valid = torch.arange(s, device=dev)[None] < lens_t[:, None]   # (b, s)
     if form == "flat":
@@ -611,10 +804,11 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
         ref_in = x_ref.view(b, s, 3, h, d).unbind(2)
         ref_leaves = (x_ref,)
     else:
-        q, k, v = (torch.randn(b, s, h, d, generator=gen,
-                               device=dev).bfloat16() for _ in range(3))
+        q, k, v = (torch.randn(b, s, heads, d, generator=gen,
+                               device=dev).bfloat16()
+                   for heads in (h, hk, hk))
         o = torch.empty_like(q)
-        grads = tuple(torch.empty_like(q) for _ in range(3))
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
         ref_in = ref_leaves = tuple(t.clone().requires_grad_(True)
                                     for t in (q, k, v))
     do = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
@@ -633,6 +827,7 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
     torch.cuda.synchronize()
 
     vm = valid[:, None, :].expand(b, h, s)
+    torch.cuda.synchronize()
     errs = {"o": _rel(o[valid], o_ref[valid]) if valid.any() else 0.0,
             "lse_max_abs": (lse[vm] - lse_ref[vm]).abs().max().item()
             if valid.any() else 0.0}
@@ -669,16 +864,18 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
     mask = _sdpa_mask(lens_t, s, causal, dev)
     sq, sk, sv = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
+    gqa = hk != h
     t_sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-        sq, sk, sv, attn_mask=mask, scale=scale))
+        sq, sk, sv, attn_mask=mask, scale=scale, enable_gqa=gqa))
     o_sdpa = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
-                                            scale=scale)
+                                            scale=scale, enable_gqa=gqa)
     do_t = do.transpose(1, 2)
     t_sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
         o_sdpa, (sq, sk, sv), do_t, retain_graph=True))
     del o_sdpa
 
-    shape = (f"{label} B={b} S={s} H={h} d={d} lengths "
+    heads = f"{h}/{hk}" if gqa else f"{h}"
+    shape = (f"{label} B={b} S={s} H={heads} d={d} lengths "
              f"{min(lens)}-{max(lens)}")
     out = {}
     for kind, ms, plain_ms, lib_ms, err in (
@@ -687,7 +884,8 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
             ("dq", t_dq, t_plain_bwd, t_sdpa_bwd, errs["dq"]),
             ("dkv", t_dkv, t_plain_bwd, t_sdpa_bwd,
              max(errs["dk"], errs["dv"]))):
-        bound_ms, bound_by = attention_bound(kind, lens, s, h, d, causal)
+        bound_ms, bound_by = attention_bound(kind, lens, s, h, d, causal,
+                                             kv_heads=hk)
         out[kind] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by,
@@ -696,7 +894,7 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
                                      "dkv": max(max_abs["dk"],
                                                 max_abs["dv"])}[kind],
                      "rel_err": err}
-    log(f"[4] {shape}: rel_err o {errs['o']:.4g} dq {errs['dq']:.4g} dk "
+    log(f"{tag} {shape}: rel_err o {errs['o']:.4g} dq {errs['dq']:.4g} dk "
         f"{errs['dk']:.4g} dv {errs['dv']:.4g}, LSE max abs "
         f"{errs['lse_max_abs']:.4g} (bound {RTOL_TRAIN}); pad rows zero, "
         f"finite | ms: K1+LSE {t_fwd:.4f}, dq {t_dq:.4f}, dk/dv {t_dkv:.4f} "
@@ -1012,6 +1210,21 @@ def _timed_check(tag, label, kern, plain, lib, out, ref, rows, bound):
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
+def _decode_table(lens, perm, n_blocks, bs):
+    """The engine's decode table for these lengths: a power-of-two width
+    with room for a 16-step chunk, pool rows from `perm` (40 per slot), the
+    null block (the pool's last row) past each length. → (table, width)."""
+    mb = 1
+    while mb * bs < max(lens) + 17:
+        mb *= 2
+    table = torch.full((len(lens), mb), n_blocks - 1, dtype=torch.int32,
+                       device=DEV)
+    for i, n in enumerate(lens):
+        used = -(-n // bs)
+        table[i, :used] = perm[i * 40:i * 40 + used].int()
+    return table, mb
+
+
 def phase6_serving_kernels(gen, reqs, cfg):
     """K3, K1 (stacked causal, GQA 28/4, d = 128) and K5 against their plain
     versions on the card at the serving path's shapes and at edge cases;
@@ -1101,14 +1314,7 @@ def phase6_serving_kernels(gen, reqs, cfg):
             for n in ("pages3_0", "pages3_1", "pages3_2", "page1_small")]
     perm = torch.randperm(n_blocks - 1, device=DEV)
     for label, lens in (("decode", live), ("edge", [1, bs, bs + 1, 4000])):
-        mb = 1
-        while mb * bs < max(lens) + 17:
-            mb *= 2
-        table = torch.full((4, mb), n_blocks - 1, dtype=torch.int32,
-                           device=DEV)
-        for i, n in enumerate(lens):
-            used = -(-n // bs)
-            table[i, :used] = perm[i * 40:i * 40 + used].int()
+        table, mb = _decode_table(lens, perm, n_blocks, bs)
         lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
         q = torch.randn(4, h, d, generator=gen, device=DEV).bfloat16()
         kern = lambda: pk.paged_decode_attention(q, kp, vp, table, lens_t)
@@ -1209,14 +1415,17 @@ class _SyncTimer:
         setattr(engine, name, timed)
 
 
-def _decode_vs_full(model, req, chunked, chunk_tokens=2048, bs=128):
+def _decode_vs_full(model, req, chunked, chunk_tokens=2048, bs=128,
+                    int8=False, tokens=None):
     """Prefill one request into a fresh pool (whole through K1, or chunk by
-    chunk), take DECODE_CHECK_STEPS greedy decode steps over the pool (K5),
-    and compare each step's logits with a full causal pass over prompt +
-    generated tokens (K1) at the same positions. → max relative error."""
+    chunk), take DECODE_CHECK_STEPS greedy decode steps over the pool (K5;
+    its int8 variant over int8 pools), and compare each step's logits with
+    a full causal pass over prompt + generated tokens (K1) at the same
+    positions. `tokens` forces the decoded tokens (to hold two pools at the
+    same steps). → (relative errors, the logits of each step, tokens)."""
     import numpy as np
 
-    from visrag_tpu_torch.serving.paged_kv import write_prefill
+    from visrag_tpu_torch.serving.paged_kv import KVQuant, write_prefill
     cfg = model.cfg.text
     ids = np.asarray(req["input_ids"])
     s = len(ids)
@@ -1230,8 +1439,13 @@ def _decode_vs_full(model, req, chunked, chunk_tokens=2048, bs=128):
     n_blocks = grid // bs + 2
     shape = (cfg.num_hidden_layers, n_blocks, cfg.num_key_value_heads, bs,
              cfg.head_dim)
-    kc = torch.zeros(shape, dtype=torch.bfloat16, device=DEV)
-    vc = torch.zeros_like(kc)
+    if int8:
+        kc, vc = (KVQuant(torch.zeros(shape, dtype=torch.int8, device=DEV),
+                          torch.zeros(shape[:-1], device=DEV))
+                  for _ in range(2))
+    else:
+        kc = torch.zeros(shape, dtype=torch.bfloat16, device=DEV)
+        vc = torch.zeros_like(kc)
     table = torch.arange(n_blocks - 1, dtype=torch.int32,
                          device=DEV)[None].contiguous()
     ids_p = np.zeros((1, grid), np.int64)
@@ -1275,7 +1489,7 @@ def _decode_vs_full(model, req, chunked, chunk_tokens=2048, bs=128):
         toks = []
         cur = int(pos.max()) + 1
         for t in range(steps):
-            tok = int(dec[-1].argmax())
+            tok = int(dec[-1].argmax()) if tokens is None else tokens[t]
             toks.append(tok)
             lg = model.decode(
                 torch.tensor([[tok]], device=DEV),
@@ -1301,7 +1515,7 @@ def _decode_vs_full(model, req, chunked, chunk_tokens=2048, bs=128):
              / torch.linalg.norm(full[i])).item() for i in range(steps + 1)]
     del kc, vc
     torch.cuda.empty_cache()
-    return errs
+    return errs, dec, toks
 
 
 def phase7_serving(reqs, cfg):
@@ -1310,7 +1524,7 @@ def phase7_serving(reqs, cfg):
     as an n = 2 group) through it. Checks complete outputs without the
     image token, a schedule with prefills, chunk steps and decode chunks,
     the exact launch counts, and decode logits against the full forward.
-    → launch counts of the run."""
+    → (launch counts of the run, the model, the decode check's results)."""
     from visrag_tpu_torch.driver.common import build_qwen25_vl
     from visrag_tpu_torch.driver.evisrag_predict import (build_engine,
                                                          sampling_params)
@@ -1411,8 +1625,9 @@ def phase7_serving(reqs, cfg):
                 tower[name] = round(cuda_ms(lambda: model.encode_images(vb),
                                             reps=3), 2)
     by = {name: req for name, req, _ in reqs}
-    errs = {"whole": _decode_vs_full(model, by["page1_small"], False),
-            "chunked": _decode_vs_full(model, by["pages3_0"], True)}
+    dec_ref = {"whole": _decode_vs_full(model, by["page1_small"], False),
+               "chunked": _decode_vs_full(model, by["pages3_0"], True)}
+    errs = {k: v[0] for k, v in dec_ref.items()}
     log(f"[7] vision tower ms per request (median of 3) {tower} | decode "
         f"logits over the paged pool (K5) vs a full causal pass (K1) at the "
         f"same positions, relative error per step (first = prompt end): "
@@ -1422,10 +1637,172 @@ def phase7_serving(reqs, cfg):
     if max(max(v) for v in errs.values()) > RTOL_BLOCK:
         raise RuntimeError(f"decode logits disagree with the full forward: "
                            f"{errs}")
-    del engine, model
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, model, dec_ref
+
+
+RTOL_K5_INT8 = 3.5e-3     # K5 int8 vs its plain version (same arithmetic)
+RTOL_INT8_LOGITS = 0.1    # decode logits over int8 vs bf16 pools: K/V
+                          # rounded to 1/254 of each row's absmax, through
+                          # 28 layers of random weights (a sanity bound)
+
+
+def _k5_int8_checks(gen, reqs, cfg):
+    """K5's int8 variant against its plain version at the engine's decode
+    shape (the four live requests' final lengths, null blocks past each
+    length) and at lengths 1, 127, 128 and 129 (a table tail of null
+    blocks), timed beside K5 on bf16 pools holding the dequantized values.
+    → check records."""
+    from visrag_tpu_torch.serving import paged_kv as pk
+    tc = cfg.text
+    h, kvh, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    by = {name: req for name, req, _ in reqs}
+    bs, n_blocks = 128, 513
+    pools, bf16 = [], []
+    for _ in range(2):
+        pool = pk.KVQuant(torch.empty((n_blocks, kvh, bs, d),
+                                      dtype=torch.int8, device=DEV),
+                          torch.empty((n_blocks, kvh, bs), device=DEV))
+        pk.pool_write_rows(pool, torch.arange(n_blocks, device=DEV),
+                           torch.randn(n_blocks, kvh, bs, d, generator=gen,
+                                       device=DEV).bfloat16())
+        pools.append(pool)
+        bf16.append(pk.pool_gather(pool, torch.arange(n_blocks, device=DEV)))
+    live = [len(by[n]["input_ids"]) + SERVE_MAX_TOKENS
+            for n in ("pages3_0", "pages3_1", "pages3_2", "page1_small")]
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=DEV)
+    out_checks = []
+    for label, lens in (("decode", live), ("edge", [1, 127, 128, 129])):
+        table, mb = _decode_table(lens, perm, n_blocks, bs)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        q = torch.randn(4, h, d, generator=gen, device=DEV).bfloat16()
+        kern = lambda: pk.paged_decode_attention(q, *pools, table, lens_t)
+        plain = lambda: pk.paged_decode_reference(q, *pools, table, lens_t,
+                                                  d ** -0.5)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out.float()).all())
+        rel, max_abs = _rel(out, ref), (out.float() - ref.float()).abs() \
+            .max().item()
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        bf16_ms = cuda_ms(lambda: pk.paged_decode_attention(q, *bf16, table,
+                                                            lens_t))
+        tokens = sum(lens)
+        bound = _bound(2 * 2 * tokens * h * d,
+                       tokens * kvh * (d + 4) * 2 + 2 * 4 * h * d * 2
+                       + table.numel() * 4)
+        log(f"[7b] K5 int8 {label} slots=4 H={h}/{kvh} d={d} bs={bs} table "
+            f"width {mb} lengths {lens}: rel_err {rel:.4g} (bound "
+            f"{RTOL_K5_INT8}), max_abs_err {max_abs:.4g}, finite {finite} | "
+            f"kernel {ms:.4f} ms, K5 bf16 on the dequantized pools "
+            f"{bf16_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}) (CUDA events) | {smi()}")
+        if not finite or rel > RTOL_K5_INT8:
+            raise RuntimeError(f"K5 int8 {label}: kernel disagrees with its "
+                               f"plain version ({rel})")
+        out_checks.append({
+            "shape": f"{label} slots=4 H={h}/{kvh} d={d} lengths {lens}",
+            "max_abs_err": max_abs, "rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bf16_ms": bf16_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]})
+    del pools, bf16
+    torch.cuda.empty_cache()
+    return out_checks
+
+
+def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
+    """K5's int8 variant against its plain version, then phase 7's six
+    requests through the driver's engine with int8 KV pools on the same
+    7B weights: complete outputs, launch counts (K5 int8 28 per decode
+    step, no bf16 K5), output tokens/s, ms per decode step, peak memory,
+    pool bytes against bf16, and decode logits over int8 pools against
+    phase 7's over bf16 pools at the same steps. → (K5 int8 check records,
+    launch counts of the run)."""
+    from visrag_tpu_torch.driver.evisrag_predict import (build_engine,
+                                                         sampling_params)
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import matmul_int8 as mi
+    from visrag_tpu_torch.serving import paged_kv as pk
+    checks = _k5_int8_checks(gen, reqs, cfg)
+    tok = StandInTokenizer()
+    engine = build_engine(model, tok.eos_token_id, cache_dtype="int8")
+    engine.record_schedule = True
+    sp = sampling_params(tok, tok, 0.0, SERVE_MAX_TOKENS)
+    dec_timer = _SyncTimer(engine, "_decode_chunk")
+    for name, req, n in reqs:
+        engine.add_request(sampling=sp, n=n, **req)
+    requests = list(engine.queue)
+    counts = {}
+    undo = [_count_calls(engine, name, counts)
+            for name in ("_prefill_one", "_prefill_many")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (al, kg, pk, mi):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    for u in undo:
+        u()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
+                "paged": pk.launches, "paged_int8": pk.int8_launches,
+                "int8_gemm": mi.launches}
+    layers = cfg.text.num_hidden_layers
+    log_s = "".join(engine.sched_log)
+    steps = log_s.count("D") * engine.chunk
+    whole = counts.get("_prefill_one", 0) + counts.get("_prefill_many", 0)
+    vision_runs = sum(1 for _, req, _ in reqs if "vision_batch" in req)
+    want = {"stacked": layers * whole, "kvgrid": cfg.vision.depth * vision_runs,
+            "paged": 0, "paged_int8": layers * steps, "int8_gemm": 0}
+    if launches != want:
+        raise RuntimeError(f"int8 serving launches {launches} != {want}")
+    image_id = StandInTokenizer.SPECIAL["<|image_pad|>"]
+    for r in requests:
+        o = r.output_ids
+        if not r.done or not (len(o) == SERVE_MAX_TOKENS or
+                              (o and o[-1] == tok.eos_token_id)) \
+                or image_id in o:
+            raise RuntimeError(f"int8 serving: request {r.request_id} "
+                               f"incomplete or emitted the image token")
+    out_tokens = sum(len(r.output_ids) for r in requests)
+    pool_bytes = 2 * engine.k_cache.nbytes()
+    bf16_bytes = 2 * engine.k_cache.data.numel() * 2
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    by = {name: req for name, req, _ in reqs}
+    dist, errs = {}, {}
+    for kind, name, chunked in (("whole", "page1_small", False),
+                                ("chunked", "pages3_0", True)):
+        _, ref_logits, ref_toks = dec_ref[kind]
+        errs[kind], logits, _ = _decode_vs_full(model, by[name], chunked,
+                                                int8=True, tokens=ref_toks)
+        dist[kind] = [(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+                      .item() for a, b in zip(logits, ref_logits)]
+    log(f"[7b] Qwen2.5-VL-7B full width, int8 KV pools (build_engine "
+        f"cache_dtype=int8): {len(requests)} requests, {out_tokens} output "
+        f"tokens in {run_s:.2f} s = {out_tokens / run_s:.2f} output tokens/s "
+        f"| decode {dec_timer.calls} chunks x {steps // max(dec_timer.calls, 1)}"
+        f" steps, {dec_timer.seconds / max(steps, 1) * 1e3:.2f} ms/step | "
+        f"schedule {log_s} | launches {launches} (= {want}) | pool "
+        f"{pool_bytes / 1e9:.3f} GB (int8 data + fp32 scales) against "
+        f"{bf16_bytes / 1e9:.3f} GB bf16 | peak memory {peak_gb:.2f} GB | "
+        f"{smi()}")
+    log(f"[7b] decode logits over int8 pools vs over bf16 pools at the same "
+        f"steps (phase 7's tokens), relative error per step (first = prompt "
+        f"end): whole {[round(e, 5) for e in dist['whole']]}, chunked "
+        f"{[round(e, 5) for e in dist['chunked']]} (bound "
+        f"{RTOL_INT8_LOGITS}); vs a full causal pass: whole "
+        f"{[round(e, 5) for e in errs['whole']]}, chunked "
+        f"{[round(e, 5) for e in errs['chunked']]}")
+    if max(max(v) for v in dist.values()) > RTOL_INT8_LOGITS:
+        raise RuntimeError(f"int8-pool decode logits drift from bf16: {dist}")
+    return checks, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1521,7 +1898,9 @@ def _rl_rows(tmp):
 
 def _packed_ids(seqlens, budget):
     """Segment ids of the first packed micro-batch the trainer builds from
-    sequences of these lengths: its own grouping and packing functions."""
+    sequences of these lengths (its own grouping and packing functions),
+    the number of micro-batches, and the first group's lengths and row
+    width (the padded update's micro-batch: one row per sequence)."""
     import numpy as np
 
     from visrag_tpu_torch.rl.packing import pack_sequences
@@ -1530,7 +1909,8 @@ def _packed_ids(seqlens, budget):
     groups, _ = token_budget_micro_batches(seqlens, max(budget, width))
     packed, _ = pack_sequences([np.ones(seqlens[i], np.int32)
                                 for i in groups[0]], width)
-    return packed.segment_ids.astype(np.int32), len(groups)
+    return (packed.segment_ids.astype(np.int32), len(groups),
+            [int(seqlens[i]) for i in groups[0]], width)
 
 
 def _count_pairs(seg, qs, ks, causal):
@@ -1713,7 +2093,7 @@ def phase8_segment_kernels(gen, prompts, cfg):
     h, hk, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
     seqlens = [len(p["input_ids"]) + RL_RESPONSE_TOKENS
                for p in prompts for _ in range(4)]
-    ids, n_micro = _packed_ids(seqlens, 16384)
+    ids, n_micro, padded_lens, width = _packed_ids(seqlens, 16384)
     log(f"[8] the packed update of phase 9: {len(seqlens)} sequences of "
         f"{sorted(set(seqlens))} tokens → {n_micro} micro-batches; the first "
         f"packs {ids.shape[0]} rows x {ids.shape[1]} with ids "
@@ -1736,14 +2116,41 @@ def phase8_segment_kernels(gen, prompts, cfg):
     run("Sq != Sk", qid.astype(np.int32), kid[None].astype(np.int32), h, hk,
         d, True, timed=False)
     # K3's backward: the tower's window and image ids of a 3-page prompt
+    # (SDPA with a block mask, forward and backward, as the library time)
     vb = next(p["vision_batch"] for p in prompts if "vision_batch" in p)
     vc = cfg.vision
     for name in ("seg_window", "seg_full"):
         vid = np.asarray(vb[name], np.int32)[None]
         run(f"vision tower {name}, K3 forward + K4 backward", vid, vid,
             vc.num_heads, vc.num_heads, vc.head_dim, False, banded=True,
-            library=False, timed=name == "seg_window")
+            library=name == "seg_window", timed=name == "seg_window")
+    results["k2"] = _k2_gqa_checks(gen, padded_lens, width, h, hk, d)
     return results
+
+
+def _k2_gqa_checks(gen, lens, width, h, hk, d):
+    """K1 + LSE and K2 at d = 128 with grouped kv heads, causal, against
+    the plain forward and autograd (RTOL_TRAIN): the padded update's
+    micro-batch (its first four rows at the batch width), the 7B grouping
+    28/4 at two of its rows, and lengths 1, 63, 64, 65 and full at both
+    groupings. → {"fwd_lse": [...], "dq": [...], "dkv": [...]}, the padded
+    update's shape first."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    log(f"[8] the padded update's micro-batch: {len(lens)} rows x {width}, "
+        f"lengths {lens}")
+    edge = [1, 63, 64, 65, 256]
+    out = {"fwd_lse": [], "dq": [], "dkv": []}
+    for label, ls, s, heads, kvh in (
+            (f"padded update {h}/{hk}", lens[:4], width, h, hk),
+            ("padded update, 7B grouping 28/4", lens[:2], width, 28, 4),
+            (f"edges {h}/{hk}", edge, 256, h, hk),
+            ("edges 28/4", edge, 256, 28, 4)):
+        for kind, rec in _check_training_kernels(
+                al, f"K2 GQA {label}", "stacked", ls, s, heads, d, True, gen,
+                DEV, kv_heads=kvh, tag="[8]").items():
+            out[kind].append(rec)
+        torch.cuda.empty_cache()
+    return out
 
 
 def _count_calls(owner, name, counts):
@@ -1758,14 +2165,18 @@ def _count_calls(owner, name, counts):
 
 
 def _micro_check(trainer, stash, cfg):
-    """One packed micro-batch of the run, two ways. (a) Its loss through the
-    full model's packed forward (K4) against the same sequences' padded
+    """One packed micro-batch of the run, three ways. (a) Its loss through
+    the full model's packed forward (K4) against the same sequences' padded
     forward (K1), both without gradients. (b) Its loss and parameter
     gradients through a 2-layer model at full width with the kernels
-    against the same model with the plain versions, on the card."""
+    against the same model with the plain versions, on the card. (c) The
+    same for the padded update of those sequences (padding_free=False or a
+    raw vision batch): K1 with the LSE forward, K2 backward at d = 128 with
+    grouped kv heads. → the padded update's launch counts."""
     from visrag_tpu_torch.driver.common import build_qwen25_vl
     from visrag_tpu_torch.models import qwen25_vl as qmod
     from visrag_tpu_torch.ops import attention as seg
+    from visrag_tpu_torch.ops import attention_lengths as al
     from visrag_tpu_torch.rl.trainer import RLTrainer, _reindex
     micro, mini, group, total = stash["micro"], stash["mini"], \
         stash["group"], stash["total"]
@@ -1789,47 +2200,69 @@ def _micro_check(trainer, stash, cfg):
     model = build_qwen25_vl(small, device=DEV, seed=1)
     probe = RLTrainer(model, trainer.cfg, tokenizer_decode=lambda ids: "",
                       tag_token_ids={}, reward_manager=trainer.reward_manager)
-    out = {}
-    for which in ("kernels", "plain"):
-        if which == "plain":
-            qmod.flash_attention = \
-                lambda q, k, v, qs, ks, causal: \
-                seg.segment_attention_reference(q, k, v, qs, ks,
-                                                causal=causal)
-        try:
-            loss, _ = probe.micro_loss(micro, total, True)
-            loss.backward()
-        finally:
-            qmod.flash_attention = seg.flash_attention
-        out[which] = (loss.item(), [p.grad.float().clone()
-                                    for p in probe.train_params])
-        for p in probe.train_params:
-            p.grad = None
-    # the padded update needs the valid-length backward at d = 128 with
-    # grouped kv heads, which K2 does not take yet: it must say so
-    try:
-        probe.micro_loss(padded, total, False)
-    except ValueError as e:
-        if "no backward kernel" not in str(e):
-            raise
-        log(f"[9] the padded update with gradients raises on the card, as "
-            f"documented: {e}")
-    else:
-        raise RuntimeError("the padded update ran on the card without the "
-                           "d = 128 GQA backward kernel")
-    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
-    num = math.sqrt(sum(float(((x - y) ** 2).sum()) for x, y in zip(gk, gp)))
-    den = math.sqrt(sum(float((y ** 2).sum()) for y in gp))
-    log(f"[9] the same micro-batch through 2 layers at full width: loss "
-        f"{lk:.6f} (K4) vs {lp:.6f} (plain), parameter gradients rel_err "
-        f"{num / den:.4g} (bound {RTOL_GRADS}), norm {den:.4g}")
-    if abs(lk - lp) > RTOL_BLOCK * max(1.0, abs(lp)) or not den > 0 \
-            or num / den > RTOL_GRADS:
-        raise RuntimeError("micro-batch gradients through the kernels "
-                           "disagree with the plain versions")
+
+    def plain_lengths(q, k, v, lengths, causal, sm_scale):
+        # one row at a time, recomputed in the backward: a row's fp32
+        # (heads, S, S) scores are 1.5 GB at S = 4864
+        from torch.utils.checkpoint import checkpoint
+        return torch.cat([checkpoint(
+            al.lengths_attention_reference, q[i:i + 1], k[i:i + 1],
+            v[i:i + 1], lengths[i:i + 1], causal, sm_scale,
+            use_reentrant=False) for i in range(q.shape[0])])
+    # (b) the packed update through K4, and (c) the padded update through
+    # K1 with the LSE and K2 (d = 128, grouped kv heads), each against the
+    # plain versions
+    out, k2_launches = {}, {}
+    for layout, batch, packed in (("packed", micro, True),
+                                  ("padded", padded, False)):
+        for which in ("kernels", "plain"):
+            if which == "plain":
+                qmod.flash_attention = \
+                    lambda q, k, v, qs, ks, causal: \
+                    seg.segment_attention_reference(q, k, v, qs, ks,
+                                                    causal=causal)
+                qmod.flash_fwd_lengths = plain_lengths
+            al.reset_launch_counts()
+            try:
+                loss, _ = probe.micro_loss(batch, total, packed)
+                loss.backward()
+            finally:
+                qmod.flash_attention = seg.flash_attention
+                qmod.flash_fwd_lengths = al.flash_fwd_lengths
+            if which == "kernels" and layout == "padded":
+                k2_launches = al.launch_counts()
+            out[layout, which] = (loss.item(),
+                                  [p.grad.float().clone()
+                                   for p in probe.train_params])
+            for p in probe.train_params:
+                p.grad = None
+    layers = small.text.num_hidden_layers
+    # whole-block remat runs each layer's forward again in the backward
+    passes = 2 if small.text.remat and small.text.remat != "mlp" else 1
+    if k2_launches != {"flat": 0, "stacked": 0, "fwd_lse": passes * layers,
+                       "dq": layers, "dkv": layers}:
+        raise RuntimeError(f"the padded update's launches {k2_launches}")
+    for layout in ("packed", "padded"):
+        (lk, gk), (lp, gp) = out[layout, "kernels"], out[layout, "plain"]
+        num = math.sqrt(sum(float(((x - y) ** 2).sum())
+                            for x, y in zip(gk, gp)))
+        den = math.sqrt(sum(float((y ** 2).sum()) for y in gp))
+        kern = "K4" if layout == "packed" else "K1 + LSE, K2 GQA d=128"
+        shape = tuple((micro if layout == "packed" else padded)[
+            "input_ids"].shape)
+        log(f"[9] the same micro-batch, {layout} {shape}, through 2 layers at "
+            f"full width: loss {lk:.6f} ({kern}) vs {lp:.6f} (plain), "
+            f"parameter gradients rel_err {num / den:.4g} (bound "
+            f"{RTOL_GRADS}), norm {den:.4g}"
+            + (f", launches {k2_launches}" if layout == "padded" else ""))
+        if abs(lk - lp) > RTOL_BLOCK * max(1.0, abs(lp)) or not den > 0 \
+                or num / den > RTOL_GRADS:
+            raise RuntimeError(f"{layout} micro-batch gradients through the "
+                               f"kernels disagree with the plain versions")
     del model, probe, out
     gc.collect()
     torch.cuda.empty_cache()
+    return k2_launches
 
 
 def phase9_rl(rows_path, cfg, tmp):
@@ -1987,7 +2420,7 @@ def phase9_rl(rows_path, cfg, tmp):
             f"{m['grad_norm']:.4g}, kl_loss {m.get('kl_loss', 0.0):.3g}, "
             f"reward_mean {m['reward_mean']:.3f} | seconds {split} | "
             f"{m['perf/throughput']:.1f} tokens/s")
-    _micro_check(trainer, stash, cfg)
+    launches["padded_update"] = _micro_check(trainer, stash, cfg)
     del trainer, model, ref_model, engine, stash, rollouts
     gc.collect()
     torch.cuda.empty_cache()
@@ -2021,17 +2454,36 @@ def rl_phases(gen):
         shutil.rmtree(work, ignore_errors=True)
 
 
+KEYS = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")
+
+
 def segment_kernel_rows(seg_results, rl_launches):
+    """K4's rows, and K1 + LSE / K2 at d = 128 with grouped kv heads (the
+    padded update: launches from phase 9's padded micro-batch)."""
     from visrag_tpu_torch.ops import attention as seg
-    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")
-    return [{"name": name, "route": "cuda", "source": seg.SOURCE,
+    from visrag_tpu_torch.ops import attention_lengths as al
+    rows = [{"name": name, "route": "cuda", "source": seg.SOURCE,
              "replaces": SEG_REPLACES[kind], "launches": rl_launches[kind],
-             **{k: seg_results[kind][0][k] for k in keys},
+             **{k: seg_results[kind][0][k] for k in KEYS},
              "checks": seg_results[kind]}
             for kind, name in (("seg_fwd", "segment_fwd"),
                                ("seg_dq", "segment_bwd_dq"),
                                ("seg_dkv", "segment_bwd_dkv"))]
+    k2 = seg_results["k2"]
+    for kind, name, source, replaces in (
+            ("fwd_lse", "flash_fwd_lse (GQA, d=128)", al.SOURCE,
+             REPLACES["fwd"]),
+            ("dq", "flash_bwd_dq (GQA, d=128)", al.BWD_SOURCE,
+             REPLACES["dq"]),
+            ("dkv", "flash_bwd_dkv (GQA, d=128)", al.BWD_SOURCE,
+             REPLACES["dkv"])):
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": rl_launches["padded_update"][kind],
+                     **{k: k2[kind][0][k] for k in KEYS},
+                     "checks": k2[kind]})
+    return rows
 
 
 def main(argv=None):
@@ -2055,6 +2507,7 @@ def main(argv=None):
     setup = phase3_setup()
     results = phase2_kernel(gen, setup)
     serve_launches = phase3_slice(setup)
+    int8_checks, int8_launches = phase3b_int8_encode(gen, setup)
     train_results = phase4_training_kernels(gen, setup)
     train_launches = phase5_training(setup)
     del setup                       # the retriever: its memory goes to 7B
@@ -2068,14 +2521,18 @@ def main(argv=None):
         f"{time.perf_counter() - t0:.2f} s (prompt tokens "
         f"{[len(r['input_ids']) for _, r, _ in reqs]})")
     qwen_results = phase6_serving_kernels(gen, reqs, qcfg)
-    qwen_launches = phase7_serving(reqs, qcfg)
-    del reqs
+    qwen_launches, qmodel, dec_ref = phase7_serving(reqs, qcfg)
+    k5q_checks, k5q_launches = phase7b_int8_serving(gen, reqs, qcfg, qmodel,
+                                                    dec_ref)
+    del reqs, qmodel, dec_ref
+    gc.collect()
+    torch.cuda.empty_cache()
     seg_results, rl_launches = rl_phases(gen)
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import matmul_int8 as mi
     from visrag_tpu_torch.serving import paged_kv as pk
-    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")
+    keys = KEYS
     kernels = []
     for form, name in (("flat", "flash_fwd_lengths_flat"),
                        ("stacked", "flash_fwd_lengths")):
@@ -2110,6 +2567,17 @@ def main(argv=None):
                         "launches": qwen_launches[count],
                         **{k: first[k] for k in keys},
                         "checks": qwen_results[kind]})
+    kernels.append({"name": "int8_matmul_fused", "route": "cuda",
+                    "source": mi.SOURCE, "replaces": INT8_REPLACES,
+                    "launches": int8_launches["int8_gemm"],
+                    **{k: int8_checks[0][k] for k in keys},
+                    "checks": int8_checks})
+    kernels.append({"name": "paged_decode_attention (int8 pools)",
+                    "route": "cuda", "source": pk.SOURCE,
+                    "replaces": REPLACES["paged"] + " (quantized=True)",
+                    "launches": k5q_launches["paged_int8"],
+                    **{k: k5q_checks[0][k] for k in keys},
+                    "checks": k5q_checks})
     kernels += segment_kernel_rows(seg_results, rl_launches)
     for k in kernels:
         if not k["launches"] > 0:

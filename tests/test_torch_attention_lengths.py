@@ -113,6 +113,39 @@ def test_stacked_grads_match_pallas_interpret(causal):
     assert np.abs(tdq[valid]).max() > 0
 
 
+def test_gqa_d128_grads_match_pallas_interpret():
+    """K2's plain version at the RL update's head dim 128 with grouped kv
+    heads (4 query heads on 2 kv heads), causal, against the VJP of the JAX
+    flash_attention(lengths=) through the Pallas kernels in interpret mode
+    (which repeats K/V to 4 heads and sums their gradients back): dq at 4
+    heads and dk/dv at 2, 1e-3 abs/rel, zero on pad rows."""
+    rng = np.random.default_rng(5)
+    b, s, h, hk, d = 3, 128, 4, 2, 128
+    q, do = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, s, hk, d)).astype(np.float32)
+            for _ in range(2))
+    valid = _valid(LENGTHS, s)
+    mask = jnp.asarray(valid[:, :, None, None].astype(np.float32))
+
+    def fn(q_, k_, v_):
+        return flash_attention(q_, k_, v_, lengths=jnp.asarray(LENGTHS),
+                               causal=True, interpret=True, block_q=64,
+                               block_k=64)
+
+    (jdq, jdk, jdv), _ = _pallas_grads(
+        fn, [jnp.asarray(x) for x in (q, k, v)], jnp.asarray(do), mask)
+    assert jdk.shape == (b, s, hk, d)
+    xs = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o = al.flash_fwd_lengths(*xs, torch.from_numpy(LENGTHS), True, d ** -0.5)
+    grads = torch.autograd.grad(o, xs, torch.from_numpy(do))
+    for got, want in zip(grads, (jdq, jdk, jdv)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, **GRAD_TOL)
+        assert not got.numpy()[~valid].any()
+    assert np.abs(grads[1].numpy()[valid]).max() > 0
+
+
 def test_flat_grads_match_pallas_interpret():
     """The flat form's gradient is one (n*S, 3*H*D) buffer on both sides."""
     rng = np.random.default_rng(3)
@@ -213,24 +246,32 @@ def test_kernel_matches_plain_on_card(shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", ["vit_flat", "lm_causal"])
+@pytest.mark.parametrize("shape", ["vit_flat", "lm_causal", "qwen_gqa"])
 def test_backward_kernels_match_plain_on_card(shape):
     """K1 + LSE and K2 through the autograd Functions against autograd
     through the plain version, bf16: 2e-2 relative Frobenius error on each
-    gradient, exact zeros on pad rows."""
+    gradient, exact zeros on pad rows. qwen_gqa: d = 128, 28 query heads on
+    4 kv heads, causal (the padded RL update's attention)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
+    hk = None
     if shape == "vit_flat":
         n, s, h, d, causal = 8, 1152, 16, 72, False
         lens = torch.tensor([1152, 1032, 600, 0, 1, 63, 64, 65],
                             dtype=torch.int32, device="cuda")
-    else:
+    elif shape == "lm_causal":
         n, s, h, d, causal = 4, 704, 36, 64, True
         lens = torch.tensor([704, 666, 335, 1], dtype=torch.int32,
                             device="cuda")
-    q, k, v, do = (torch.randn(n, s, h, d, generator=g, device="cuda")
-                   .bfloat16() for _ in range(4))
+    else:
+        n, s, h, hk, d, causal = 4, 640, 28, 4, 128, True
+        lens = torch.tensor([640, 65, 64, 1], dtype=torch.int32,
+                            device="cuda")
+    q, do = (torch.randn(n, s, h, d, generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(n, s, hk or h, d, generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
     xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
     ref_xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
     if shape == "vit_flat":

@@ -22,7 +22,7 @@ import visrag_tpu_torch.driver.train_retriever
 from visrag_tpu_torch.driver.common import build_qwen25_vl
 from visrag_tpu_torch.generation import prompts, qa_eval
 from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
-from visrag_tpu_torch.ops import attention, attention_kvgrid
+from visrag_tpu_torch.ops import attention, attention_kvgrid, matmul_int8, quant
 from visrag_tpu_torch.rl import (advantage, metrics, packing, ppo,
                                  reward_manager, rewards, seqlen)
 from visrag_tpu_torch.rl.trainer import RLTrainer
@@ -48,14 +48,28 @@ with torch.inference_mode():
                                                            "cpu")))
 assert reps.shape == (2, 64) and torch.isfinite(reps).all()
 topk_single(reps, reps, 2)
+# the int8 encode (quant="int8" in the ViT and the LM) on the same weights
+import dataclasses
+from visrag_tpu_torch.models.visrag_ret import VisRAGRet
+bb = model.cfg.backbone
+q8 = VisRAGRet(dataclasses.replace(model.cfg, backbone=dataclasses.replace(
+    bb, vit=dataclasses.replace(bb.vit, quant="int8", remat=False),
+    llm=dataclasses.replace(bb.llm, quant="int8", remat=False))))
+q8.load_state_dict(model.state_dict())
+with torch.inference_mode():
+    reps8 = q8.eval()(finish_encode_batch(raw, pos_table_tensor(pcfg.src_grid,
+                                                                "cpu")))
+assert torch.isfinite(reps8).all() and (reps8 * reps).sum(1).min() > 0.9
 qwen = build_qwen25_vl(Qwen25VLConfig.tiny(), device="cpu")
-outs = Engine(qwen, num_slots=2, max_len=64, prompt_buckets=(16,)).generate(
-    [dict(input_ids=np.arange(5, dtype=np.int32))],
-    sampling=sampling.SamplingParams(temperature=0.0, max_tokens=3))
-assert len(outs[0]) == 3
+for cache_dtype in ("bfloat16", "int8"):
+    outs = Engine(qwen, num_slots=2, max_len=64, prompt_buckets=(16,),
+                  cache_dtype=cache_dtype).generate(
+        [dict(input_ids=np.arange(5, dtype=np.int32))],
+        sampling=sampling.SamplingParams(temperature=0.0, max_tokens=3))
+    assert len(outs[0]) == 3
 # one RL step through the driver's own wiring: rollout, rewards, log-probs,
 # the packed update, a checkpoint
-import dataclasses, tempfile
+import tempfile
 from visrag_tpu_torch.config import RLConfig
 cfg = RLConfig()
 cfg = dataclasses.replace(
@@ -85,9 +99,10 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_runs_without_jax():
-    """Importing the drivers, the training, serving and RL modules, encoding
-    a batch, generating with the serving engine and taking one RLTrainer.fit
-    step load no module of jax, flax or visrag_tpu."""
+    """Importing the drivers, the training, serving, RL and int8 modules,
+    encoding a batch (bf16 and int8), generating with the serving engine
+    (bf16 and int8 pools) and taking one RLTrainer.fit step load no module
+    of jax, flax or visrag_tpu."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,

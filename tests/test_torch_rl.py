@@ -751,17 +751,38 @@ def test_rl_main_cli_and_resume(tiny_ckpt, tmp_path):
 @pytest.mark.parametrize("flag", [["--num-processes", "2"],
                                   ["--coordinator", "localhost:1"],
                                   ["--set", "mesh.data=4"],
-                                  ["--set", "rollout.kv_cache_dtype=int8"]])
+                                  ["--set", "mesh.seq=2"]])
 def test_rl_main_refuses_what_is_not_ported(tiny_ckpt, tmp_path, flag):
     from visrag_tpu_torch.driver.rl_main import main
     with pytest.raises(NotImplementedError):
         main(_rl_args(tiny_ckpt, tmp_path, tmp_path / "out") + flag)
 
 
+def test_rl_main_int8_kv_pools(tiny_ckpt, tmp_path, monkeypatch):
+    """rollout.kv_cache_dtype=int8 reaches the rollout engine as int8
+    pools (as the JAX driver passes it), and one step runs on the CPU."""
+    from visrag_tpu_torch.driver import rl_main
+    from visrag_tpu_torch.serving.engine import Engine
+    engines = []
+    init = Engine.__init__
+
+    def spy(self, *a, **kw):
+        init(self, *a, **kw)
+        engines.append(self)
+    monkeypatch.setattr(Engine, "__init__", spy)
+    out = tmp_path / "out"
+    assert rl_main.main(_rl_args(tiny_ckpt, tmp_path, out) + [
+        "--set", "rollout.kv_cache_dtype=int8"]) == 0
+    assert engines and all(e.kv_quant for e in engines)
+    hist = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert hist and np.isfinite(hist[-1]["loss"])
+
+
 @pytest.mark.gpu
-def test_padded_update_raises_on_a_card():
-    """On a CUDA device the padded update reaches the valid-length
-    backward's guard (d = 128 with grouped kv heads is not in K2 yet)."""
+def test_padded_update_runs_on_a_card():
+    """On a CUDA device the padded update runs the valid-length kernels
+    forward and backward (K1 with the LSE, K2 at d = 128 with grouped kv
+    heads) and gives finite metrics."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg = Qwen25VLConfig.tiny()
@@ -774,5 +795,5 @@ def test_padded_update_raises_on_a_card():
                   tokenizer_decode=lambda ids: "", tag_token_ids=TAGS)
     batch = _synth(3)
     batch["old_log_probs"] = t.compute_log_probs(t.model, batch)
-    with pytest.raises(ValueError, match="no backward kernel"):
-        t.update_policy(batch)
+    metrics = t.update_policy(batch)
+    assert np.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0

@@ -1,0 +1,201 @@
+"""Build K2 (valid-length backward), K5 (paged decode, bf16 and int8) and K6
+(the int8 GEMM), print the compiler's report, and hold each kernel against
+its plain PyTorch version on the card.
+
+    python3 tools/torch_check_int8.py [--time]
+
+A short first check for these kernels: registers and spills from ptxas,
+then K2 at d = 64 / 72 / 128 with grouped kv heads (16/2, 28/4), K6 at the
+encode's GEMM shapes with a ragged M, K5 int8 and bf16 at the 7B decode
+grouping with edge lengths. With --time it also times them with CUDA
+events (median of 10). Needs one CUDA card; exits 1 on any disagreement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import torch
+
+from visrag_tpu_torch.ops import _build
+from visrag_tpu_torch.ops import attention_lengths as al
+from visrag_tpu_torch.ops import matmul_int8 as mi
+from visrag_tpu_torch.ops import quant
+from visrag_tpu_torch.serving import paged_kv as pk
+
+SOURCES = ("attention_lengths", "attention_lengths_bwd", "paged_decode",
+           "matmul_int8")
+DEV = "cuda"
+
+
+def median_ms(fn, n=10):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def rel(a, b):
+    a, b = a.float(), b.float()
+    return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+
+def check_k2(name, lens, s, h, hk, d, causal, do_time):
+    g = torch.Generator(device=DEV).manual_seed(len(name))
+    b = len(lens)
+    q, do = (torch.randn(b, s, h, d, generator=g, device=DEV).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, s, hk, d, generator=g, device=DEV).bfloat16()
+            for _ in range(2))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    rs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = al.flash_fwd_lengths(*xs, lens_t, causal, d ** -0.5)
+    grads = torch.autograd.grad(o, xs, do)
+    ref = torch.autograd.grad(al.lengths_attention_reference(
+        *rs, lens_t, causal, d ** -0.5), rs, do)
+    valid = torch.arange(s, device=DEV)[None] < lens_t[:, None]
+    errs = [rel(a[valid], w[valid]) for a, w in zip(grads, ref)]
+    zeros = all(not bool(a[~valid].any()) for a in grads)
+    ok = zeros and max(errs) <= 2e-2 and all(
+        bool(torch.isfinite(a.float()).all()) for a in grads)
+    line = (f"K2 {name} lens {lens} S {s} {h}/{hk} d {d} causal {causal}: "
+            f"rel dq {errs[0]:.4g} dk {errs[1]:.4g} dv {errs[2]:.4g} "
+            f"pad_zeros={zeros} {'ok' if ok else 'FAIL'}")
+    if do_time:
+        o2 = torch.empty_like(q)
+        lse = al.flash_fwd_lse(q, k, v, lens_t, causal, d ** -0.5, o2)
+        delta = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        t_q = median_ms(lambda: al.flash_bwd_dq(q, k, v, o2, do, lse, delta,
+                                                lens_t, causal, d ** -0.5,
+                                                dq))
+        t_kv = median_ms(lambda: al.flash_bwd_dkv(q, k, v, o2, do, lse, delta,
+                                                  lens_t, causal, d ** -0.5,
+                                                  dk, dv))
+        line += f" dq={t_q:.3f}ms dkv={t_kv:.3f}ms"
+    print(line, flush=True)
+    return ok
+
+
+def check_k6(name, m, k, n, do_time):
+    g = torch.Generator(device=DEV).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=DEV).bfloat16()
+    w = (torch.randn(n, k, generator=g, device=DEV) * 0.03).bfloat16()
+    bias = torch.randn(n, generator=g, device=DEV)
+    xq, xs = quant.quant_rowwise(x)
+    wq, ws = quant.quant_weight_colwise(w.t())
+    wq = wq.t().contiguous()
+    out = mi.int8_matmul_fused(xq, xs[:, 0], wq, ws, bias)
+    ref = mi.int8_matmul_reference(xq, xs[:, 0], wq, ws, bias)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    ulp = ref.float().abs() * 2 ** -7
+    ok = bool((diff <= ulp).all()) and bool(torch.isfinite(out.float()).all())
+    line = (f"K6 {name} {m}x{k}->{n}: max_abs {diff.max().item():.4g}, "
+            f"exact bf16 {int((diff == 0).sum())}/{diff.numel()} "
+            f"{'ok' if ok else 'FAIL'}")
+    if do_time:
+        t = median_ms(lambda: mi.int8_matmul_fused(xq, xs[:, 0], wq, ws,
+                                                   bias))
+        t_bf16 = median_ms(lambda: torch.nn.functional.linear(x, w))
+        line += (f" kernel={t:.3f}ms ({2 * m * k * n / t / 1e9:.1f} TOP/s) "
+                 f"bf16 cuBLAS={t_bf16:.3f}ms")
+    print(line, flush=True)
+    return ok
+
+
+def check_k5(name, lens, quantized, do_time, h=28, kvh=4, d=128, bs=128):
+    g = torch.Generator(device=DEV).manual_seed(len(name) + quantized)
+    nb = sum(-(-n // bs) for n in lens) + 2
+    pools = []
+    for _ in range(2):
+        x = torch.randn(nb, kvh, bs, d, generator=g, device=DEV)
+        if quantized:
+            pool = pk.KVQuant(torch.empty(x.shape, dtype=torch.int8,
+                                          device=DEV),
+                              torch.empty(x.shape[:-1], device=DEV))
+            pk.pool_write_rows(pool, torch.arange(nb, device=DEV), x)
+        else:
+            pool = x.bfloat16()
+        pools.append(pool)
+    mb = 1
+    while mb * bs < max(lens) + 17:
+        mb *= 2
+    table = torch.full((len(lens), mb), nb - 1, dtype=torch.int32,
+                       device=DEV)
+    perm = torch.randperm(nb - 1, generator=g, device=DEV)
+    at = 0
+    for i, n in enumerate(lens):
+        used = -(-n // bs)
+        table[i, :used] = perm[at:at + used].int()
+        at += used
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    q = torch.randn(len(lens), h, d, generator=g, device=DEV).bfloat16()
+    out = pk.paged_decode_attention(q, *pools, table, lens_t)
+    ref = pk.paged_decode_reference(q, *pools, table, lens_t, d ** -0.5)
+    torch.cuda.synchronize()
+    err = rel(out, ref)
+    tol = 3.5e-3 if quantized else 2e-2
+    ok = err <= tol and bool(torch.isfinite(out.float()).all())
+    line = (f"K5 {'int8' if quantized else 'bf16'} {name} lens {lens}: rel "
+            f"{err:.4g} (bound {tol}) {'ok' if ok else 'FAIL'}")
+    if do_time:
+        t = median_ms(lambda: pk.paged_decode_attention(q, *pools, table,
+                                                        lens_t))
+        line += f" kernel={t:.4f}ms"
+    print(line, flush=True)
+    return ok
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--time", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.time()
+    _build.build_all(SOURCES)
+    print(f"built in {time.time() - t0:.1f}s", flush=True)
+    for name in SOURCES[1:]:
+        print((_build.BUILD_DIR / f"{name}.log").read_text(), flush=True)
+    print(os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip(), flush=True)
+    ok = True
+    t = args.time
+    ok &= check_k2("3B padded update", [1920, 1500, 700, 64], 1920, 16, 2,
+                   128, True, t)
+    ok &= check_k2("7B grouping edges", [1, 63, 64, 65, 256], 256, 28, 4,
+                   128, True, t)
+    ok &= check_k2("non-causal d128", [200, 129], 200, 8, 2, 128, False, t)
+    ok &= check_k2("LM d64", [704, 300, 1], 704, 36, 36, 64, True, t)
+    ok &= check_k2("ViT d72", [1152, 600, 0, 65], 1152, 16, 16, 72, False, t)
+    m_vit, m_lm = (126208, 11264) if t else (4176, 1104)
+    ok &= check_k6("ViT qkv", m_vit, 1152, 3456, t)
+    ok &= check_k6("ViT fc1", m_vit, 1152, 4304, t)
+    ok &= check_k6("LM q/k/v/o", m_lm, 2304, 2304, t)
+    ok &= check_k6("LM gate/up", m_lm, 2304, 5760, t)
+    ok &= check_k6("ragged K", 77, 200, 70, False)
+    for quantized in (True, False):
+        ok &= check_k5("decode", [4815, 4643, 4879, 650], quantized, t)
+        ok &= check_k5("edges", [1, 127, 128, 129], quantized, t)
+    print("ALL OK" if ok else "SOME FAILED", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,23 +9,30 @@
 //   delta[i] = sum_d o[i][d] * do[i][d]
 //   ds[i][j] = p[i][j] * (do[i].v[j] - delta[i])
 //   dq[i] = scale * sum_j ds[i][j] k[j]
-//   dk[j] = scale * sum_i ds[i][j] q[i]
-//   dv[j] = sum_i p[i][j] do[i]
+//   dk[j] = scale * sum_{h in group} sum_i ds[i][j] q[i]
+//   dv[j] = sum_{h in group} sum_i p[i][j] do[i]
 //
 // Query rows at or past len are outside the forward's contract: their `do`
 // is ignored (the caller's do on pad rows need not be zero) and their dq is
 // zero; pad key rows get zero dk and dv; a length-0 row is all zeros.
 //
+// Grouped kv heads: k/v carry H / kv_group heads and are read through
+// strides, never repeated (query head h reads kv head h / kv_group), as in
+// the forward. The JAX package repeats K/V to H heads and sums the repeated
+// gradients; here the sum over the group happens inside the dk/dv kernel.
+//
 // Two kernels, as on the TPU, so that every output element is written by
 // one block and the result is deterministic (no atomics):
-//   * dq: one block per (64-query tile, head, batch row); each warp owns 16
-//     query rows and loops over the K/V tiles up to ceil(len/64) (causal:
-//     up to the diagonal). Delta is computed here from the o and do tiles
-//     and also stored, fp32 (B, H, S), for the dk/dv kernel, which the
+//   * dq: one block per (64-query tile, query head, batch row); each warp
+//     owns 16 query rows and loops over the K/V tiles up to ceil(len/64)
+//     (causal: up to the diagonal). Delta is computed here from the o and do
+//     tiles and also stored, fp32 (B, H, S), for the dk/dv kernel, which the
 //     wrapper launches after this one on the same stream.
-//   * dk/dv: one block per (64-key tile, head, batch row); each warp owns
-//     16 keys and loops over the query tiles from the diagonal (causal) or
-//     0 up to ceil(len/64), masking the rows at or past len in the last one.
+//   * dk/dv: one block per (64-key tile, kv head, batch row); each warp owns
+//     16 keys and walks a flattened list of (query head of the group, query
+//     tile) from the diagonal (causal) or 0 up to ceil(len/64), masking the
+//     rows at or past len in the last tile. This is K4's dk/dv design
+//     (attention_segment.cu) with length masks in place of segment ids.
 // Tiles past the length do no tile work and write zeros.
 //
 // Both work transposed where that keeps the product's rows in the warp:
@@ -34,11 +41,16 @@
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the score tiles in
 // registers; operands that are read along their rows come in through
 // ldmatrix.trans. cp.async double-buffers the streamed tiles. What bounds
-// it, as in the forward: the work on the 64 x 64 score tile (here four
-// tensor-core products and the exp2 per element), not HBM. d is padded to a
-// multiple of 16 in shared memory only; the strides are the forward's, so
-// the ViT's flat layout writes dq, dk and dv straight into one
-// (n*S, 3*H*D) buffer, the gradient of the fused qkv GEMM's output.
+// it, as in the forward: the work on the 64 x 64 score tile (here five
+// tensor-core products and the exp2 per element), not HBM. Registers are the
+// scarce resource at d = 128: the dk/dv kernel holds two 16 x 128 fp32
+// accumulators per warp (128 registers), so it takes each 64-query tile as
+// two 32-query halves to keep S^T and dP^T at 32 registers, and neither
+// kernel caches its resident tile's fragments in registers (they are read
+// from shared memory at each k step). d is padded to a multiple of 16 in
+// shared memory only; the strides are the forward's, so the ViT's flat
+// layout writes dq, dk and dv straight into one (n*S, 3*H*D) buffer, the
+// gradient of the fused qkv GEMM's output. d in {64, 72, 128}.
 
 #include "attention_lengths_common.cuh"
 
@@ -58,7 +70,7 @@ struct Params {
   const float* lse;      // (B, H, S), natural log
   float* delta;          // (B, H, S): written by dq, read by dk/dv
   const int* lengths;
-  int seq, heads;
+  int seq, heads, kv_group;
   long long q_sb, q_sr, q_sh;
   long long k_sb, k_sr, k_sh;
   long long v_sb, v_sr, v_sh;
@@ -109,9 +121,10 @@ lengths_attention_dq_kernel(const Params p) {
     store_zero_rows<D>(dqb, p.dq_sr, q0, seq);
     return;
   }
+  const int hk = h / p.kv_group;
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + hk * p.v_sh;
   const __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
   const __nv_bfloat16* dob = p.dO + b * p.do_sb + h * p.do_sh;
   const long long row_base = (static_cast<long long>(b) * p.heads + h) * seq;
@@ -161,8 +174,6 @@ lengths_attention_dq_kernel(const Params p) {
   float dq[T::NT][4];
 #pragma unroll
   for (int n = 0; n < T::NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  uint32_t qf[T::KSTEPS][4], dof[T::KSTEPS][4];
-  float lse_lo = 0.f, lse_hi = 0.f, dl_lo = 0.f, dl_hi = 0.f;
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int k0 = tile * BK;
@@ -177,17 +188,9 @@ lengths_attention_dq_kernel(const Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (tile == 0) {   // q, do, lse and delta have landed with the first tile
-#pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk) {
-        load_a(qf[kk], sQ, T::LDH, wrow, kk * 16, g, t);
-        load_a(dof[kk], sdO, T::LDH, wrow, kk * 16, g, t);
-      }
-      lse_lo = sLse[wrow + g];
-      lse_hi = sLse[wrow + g + 8];
-      dl_lo = sDelta[wrow + g];
-      dl_hi = sDelta[wrow + g + 8];
-    }
+    // q, do, lse and delta have landed with the first tile
+    const float lse_lo = sLse[wrow + g], lse_hi = sLse[wrow + g + 8];
+    const float dl_lo = sDelta[wrow + g], dl_hi = sDelta[wrow + g + 8];
 
     // S = Q K^T and dP = dO V^T: 16 rows x 64 keys each
     float s[8][4], dp[8][4];
@@ -195,13 +198,19 @@ lengths_attention_dq_kernel(const Params p) {
     for (int j = 0; j < 8; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    }
 #pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk) {
+    for (int kk = 0; kk < T::KSTEPS; ++kk) {
+      uint32_t qa[4], da[4];
+      load_a(qa, sQ, T::LDH, wrow, kk * 16, g, t);
+      load_a(da, sdO, T::LDH, wrow, kk * 16, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
         uint32_t b0, b1;
         load_b_nk(b0, b1, sK, T::LDH, 8 * j, kk * 16, g, t);
-        mma_bf16(s[j], qf[kk], b0, b1);
+        mma_bf16(s[j], qa, b0, b1);
         load_b_nk(b0, b1, sV, T::LDH, 8 * j, kk * 16, g, t);
-        mma_bf16(dp[j], dof[kk], b0, b1);
+        mma_bf16(dp[j], da, b0, b1);
       }
     }
 
@@ -264,7 +273,7 @@ lengths_attention_dkv_kernel(const Params p) {
   float* sRow0 = reinterpret_cast<float*>(smem + 6 * T::TILE_BYTES);
 
   const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
+  const int hk = blockIdx.y;          // kv head
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -274,44 +283,49 @@ lengths_attention_dkv_kernel(const Params p) {
   const int seq = p.seq;
   const int kv_end = min(max(p.lengths[b], 0), seq);
 
-  __nv_bfloat16* dkb = p.dk + b * p.dk_sb + h * p.dk_sh;
-  __nv_bfloat16* dvb = p.dv + b * p.dv_sb + h * p.dv_sh;
+  __nv_bfloat16* dkb = p.dk + b * p.dk_sb + hk * p.dk_sh;
+  __nv_bfloat16* dvb = p.dv + b * p.dv_sb + hk * p.dv_sh;
   if (k0 >= kv_end) {        // every key of this tile is a pad key
     store_zero_rows<D>(dkb, p.dk_sr, k0, seq);
     store_zero_rows<D>(dvb, p.dv_sr, k0, seq);
     return;
   }
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dob = p.dO + b * p.do_sb + h * p.do_sh;
-  const long long row_base = (static_cast<long long>(b) * p.heads + h) * seq;
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + hk * p.v_sh;
 
   zero_smem(smem, 6 * T::TILE_BYTES);
   __syncthreads();
 
+  // the work list: (query head of the group, query tile) pairs, heads outer
+  const int i_begin = CAUSAL ? k0 / BQ : 0;
+  const int cnt = (kv_end + BQ - 1) / BQ - i_begin;   // > 0 here
+  const int total = p.kv_group * cnt;
+
   auto stage_q = [&](int st) { return sQD0 + st * 2 * 64 * T::LDH; };
   auto stage_do = [&](int st) { return stage_q(st) + 64 * T::LDH; };
   auto stage_row = [&](int st) { return sRow0 + st * 2 * 64; };
-  // lse*log2(e) and delta of query tile i into a stage (plain loads; the
-  // barrier at the top of the tile that reads them orders them)
-  auto load_rows = [&](int st, int q0) {
-    if (tid < 64) {
+  // q and do tiles of work item idx, with lse*log2(e) and delta of its 64
+  // query rows (plain stores; the barrier at the top of the iteration that
+  // reads them orders them)
+  auto load_stage = [&](int st, int idx) {
+    const int h = hk * p.kv_group + idx / cnt;
+    const int q0 = (i_begin + idx % cnt) * BQ;
+    load_tile_async<D>(stage_q(st), p.q + b * p.q_sb + h * p.q_sh, p.q_sr, q0,
+                       kv_end);
+    load_tile_async<D>(stage_do(st), p.dO + b * p.do_sb + h * p.do_sh,
+                       p.do_sr, q0, kv_end);
+    if (tid < BQ) {
       const int row = q0 + tid;
       const bool ok = row < kv_end;
-      stage_row(st)[tid] = ok ? p.lse[row_base + row] * LOG2E : 0.f;
-      stage_row(st)[64 + tid] = ok ? p.delta[row_base + row] : 0.f;
+      const long long at = (static_cast<long long>(b) * p.heads + h) * seq + row;
+      stage_row(st)[tid] = ok ? p.lse[at] * LOG2E : 0.f;
+      stage_row(st)[64 + tid] = ok ? p.delta[at] : 0.f;
     }
+    cp_async_commit();
   };
-
-  const int i_begin = CAUSAL ? k0 / BQ : 0;
-  const int i_end = (kv_end + BQ - 1) / BQ;   // > i_begin here
   load_tile_async<D>(sK, kb, p.k_sr, k0, kv_end);
   load_tile_async<D>(sV, vb, p.v_sr, k0, kv_end);
-  load_tile_async<D>(stage_q(0), qb, p.q_sr, i_begin * BQ, kv_end);
-  load_tile_async<D>(stage_do(0), dob, p.do_sr, i_begin * BQ, kv_end);
-  cp_async_commit();
-  load_rows(0, i_begin * BQ);
+  load_stage(0, 0);          // one group with k and v
 
   const int wk = warp * 16;
   const int key_lo = k0 + wk + g, key_hi = key_lo + 8;
@@ -322,96 +336,97 @@ lengths_attention_dkv_kernel(const Params p) {
     dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
     dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
   }
-  uint32_t kf[T::KSTEPS][4];
 
-  for (int i = i_begin; i < i_end; ++i) {
-    const int q0 = i * BQ;
-    const int st = (i - i_begin) & 1;
+  for (int cur = 0; cur < total; ++cur) {
+    const int q0 = (i_begin + cur % cnt) * BQ;
+    const int st = cur & 1;
     const __nv_bfloat16* sQ = stage_q(st);
     const __nv_bfloat16* sdO = stage_do(st);
     const float* sLse = stage_row(st);
     const float* sDelta = sLse + 64;
-    if (i + 1 < i_end) {
-      load_tile_async<D>(stage_q(st ^ 1), qb, p.q_sr, q0 + BQ, kv_end);
-      load_tile_async<D>(stage_do(st ^ 1), dob, p.do_sr, q0 + BQ, kv_end);
-      cp_async_commit();
-      load_rows(st ^ 1, q0 + BQ);
+    if (cur + 1 < total) {
+      load_stage(st ^ 1, cur + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (i == i_begin) {   // k and v have landed with the first tile
-#pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk)
-        load_a(kf[kk], sK, T::LDH, wk, kk * 16, g, t);
-    }
 
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries each
-    float s[8][4], dp[8][4];
+    // the 64 queries as two halves of 32, so that S^T and dP^T take 32
+    // registers beside the two accumulators
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = half * 32;
+      if (q0 + c0 >= kv_end) break;   // the half holds pad rows only
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries each
+      float s[4][4], dp[4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < T::KSTEPS; ++kk) {
-      uint32_t va[4];
-      load_a(va, sV, T::LDH, wk, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        load_b_nk(b0, b1, sQ, T::LDH, 8 * j, kk * 16, g, t);
-        mma_bf16(s[j], kf[kk], b0, b1);
-        load_b_nk(b0, b1, sdO, T::LDH, 8 * j, kk * 16, g, t);
-        mma_bf16(dp[j], va, b0, b1);
+      for (int j = 0; j < 4; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
       }
-    }
-
-    // P^T and dS^T = P^T * (dP^T - delta) on the valid pairs; the query is
-    // the column here, so lse and delta are read per column
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int kk = 0; kk < T::KSTEPS; ++kk) {
+        uint32_t ka[4], va[4];
+        load_a(ka, sK, T::LDH, wk, kk * 16, g, t);
+        load_a(va, sV, T::LDH, wk, kk * 16, g, t);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * t + e;
-        const int qrow = q0 + c;
-        const bool q_ok = qrow < kv_end;
-        const bool ok_lo = q_ok && key_lo < kv_end &&
-                           (!CAUSAL || qrow >= key_lo);
-        const bool ok_hi = q_ok && key_hi < kv_end &&
-                           (!CAUSAL || qrow >= key_hi);
-        const float l2 = sLse[c], dl = sDelta[c];
-        const float p_lo = ok_lo ? exp2f(s[j][e] * scale_log2 - l2) : 0.f;
-        const float p_hi = ok_hi ? exp2f(s[j][2 + e] * scale_log2 - l2) : 0.f;
-        s[j][e] = p_lo;
-        s[j][2 + e] = p_hi;
-        dp[j][e] = p_lo * (dp[j][e] - dl);
-        dp[j][2 + e] = p_hi * (dp[j][2 + e] - dl);
+        for (int j = 0; j < 4; ++j) {
+          uint32_t b0, b1;
+          load_b_nk(b0, b1, sQ, T::LDH, c0 + 8 * j, kk * 16, g, t);
+          mma_bf16(s[j], ka, b0, b1);
+          load_b_nk(b0, b1, sdO, T::LDH, c0 + 8 * j, kk * 16, g, t);
+          mma_bf16(dp[j], va, b0, b1);
+        }
       }
-    }
 
-    // dV += P^T dO and dK += dS^T Q: P^T and dS^T re-packed as A, dO and Q
-    // ([query][d]) through ldmatrix.trans
+      // P^T and dS^T = P^T * (dP^T - delta) on the valid pairs; the query
+      // is the column here, so lse and delta are read per column
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int np = 0; np < T::NT / 2; ++np) {
-        uint32_t b4[4];
-        load_b_kn_x2(b4, sdO, T::LDH, kk * 16, np * 16, lane);
-        mma_bf16(dv[2 * np], pa, b4[0], b4[1]);
-        mma_bf16(dv[2 * np + 1], pa, b4[2], b4[3]);
-        load_b_kn_x2(b4, sQ, T::LDH, kk * 16, np * 16, lane);
-        mma_bf16(dk[2 * np], da, b4[0], b4[1]);
-        mma_bf16(dk[2 * np + 1], da, b4[2], b4[3]);
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * j + 2 * t + e;
+          const int qrow = q0 + c;
+          const bool q_ok = qrow < kv_end;
+          const bool ok_lo = q_ok && key_lo < kv_end &&
+                             (!CAUSAL || qrow >= key_lo);
+          const bool ok_hi = q_ok && key_hi < kv_end &&
+                             (!CAUSAL || qrow >= key_hi);
+          const float l2 = sLse[c], dl = sDelta[c];
+          const float p_lo = ok_lo ? exp2f(s[j][e] * scale_log2 - l2) : 0.f;
+          const float p_hi =
+              ok_hi ? exp2f(s[j][2 + e] * scale_log2 - l2) : 0.f;
+          s[j][e] = p_lo;
+          s[j][2 + e] = p_hi;
+          dp[j][e] = p_lo * (dp[j][e] - dl);
+          dp[j][2 + e] = p_hi * (dp[j][2 + e] - dl);
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T re-packed as A, dO and
+      // Q ([query][d]) through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t da[4] = {
+            pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+            pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+            pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+            pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < T::NT / 2; ++np) {
+          uint32_t b4[4];
+          load_b_kn_x2(b4, sdO, T::LDH, c0 + kk * 16, np * 16, lane);
+          mma_bf16(dv[2 * np], pa, b4[0], b4[1]);
+          mma_bf16(dv[2 * np + 1], pa, b4[2], b4[3]);
+          load_b_kn_x2(b4, sQ, T::LDH, c0 + kk * 16, np * 16, lane);
+          mma_bf16(dk[2 * np], da, b4[0], b4[1]);
+          mma_bf16(dk[2 * np + 1], da, b4[2], b4[3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this stage
@@ -438,37 +453,32 @@ lengths_attention_dkv_kernel(const Params p) {
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t bytes, const Params& p, int batch,
+cudaError_t launch(Kernel kernel, size_t bytes, const Params& p, dim3 grid,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq + 63) / 64, p.heads, batch);
   kernel<<<grid, NTHREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch(const Params& p, int batch, int causal, int which,
+template <int D, bool CAUSAL>
+cudaError_t dispatch(const Params& p, int batch, int which,
                      cudaStream_t stream) {
+  const int tiles = (p.seq + 63) / 64;
   if (which == 0)
-    return causal
-        ? launch(lengths_attention_dq_kernel<D, true>, dq_smem_bytes<D>(), p,
-                 batch, stream)
-        : launch(lengths_attention_dq_kernel<D, false>, dq_smem_bytes<D>(), p,
-                 batch, stream);
-  return causal
-      ? launch(lengths_attention_dkv_kernel<D, true>, dkv_smem_bytes<D>(), p,
-               batch, stream)
-      : launch(lengths_attention_dkv_kernel<D, false>, dkv_smem_bytes<D>(), p,
-               batch, stream);
+    return launch(lengths_attention_dq_kernel<D, CAUSAL>, dq_smem_bytes<D>(),
+                  p, dim3(tiles, p.heads, batch), stream);
+  return launch(lengths_attention_dkv_kernel<D, CAUSAL>, dkv_smem_bytes<D>(),
+                p, dim3(tiles, p.heads / p.kv_group, batch), stream);
 }
 
 int run(int which, const void* q, const void* k, const void* v, const void* o,
         const void* dO, void* dq, void* dk, void* dv, const void* lse,
         void* delta, const int* lengths, int batch, int seq, int heads,
-        int head_dim, const long long* st, int causal, float scale,
-        void* stream) {
+        int kv_heads, int head_dim, const long long* st, int causal,
+        float scale, void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads) return int(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -483,6 +493,7 @@ int run(int which, const void* q, const void* k, const void* v, const void* o,
   p.lengths = lengths;
   p.seq = seq;
   p.heads = heads;
+  p.kv_group = heads / kv_heads;
   long long* dst[] = {&p.q_sb, &p.q_sr, &p.q_sh, &p.k_sb, &p.k_sr, &p.k_sh,
                       &p.v_sb, &p.v_sr, &p.v_sh, &p.o_sb, &p.o_sr, &p.o_sh,
                       &p.do_sb, &p.do_sr, &p.do_sh, &p.dq_sb, &p.dq_sr,
@@ -493,16 +504,25 @@ int run(int which, const void* q, const void* k, const void* v, const void* o,
   if (batch <= 0 || seq <= 0 || heads <= 0) return int(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return int(dispatch<64>(p, batch, causal, which, s));
-    case 72: return int(dispatch<72>(p, batch, causal, which, s));
-    default: return int(cudaErrorInvalidValue);
+    case 64:
+      return int(causal ? dispatch<64, true>(p, batch, which, s)
+                        : dispatch<64, false>(p, batch, which, s));
+    case 72:
+      return int(causal ? dispatch<72, true>(p, batch, which, s)
+                        : dispatch<72, false>(p, batch, which, s));
+    case 128:
+      return int(causal ? dispatch<128, true>(p, batch, which, s)
+                        : dispatch<128, false>(p, batch, which, s));
+    default:
+      return int(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes, one per kernel. strides: 24 element
-// strides, (batch, row, head) for q, k, v, o, do, dq, dk, dv in that order.
+// strides, (batch, row, head) for q, k, v, o, do, dq, dk, dv in that order;
+// k, v, dk and dv carry kv_heads heads, which must divide heads.
 // lse and delta: fp32 (batch, heads, seq) contiguous; the dq kernel writes
 // delta and the dk/dv kernel reads it, so launch dq first on one stream.
 // Each returns a cudaError_t (0 = launched).
@@ -510,18 +530,18 @@ extern "C" int visrag_lengths_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, void* dq, void* dk, void* dv, const void* lse,
     void* delta, const int* lengths, int batch, int seq, int heads,
-    int head_dim, const long long* strides, int causal, float scale,
-    void* stream) {
+    int kv_heads, int head_dim, const long long* strides, int causal,
+    float scale, void* stream) {
   return run(0, q, k, v, o, dO, dq, dk, dv, lse, delta, lengths, batch, seq,
-             heads, head_dim, strides, causal, scale, stream);
+             heads, kv_heads, head_dim, strides, causal, scale, stream);
 }
 
 extern "C" int visrag_lengths_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, void* dq, void* dk, void* dv, const void* lse,
     void* delta, const int* lengths, int batch, int seq, int heads,
-    int head_dim, const long long* strides, int causal, float scale,
-    void* stream) {
+    int kv_heads, int head_dim, const long long* strides, int causal,
+    float scale, void* stream) {
   return run(1, q, k, v, o, dO, dq, dk, dv, lse, delta, lengths, batch, seq,
-             heads, head_dim, strides, causal, scale, stream);
+             heads, kv_heads, head_dim, strides, causal, scale, stream);
 }

@@ -27,6 +27,19 @@
 // the block reduces max and sum, and thread t then accumulates output
 // column t over the BS tokens. REP = heads / kv_heads is a template
 // parameter (7 for Qwen2.5-VL-7B, 8 for 3B: not a power of two).
+//
+// The int8 variant (template flag QUANT; the TPU kernel's `quantized=True`
+// branch, the pools of Engine(cache_dtype="int8")) reads int8 K/V blocks,
+// half the bytes of bf16, with one fp32 scale per (token, kv head) beside
+// them: k_scale / v_scale (n_blocks, kvh, BS), the JAX package's row-form
+// scales (n_blocks, 1, kvh * BS) in the same order. Its arithmetic is the
+// TPU kernel's: q * scale rounded to bf16 as above; int8 converted exactly
+// (int8 -> bf16 is exact, so straight to fp32 here); each score multiplied
+// by its key's k scale after the dot; the running sum l taken from the
+// unscaled probabilities; the probabilities multiplied by their token's v
+// scale before the bf16 rounding for P.V. The smaller K row (144 bytes with
+// its pad) keeps each thread's 16-byte reads bank-conflict free as the bf16
+// row does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,13 +51,14 @@ namespace {
 constexpr int D = 128;         // head dim
 constexpr int BS = 128;        // tokens per pool block
 constexpr int NT = 128;        // threads: one per token, then one per column
-constexpr int LDK = D + 8;     // padded K row (bf16)
 constexpr int NWARP = NT / 32;
 
 struct Params {
   const __nv_bfloat16* q;        // (slots, H, D)
-  const __nv_bfloat16* k_pool;   // (n_blocks, kvh, BS, D)
-  const __nv_bfloat16* v_pool;
+  const void* k_pool;            // (n_blocks, kvh, BS, D) bf16 or int8
+  const void* v_pool;
+  const float* k_scale;          // (n_blocks, kvh, BS), int8 pools only
+  const float* v_scale;
   const int* table;              // (slots, max_blk)
   const int* lengths;            // (slots,)
   float* part_o;                 // (slots, kvh, splits, REP, D)
@@ -54,9 +68,18 @@ struct Params {
   float scale;
 };
 
-template <int REP>
+// bytes of one K/V element, and of a K row padded against bank conflicts
+template <bool QUANT>
+__host__ __device__ constexpr int kv_bytes() { return QUANT ? 1 : 2; }
+template <bool QUANT>
+__host__ __device__ constexpr int k_pitch() {
+  return D * kv_bytes<QUANT>() + 16;
+}
+
+template <int REP, bool QUANT>
 constexpr size_t partial_smem_bytes() {
-  return size_t(BS) * LDK * 2 + size_t(BS) * D * 2      // K, V
+  return size_t(BS) * k_pitch<QUANT>()                    // K
+         + size_t(BS) * D * kv_bytes<QUANT>()             // V
          + size_t(REP) * D * 4 + size_t(REP) * BS * 4    // q, P
          + 2 * size_t(NWARP) * REP * 4;                  // reductions
 }
@@ -71,12 +94,13 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int REP>
+template <int REP, bool QUANT>
 __global__ void __launch_bounds__(NT) paged_partial_kernel(const Params p) {
+  constexpr int E = kv_bytes<QUANT>(), LDK = k_pitch<QUANT>();
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + BS * LDK;
-  float* sQ = reinterpret_cast<float*>(sV + BS * D);     // (REP, D)
+  unsigned char* sK = smem;                              // (BS, LDK) bytes
+  unsigned char* sV = sK + BS * LDK;                     // (BS, D) elements
+  float* sQ = reinterpret_cast<float*>(sV + BS * D * E); // (REP, D)
   float* sP = sQ + REP * D;                              // (REP, BS)
   float* sMax = sP + REP * BS;                           // (NWARP, REP)
   float* sSum = sMax + NWARP * REP;
@@ -106,40 +130,59 @@ __global__ void __launch_bounds__(NT) paged_partial_kernel(const Params p) {
 
   for (int j = jb; j < je; ++j) {
     const long long blk = p.table[static_cast<long long>(s) * p.max_blk + j];
-    const long long off = (blk * p.kvh + g) * BS * D;
-    const __nv_bfloat16* kg = p.k_pool + off;
-    const __nv_bfloat16* vg = p.v_pool + off;
-    for (int idx = tid; idx < BS * (D / 8); idx += NT) {
-      const int row = idx / (D / 8), c = idx % (D / 8);
-      cp_async16(sK + row * LDK + c * 8, kg + row * D + c * 8);
-      cp_async16(sV + row * D + c * 8, vg + row * D + c * 8);
+    const long long row0 = (blk * p.kvh + g) * BS;       // token 0's row
+    const unsigned char* kg =
+        static_cast<const unsigned char*>(p.k_pool) + row0 * D * E;
+    const unsigned char* vg =
+        static_cast<const unsigned char*>(p.v_pool) + row0 * D * E;
+    constexpr int CH = D * E / 16;                       // 16-byte chunks
+    for (int idx = tid; idx < BS * CH; idx += NT) {
+      const int row = idx / CH, c = idx % CH;
+      cp_async16(sK + row * LDK + c * 16, kg + (row * CH + c) * 16);
+      cp_async16(sV + (row * CH + c) * 16, vg + (row * CH + c) * 16);
     }
     asm volatile("cp.async.commit_group;\n" ::);
+    // this token's dequantization scales, read while the copy is in flight
+    const float ksc = QUANT ? p.k_scale[row0 + tid] : 1.f;
+    const float vsc = QUANT ? p.v_scale[row0 + tid] : 1.f;
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();   // K, V (and, on the first pass, q) are in place
 
-    // scores of token tid for the group's REP query heads
+    // scores of token tid for the group's REP query heads, one 16-byte
+    // piece of its K row (16 / E columns, converted to fp32) at a time
+    constexpr int CW = 16 / E;
     float sc[REP];
 #pragma unroll
     for (int r = 0; r < REP; ++r) sc[r] = 0.f;
-    const __nv_bfloat16* krow = sK + tid * LDK;
+    const unsigned char* krow = sK + tid * LDK;
 #pragma unroll 4
-    for (int c = 0; c < D / 8; ++c) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * 8);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      float kf[8];
+    for (int c = 0; c < D / CW; ++c) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * 16);
+      float kf[CW];
+      if constexpr (QUANT) {
+        const int8_t* k8 = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(k2[e]);
-        kf[2 * e] = f.x;
-        kf[2 * e + 1] = f.y;
+        for (int e = 0; e < CW; ++e) kf[e] = static_cast<float>(k8[e]);
+      } else {
+        const __nv_bfloat162* k2 =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int e = 0; e < CW / 2; ++e) {
+          const float2 f = __bfloat1622float2(k2[e]);
+          kf[2 * e] = f.x;
+          kf[2 * e + 1] = f.y;
+        }
       }
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
-        const float* qr = sQ + r * D + c * 8;
+        const float* qr = sQ + r * D + c * CW;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) sc[r] = fmaf(qr[e], kf[e], sc[r]);
+        for (int e = 0; e < CW; ++e) sc[r] = fmaf(qr[e], kf[e], sc[r]);
       }
+    }
+    if (QUANT) {
+#pragma unroll
+      for (int r = 0; r < REP; ++r) sc[r] *= ksc;   // after the dot
     }
     const bool valid = j * BS + tid < len;
 
@@ -165,7 +208,8 @@ __global__ void __launch_bounds__(NT) paged_partial_kernel(const Params p) {
       corr[r] = expf(m[r] - ref);
       m[r] = mn;
       const float pr = expf(sc[r] - ref);     // 0 for masked tokens
-      sP[r * BS + tid] = bf16_round(pr);
+      // P.V's operand carries the v scale; the sum l does not
+      sP[r * BS + tid] = bf16_round(QUANT ? pr * vsc : pr);
       float x = pr;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -183,7 +227,12 @@ __global__ void __launch_bounds__(NT) paged_partial_kernel(const Params p) {
 
     // output column tid over this block's tokens
     for (int tok = 0; tok < BS; ++tok) {
-      const float vv = __bfloat162float(sV[tok * D + tid]);
+      float vv;
+      if constexpr (QUANT)
+        vv = static_cast<float>(reinterpret_cast<const int8_t*>(sV)[tok * D + tid]);
+      else
+        vv = __bfloat162float(
+            reinterpret_cast<const __nv_bfloat16*>(sV)[tok * D + tid]);
 #pragma unroll
       for (int r = 0; r < REP; ++r) acc[r] = fmaf(sP[r * BS + tok], vv, acc[r]);
     }
@@ -224,10 +273,10 @@ __global__ void __launch_bounds__(NT) paged_combine_kernel(const Params p) {
       __float2bfloat16_rn(num / fmaxf(den, 1e-30f));
 }
 
-template <int REP>
+template <int REP, bool QUANT>
 cudaError_t launch(const Params& p, int slots, cudaStream_t stream) {
-  auto partial = paged_partial_kernel<REP>;
-  const size_t bytes = partial_smem_bytes<REP>();
+  auto partial = paged_partial_kernel<REP, QUANT>;
+  const size_t bytes = partial_smem_bytes<REP, QUANT>();
   cudaError_t err = cudaFuncSetAttribute(
       partial, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
@@ -238,23 +287,44 @@ cudaError_t launch(const Params& p, int slots, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool QUANT>
+cudaError_t dispatch(const Params& p, int rep, int slots, cudaStream_t st) {
+  switch (rep) {
+    case 1: return launch<1, QUANT>(p, slots, st);
+    case 2: return launch<2, QUANT>(p, slots, st);
+    case 3: return launch<3, QUANT>(p, slots, st);
+    case 4: return launch<4, QUANT>(p, slots, st);
+    case 5: return launch<5, QUANT>(p, slots, st);
+    case 6: return launch<6, QUANT>(p, slots, st);
+    case 7: return launch<7, QUANT>(p, slots, st);
+    case 8: return launch<8, QUANT>(p, slots, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. head_dim and block_size must be 128;
-// heads / kv_heads in 1..8. part_o: fp32 (slots, kv_heads, splits, rep, 128)
-// and part_ml: fp32 (slots, kv_heads, splits, rep, 2) scratch. Returns a
-// cudaError_t (0 = both kernels launched).
+// heads / kv_heads in 1..8. k_pool/v_pool are bf16, or int8 when k_scale
+// and v_scale (fp32 (n_blocks, kv_heads, 128)) are given (null for bf16).
+// part_o: fp32 (slots, kv_heads, splits, rep, 128) and part_ml: fp32
+// (slots, kv_heads, splits, rep, 2) scratch. Returns a cudaError_t (0 =
+// both kernels launched).
 extern "C" int visrag_paged_decode(
-    const void* q, const void* k_pool, const void* v_pool, const int* table,
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const int* table,
     const int* lengths, void* part_o, void* part_ml, void* o, int slots,
     int heads, int kv_heads, int head_dim, int block_size, int max_blk,
     int splits, int blocks_per_split, float scale, void* stream) {
-  if (head_dim != D || block_size != BS || kv_heads <= 0 || heads % kv_heads)
+  if (head_dim != D || block_size != BS || kv_heads <= 0 || heads % kv_heads
+      || (k_scale == nullptr) != (v_scale == nullptr))
     return int(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k_pool = static_cast<const __nv_bfloat16*>(k_pool);
-  p.v_pool = static_cast<const __nv_bfloat16*>(v_pool);
+  p.k_pool = k_pool;
+  p.v_pool = v_pool;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.table = table;
   p.lengths = lengths;
   p.part_o = static_cast<float*>(part_o);
@@ -267,15 +337,7 @@ extern "C" int visrag_paged_decode(
   p.scale = scale;
   if (slots <= 0) return int(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (heads / kv_heads) {
-    case 1: return int(launch<1>(p, slots, st));
-    case 2: return int(launch<2>(p, slots, st));
-    case 3: return int(launch<3>(p, slots, st));
-    case 4: return int(launch<4>(p, slots, st));
-    case 5: return int(launch<5>(p, slots, st));
-    case 6: return int(launch<6>(p, slots, st));
-    case 7: return int(launch<7>(p, slots, st));
-    case 8: return int(launch<8>(p, slots, st));
-    default: return int(cudaErrorInvalidValue);
-  }
+  const int rep = heads / kv_heads;
+  return int(k_scale ? dispatch<true>(p, rep, slots, st)
+                     : dispatch<false>(p, rep, slots, st));
 }

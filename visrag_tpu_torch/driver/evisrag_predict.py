@@ -32,11 +32,13 @@ VISION_KEYS = ("patches", "rot_cos", "rot_sin", "seg_window", "seg_full",
                "reverse_index")
 
 
-def build_engine(model, eos_token_id: int):
+def build_engine(model, eos_token_id: int, cache_dtype="bfloat16"):
     """The serving engine with the driver's settings: 4 slots, 16k tokens,
-    buckets 4k/8k/16k, 2048-token chunked prefill, the prefix cache."""
+    buckets 4k/8k/16k, 2048-token chunked prefill, the prefix cache; bf16
+    KV pools unless cache_dtype="int8"."""
     from ..serving.engine import Engine
-    return Engine(model, eos_token_ids=[eos_token_id], **ENGINE_SETTINGS)
+    return Engine(model, eos_token_ids=[eos_token_id], cache_dtype=cache_dtype,
+                  **ENGINE_SETTINGS)
 
 
 def sampling_params(processor, tok, temperature: float, max_tokens: int):

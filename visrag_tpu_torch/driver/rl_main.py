@@ -34,12 +34,11 @@ def engine_settings(cfg) -> dict:
     decodes never stall behind a whole 15k-token forward, and the prefix
     cache then reuses the shared
     instruction prefix across the step's prompts (cleared on every weight
-    update by Engine.set_params)."""
+    update by Engine.set_params). `rollout.kv_cache_dtype` picks bf16 or
+    int8 KV pools, as the JAX driver passes it; the old and reference
+    log-prob passes stay bf16 either way (they run whole-sequence forwards,
+    not the engine)."""
     r = cfg.rollout
-    if r.kv_cache_dtype not in (None, "bfloat16", "bf16"):
-        raise NotImplementedError(
-            f"rollout.kv_cache_dtype={r.kv_cache_dtype!r}: the engine's "
-            "pools are bf16 (int8 KV pools are not ported)")
     cpt = r.chunked_prefill_tokens
     if cpt is None and r.max_prompt_length >= 4096:
         cpt = 2048
@@ -49,7 +48,7 @@ def engine_settings(cfg) -> dict:
     buckets = tuple(b for b in (512, 1024, 2048, 4096) if b <= max_len) \
         or (max_len,)
     return dict(num_slots=8, max_len=max_len, prompt_buckets=buckets,
-                chunked_prefill_tokens=cpt,
+                chunked_prefill_tokens=cpt, cache_dtype=r.kv_cache_dtype,
                 prefix_cache=bool(r.prefix_cache and cpt is not None))
 
 

@@ -4,7 +4,8 @@ Counterpart of visrag_tpu/models/common.py: fp32 RMSNorm/LayerNorm cast
 back to the input dtype, rotary embeddings (plain, linear and dynamic-NTK
 scaling) applied in fp32, and the 2-D sin-cos position tables. Linear
 layers are plain `nn.Linear` with the torch (out, in) weight layout, which
-is the layout the JAX package's `Dense` stores.
+is the layout the JAX package's `Dense` stores; `QuantLinear` is the
+counterpart of its `QuantDense` (int8 w8a8, inference only).
 """
 
 from __future__ import annotations
@@ -29,6 +30,32 @@ class RMSNorm(nn.Module):
         var = xf.square().mean(dim=-1, keepdim=True)
         return (xf * torch.rsqrt(var + self.eps)
                 * self.weight.float()).to(x.dtype)
+
+
+class QuantLinear(nn.Linear):
+    """nn.Linear whose GEMM runs in int8 (w8a8): the same `weight` (out, in)
+    and `bias` as nn.Linear, so loaders fill it unchanged. The weight's int8
+    codes and per-output-channel scales are the ones the JAX package's
+    QuantDense computes at apply time; they are computed once and kept
+    until the weight changes (an in-place write such as load_state_dict's
+    bumps the tensor's version). Inference only: rounding has no useful
+    gradient."""
+
+    def _codes(self):
+        key = (self.weight._version, self.weight.data_ptr(),
+               self.weight.device)
+        if getattr(self, "_code_key", None) != key:
+            from ..ops.quant import quant_weight_colwise
+            with torch.no_grad():
+                wq, ws = quant_weight_colwise(self.weight.t())
+            self._code_cache = (wq.t().contiguous(), ws)
+            self._code_key = key
+        return self._code_cache
+
+    def forward(self, x):
+        from ..ops.quant import int8_linear
+        wq, ws = self._codes()
+        return int8_linear(x, wq, ws, self.bias, out_dtype=self.weight.dtype)
 
 
 class LayerNorm(nn.Module):

@@ -11,7 +11,9 @@ Counterpart of visrag_tpu/models/minicpm.py (MiniCPMConfig, MiniCPMModel):
     (ops/attention_lengths.flash_fwd_lengths), causal per config, in
     training as in inference (its backward is K2);
   * `remat` as in the ViT: True recomputes whole layers in the backward,
-    "mlp" only each layer's MLP (torch.utils.checkpoint, non-reentrant).
+    "mlp" only each layer's MLP (torch.utils.checkpoint, non-reentrant);
+  * `quant="int8"` (inference only): q/k/v/o and gate/up run in int8
+    (models/common.QuantLinear, K6); down stays bf16, as in the JAX package.
 
 Decode, the LM head and generation are not ported yet.
 """
@@ -27,7 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_lengths import flash_fwd_lengths
-from .common import (RMSNorm, apply_rope, dynamic_ntk_inv_freq,
+from .common import (QuantLinear, RMSNorm, apply_rope, dynamic_ntk_inv_freq,
                      rope_frequencies)
 
 
@@ -49,8 +51,13 @@ class MiniCPMConfig:
     is_causal: bool = True
     dtype: torch.dtype = torch.bfloat16
     remat: Any = False          # False | True (whole layers) | "mlp"
+    quant: str = "none"         # "none" | "int8" (q/k/v/o, gate/up)
 
     def __post_init__(self):
+        if self.quant != "none" and self.remat:
+            raise ValueError(
+                "quant='int8' is inference-only (no VJP); remat=True marks a "
+                "training config — use quant='none' for training")
         if self.num_key_value_heads != self.num_attention_heads:
             raise ValueError("grouped kv heads are not ported "
                              "(MiniCPM-2B has num_key_value_heads == "
@@ -92,10 +99,11 @@ def rope_inv_freq(c: MiniCPMConfig, seq: int, lengths, device):
 class MiniCPMMLP(nn.Module):
     def __init__(self, c: MiniCPMConfig):
         super().__init__()
-        self.gate_proj = nn.Linear(c.hidden_size, c.intermediate_size,
-                                   bias=False, dtype=c.dtype)
-        self.up_proj = nn.Linear(c.hidden_size, c.intermediate_size,
-                                 bias=False, dtype=c.dtype)
+        linear = QuantLinear if c.quant == "int8" else nn.Linear
+        self.gate_proj = linear(c.hidden_size, c.intermediate_size,
+                                bias=False, dtype=c.dtype)
+        self.up_proj = linear(c.hidden_size, c.intermediate_size, bias=False,
+                              dtype=c.dtype)
         self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size,
                                    bias=False, dtype=c.dtype)
 
@@ -108,10 +116,11 @@ class MiniCPMAttention(nn.Module):
         super().__init__()
         self.cfg = c
         hd = c.num_attention_heads * c.head_dim
-        self.q_proj = nn.Linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
-        self.k_proj = nn.Linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
-        self.v_proj = nn.Linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
-        self.o_proj = nn.Linear(hd, c.hidden_size, bias=False, dtype=c.dtype)
+        linear = QuantLinear if c.quant == "int8" else nn.Linear
+        self.q_proj = linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
+        self.k_proj = linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
+        self.v_proj = linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
+        self.o_proj = linear(hd, c.hidden_size, bias=False, dtype=c.dtype)
 
     def forward(self, x, positions, lengths, inv_freq):
         c = self.cfg

@@ -346,8 +346,9 @@ class QwenTextBlock(nn.Module):
                       start):
         """One block-aligned chunk of ONE prompt: x (1, C, E) at global
         positions start + arange(C). Writes the chunk's K/V into this
-        layer's pools kc/vc (n_blocks, kvh, bs, d) at chunk_rows, then
-        attends the whole prefix gathered from gather_rows."""
+        layer's pools kc/vc (n_blocks, kvh, bs, d; bf16, or int8 KVQuant
+        quantized on write) at chunk_rows, then attends the whole prefix
+        gathered (and dequantized) from gather_rows."""
         from ..serving.paged_kv import pool_gather, pool_write_rows
         c = self.cfg
         q, k, v = self._qkv(x, cos, sin)
@@ -369,8 +370,9 @@ class QwenTextBlock(nn.Module):
     def decode(self, x, cos, sin, kc, vc, lengths_incl, block_table=None):
         """x (B, 1, E); lengths_incl counts this step's token. kc/vc: this
         layer's dense cache (B, L_max, kvh, d) when block_table is None,
-        else its paged pool (n_blocks, kvh, bs, d); this token's K/V is
-        written at lengths_incl - 1, in place."""
+        else its paged pool (n_blocks, kvh, bs, d), bf16 or an int8
+        KVQuant (read by K5's int8 variant); this token's K/V is written
+        at lengths_incl - 1, in place."""
         q, k, v = self._qkv(x, cos, sin)
         b = x.shape[0]
         pos = lengths_incl.long() - 1

@@ -14,6 +14,11 @@ unpadded, and its gradient (K2) comes back in the same flat layout.
 `remat` trades compute for memory when gradients are on, through
 torch.utils.checkpoint (non-reentrant): True recomputes whole blocks in the
 backward (attention included), "mlp" only each block's MLP, False nothing.
+
+`quant="int8"` (inference only) runs the fused qkv and fc1 GEMMs in int8
+(models/common.QuantLinear, K6); proj and fc2 stay bf16, as in the JAX
+package. The JAX qkv quantizes its head-padded weight; the pad columns are
+zero, so the real columns' codes, scales and outputs are the ones here.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_lengths import flash_fwd_lengths_flat
-from .common import LayerNorm
+from .common import LayerNorm, QuantLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +46,13 @@ class SiglipViTConfig:
     ln_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     remat: Any = False          # False | True (whole blocks) | "mlp"
+    quant: str = "none"         # "none" | "int8" (qkv and fc1, inference)
+
+    def __post_init__(self):
+        if self.quant != "none" and self.remat:
+            raise ValueError(
+                "quant='int8' is inference-only (no VJP); remat=True marks a "
+                "training config — use quant='none' for training")
 
     @property
     def patch_dim(self) -> int:
@@ -63,7 +75,8 @@ class Attention(nn.Module):
         super().__init__()
         e = c.embed_dim
         self.heads, self.head_dim = c.num_heads, c.head_dim
-        self.qkv = nn.Linear(e, 3 * e, dtype=c.dtype)
+        linear = QuantLinear if c.quant == "int8" else nn.Linear
+        self.qkv = linear(e, 3 * e, dtype=c.dtype)
         self.proj = nn.Linear(e, e, dtype=c.dtype)
 
     def forward(self, y, lengths):
@@ -78,7 +91,8 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     def __init__(self, c: SiglipViTConfig):
         super().__init__()
-        self.fc1 = nn.Linear(c.embed_dim, c.mlp_dim, dtype=c.dtype)
+        linear = QuantLinear if c.quant == "int8" else nn.Linear
+        self.fc1 = linear(c.embed_dim, c.mlp_dim, dtype=c.dtype)
         self.fc2 = nn.Linear(c.mlp_dim, c.embed_dim, dtype=c.dtype)
 
     def forward(self, x):

@@ -34,8 +34,10 @@ version, and autograd through it is the plain backward. A CUDA tensor
 launches the kernels or raises; there is no fallback. When a gradient is
 wanted (grad mode on and an input that requires grad) the call goes
 through a `torch.autograd.Function` whose forward is K1 with the LSE and
-whose backward is K2; otherwise K1 runs without the LSE. K2 takes equal head
-counts and d in BWD_HEAD_DIMS only, and raises for anything else.
+whose backward is K2; otherwise K1 runs without the LSE. K2 takes d in
+BWD_HEAD_DIMS and grouped kv heads (H_kv dividing H: query head h reads kv
+head h // (H / H_kv), and dk/dv sum over the group inside the kernel, with
+no repeat in memory), and raises for anything else.
 
 Launch counters, one per kernel entry point (each launch covers all rows
 and heads): `flat_launches` and `stacked_launches` (K1 without the LSE, by
@@ -52,7 +54,7 @@ import torch
 LOG2E = 1.4426950408889634
 LSE_PAD = 0.7 * 3.4028234663852886e38   # LSE of a row with no valid key
 KERNEL_HEAD_DIMS = (64, 72, 128)   # MiniCPM LM, SigLIP ViT, Qwen2.5 text
-BWD_HEAD_DIMS = (64, 72)           # K2 (retriever training)
+BWD_HEAD_DIMS = (64, 72, 128)      # K2: retriever training, the RL update
 SOURCE = "visrag_tpu_torch/csrc/attention_lengths.cu"
 BWD_SOURCE = "visrag_tpu_torch/csrc/attention_lengths_bwd.cu"
 
@@ -201,14 +203,19 @@ def _bwd(entry, q, k, v, o, do, lse, delta, lengths, causal, sm_scale,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
                     ("dq", dq), ("dk", dk), ("dv", dv)):
         _check_cuda(name, t)
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("the backward kernels take equal q/k/v head counts, "
-                         f"got {tuple(q.shape)} {tuple(k.shape)}")
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] \
+            or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2] \
+            or dq.shape != q.shape or dk.shape != k.shape \
+            or dv.shape != k.shape:
+        raise ValueError("the backward kernels take q/dq (B, S, H, D) and "
+                         "k/v/dk/dv (B, S, H_kv, D) with H_kv dividing H, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(dq.shape)} "
+                         f"{tuple(dk.shape)}")
     _check_launch(q, lengths, lse, delta, head_dims=BWD_HEAD_DIMS)
     b, s, h, d = q.shape
     fn = getattr(load_library("attention_lengths_bwd"), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
@@ -216,7 +223,7 @@ def _bwd(entry, q, k, v, o, do, lse, delta, lengths, causal, sm_scale,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
-                b, s, h, d, ctypes.cast(strides, ctypes.c_void_p),
+                b, s, h, k.shape[2], d, ctypes.cast(strides, ctypes.c_void_p),
                 int(causal), float(sm_scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f"attention_lengths backward ({entry}) launch "
@@ -229,7 +236,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, delta, lengths, causal: bool,
     (B, H, S) fp32 = rowsum(o·do), which flash_bwd_dkv reads. CUDA only."""
     global dq_launches
     _bwd("visrag_lengths_attention_bwd_dq", q, k, v, o, do, lse, delta,
-         lengths, causal, sm_scale, dq, dq, dq)
+         lengths, causal, sm_scale, dq, k, v)   # dq writes no dk/dv
     dq_launches += 1
     return dq
 
@@ -240,7 +247,7 @@ def flash_bwd_dkv(q, k, v, o, do, lse, delta, lengths, causal: bool,
     reads the delta that one writes). CUDA only."""
     global dkv_launches
     _bwd("visrag_lengths_attention_bwd_dkv", q, k, v, o, do, lse, delta,
-         lengths, causal, sm_scale, dk, dk, dv)
+         lengths, causal, sm_scale, q, dk, dv)  # dk/dv writes no dq
     dkv_launches += 1
     return dk, dv
 
@@ -268,8 +275,9 @@ class _StackedAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, lengths = ctx.saved_tensors
         do = do.contiguous()
-        dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
-                      for _ in range(3))
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device)
+                  for _ in range(2))
         _backward(q, k, v, o, do, lse, lengths, ctx.causal, ctx.sm_scale,
                   dq, dk, dv)
         return dq, dk, dv, None, None, None
@@ -338,10 +346,10 @@ def flash_fwd_lengths(q, k, v, lengths, causal: bool, sm_scale: float):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda(name, t)
     if _wants_grad(q, k, v):
-        if k.shape != q.shape or d not in BWD_HEAD_DIMS:
+        if d not in BWD_HEAD_DIMS:
             raise ValueError(f"no backward kernel for q {tuple(q.shape)}, "
-                             f"k {tuple(k.shape)}: K2 takes equal head "
-                             f"counts and d in {BWD_HEAD_DIMS}")
+                             f"k {tuple(k.shape)}: K2 takes d in "
+                             f"{BWD_HEAD_DIMS}")
         return _StackedAttention.apply(q, k, v, lengths, causal, sm_scale)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     _fwd(q, k, v, o, None, lengths, causal, sm_scale)

@@ -20,10 +20,9 @@ same generated token.
 Padding-free: micro-batches run packed (rl/packing.py) through the
 segment-id attention kernels (ops/attention.py, K4, forward and backward).
 Micro-batches carrying a raw `vision_batch`, and `padding_free=False`, take
-the padded layout, whose attention is the valid-length kernel; its backward
-kernel (K2) does not take the text model's d = 128 with grouped kv heads
-yet, so on a CUDA device the padded update raises there and runs on the CPU
-only.
+the padded layout, whose attention is the valid-length kernel K1 with its
+backward K2 (ops/attention_lengths.py), at the text model's d = 128 with
+grouped kv heads.
 
 What differs from the JAX trainer:
 
@@ -648,8 +647,8 @@ class RLTrainer:
         compute_log_probs. Shifts response/reward masks into logp space here.
         The packed branch runs the segment kernels forward and backward; the
         padded branch (padding_free=False, or a raw vision_batch in the
-        batch) runs the valid-length kernels, whose backward does not take
-        d = 128 with grouped kv heads yet: on a CUDA device it raises there.
+        batch) runs the valid-length kernels (K1 with the LSE forward, K2
+        backward, at d = 128 with grouped kv heads).
         """
         cfg = self.cfg
         if self._offload:

@@ -14,7 +14,8 @@ its partial last block.
 Differences from the JAX engine:
 
   * the model carries its weights (an nn.Module on the engine's device);
-    the pools are bf16;
+    the pools are bf16, or int8 with per-(token, kv head) scales
+    (cache_dtype="int8", serving/paged_kv.KVQuant);
   * JAX's donated per-layer pools become one preallocated layer-stacked
     tensor per K and V, written in place;
   * the decode chunk is a Python loop of device steps with no host sync
@@ -24,7 +25,7 @@ Differences from the JAX engine:
     the prefix cache (the JAX engine inserts the whole ids);
   * `set_params` takes the module (updated in place by the optimizer) and
     clears the prefix cache; there is no resharding at one card;
-  * not ported: tensor parallelism (`mesh`), int8 KV pools, beam search.
+  * not ported: tensor parallelism (`mesh`), beam search.
 """
 
 from __future__ import annotations
@@ -38,10 +39,21 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .paged_kv import BlockAllocator, pool_shape, write_prefill
+from .paged_kv import BlockAllocator, KVQuant, pool_shape, write_prefill
 from .sampling import SamplingParams, bias_arrays, sample_vec
 
 MAX_LOGIT_BIAS = 8          # (id, bias) pairs per request
+
+
+def _is_int8(cache_dtype) -> bool:
+    """cache_dtype → True for int8 pools, False for bf16; raises for any
+    other (the decode kernel reads bf16 or int8)."""
+    if cache_dtype in ("int8", torch.int8, np.int8):
+        return True
+    if cache_dtype in (None, "bfloat16", "bf16", torch.bfloat16):
+        return False
+    raise ValueError(f"cache_dtype {cache_dtype!r}: the KV pools are "
+                     f"bfloat16 or int8")
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -92,7 +104,8 @@ class Engine:
 
     def __init__(self, model, *, num_slots: int = 8, max_len: int = 4096,
                  prompt_buckets: Sequence[int] = (512, 1024, 2048, 4096),
-                 eos_token_ids: Sequence[int] = (), decode_chunk: int = 16,
+                 eos_token_ids: Sequence[int] = (),
+                 cache_dtype=torch.bfloat16, decode_chunk: int = 16,
                  cache_blocks: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
                  chunked_prefill_tokens: Optional[int] = None,
@@ -107,6 +120,10 @@ class Engine:
         tc = model.cfg.text
         self.vocab = tc.vocab_size
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # int8 KV: pools of int8 data plus per-(token, kv head) fp32 scales,
+        # quantized on write and dequantized inside the decode kernel, half
+        # the bytes that decode reads (the vLLM kv_cache_dtype role)
+        self.kv_quant = _is_int8(cache_dtype)
         bs = 128
         for b in list(self.prompt_buckets) + [max_len]:
             bs = np.gcd(bs, b)
@@ -189,9 +206,17 @@ class Engine:
         """(Re)allocate zeroed pools; a no-op while they exist."""
         if self.k_cache is not None:
             return
-        self.k_cache = torch.zeros(self._pool_shape, dtype=torch.bfloat16,
+
+        def pool():
+            if not self.kv_quant:
+                return torch.zeros(self._pool_shape, dtype=torch.bfloat16,
                                    device=self.device)
-        self.v_cache = torch.zeros_like(self.k_cache)
+            return KVQuant(
+                torch.zeros(self._pool_shape, dtype=torch.int8,
+                            device=self.device),
+                torch.zeros(self._pool_shape[:-1], dtype=torch.float32,
+                            device=self.device))
+        self.k_cache, self.v_cache = pool(), pool()
 
     def set_params(self, model) -> None:
         """Hand the engine the policy after a weight update (the RL

@@ -1,23 +1,32 @@
 """Paged KV cache: a pool of head-major blocks, a block table per slot, and
 the decode attention kernel that reads through it (K5).
 
-Counterpart of visrag_tpu/serving/paged_kv.py (bf16 pools; the int8 KVQuant
-pools and the kernel's quantized variant are not ported). K/V live in a
-block pool of shape (layers, n_blocks, kv_heads, block_size, d), head-major
-inside a block, and each slot owns a list of block ids handed out by
+Counterpart of visrag_tpu/serving/paged_kv.py. K/V live in a block pool of
+shape (layers, n_blocks, kv_heads, block_size, d), head-major inside a
+block, and each slot owns a list of block ids handed out by
 `BlockAllocator`. The JAX package keeps one pool per layer only so that XLA
 updates them in place; here every write is an in-place index write into the
 one preallocated tensor, and a layer's pool is the view `pool[layer]`.
 
+A pool is a bf16 tensor or a `KVQuant` (Engine(cache_dtype="int8")): int8
+data of the same shape plus one fp32 scale per (token, kv head), quantized
+on write (`quantize_kv`) and dequantized on read. The helpers here
+(`pool_write_rows`, `pool_gather`, `write_prefill`, `write_token`,
+`paged_decode_attention`) take either.
+
 `paged_decode_attention` launches csrc/paged_decode.cu on a CUDA tensor
-(a split-table partial kernel and a combine kernel; the launch counter
-`launches` counts calls) or raises; a CPU tensor takes
-`paged_decode_reference`, the plain PyTorch version of `_xla_paged_decode`.
+(a split-table partial kernel, bf16 or int8, and a combine kernel; the
+launch counters `launches` and `int8_launches` count calls) or raises; a
+CPU tensor takes `paged_decode_reference`, the plain PyTorch version: the
+JAX package's
+`_xla_paged_decode` for bf16 pools, and for int8 pools the TPU kernel's
+own arithmetic (the scales folded into the scores and the probabilities).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import List
 
@@ -28,12 +37,13 @@ KERNEL_HEAD_DIM = 128
 KERNEL_BLOCK_SIZE = 128
 TARGET_BLOCKS = 264     # partial-kernel blocks to aim for: 2 per H100 SM
 
-launches = 0
+launches = 0        # K5 on bf16 pools
+int8_launches = 0   # K5's int8 variant, on KVQuant pools
 
 
 def reset_launch_counts() -> None:
-    global launches
-    launches = 0
+    global launches, int8_launches
+    launches = int8_launches = 0
 
 
 class BlockAllocator:
@@ -69,19 +79,80 @@ class BlockAllocator:
                 self.free.append(b)
 
 
+@dataclasses.dataclass
+class KVQuant:
+    """An int8 pool: `data` (..., n_blocks, kvh, bs, d) int8 with
+    data[b, g, t] ≈ real / scale, and `scale` (..., n_blocks, kvh, bs) fp32,
+    the absmax / 127 of that token's row in kv head g. The JAX package
+    stores one layer's scales in row form (n_blocks, 1, kvh * bs); this
+    layout holds the same numbers in the same order, and a leading layer
+    axis stacks the layers. Indexing and index assignment act on both leaves
+    at once, so `pool[layer]` is one layer's KVQuant view and a block copy
+    `pool[:, dst] = pool[:, src]` carries the scales with the data."""
+
+    data: torch.Tensor
+    scale: torch.Tensor
+
+    def __getitem__(self, idx):
+        return KVQuant(self.data[idx], self.scale[idx])
+
+    def __setitem__(self, idx, value: "KVQuant") -> None:
+        self.data[idx] = value.data
+        self.scale[idx] = value.scale
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def nbytes(self) -> int:
+        return self.data.numel() + 4 * self.scale.numel()
+
+
+def quantize_kv(x):
+    """x (..., d) float → (int8 data, fp32 scale (...,)), per-row absmax /
+    127. A zero row gets scale 1 (data all zero), so dequant stays exact."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127,
+                    127).to(torch.int8)
+    return q, scale
+
+
 def pool_shape(n_blocks: int, block_size: int, kvh: int, d: int) -> tuple:
     """One layer's pool shape (head-major blocks)."""
     return (n_blocks, kvh, block_size, d)
 
 
+def quant_pool_shapes(n_blocks: int, block_size: int, kvh: int, d: int):
+    """(data shape, scale shape) of one layer's KVQuant pool."""
+    return (n_blocks, kvh, block_size, d), (n_blocks, kvh, block_size)
+
+
+def _store(pool, idx, x) -> None:
+    """pool[idx] = x (…, d), quantized on write for a KVQuant pool."""
+    if isinstance(pool, KVQuant):
+        pool[idx] = KVQuant(*quantize_kv(x))
+    else:
+        pool[idx] = x.to(pool.dtype)
+
+
 def pool_write_rows(pool, rows, xb) -> None:
     """Write whole head-major blocks xb (nr, kvh, bs, d) at pool rows (nr,)
     of one layer's pool, in place."""
-    pool[rows] = xb.to(pool.dtype)
+    _store(pool, rows, xb)
 
 
 def pool_gather(pool, rows, dtype=torch.bfloat16):
-    """Pool rows (nr,) of one layer → (nr, kvh, bs, d) in `dtype`."""
+    """Pool rows (nr,) of one layer → (nr, kvh, bs, d) in `dtype`,
+    dequantized for a KVQuant pool."""
+    if isinstance(pool, KVQuant):
+        return (pool.data[rows].float()
+                * pool.scale[rows][..., None]).to(dtype)
     return pool[rows].to(dtype)
 
 
@@ -95,7 +166,7 @@ def write_prefill(k_pool, v_pool, k, v, rows, bucket: int) -> None:
     kk = k.shape[1]
     for pool, x in ((k_pool, k), (v_pool, v)):
         xb = x.reshape(layers, kk * nb, bs, *x.shape[3:]).transpose(2, 3)
-        pool[:, rows] = xb.to(pool.dtype)
+        _store(pool, (slice(None), rows), xb)
 
 
 def write_token(pool, table, pos, x) -> None:
@@ -103,27 +174,54 @@ def write_token(pool, table, pos, x) -> None:
     d), in place: x (slots, kvh, d) at logical positions pos (slots,)."""
     bs = pool.shape[2]
     blk = torch.gather(table, 1, (pos // bs)[:, None].to(table.dtype))[:, 0]
-    pool[blk.long(), :, (pos % bs).long()] = x.to(pool.dtype)
+    _store(pool, (blk.long(), slice(None), (pos % bs).long()), x)
+
+
+def _gather_heads(pool, idx):
+    """Table rows idx (s, mb) of one layer → (s, kvh, mb*bs, d) data and,
+    for KVQuant, (s, kvh, mb*bs) scales."""
+    s, mb = idx.shape
+    data = pool.data if isinstance(pool, KVQuant) else pool
+    _, kvh, bs, d = data.shape
+    g = data[idx].transpose(1, 2).reshape(s, kvh, mb * bs, d)
+    if not isinstance(pool, KVQuant):
+        return g, None
+    return g, pool.scale[idx].transpose(1, 2).reshape(s, kvh, mb * bs)
 
 
 def paged_decode_reference(q, k_pool, v_pool, table, lengths, sm_scale):
-    """Plain PyTorch version (the JAX package's `_xla_paged_decode`): gather
-    every table entry, fp32 scores, mask at the length, softmax, P rounded
-    to the pool's dtype, fp32 accumulation. → (slots, H, d) in q's dtype."""
+    """Plain PyTorch version → (slots, H, d) in q's dtype. bf16 pools: the
+    JAX package's `_xla_paged_decode` (fp32 scores, mask at the length,
+    softmax, P rounded to the pool's dtype, fp32 accumulation). KVQuant
+    pools: the TPU kernel's arithmetic, which K5's int8 variant follows:
+    q * sm_scale rounded to bf16, scores of the int8 keys times their k
+    scales, the softmax's sum from the unscaled probabilities, the
+    probabilities times their v scales rounded to bf16 for P.V."""
     s, h, d = q.shape
     mb = table.shape[1]
-    kvh, bs = k_pool.shape[1], k_pool.shape[2]
-    rep = h // kvh
     idx = table.long()
-    kg = k_pool[idx].transpose(1, 2).reshape(s, kvh, mb * bs, d)
-    vg = v_pool[idx].transpose(1, 2).reshape(s, kvh, mb * bs, d)
-    qg = q.reshape(s, kvh, rep, d)
-    scores = torch.einsum("sgrd,sgld->sgrl", qg.float(), kg.float()) * sm_scale
-    mask = (torch.arange(mb * bs, device=q.device)[None, :]
+    kg, ks = _gather_heads(k_pool, idx)
+    vg, vs = _gather_heads(v_pool, idx)
+    kvh = kg.shape[1]
+    qg = q.reshape(s, kvh, h // kvh, d)
+    mask = (torch.arange(mb * k_pool.shape[2], device=q.device)[None, :]
             < lengths.to(q.device)[:, None])[:, None, None, :]
+    if ks is None:
+        scores = torch.einsum("sgrd,sgld->sgrl", qg.float(),
+                              kg.float()) * sm_scale
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        p = torch.softmax(scores, dim=-1)
+        o = torch.einsum("sgrl,sgld->sgrd", p.to(vg.dtype).float(),
+                         vg.float())
+        return o.reshape(s, h, d).to(q.dtype)
+    qs = (qg.float() * sm_scale).to(torch.bfloat16).float()
+    scores = torch.einsum("sgrd,sgld->sgrl", qs, kg.float()) \
+        * ks[:, :, None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    p = torch.softmax(scores, dim=-1)
-    o = torch.einsum("sgrl,sgld->sgrd", p.to(vg.dtype).float(), vg.float())
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * mask
+    pv = (p * vs[:, :, None, :]).to(torch.bfloat16).float()
+    o = torch.einsum("sgrl,sgld->sgrd", pv, vg.float()) \
+        / p.sum(dim=-1, keepdim=True)
     return o.reshape(s, h, d).to(q.dtype)
 
 
@@ -137,11 +235,14 @@ def split_plan(slots: int, kvh: int, max_blk: int):
 
 def paged_decode_attention(q, k_pool, v_pool, table, lengths, sm_scale=None):
     """q (slots, H, d); k_pool/v_pool one layer's (n_blocks, kvh, bs, d)
-    pools; table (slots, max_blk) int32 pool rows; lengths (slots,) int32
-    INCLUDING the current token. → (slots, H, d)."""
-    global launches
+    pools, bf16 or KVQuant; table (slots, max_blk) int32 pool rows; lengths
+    (slots,) int32 INCLUDING the current token. → (slots, H, d)."""
+    global launches, int8_launches
     s, h, d = q.shape
     _, kvh, bs, dk = k_pool.shape
+    quant = isinstance(k_pool, KVQuant)
+    if quant != isinstance(v_pool, KVQuant):
+        raise ValueError("k_pool and v_pool must both be KVQuant or neither")
     if v_pool.shape != k_pool.shape or dk != d or h % kvh \
             or table.shape[0] != s or lengths.shape != (s,):
         raise ValueError(f"paged decode shapes: q {tuple(q.shape)}, pools "
@@ -161,10 +262,19 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, sm_scale=None):
                          f"{KERNEL_HEAD_DIM}, block size {KERNEL_BLOCK_SIZE} "
                          f"and at most 8 query heads per kv head; got d={d}, "
                          f"bs={bs}, {h}/{kvh} heads")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
-                or t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous bfloat16 tensor on "
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    tensors = [("q", q, torch.bfloat16)]
+    if quant:
+        tensors += [("k_pool.data", k_pool.data, pool_dtype),
+                    ("v_pool.data", v_pool.data, pool_dtype),
+                    ("k_pool.scale", k_pool.scale, torch.float32),
+                    ("v_pool.scale", v_pool.scale, torch.float32)]
+    else:
+        tensors += [("k_pool", k_pool, pool_dtype),
+                    ("v_pool", v_pool, pool_dtype)]
+    for name, t, dtype in tensors:
+        if t.dtype != dtype or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
                              f"{q.device}")
     for name, t in (("table", table), ("lengths", lengths)):
         if t.dtype != torch.int32 or not t.is_contiguous() \
@@ -181,10 +291,13 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, sm_scale=None):
     o = torch.empty_like(q)
     fn = load_library("paged_decode").visrag_paged_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
+    ptrs = ((k_pool.data.data_ptr(), v_pool.data.data_ptr(),
+             k_pool.scale.data_ptr(), v_pool.scale.data_ptr()) if quant else
+            (k_pool.data_ptr(), v_pool.data_ptr(), None, None))
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        rc = fn(q.data_ptr(), *ptrs,
                 table.data_ptr(), lengths.data_ptr(), part_o.data_ptr(),
                 part_ml.data_ptr(), o.data_ptr(), s, h, kvh, d, bs, mb,
                 splits, per, float(sm_scale),
@@ -192,5 +305,8 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, sm_scale=None):
     if rc != 0:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    if quant:
+        int8_launches += 1
+    else:
+        launches += 1
     return o

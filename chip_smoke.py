@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU: VisRAG-Ret page
 embedding → retrieval (bf16 and int8), retriever training, EVisRAG serving
-(bf16 and int8 KV pools), and one RS-GRPO training step.
+(bf16 and int8 KV pools), RS-GRPO training steps, EVisRAG SFT and a GAE
+RS-GRPO run with the critic.
 
     python3 chip_smoke.py
 
@@ -10,6 +11,19 @@ is non-zero; no phase catches an error and carries on):
   0. environment: torch/CUDA versions, the card, nvcc, Pillow and pyarrow;
   1. build every kernel source in visrag_tpu_torch/csrc with nvcc, one
      process per source, all at once;
+ 1b. K7 (csrc/norms.cu, the fused RMSNorm / LayerNorm forward) against its
+     plain version at the widths each path gives it (LayerNorm at the
+     encode's ViT rows 126,208 x 1152 and the resampler's x 2304; RMSNorm
+     at the SFT batch 16,384 x 2048, the LM's 11,264 x 2304, Qwen's vision
+     stream x 1280 and the 7B decode 4 x 3584) and at edge shapes (1 and 3
+     rows, D = 64, 4096 and 4099, fp32 input, mixed weight dtypes): bf16
+     within one bf16 ulp of the plain version plus 2^-16 of the fp32
+     computation's scale (|x| + |μ|)·rstd·|w| + |b|, fp32 within 1e-5 of
+     |y| plus that scale; the
+     gradients through its autograd.Function against plain autograd
+     (1e-6 relative); timed beside the plain version and F.layer_norm /
+     F.rms_norm (CUDA events, median of 10), bound = bytes / 3.35 TB/s.
+     From here on every RMSNorm and LayerNorm of the port runs K7;
   2. K1 without the LSE against its plain PyTorch version on the card
      (bf16 unit-normal inputs, 2e-2 max abs on valid rows) at the shapes and
      lengths phase 3's page and query batches give it (ViT flat 116 slices x
@@ -22,7 +36,8 @@ is non-zero; no phase catches an error and carries on):
      encode_dataset, then StreamingSearcher top-10, build_run and
      evaluate_run; checks finite unit-norm embeddings, self-retrieval at
      rank 1, and that every encode batch launched K1 26 (ViT) + 40 (LM)
-     times;
+     times and K7 56 LayerNorms (2 x 26 + 1 ViT, 3 resampler) and 81
+     RMSNorms (2 x 40 + 1);
  3b. the int8 encode: K6 (the w8a8 GEMM) against its plain version (exact
      int32 product, every bf16 output within one bf16 ulp) at the four
      GEMM shapes of the page batch (ViT qkv and fc1, 126,208 rows; LM
@@ -137,15 +152,37 @@ is non-zero; no phase catches an error and carries on):
      and the same for the padded update of those sequences (K1 with the
      LSE, K2 at d = 128 with grouped kv heads, one launch each per layer);
      prints each step's time split from the trainer's Timers, tokens/s and
-     peak memory.
+     peak memory;
+ 10. EVisRAG stage-1 SFT at Qwen2.5-VL-3B's full width on random weights
+     from seed 0, whole-block remat, the tower frozen, through sft_main's
+     build_sft and run_sft: 3 steps of 4 right-padded rows (lengths up to
+     the driver's --max-len 4096; StandInTokenizer), warmup 1 step, lr
+     1e-4, fp32 AdamW states. Checks a finite loss and grad_norm each step,
+     changed text weights and a bit-identical tower, the saved weights read
+     back equal, and the launch counts per step as reckoned (K1 + LSE 2 x
+     36, K2 dq and dk/dv 36, K7 4 x 36 + 1); then one batch's loss and
+     parameter gradients through 2 full-width layers, kernels (K1 + LSE,
+     K2, K7) against the plain versions (5e-2 relative); prints s/step,
+     tokens/s and peak memory;
+ 11. one GAE RS-GRPO run through rl_main's build_critic, build_trainer and
+     run_training at Qwen2.5-VL-3B's full width with the text depth cut to
+     12 layers (actor, critic and engine on one card): phase 9's prompts,
+     64 response tokens, hash_reward, no reference policy, two steps with
+     critic_warmup 1. Checks finite values, advantages, returns and value
+     loss, the critic's weights moving in both steps and the actor's only
+     in step 2, and a resume (the critic's weights and moments zeroed)
+     that restores the critic's state from the step-2 checkpoint.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq,
 K2 dk/dv, K1 stacked GQA, K3, K5, K6, K5 int8, K4 forward, K4 dq, K4 dk/dv,
-K1 + LSE, K2 dq and K2 dk/dv at d = 128 with grouped kv heads: launches on
-its main path, ms, plain_ms,
-library_ms, bound_ms, max_abs_err; every checked shape under "checks"),
-and {"ok": true, "device": {...}}.
+K1 + LSE, K2 dq and K2 dk/dv at d = 128 with grouped kv heads, and K7 as
+`rmsnorm` (launches from phase 10's SFT run, numbers at its batch) and
+`layernorm` (launches from phase 3's encode, numbers at the ViT's rows):
+launches on its main path, ms, plain_ms, library_ms, bound_ms,
+max_abs_err; every checked shape under "checks"), and
+{"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11;
+it ends without the ok line and exits 1.
 """
 
 from __future__ import annotations
@@ -276,12 +313,205 @@ def phase1_build():
         lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
         regs = sorted({line.split("Used ")[1].split(",")[0]
                        for line in lines if "Used " in line})
-        spills = all("0 bytes spill stores, 0 bytes spill loads" in line
-                     for line in lines if "spill stores" in line)
+        spilled = [prev.split("for ")[-1].strip()
+                   for prev, line in zip(lines, lines[1:])
+                   if "spill stores" in line
+                   and "0 bytes spill stores, 0 bytes spill loads" not in line]
         log(f"[1] built {path.name} (registers per kernel: "
-            f"{', '.join(regs)}; spill-free: {spills})")
+            f"{', '.join(regs)}; spill-free: {not spilled})"
+            + (f" spills in {spilled}" if spilled else ""))
     log(f"[1] {len(paths)} sources built in {dt:.2f} s, one nvcc each")
     return dt
+
+
+NORM_EPS = 1e-6
+RTOL_NORM_FP32 = 1e-5   # K7 on fp32 input, relative to |y| + its scale
+
+
+def _qwen_vision_rows():
+    """Patches of phase 7's first 3-page request: each page resized as
+    the serving driver resizes it (max_pixels 1,568,000, 28-pixel grid)
+    and cut into 14 x 14 patches."""
+    from visrag_tpu_torch.preprocess.qwen_vision import smart_resize
+    rows = 0
+    for w, h in (PAGE_SIZES[0], PAGE_SIZES[1], PAGE_SIZES[2]):
+        hh, ww = smart_resize(h, w, 28, 56 * 56, 1568000)
+        rows += (hh // 14) * (ww // 14)
+    return rows
+
+
+def _norm_shapes():
+    """(label, kind, rows, D, x dtype, w dtype) of phase 1b: the widths
+    each path gives K7, then edge shapes."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ("ViT LayerNorm, encode page batch", "ln", 126208, 1152, bf, bf),
+        ("resampler ln_kv, encode page batch", "ln", 126208, 2304, bf, bf),
+        ("Qwen-3B RMSNorm, SFT batch 4 x 4096", "rms", 16384, 2048, bf, bf),
+        ("MiniCPM RMSNorm, encode token batch", "rms", 11264, 2304, bf, bf),
+        ("Qwen vision RMSNorm, 3-page request", "rms", _qwen_vision_rows(),
+         1280, bf, bf),
+        ("Qwen-7B RMSNorm, decode of 4", "rms", 4, 3584, bf, bf),
+        ("edge: 1 row", "rms", 1, 2048, bf, bf),
+        ("edge: 3 rows", "ln", 3, 1152, bf, bf),
+        ("edge: D = 64", "rms", 1000, 64, bf, bf),
+        ("edge: D = 64", "ln", 1000, 64, bf, bf),
+        ("edge: D = 4096", "ln", 777, 4096, bf, bf),
+        ("edge: D = 4099 (scalar path)", "rms", 33, 4099, bf, bf),
+        ("edge: fp32 input", "rms", 513, 4096, f32, f32),
+        ("edge: fp32 input", "ln", 513, 1152, f32, f32),
+        ("edge: fp32 input, bf16 weight", "ln", 129, 2304, f32, bf),
+        ("edge: bf16 input, fp32 weight", "rms", 129, 2048, bf, f32),
+    ]
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at |t| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(
+        t.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def _host_us(fn, n=200):
+    """Microseconds of host time per fn() call, the device drained before
+    and after, so that the launch queue never fills."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def _check_norm(gen, label, kind, rows, d, xdt, wdt):
+    """K7 against the plain version on one shape: bf16 output within one
+    bf16 ulp of the plain version's (of the larger of the two) plus 2^-16
+    of the fp32 computation's scale s = (|x| + |μ|)·rstd·|w| + |b| (the
+    rounding of x − μ and of the bias sum, which a near-zero output does
+    not shrink); fp32 within RTOL_NORM_FP32 of |y| + s. Timed beside the
+    plain version and the library call (F.layer_norm; F.rms_norm where
+    this torch has it). → the check record."""
+    from visrag_tpu_torch.ops import norms
+    x = (torch.randn(rows, d, generator=gen, device=DEV) * 2 + 0.5).to(xdt)
+    w = (1 + 0.3 * torch.randn(d, generator=gen, device=DEV)).to(wdt)
+    b = (0.2 * torch.randn(d, generator=gen, device=DEV)).to(wdt) \
+        if kind == "ln" else None
+
+    def plain():
+        return norms.rmsnorm_reference(x, w, NORM_EPS) if b is None \
+            else norms.layernorm_reference(x, w, b, NORM_EPS)
+
+    def kern():
+        return norms._launch(x, w, b, NORM_EPS)
+    lib = None
+    if b is not None:
+        def lib():
+            return F.layer_norm(x, (d,), w.to(xdt), b.to(xdt), NORM_EPS)
+    elif hasattr(F, "rms_norm"):
+        def lib():
+            return F.rms_norm(x, (d,), w.to(xdt), NORM_EPS)
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    # the fp32 computation's own error scale: |x| and |μ| (rounded before
+    # the centring), times rstd and |w|, plus |b|
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True) if b is not None else torch.zeros_like(
+        xf[:, :1])
+    rstd = torch.rsqrt((xf - mu).square().mean(-1, keepdim=True) + NORM_EPS)
+    scale = (xf.abs() + mu.abs()) * rstd * w.float().abs()
+    if b is not None:
+        scale += b.float().abs()
+    del xf
+    if xdt == torch.bfloat16:
+        bound = _bf16_ulp(torch.maximum(out.float().abs(),
+                                        ref.float().abs())) \
+            + 2.0 ** -16 * scale
+    else:
+        bound = RTOL_NORM_FP32 * (ref.abs() + scale)
+    ok = bool(torch.isfinite(out).all()) and bool((err <= bound).all())
+    max_err = float(err.max())
+    worst = float((err / bound.clamp(min=1e-30)).max())
+    del err, bound, scale
+    item = x.element_size()
+    nbytes = 2 * rows * d * item + (1 if b is None else 2) * d * \
+        w.element_size()
+    bound_ms, bound_by = _bound(0, nbytes)
+    if rows <= 64:
+        # host time per call (the decode step is host-bound)
+        host = {"host_us": _host_us(kern), "plain_host_us": _host_us(plain)}
+    else:
+        host = {}
+    rec = {"label": label, "kind": kind, "shape": [rows, d],
+           "dtype": str(xdt).replace("torch.", ""),
+           "weight_dtype": str(wdt).replace("torch.", ""),
+           "max_abs_err": max_err, "err_over_bound": worst,
+           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+           "library_ms": cuda_ms(lib) if lib is not None else None,
+           "bound_ms": bound_ms, "bound_by": bound_by, **host}
+    log(f"[1b] K7 {kind} {label} {rows} x {d} {rec['dtype']} (w "
+        f"{rec['weight_dtype']}): max_abs_err {max_err:.3g}, worst "
+        f"err/bound {worst:.3g} | kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, library "
+        + (f"{rec['library_ms']:.4f} ms" if lib is not None
+           else "none (this torch has no F.rms_norm)")
+        + f", bound {bound_ms:.4f} ms ({bound_by})"
+        + (f" | host {host['host_us']:.1f} us per call, plain "
+           f"{host['plain_host_us']:.1f} us" if host else ""))
+    if not ok:
+        raise RuntimeError(f"K7 {kind} {label}: outside the bound "
+                           f"(max_abs_err {max_err}, err/bound {worst})")
+    return rec
+
+
+def _check_norm_grads(gen, kind, rows, d):
+    """Gradients of x, w (and b) through K7's autograd.Function against
+    plain autograd on the same inputs and output gradient (the Function's
+    backward is the plain version's recompute: equal to 1e-6 relative,
+    and said whether bit for bit). → (rel_err, bitwise)."""
+    from visrag_tpu_torch.ops import norms
+    x = (torch.randn(rows, d, generator=gen, device=DEV) * 2).bfloat16()
+    w = (1 + 0.3 * torch.randn(d, generator=gen, device=DEV)).bfloat16()
+    b = (0.2 * torch.randn(d, generator=gen, device=DEV)).bfloat16()
+    g = torch.randn(rows, d, generator=gen, device=DEV).bfloat16()
+    grads = []
+    for fn in ("kernel", "plain"):
+        ins = [t.clone().requires_grad_(True)
+               for t in ((x, w) if kind == "rms" else (x, w, b))]
+        if fn == "kernel":
+            y = norms._RowNorm.apply(*ins, None, NORM_EPS) \
+                if kind == "rms" else norms._RowNorm.apply(*ins, NORM_EPS)
+        else:
+            y = norms.rmsnorm_reference(*ins, NORM_EPS) if kind == "rms" \
+                else norms.layernorm_reference(*ins, NORM_EPS)
+        grads.append(torch.autograd.grad(y, ins, g))
+    num = math.sqrt(sum(float(((a.float() - c.float()) ** 2).sum())
+                        for a, c in zip(*grads)))
+    den = math.sqrt(sum(float((c.float() ** 2).sum()) for c in grads[1]))
+    bitwise = all(torch.equal(a, c) for a, c in zip(*grads))
+    log(f"[1b] K7 {kind} gradients through the autograd.Function at "
+        f"{rows} x {d} bf16: rel_err {num / den:.3g} against plain "
+        f"autograd, bit for bit {bitwise}")
+    if not num / den <= 1e-6:
+        raise RuntimeError(f"K7 {kind} gradients disagree: {num / den}")
+    return num / den, bitwise
+
+
+def phase1b_norm_kernel(gen):
+    """K7 against its plain version at every shape of _norm_shapes, and its
+    gradients. → {"rmsnorm": [check, ...], "layernorm": [...]}, each
+    list's first record the path's main shape."""
+    out = {"rmsnorm": [], "layernorm": []}
+    for label, kind, rows, d, xdt, wdt in _norm_shapes():
+        rec = _check_norm(gen, label, kind, rows, d, xdt, wdt)
+        out["rmsnorm" if kind == "rms" else "layernorm"].append(rec)
+        torch.cuda.empty_cache()
+    for kind, d in (("rms", 2048), ("ln", 1152)):
+        rel, bitwise = _check_norm_grads(gen, kind, 4096, d)
+        out["rmsnorm" if kind == "rms" else "layernorm"][0].update(
+            grad_rel_err=rel, grad_bitwise=bitwise)
+    return out
 
 
 def _lengths(mask):
@@ -487,10 +717,25 @@ def phase3_setup():
             "batches": {"pages": raw_pages, "queries": raw_queries}}
 
 
+def _with_plain_norms(fn):
+    """fn() with every RMSNorm / LayerNorm of the port run as its plain
+    PyTorch version (the fp32 elementwise chain) instead of K7."""
+    from visrag_tpu_torch.ops import norms
+    rms, ln = norms.rmsnorm, norms.layernorm
+    norms.rmsnorm = lambda x, w, eps=1e-5: norms.rmsnorm_reference(x, w, eps)
+    norms.layernorm = lambda x, w, b, eps=1e-6: \
+        norms.layernorm_reference(x, w, b, eps)
+    try:
+        return fn()
+    finally:
+        norms.rmsnorm, norms.layernorm = rms, ln
+
+
 def phase3_slice(setup):
     import numpy as np
 
     from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
     from visrag_tpu_torch.preprocess.device import (finish_encode_batch,
                                                     pos_table_tensor)
     from visrag_tpu_torch.retrieval import evaluate_run
@@ -513,6 +758,7 @@ def phase3_slice(setup):
     torch.cuda.reset_peak_memory_stats()
 
     al.reset_launch_counts()
+    norms.reset_launch_counts()
     page_ids = [f"p{i}" for i in range(N_PAGES)]
     query_ids = [f"q{i}" for i in range(N_QUERIES)]
     t0 = time.perf_counter()
@@ -521,6 +767,7 @@ def phase3_slice(setup):
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     launches = al.launch_counts()
+    norm_launches = norms.launch_counts()
     n_batches = 2
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -531,15 +778,23 @@ def phase3_slice(setup):
                     "dkv": 0}:
         raise RuntimeError(f"kernel launches {launches} != "
                            f"{vit_depth}+{lm_depth} per encode batch")
+    # K7 per encode batch: the ViT's two LayerNorms a layer and its final
+    # one, the resampler's ln_kv, ln_q and ln_post; the LM's two RMSNorms
+    # a layer and its final one
+    want_norms = {"layernorm": n_batches * (2 * vit_depth + 1 + 3),
+                  "rmsnorm": n_batches * (2 * lm_depth + 1)}
+    if norm_launches != want_norms:
+        raise RuntimeError(f"K7 launches {norm_launches} != {want_norms}")
+    launches = {**launches, **norm_launches}
     for name, reps, n in (("pages", page_reps, N_PAGES),
                           ("queries", query_reps, N_QUERIES)):
         if reps.shape != (n, model.cfg.backbone.llm.hidden_size):
             raise RuntimeError(f"{name}: embeddings shape {reps.shape}")
         if not np.isfinite(reps).all():
             raise RuntimeError(f"{name}: non-finite embeddings")
-        norms = np.linalg.norm(reps, axis=1)
-        if not np.allclose(norms, 1.0, atol=1e-3):
-            raise RuntimeError(f"{name}: not unit norm ({norms})")
+        lengths = np.linalg.norm(reps, axis=1)
+        if not np.allclose(lengths, 1.0, atol=1e-3):
+            raise RuntimeError(f"{name}: not unit norm ({lengths})")
 
     searcher = StreamingSearcher(k=10, device="cuda")
     s_self, i_self = searcher.search(page_reps, [(page_reps[:8], 0),
@@ -559,6 +814,12 @@ def phase3_slice(setup):
     # the warm-up above
     reps_ms = cuda_ms(lambda: step(**raw_pages), reps=3)
     pages_s = N_PAGES / (reps_ms / 1e3)
+    # the same batch with every norm as the plain fp32 chain (what the
+    # models ran before K7) and with K7, in turns
+    turns = [(which, _with_plain_norms(
+        lambda: cuda_ms(lambda: step(**raw_pages), reps=3))
+        if which == "plain" else cuda_ms(lambda: step(**raw_pages), reps=3))
+        for which in ("plain", "K7", "K7", "plain")]
     log(f"[3] VisRAG-Ret full width bf16, {n_params / 1e9:.3f}B params "
         f"(init {setup['init_s']:.1f} s): {N_PAGES} pages = {n_slices} "
         f"slices at patch bucket {raw_pages['patch_mask'].shape[1]}, token "
@@ -571,7 +832,10 @@ def phase3_slice(setup):
         f"{search_ms:.2f} ms | metrics (random weights) "
         f"{json.dumps(metrics)}")
     log(f"[3] steady state: {reps_ms:.1f} ms per {N_PAGES}-page batch = "
-        f"{pages_s:.2f} pages/s | peak memory {peak_gb:.2f} GB | {smi()}")
+        f"{pages_s:.2f} pages/s | in turns, ms per batch with the norms as "
+        f"plain fp32 chains vs K7: "
+        f"{', '.join(f'{w} {ms:.1f}' for w, ms in turns)} | peak memory "
+        f"{peak_gb:.2f} GB | {smi()}")
     setup["reps"] = (page_reps, query_reps)
     return launches
 
@@ -1530,6 +1794,7 @@ def phase7_serving(reqs, cfg):
                                                          sampling_params)
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
     from visrag_tpu_torch.serving import paged_kv as pk
     tok = StandInTokenizer()
     t0 = time.perf_counter()
@@ -1554,6 +1819,7 @@ def phase7_serving(reqs, cfg):
     al.reset_launch_counts()
     kg.reset_launch_counts()
     pk.reset_launch_counts()
+    norms.reset_launch_counts()
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
@@ -1561,6 +1827,7 @@ def phase7_serving(reqs, cfg):
     launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
                 "paged": pk.launches, "flat": al.flat_launches,
                 "fwd_lse": al.fwd_lse_launches}
+    norm_launches = norms.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     image_id = StandInTokenizer.SPECIAL["<|image_pad|>"]
@@ -1614,7 +1881,9 @@ def phase7_serving(reqs, cfg):
         f"{sum(by_kind['whole']) / whole_s:.1f} tokens/s | decode "
         f"{dec.calls} chunks x {engine.chunk} steps, "
         f"{dec.seconds / max(steps, 1) * 1e3:.2f} ms/step | TTFT ms {ttft} "
-        f"| peak memory {peak_gb:.2f} GB | {smi()}")
+        f"| K7 launches {norm_launches} ({2 * layers + 1} RMSNorms per "
+        f"text forward, {2 * cfg.vision.depth + 1} per vision-tower run) | "
+        f"peak memory {peak_gb:.2f} GB | {smi()}")
 
     # the vision tower per request, and decode against the full forward
     tower = {}
@@ -2427,8 +2696,376 @@ def phase9_rl(rows_path, cfg, tmp):
     return launches
 
 
+SFT_STEPS = 3
+SFT_BATCH = 4              # the SFT driver's default --batch-size
+SFT_MAX_LEN = 4096         # the SFT driver's default --max-len
+SFT_LR = 1e-4              # large enough that bf16 text weights move
+# (prompt words, response words) of the SFT rows, 4 per step: the first
+# row of each batch runs past --max-len and is cut at 4096 tokens
+SFT_ROWS = [(3600, 900), (2500, 500), (1500, 300), (500, 150),
+            (3000, 1500), (2000, 1000), (1200, 400), (300, 200),
+            (4200, 100), (1800, 900), (900, 600), (100, 60)]
+GAE_LAYERS = 12            # text depth of phase 11: actor, critic, engine
+
+
+def _sft_rows(tmp):
+    """The SFT data of phase 10 as a jsonl of {prompt, response}: words
+    that StandInTokenizer maps to one token each. → the jsonl's path."""
+    path = f"{tmp}/sft_rows.jsonl"
+    with open(path, "w") as f:
+        for i, (np_, nr) in enumerate(SFT_ROWS):
+            f.write(json.dumps({
+                "prompt": " ".join(f"q{i}w{j}" for j in range(np_)),
+                "response": " ".join(f"a{i}w{j}" for j in range(nr))})
+                + "\n")
+    return path
+
+
+def _sft_micro_check(batch, cfg):
+    """One SFT batch's loss and parameter gradients through a 2-layer
+    model at full width, the kernels (K1 + LSE, K2 GQA d = 128, K7)
+    against the plain versions, on the card (RTOL_GRADS relative).
+    → the kernels' launch counts."""
+    from torch.utils.checkpoint import checkpoint
+
+    from visrag_tpu_torch.driver.common import build_qwen25_vl
+    from visrag_tpu_torch.models import qwen25_vl as qmod
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.training.sft import sft_loss
+    small = dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=2),
+        vision=dataclasses.replace(cfg.vision, depth=1))
+    model = build_qwen25_vl(small, device=DEV, seed=1)
+    model.visual.requires_grad_(False)
+    dev = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def plain_lengths(q, k, v, lengths, causal, sm_scale):
+        # one row at a time, recomputed in the backward
+        return torch.cat([checkpoint(
+            al.lengths_attention_reference, q[i:i + 1], k[i:i + 1],
+            v[i:i + 1], lengths[i:i + 1], causal, sm_scale,
+            use_reentrant=False) for i in range(q.shape[0])])
+    out, launches = {}, {}
+
+    def loss_and_grads():
+        loss, _ = sft_loss(model, dev)
+        loss.backward()
+        return loss
+    for which in ("kernels", "plain"):
+        al.reset_launch_counts()
+        norms.reset_launch_counts()
+        if which == "plain":
+            qmod.flash_fwd_lengths = plain_lengths
+            try:
+                loss = _with_plain_norms(loss_and_grads)
+            finally:
+                qmod.flash_fwd_lengths = al.flash_fwd_lengths
+        else:
+            loss = loss_and_grads()
+        if which == "kernels":
+            launches = {**al.launch_counts(), **norms.launch_counts()}
+        out[which] = (loss.item(), [p.grad.float().clone() for p in params])
+        for p in params:
+            p.grad = None
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    num = math.sqrt(sum(float(((x - y) ** 2).sum()) for x, y in zip(gk, gp)))
+    den = math.sqrt(sum(float((y ** 2).sum()) for y in gp))
+    layers = small.text.num_hidden_layers
+    want = {"flat": 0, "stacked": 0, "fwd_lse": 2 * layers, "dq": layers,
+            "dkv": layers, "rmsnorm": 4 * layers + 1, "layernorm": 0}
+    log(f"[10] one SFT batch {tuple(batch['input_ids'].shape)} through 2 "
+        f"layers at full width: loss {lk:.6f} (K1 + LSE, K2 GQA d=128, K7) "
+        f"vs {lp:.6f} (plain), parameter gradients rel_err {num / den:.4g} "
+        f"(bound {RTOL_GRADS}), norm {den:.4g}, launches {launches}")
+    if launches != want:
+        raise RuntimeError(f"SFT probe launches {launches} != {want}")
+    if abs(lk - lp) > RTOL_BLOCK * max(1.0, abs(lp)) or not den > 0 \
+            or num / den > RTOL_GRADS:
+        raise RuntimeError("SFT gradients through the kernels disagree with "
+                           "the plain versions")
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase10_sft(tmp):
+    """EVisRAG stage-1 SFT at Qwen2.5-VL-3B's full width on random weights
+    from seed 0, whole-block remat, the tower frozen, through sft_main's
+    build_sft and run_sft: 3 steps of 4 right-padded rows (warmup 1 step,
+    fp32 AdamW states). → the run's launch counts."""
+    from visrag_tpu_torch.driver import sft_main
+    from visrag_tpu_torch.driver.common import build_qwen25_vl
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.training.checkpoint import (find_latest_ckpt,
+                                                      load_checkpoint)
+    from visrag_tpu_torch.training.sft import SFTConfig
+    cfg = Qwen25VLConfig.b3()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                            remat=True))
+    scfg = SFTConfig(lr=SFT_LR, warmup_steps=1, total_steps=SFT_STEPS,
+                     optimizer_state_dtype="float32")
+    tok = RLStandInTokenizer()
+    rows_path = _sft_rows(tmp)
+    out_dir = f"{tmp}/sft_out"
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model = build_qwen25_vl(cfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _, step = sft_main.build_sft(model, scfg)
+    tower_before = [p.detach().clone() for p in model.visual.parameters()]
+    train = [p for p in model.parameters() if p.requires_grad]
+    text_before = [p.detach().double().abs().sum().item() for p in train]
+    batches, times = [], []
+    make = sft_main.make_sft_batch
+
+    def make_batch(pairs):
+        batches.append(make(pairs))
+        return batches[-1]
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return m
+    sft_main.make_sft_batch = make_batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    al.reset_launch_counts()
+    norms.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        history = sft_main.run_sft(
+            model, timed_step, scfg, rows_path,
+            lambda row: sft_main.encode_sft_row(row, tok, tok, SFT_MAX_LEN),
+            batch_size=SFT_BATCH, output_dir=out_dir)
+    finally:
+        sft_main.make_sft_batch = make
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**al.launch_counts(), **norms.launch_counts()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = cfg.text.num_hidden_layers
+    n = len(history)
+    want = {"flat": 0, "stacked": 0, "fwd_lse": 2 * layers * n,
+            "dq": layers * n, "dkv": layers * n,
+            "rmsnorm": (4 * layers + 1) * n, "layernorm": 0}
+    if n != SFT_STEPS or launches != want:
+        raise RuntimeError(f"SFT: {n} steps, launches {launches} != {want}")
+    for i, m in enumerate(history):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            raise RuntimeError(f"SFT step {i + 1}: {m}")
+    if not all(torch.equal(a, b) for a, b in
+               zip(tower_before, model.visual.parameters())):
+        raise RuntimeError("SFT moved the frozen vision tower")
+    moved = sum(a != p.detach().double().abs().sum().item()
+                for a, p in zip(text_before, train))
+    if moved == 0:
+        raise RuntimeError("SFT changed no text parameter")
+    t0 = time.perf_counter()
+    ck = find_latest_ckpt(out_dir)
+    tree, _ = load_checkpoint(ck)
+    live = model.state_dict()
+    if not ck.endswith(f"global_step_{SFT_STEPS}") or set(tree["model"]) \
+            != set(live) or not all(torch.equal(tree["model"][k],
+                                                live[k].cpu())
+                                    for k in live):
+        raise RuntimeError(f"the SFT checkpoint {ck} does not read back as "
+                           f"the trained weights")
+    ck_gb = sum(t.numel() * t.element_size()
+                for t in tree["model"].values()) / 1e9
+    read_s = time.perf_counter() - t0
+    del tree, live
+    shutil.rmtree(out_dir)
+    lens = [[int(x) for x in b["attention_mask"].sum(1)] for b in batches]
+    tokens = [sum(x) for x in lens]
+    log(f"[10] SFT Qwen2.5-VL-3B full width bf16, whole-block remat, "
+        f"{sum(p.numel() for p in train) / 1e9:.3f}B trained parameters, "
+        f"tower frozen (init {init_s:.1f} s), fp32 AdamW, lr {SFT_LR} after "
+        f"1 warmup step | {n} steps of {SFT_BATCH} rows, lengths {lens}, "
+        f"padded to {[b['input_ids'].shape[1] for b in batches]} | launches "
+        f"{launches} (= reckoned: K1 + LSE 2 x {layers}, K2 dq and dk/dv "
+        f"{layers}, K7 RMSNorm 4 x {layers} + 1 per step) | {moved} of "
+        f"{len(train)} text tensors changed, tower bit-identical | "
+        f"checkpoint {ck_gb:.2f} GB read back equal in {read_s:.1f} s | "
+        f"run_sft {run_s:.1f} s | peak memory {peak_gb:.2f} GB (resident "
+        f"before the model {resident_gb:.2f} GB) | {smi()}")
+    for i, (m, t, k) in enumerate(zip(history, times, tokens)):
+        log(f"[10] step {i + 1}: loss {m['loss']:.6f}, token_accuracy "
+            f"{m['token_accuracy']:.4f}, grad_norm {m['grad_norm']:.4g} | "
+            f"{t:.3f} s/step, {k / t:.1f} tokens/s ({k} tokens)")
+    del model, step, timed_step, train, tower_before
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe = _sft_micro_check(batches[0], cfg)
+    return {"run": launches, "probe": probe}
+
+
+def _checksums(tensors):
+    return [t.detach().double().abs().sum().item() for t in tensors]
+
+
+def phase11_gae(rows_path, tmp):
+    """One GAE RS-GRPO run at Qwen2.5-VL-3B's full width with the text
+    depth cut to GAE_LAYERS, through rl_main's build_critic, build_trainer
+    and run_training: two steps with critic_warmup 1 (step 1 trains the
+    critic only, step 2 both), phase 9's prompts and reward, the critic's
+    state saved at step 2 and restored by maybe_resume. → the run's launch
+    counts."""
+    import pathlib
+
+    import numpy as np
+
+    from visrag_tpu_torch.driver.common import (build_qwen25_vl,
+                                                encode_qwen_prompt_row)
+    from visrag_tpu_torch.driver.rl_main import (build_critic, build_trainer,
+                                                 run_training)
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    from visrag_tpu_torch.ops import attention as seg
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.serving import paged_kv as pk
+    cfg = Qwen25VLConfig.b3()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, remat=True, num_hidden_layers=GAE_LAYERS))
+    out_dir = f"{tmp}/gae_out"
+    r = dataclasses.replace
+    rcfg = _rl_config(out_dir, 2)
+    rcfg = r(rcfg, algorithm=r(rcfg.algorithm, adv_estimator="gae"),
+             actor=r(rcfg.actor, kl_coef=0.0),
+             trainer=r(rcfg.trainer, critic_warmup=1, save_freq=2))
+    tok = RLStandInTokenizer()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model = build_qwen25_vl(cfg, device=DEV, seed=0)
+    critic = build_critic(model, rcfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    trainer = build_trainer(model, rcfg, tok, tok, critic=critic)
+    actor0 = _checksums(trainer.train_params)
+    critic0 = _checksums(critic.params)
+    seen = []
+    update = critic.update
+
+    def spy_update(batch):
+        # the actor's update (if any) of this step has run
+        seen.append({"actor": _checksums(trainer.train_params),
+                     "adv_finite": bool(np.isfinite(batch["advantages"])
+                                        .all()),
+                     "ret_finite": bool(np.isfinite(batch["returns"]).all()),
+                     "values_finite": bool(np.isfinite(batch["values"])
+                                           .all())})
+        m = update(batch)
+        seen[-1]["critic"] = _checksums(critic.params)
+        return m
+    critic.update = spy_update
+
+    def encode_row(row):
+        return encode_qwen_prompt_row(row, tok, tok, cfg, rcfg.rollout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (al, kg, pk, seg, norms):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = run_training(trainer, rcfg, rows_path, encode_row)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {**al.launch_counts(), "kvgrid": kg.launches,
+                "paged": pk.launches, **seg.launch_counts(),
+                **norms.launch_counts()}
+    critic.update = update
+    if [s for s, _ in history] != [1, 2] or len(seen) != 2:
+        raise RuntimeError(f"GAE steps {[s for s, _ in history]}, critic "
+                           f"updates {len(seen)}")
+    m1, m2 = history[0][1], history[1][1]
+    if "loss" in m1 or "loss" not in m2:
+        raise RuntimeError("critic_warmup=1: step 1 must skip the actor "
+                           "and step 2 run it")
+    for step, m in history:
+        for k in ("critic/vf_loss", "critic/grad_norm",
+                  "critic/advantages/mean", "critic/returns/mean",
+                  "critic/values/mean"):
+            if not math.isfinite(m[k]):
+                raise RuntimeError(f"GAE step {step}: {k} = {m[k]}")
+    if not all(x["adv_finite"] and x["ret_finite"] and x["values_finite"]
+               for x in seen):
+        raise RuntimeError("GAE: non-finite values, advantages or returns")
+    if seen[0]["actor"] != actor0 or seen[1]["actor"] == actor0:
+        raise RuntimeError("the actor's weights must hold through step 1 "
+                           "and move in step 2")
+    if seen[0]["critic"] == critic0 or seen[1]["critic"] == seen[0]["critic"]:
+        raise RuntimeError("the critic's weights did not move")
+    if not all(launches[k] > 0 for k in ("stacked", "fwd_lse", "dq", "dkv",
+                                          "kvgrid", "paged", "rmsnorm")):
+        raise RuntimeError(f"GAE launches {launches}")
+    # resume: zero the critic's weights and moments, restore them
+    states = [st for st in critic.optimizer.state.values()]
+    saved = (_checksums(critic.params),
+             [_checksums(st.values()) for st in states],
+             critic.optimizer.count)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for p in critic.params:
+            p.zero_()
+        for st in states:
+            for t in st.values():
+                t.zero_()
+    critic.optimizer.count = 0
+    trainer.step = 0
+    ok = trainer.maybe_resume()
+    resume_s = time.perf_counter() - t0
+    got = (_checksums(critic.params),
+           [_checksums(st.values()) for st in states],
+           critic.optimizer.count)
+    ck_gb = sum(f.stat().st_size
+                for f in pathlib.Path(out_dir).rglob("*.pt")) / 1e9
+    shutil.rmtree(out_dir)
+    if not ok or trainer.step != 2 or got != saved:
+        raise RuntimeError("the resume did not restore the critic's weights "
+                           "and optimizer state")
+    n_actor = sum(p.numel() for p in trainer.train_params)
+    n_critic = sum(p.numel() for p in critic.params)
+    log(f"[11] GAE RS-GRPO, Qwen2.5-VL-3B full width with the text depth "
+        f"cut to {GAE_LAYERS} of {Qwen25VLConfig.b3().text.num_hidden_layers}"
+        f" layers (actor, critic and engine on one card), whole-block remat "
+        f"| actor {n_actor / 1e9:.3f}B + critic {n_critic / 1e9:.3f}B "
+        f"trained parameters, fp32 AdamW (init {init_s:.1f} s) | 2 steps "
+        f"of 4 prompts x n 4, {RL_RESPONSE_TOKENS} response tokens, "
+        f"critic_warmup 1: actor held in step 1, moved in step 2; critic "
+        f"moved in both | launches {launches} | checkpoint {ck_gb:.2f} GB, "
+        f"critic weights and moments restored in {resume_s:.1f} s | "
+        f"run_training {run_s:.1f} s | peak memory {peak_gb:.2f} GB "
+        f"(resident before the models {resident_gb:.2f} GB) | {smi()}")
+    for step, m in history:
+        split = {k[len("timing_s/"):]: round(v, 3) for k, v in m.items()
+                 if k.startswith("timing_s/")}
+        log(f"[11] step {step}: vf_loss {m['critic/vf_loss']:.6f}, critic "
+            f"grad_norm {m['critic/grad_norm']:.4g}, advantages mean "
+            f"{m['critic/advantages/mean']:.4g}, returns mean "
+            f"{m['critic/returns/mean']:.4g}, explained var "
+            f"{m['critic/vf_explained_var']:.4g}"
+            + (f", actor loss {m['loss']:.6f}" if "loss" in m else
+               ", actor not updated (critic warmup)")
+            + f" | seconds {split}")
+    del trainer, critic, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def rl_phases(gen):
-    """Phases 8 and 9. → (K4's check records, the run's launch counts)."""
+    """Phases 8, 9, 10 and 11. → (K4's check records, the RL run's launch
+    counts, SFT's, GAE's)."""
     from visrag_tpu_torch.driver.common import encode_qwen_prompt_row
     from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
     rl_cfg = Qwen25VLConfig.b3()
@@ -2449,7 +3086,16 @@ def rl_phases(gen):
             f"(prompt tokens {[len(p['input_ids']) for p in prompts]})")
         seg_results = phase8_segment_kernels(gen, prompts, rl_cfg)
         del prompts
-        return seg_results, phase9_rl(rows_path, rl_cfg, work)
+        rl_launches = phase9_rl(rows_path, rl_cfg, work)
+        # phase 9's trainer sits in reference cycles (its wrapped methods):
+        # collect them before the next 3B model is built
+        gc.collect()
+        torch.cuda.empty_cache()
+        sft_launches = phase10_sft(work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gae_launches = phase11_gae(rows_path, work)
+        return seg_results, rl_launches, sft_launches, gae_launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2486,12 +3132,32 @@ def segment_kernel_rows(seg_results, rl_launches):
     return rows
 
 
+def norm_kernel_rows(norm_results, sft_launches, encode_launches):
+    """K7's rows: RMSNorm with its launches from phase 10's SFT run and its
+    numbers at the SFT batch's shape; LayerNorm with its launches from
+    phase 3's encode (None: not run) and its numbers at the ViT's
+    shape."""
+    from visrag_tpu_torch.ops import norms
+    out = []
+    for name, launches in (
+            ("rmsnorm", sft_launches["run"]["rmsnorm"]),
+            ("layernorm", None if encode_launches is None
+             else encode_launches["layernorm"])):
+        first = norm_results[name][0]
+        out.append({"name": name, "route": "cuda", "source": norms.SOURCE,
+                    "replaces": norms.REPLACES[name], "launches": launches,
+                    **{k: first[k] for k in KEYS},
+                    "checks": norm_results[name]})
+    return out
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--rl-only", action="store_true",
-                    help="phases 0, 1, 8 and 9 only, for work on the RL "
-                         "slice; the run then ends without the ok line")
+                    help="phases 0, 1, 1b and 8-11 only, for work on the "
+                         "training slices; the run then ends without the "
+                         "ok line")
     args = ap.parse_args(argv)
     # full fp32 wherever fp32 is asked for (pos embed, the fp32 references)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2499,9 +3165,13 @@ def main(argv=None):
     phase0_environment()
     phase1_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    norm_results = phase1b_norm_kernel(gen)
     if args.rl_only:
+        seg_results, rl_launches, sft_launches, _ = rl_phases(gen)
         print(smi())
-        print(json.dumps({"kernels": segment_kernel_rows(*rl_phases(gen))}))
+        print(json.dumps({"kernels": segment_kernel_rows(
+            seg_results, rl_launches) + norm_kernel_rows(
+                norm_results, sft_launches, None)}))
         print(json.dumps({"ok": False, "partial": "--rl-only"}))
         return 1
     setup = phase3_setup()
@@ -2527,7 +3197,7 @@ def main(argv=None):
     del reqs, qmodel, dec_ref
     gc.collect()
     torch.cuda.empty_cache()
-    seg_results, rl_launches = rl_phases(gen)
+    seg_results, rl_launches, sft_launches, _ = rl_phases(gen)
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
     from visrag_tpu_torch.ops import matmul_int8 as mi
@@ -2579,6 +3249,7 @@ def main(argv=None):
                     **{k: k5q_checks[0][k] for k in keys},
                     "checks": k5q_checks})
     kernels += segment_kernel_rows(seg_results, rl_launches)
+    kernels += norm_kernel_rows(norm_results, sft_launches, serve_launches)
     for k in kernels:
         if not k["launches"] > 0:
             raise RuntimeError(f"{k['name']} was not launched on its path")

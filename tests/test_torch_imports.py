@@ -18,12 +18,14 @@ import visrag_tpu_torch.driver.eval_retriever
 import visrag_tpu_torch.driver.evisrag_eval
 import visrag_tpu_torch.driver.evisrag_predict
 import visrag_tpu_torch.driver.rl_main
+import visrag_tpu_torch.driver.sft_main
 import visrag_tpu_torch.driver.train_retriever
 from visrag_tpu_torch.driver.common import build_qwen25_vl
 from visrag_tpu_torch.generation import prompts, qa_eval
 from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
-from visrag_tpu_torch.ops import attention, attention_kvgrid, matmul_int8, quant
-from visrag_tpu_torch.rl import (advantage, metrics, packing, ppo,
+from visrag_tpu_torch.ops import (attention, attention_kvgrid, matmul_int8,
+                                  norms, quant)
+from visrag_tpu_torch.rl import (advantage, critic, metrics, packing, ppo,
                                  reward_manager, rewards, seqlen)
 from visrag_tpu_torch.rl.trainer import RLTrainer
 from visrag_tpu_torch.serving import kv_cache, paged_kv, sampling
@@ -35,7 +37,7 @@ from visrag_tpu_torch.preprocess.device import (finish_encode_batch,
                                                 pos_table_tensor)
 from visrag_tpu_torch.retrieval.search import topk_single
 from visrag_tpu_torch.training import (checkpoint, contrastive, lora, optim,
-                                       trainer)
+                                       sft, trainer)
 
 model, pcfg = build_visrag_ret(ModelConfig(), tiny=True, device="cpu")
 rng = np.random.default_rng(0)
@@ -88,6 +90,25 @@ hist = rl.fit([[dict(input_ids=np.arange(3, 9, dtype=np.int32),
                 dict(input_ids=np.arange(7, dtype=np.int32),
                      ground_truth="<answer>x</answer>")]])
 assert len(hist) == 1 and np.isfinite(hist[0][1]["loss"])
+# one GAE step (the critic from the driver's build_critic) and one SFT step
+from visrag_tpu_torch.driver.rl_main import build_critic
+from visrag_tpu_torch.driver.sft_main import build_sft, make_sft_batch
+gae = dataclasses.replace(cfg, algorithm=dataclasses.replace(
+    cfg.algorithm, adv_estimator="gae"), trainer=dataclasses.replace(
+    cfg.trainer, output_dir=tempfile.mkdtemp()))
+rl = RLTrainer(qwen, gae, tokenizer_decode=lambda ids: "wrong",
+               tag_token_ids={"<think>": [50], "<evidence>": [51],
+                              "<answer>": [52]},
+               engine_kwargs=dict(num_slots=2, max_len=64,
+                                  prompt_buckets=(16,)),
+               critic=build_critic(qwen, gae))
+hist = rl.fit([[dict(input_ids=np.arange(3, 9, dtype=np.int32),
+                     ground_truth="<answer>x</answer>")] * 2])
+assert np.isfinite(hist[0][1]["critic/vf_loss"])
+_, step = build_sft(qwen, sft.SFTConfig(lr=1e-4))
+m = step(make_sft_batch([(np.arange(2, 12, dtype=np.int32),
+                          np.r_[np.zeros(5), np.ones(5)].astype(np.int32))]))
+assert np.isfinite(float(m["loss"]))
 added = sorted(m for m in set(sys.modules) - before
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "visrag_tpu"))
 print("ADDED", added)
@@ -99,10 +120,11 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_runs_without_jax():
-    """Importing the drivers, the training, serving, RL and int8 modules,
-    encoding a batch (bf16 and int8), generating with the serving engine
-    (bf16 and int8 pools) and taking one RLTrainer.fit step load no module
-    of jax, flax or visrag_tpu."""
+    """Importing the drivers, the training, serving, RL, int8 and norm
+    modules, encoding a batch (bf16 and int8), generating with the serving
+    engine (bf16 and int8 pools), taking one RLTrainer.fit step, one GAE
+    step with the critic and one SFT step load no module of jax, flax or
+    visrag_tpu."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,

@@ -40,6 +40,8 @@ def family(name: str) -> str:
         return "K5 paged decode"
     if "lengths_attention" in n:
         return "K1 lengths attention"
+    if "row_norm_kernel" in n:
+        return "K7 row norms"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "sm90_xmma",
                             "cublas", "ampere_", "splitk", "gemv")):
         return "GEMMs (cuBLAS)"

@@ -37,6 +37,8 @@ def family(name: str) -> str:
     n = name.lower()
     if "lengths_attention" in n:
         return "attention kernels (K1, K2)"
+    if "row_norm_kernel" in n:
+        return "K7 row norms"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "sm90_xmma",
                             "cublas", "ampere_", "splitk")):
         return "GEMMs (cuBLAS)"

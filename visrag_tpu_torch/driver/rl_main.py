@@ -14,8 +14,10 @@ tokenizer and, for a released model, its processor). `build_trainer` and
 `run_training` are what `main` runs, so that a caller with its own
 tokenizer and weights can drive exactly the same path. With
 `actor.kl_coef > 0` main loads a second, frozen copy of the checkpoint as
-the reference policy. Multi-process flags, a mesh, sequence and tensor
-parallelism and the GAE critic are refused (not ported).
+the reference policy. With `algorithm.adv_estimator=gae` it builds the
+critic (`build_critic`): a copy of the actor's text backbone under a fresh
+value head. Multi-process flags, a mesh, and sequence and tensor
+parallelism are refused (not ported).
 """
 
 from __future__ import annotations
@@ -65,10 +67,39 @@ def _single_device(args, cfg) -> None:
             f"mesh {sizes}: visrag_tpu_torch runs RL on one GPU")
 
 
-def build_trainer(model, cfg, processor, tok, *, ref_model=None):
+def build_critic(model, cfg, *, seed: int = 0):
+    """The GAE critic as the reference's driver builds it (a critic worker
+    over the same base model with a fresh one-label head): QwenForValue
+    whose text stack is a copy of the actor's (its own buffers: the critic
+    trains them) and whose fp32 score head is drawn from a generator
+    seeded with `seed` (lecun-normal, the JAX Dense's init), wrapped in a
+    CriticTrainer on CriticConfig's optimizer and the run's batch and
+    schedule horizon."""
+    import torch
+
+    from ..models.qwen25_vl import QwenForValue
+    from ..rl.critic import CriticTrainer
+    from .common import _trunc_normal_
+    device = next(model.parameters()).device
+    with torch.device("meta"):
+        vmodel = QwenForValue(model.cfg.text)
+    vmodel = vmodel.to_empty(device=device).eval()
+    with torch.no_grad():
+        vmodel.model.load_state_dict(model.model.state_dict())
+        std = vmodel.score.weight.shape[1] ** -0.5 / 0.87962566103423978
+        _trunc_normal_(vmodel.score.weight, std,
+                       torch.Generator(device=device).manual_seed(seed))
+    return CriticTrainer(vmodel, cfg.critic,
+                         global_batch_size=cfg.trainer.global_batch_size,
+                         total_steps=cfg.trainer.total_steps)
+
+
+def build_trainer(model, cfg, processor, tok, *, ref_model=None,
+                  critic=None):
     """The RLTrainer as the driver wires it: the reward manager and the
     token ids of its span tags, the image token banned in rollouts, the
-    engine settings, batch decoding through the tokenizer."""
+    engine settings, batch decoding through the tokenizer; `critic` (from
+    build_critic) for adv_estimator "gae"."""
     from ..rl.reward_manager import RewardManager
     from ..rl.trainer import RLTrainer
 
@@ -93,7 +124,7 @@ def build_trainer(model, cfg, processor, tok, *, ref_model=None):
         reward_manager=reward_manager, tag_token_ids=tags,
         eos_token_ids=[tok.eos_token_id],
         engine_kwargs=engine_settings(cfg), ref_model=ref_model,
-        banned_token_ids=banned)
+        banned_token_ids=banned, critic=critic)
 
 
 def run_training(trainer, cfg, rows, encode_row, *, val_rows=None,
@@ -182,8 +213,11 @@ def main(argv=None):
     model = build_qwen25_vl(mcfg, device=args.device, state=state)
     del state
     ref_model = copy.deepcopy(model) if cfg.actor.kl_coef > 0 else None
+    critic = build_critic(model, cfg) \
+        if cfg.algorithm.adv_estimator == "gae" else None
 
-    trainer = build_trainer(model, cfg, processor, tok, ref_model=ref_model)
+    trainer = build_trainer(model, cfg, processor, tok, ref_model=ref_model,
+                            critic=critic)
     tracker = Tracker(args.output_dir)
 
     def encode_row(row):

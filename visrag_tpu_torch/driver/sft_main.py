@@ -1,0 +1,152 @@
+"""EVisRAG stage-1 SFT driver.
+
+Counterpart of visrag_tpu/driver/sft_main.py (the reference's LLaMA-Factory
+full fine-tune of Qwen2.5-VL-7B: freeze_vision_tower, lr 5e-7): data rows
+are chat conversations {prompt|problem, response|answer}; the loss covers
+response tokens only; the vision tower is frozen. One process, one GPU.
+
+    python -m visrag_tpu_torch.driver.sft_main --data sft.jsonl \
+        --checkpoint <qwen2.5-vl-dir> --output-dir sft_run/ \
+        --set lr=5e-7 --set total_steps=2000 [--device cuda]
+
+The CLI is the JAX driver's plus `--device`. The text model recomputes
+whole blocks in the backward: at the default batch of 4 x 4096 tokens the
+3B model's activations do not fit one 80 GB card otherwise. `build_sft` and
+`run_sft` are what `main` runs, so that a caller with its own tokenizer
+and weights drives exactly the same path. The final weights are saved as
+`global_step_N/model.pt` under --output-dir. More than one process, or
+`ulysses_size > 1`, raises (WORLD_SIZE in the environment counts the
+processes).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+import numpy as np
+
+
+def encode_sft_row(row, processor, tok, max_len: int):
+    """A row {prompt|problem, response|answer} → (ids, response mask), both
+    int32 and cut at max_len: the chat template's user turn with the
+    generation prompt, then the response and the EOS token."""
+    prompt = row.get("prompt") or row.get("problem")
+    response = row.get("response") or row.get("answer") or ""
+    text = processor.apply_chat_template(
+        [{"role": "user", "content": [{"type": "text", "text": prompt}]}],
+        tokenize=False, add_generation_prompt=True)
+    pids = tok.encode(text)
+    rids = tok.encode(response, add_special_tokens=False) + \
+        [tok.eos_token_id]
+    ids = (pids + rids)[:max_len]
+    rmask = [0] * len(pids) + [1] * len(rids)
+    return np.asarray(ids, np.int32), np.asarray(rmask[:len(ids)], np.int32)
+
+
+def make_sft_batch(pairs):
+    """(ids, response mask) pairs → a batch right-padded to a multiple of
+    128, with 3 x arange positions (text rows: the three mrope streams
+    agree)."""
+    S = -(-max(len(i) for i, _ in pairs) // 128) * 128
+    bs = len(pairs)
+    ids = np.zeros((bs, S), np.int32)
+    att = np.zeros((bs, S), np.int32)
+    rm = np.zeros((bs, S), np.int32)
+    for j, (i, m) in enumerate(pairs):
+        ids[j, :len(i)] = i
+        att[j, :len(i)] = 1
+        rm[j, :len(i)] = m
+    pos = np.broadcast_to(np.arange(S), (3, bs, S)).astype(np.int32)
+    return {"input_ids": ids, "attention_mask": att, "response_mask": rm,
+            "positions": pos}
+
+
+def build_sft(model, cfg):
+    """The SFT step as the driver wires it (training.sft.make_sft_step: the
+    tower frozen, AdamW over the rest). → (optimizer, step)."""
+    from ..training.sft import make_sft_step
+    return make_sft_step(model, cfg)
+
+
+def run_sft(model, step, cfg, data, encode_row, *, batch_size: int,
+            output_dir: str, tracker=None):
+    """Rows of `data` (a jsonl or parquet path) in batches of batch_size
+    (a short last batch is dropped), one step each up to cfg.total_steps,
+    metrics logged every 10 steps; then the weights are saved under
+    output_dir. → the per-step metrics as floats."""
+    from ..data.datasets import batched, iter_rows
+    from ..training.checkpoint import save_checkpoint
+    history = []
+    for rows in batched(iter_rows(data), batch_size):
+        if len(rows) < batch_size:
+            continue
+        metrics = step(make_sft_batch([encode_row(r) for r in rows]))
+        history.append({k: float(v) for k, v in metrics.items()})
+        if tracker is not None and len(history) % 10 == 0:
+            tracker.log(history[-1], len(history))
+        if len(history) >= cfg.total_steps:
+            break
+    save_checkpoint(output_dir, len(history), {"model": model.state_dict()})
+    return history
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--data", required=True,
+                    help="jsonl rows {prompt|problem, response|answer}")
+    ap.add_argument("--checkpoint", required=True)
+    ap.add_argument("--output-dir", required=True)
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=4096)
+    ap.add_argument("--set", action="append", default=[],
+                    help="SFTConfig overrides, e.g. --set lr=1e-6")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "multi-process SFT (WORLD_SIZE > 1) is not ported to "
+            "visrag_tpu_torch; run one process on one GPU")
+
+    from ..config import merge_dotlist
+    from ..training.sft import SFTConfig
+    from ..utils.tracker import Tracker
+    from .common import (build_qwen25_vl, get_processor, get_tokenizer,
+                         load_safetensors_dir, qwen_config_from_checkpoint)
+
+    try:
+        cfg = merge_dotlist(SFTConfig(), list(args.set))
+    except (KeyError, ValueError) as e:
+        ap.error(str(e))
+    os.makedirs(args.output_dir, exist_ok=True)
+    processor = get_processor(args.checkpoint)
+    # text-only checkpoints have no processor (get_processor → None);
+    # tokenizers also implement apply_chat_template, so fall back to it
+    tok = processor.tokenizer if processor is not None \
+        else get_tokenizer(args.checkpoint)
+    if processor is None:
+        processor = tok
+    state = load_safetensors_dir(args.checkpoint)
+    mcfg = qwen_config_from_checkpoint(args.checkpoint, state)
+    mcfg = dataclasses.replace(
+        mcfg, text=dataclasses.replace(mcfg.text, remat=True))
+    model = build_qwen25_vl(mcfg, device=args.device, state=state)
+    del state
+
+    _, step = build_sft(model, cfg)
+    tracker = Tracker(args.output_dir)
+    history = run_sft(
+        model, step, cfg, args.data,
+        lambda row: encode_sft_row(row, processor, tok, args.max_len),
+        batch_size=args.batch_size, output_dir=args.output_dir,
+        tracker=tracker)
+    tracker.close()
+    print(f"done: {len(history)} sft steps -> {args.output_dir}",
+          file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,13 @@
 """Shared model building blocks.
 
 Counterpart of visrag_tpu/models/common.py: fp32 RMSNorm/LayerNorm cast
-back to the input dtype, rotary embeddings (plain, linear and dynamic-NTK
-scaling) applied in fp32, and the 2-D sin-cos position tables. Linear
-layers are plain `nn.Linear` with the torch (out, in) weight layout, which
-is the layout the JAX package's `Dense` stores; `QuantLinear` is the
-counterpart of its `QuantDense` (int8 w8a8, inference only).
+back to the input dtype (ops/norms.py: the fused kernel K7 on the card,
+the plain version on the CPU), rotary embeddings (plain, linear and
+dynamic-NTK scaling) applied in fp32, and the 2-D sin-cos position
+tables. Linear layers are plain `nn.Linear` with the torch (out, in)
+weight layout, which is the layout the JAX package's `Dense` stores;
+`QuantLinear` is the counterpart of its `QuantDense` (int8 w8a8,
+inference only).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops import norms
 
 
 class RMSNorm(nn.Module):
@@ -26,10 +30,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
 
     def forward(self, x):
-        xf = x.float()
-        var = xf.square().mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps)
-                * self.weight.float()).to(x.dtype)
+        return norms.rmsnorm(x, self.weight, self.eps)
 
 
 class QuantLinear(nn.Linear):
@@ -68,11 +69,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
 
     def forward(self, x):
-        xf = x.float()
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = (xf - mu).square().mean(dim=-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + self.eps)
-        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+        return norms.layernorm(x, self.weight, self.bias, self.eps)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,

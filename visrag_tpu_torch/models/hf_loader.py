@@ -220,3 +220,17 @@ def qwen_from_jax_params(model, params: Mapping) -> None:
         params = params["params"]
     load_qwen25_vl_state(model, qwen_jax_params_to_state(params,
                                                          model.cfg.vision))
+
+
+def qwen_value_from_jax_params(model, params: Mapping) -> None:
+    """Load visrag_tpu QwenForValue flax params (text stack "model" and the
+    "score" head, with or without the "params" root) given as nested dicts
+    of numpy arrays into the port's QwenForValue."""
+    if "params" in params:
+        params = params["params"]
+    state = qwen_jax_params_to_state({"model": params["model"]}, None)
+    converted = {_qwen_port_name(k): torch.tensor(np.asarray(v))
+                 for k, v in state.items()}
+    converted["score.weight"] = torch.tensor(
+        np.asarray(params["score"]["weight"]))
+    model.load_state_dict(converted, strict=True)

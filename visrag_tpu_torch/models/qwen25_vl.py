@@ -2,10 +2,11 @@
 
 Counterpart of visrag_tpu/models/qwen25_vl.py (configs, vision tower, text
 model, Qwen25VL with the training forward and prefill / decode /
-embed_prompt / prefill_chunk; `QwenForValue` and the sequence-parallel
-`sp_mesh` are not ported). Module names follow the HF checkpoint
-(`visual.blocks.{i}.attn.qkv`, `model.layers.{i}.self_attn.q_proj`, ...),
-so loading is a copy by name (models/hf_loader.py).
+embed_prompt / prefill_chunk, and the critic's `QwenForValue`; the
+sequence-parallel `sp_mesh` is not ported). Module names follow the HF
+checkpoint (`visual.blocks.{i}.attn.qkv`,
+`model.layers.{i}.self_attn.q_proj`, ...), so loading is a copy by name
+(models/hf_loader.py).
 
   * Vision tower: one packed, window-permuted patch stream (host prep in
     preprocess/qwen_vision.py). Window and full-attention layers are both
@@ -472,6 +473,41 @@ class QwenTextModel(nn.Module):
         return self.norm(x)
 
 
+def scatter_vision(embeds, slot_map, vision_embeds):
+    """Token embeddings (B, S, E) with the rows of a table of tower outputs
+    (N, E) put where slot_map (B, S) >= 0 picks one."""
+    slot_map = slot_map.to(embeds.device)
+    safe = slot_map.clamp(min=0).reshape(-1)
+    gathered = vision_embeds[safe].reshape(*slot_map.shape, -1)
+    return torch.where((slot_map >= 0)[..., None],
+                       gathered.to(embeds.dtype), embeds)
+
+
+class QwenForValue(nn.Module):
+    """Token-level value head over the Qwen text stack: the critic (the
+    reference loads AutoModelForTokenClassification with one label).
+    Multimodal prompts enter through `vision_embeds` + `slot_map`, a
+    precomputed table of the frozen tower's outputs, as in the actor's RL
+    update. → (B, S) fp32 values; the head is fp32."""
+
+    def __init__(self, cfg: QwenTextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.model = QwenTextModel(cfg)
+        self.score = nn.Linear(cfg.hidden_size, 1, bias=False,
+                               dtype=torch.float32)
+
+    def forward(self, input_ids, attention_mask=None, positions=None,
+                segment_ids=None, slot_map=None, vision_embeds=None):
+        embeds = self.model.embed_tokens(input_ids)
+        if vision_embeds is not None and slot_map is not None:
+            embeds = scatter_vision(embeds, slot_map, vision_embeds)
+        hidden = self.model(inputs_embeds=embeds, positions=positions,
+                            attention_mask=attention_mask,
+                            segment_ids=segment_ids)
+        return self.score(hidden.float())[..., 0]
+
+
 class Qwen25VL(nn.Module):
     """Conditional generation: vision tokens scattered into the text stream
     by a slot map (slot_map[b, s] >= 0 picks that row of the tower's
@@ -516,11 +552,7 @@ class Qwen25VL(nn.Module):
         if vis is None and vision_batch is not None:
             vis = self.encode_images(vision_batch)
         if vis is not None:
-            slot_map = slot_map.to(embeds.device)
-            safe = slot_map.clamp(min=0).reshape(-1)
-            gathered = vis[safe].reshape(*slot_map.shape, -1)
-            embeds = torch.where((slot_map >= 0)[..., None],
-                                 gathered.to(embeds.dtype), embeds)
+            embeds = scatter_vision(embeds, slot_map, vis)
         return embeds
 
     def forward(self, input_ids, attention_mask=None, positions=None,

@@ -8,7 +8,8 @@ workers/fsdp_workers.py, actor/dp_actor.py:219-302) in one PyTorch process:
     → rewards (host: scoped channels, rl/rewards.py)
     → online filtering pulling FRESH prompt groups per retry with globally
       unique uids (ray_trainer._make_batch_data :467-558)
-    → ROUTER/GRPO advantage (rl/advantage.py)
+    → ROUTER/GRPO advantage (rl/advantage.py), or GAE from the critic's
+      values (rl/critic.py), the critic trained after the actor
     → minibatch / token-budget micro-batch loops with dual-clip PPO
       (dp_actor.update_policy :219-302).
 
@@ -41,7 +42,9 @@ What differs from the JAX trainer:
     engine's generator from a draw of it, and its state rides in the
     checkpoint;
   * not ported, each raising here: a mesh (dp > 1, `ulysses_size > 1`,
-    `tensor_parallel_size > 1`) and `adv_estimator="gae"` with a critic.
+    `tensor_parallel_size > 1`); `adv_estimator="gae"` without a critic,
+    and a critic with another estimator (the JAX trainer ignores it),
+    raise ValueError.
 """
 
 from __future__ import annotations
@@ -134,12 +137,14 @@ class RLTrainer:
                 f"rollout.tensor_parallel_size="
                 f"{cfg.rollout.tensor_parallel_size}: the tensor-parallel "
                 "rollout engine is not ported (one GPU)")
-        if alg.adv_estimator == "gae" or critic is not None:
-            raise NotImplementedError(
-                "adv_estimator='gae' needs the critic (rl/critic.py, "
-                "QwenForValue), which is not ported; use router, grpo, "
-                "rloo, reinforce_plus_plus or remax")
+        if (alg.adv_estimator == "gae") != (critic is not None):
+            raise ValueError(
+                "adv_estimator='gae' needs a critic (rl/critic.py "
+                "CriticTrainer over models.qwen25_vl.QwenForValue), and a "
+                f"critic is used only by 'gae' (adv_estimator="
+                f"{alg.adv_estimator!r}, critic {critic is not None})")
         self.model = model
+        self.critic = critic
         self.device = next(model.parameters()).device
         self.cfg = cfg
         self.kl_ctrl = None
@@ -720,6 +725,34 @@ class RLTrainer:
         self._last_token_scores = tok_scores
         return tok_scores, metrics
 
+    def _prepare_gae(self, batch: Dict[str, np.ndarray],
+                     timers=None) -> Dict[str, float]:
+        """GAE advantages and returns from the critic's values, with the
+        optional reward-side KL penalty (ray_trainer.py:110-127, :622-649).
+
+        Space bookkeeping: critic values and log-probs live at position t
+        for token t+1 (logp space); GAE runs at token positions, so values
+        and KL roll +1 into token space and advantages/returns roll -1
+        back."""
+        alg = self.cfg.algorithm
+        if timers is None:
+            from ..utils.tracker import Timers
+            timers = Timers()
+        with timers("values"):
+            values = self.critic.compute_values(batch)  # (bs, S), logp
+        batch["values"] = values
+        tok_scores, metrics = self._scored_tokens(batch)
+        values_tok = np.roll(values, 1, axis=1) * batch["response_mask"]
+        adv_tok, ret_tok = compute_advantage(
+            "gae", token_rewards=tok_scores, values=values_tok,
+            response_mask=batch["response_mask"], gamma=alg.gamma,
+            lam=alg.lam)
+        batch["advantages"] = adv_tok[:, None, :]
+        batch["reward_masks"] = \
+            batch["response_mask"][:, None, :].astype(np.int32)
+        batch["returns"] = np.roll(ret_tok, -1, axis=1)   # logp space
+        return metrics
+
     def _prepare_token_adv(self, batch: Dict[str, np.ndarray]
                            ) -> Dict[str, float]:
         """Per-token advantages for grpo/rloo/reinforce_plus_plus/remax over
@@ -772,13 +805,16 @@ class RLTrainer:
         return out
 
     def save(self, best_metric: Optional[float] = None) -> str:
-        """Checkpoint the actor's weights and optimizer state + host
-        counters (step, uid counter, KL coefficient, data cursor, the rng's
-        state) with tracker manifest and keep-best GC
+        """Checkpoint the actor's (and the critic's) weights and optimizer
+        state + host counters (step, uid counter, KL coefficient, data
+        cursor, the rng's state) with tracker manifest and keep-best GC
         (ray_trainer._save_checkpoint :312-344)."""
         from ..training.checkpoint import save_checkpoint
         tree = {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
+        if self.critic is not None:
+            tree["critic_model"] = self.critic.model.state_dict()
+            tree["critic_optimizer"] = self.critic.optimizer.state_dict()
         extra = {"step": self.step, "uid_next": self._uid_next,
                  "kl_coef": (self.kl_ctrl.kl_coef if self.kl_ctrl else None)}
         if self.data_iter is not None:
@@ -799,6 +835,9 @@ class RLTrainer:
         tree, extra = load_checkpoint(path)
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
+        if self.critic is not None:
+            self.critic.model.load_state_dict(tree["critic_model"])
+            self.critic.optimizer.load_state_dict(tree["critic_optimizer"])
         self.step = int(extra["step"])
         self._uid_next = int(extra["uid_next"])
         if self.kl_ctrl is not None and extra.get("kl_coef") is not None:
@@ -869,13 +908,19 @@ class RLTrainer:
                         self.ref_model.to("cpu")
             extra_metrics = {}
             with timers("adv"):
-                if self.cfg.algorithm.adv_estimator != "router":
+                if self.cfg.algorithm.adv_estimator == "gae":
+                    extra_metrics = self._prepare_gae(batch, timers=timers)
+                elif self.cfg.algorithm.adv_estimator != "router":
                     extra_metrics = self._prepare_token_adv(batch)
+            # critic_warmup: the first steps train only the critic
             if self.step >= self.cfg.trainer.critic_warmup:
                 with timers("update_actor"):
                     m = self.update_policy(batch)
             else:
                 m = {}
+            if self.critic is not None:
+                with timers("update_critic"):
+                    m.update(self.critic.update(batch))
             m.update(extra_metrics)
             self.step += 1
             m["reward_mean"] = float(batch["reward_tensor"].sum(-1).mean())

@@ -1,0 +1,122 @@
+"""Supervised fine-tuning (the EVisRAG stage-1 role).
+
+Counterpart of visrag_tpu/training/sft.py (the reference's LLaMA-Factory
+full fine-tune of Qwen2.5-VL: freeze_vision_tower, lr 5e-7): cross-entropy
+on response tokens only, the vision tower optionally frozen, one step =
+forward, backward, clip by the global norm, AdamW.
+
+What differs from the JAX step:
+
+  * the model is an nn.Module that carries its weights; `step(batch)`
+    updates them in place and returns the metrics;
+  * the frozen tower is `requires_grad_(False)` and never enters the
+    optimizer, so weight decay cannot move it (JAX masks the optimizer);
+  * the loss projects hidden states through the LM head in sequence chunks
+    (rl/ppo.chunked_token_log_probs, and `token_accuracy` chunk by chunk):
+    the (B, S, V) logits never exist, where at 4 x 4096 x 152k they would
+    be 10 GB in fp32;
+  * `ulysses_size > 1` (sequence parallelism) raises: one GPU.
+
+With `attention_mask` rows the text model's attention is the valid-length
+kernel K1 with its log-sum-exp forward and K2 backward, at d = 128 with
+grouped kv heads, and every RMSNorm is K7 (on the card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from ..rl.ppo import chunked_token_log_probs
+from .optim import adamw_from_config, constant_schedule_with_warmup
+from .trainer import clip_by_global_norm_
+
+
+@dataclasses.dataclass
+class SFTConfig:
+    lr: float = 5e-7
+    weight_decay: float = 0.0
+    warmup_steps: int = 10
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    freeze_vision_tower: bool = True
+    vision_key: str = "visual"
+    # sequence parallelism in the JAX package; refused here (one GPU)
+    ulysses_size: int = 1
+    # "bfloat16" = AnyPrecisionAdamW states (bf16 + Kahan)
+    optimizer_state_dtype: str = "float32"
+
+
+_MODEL_KEYS = ("attention_mask", "positions", "vision_batch", "slot_map")
+
+
+def token_accuracy(head_fn, hidden, labels, mask, chunk: int = 512):
+    """Σ mask · [argmax(head_fn(hidden)) == labels], the head applied over
+    sequence chunks of `chunk` tokens, without gradients. → fp32 scalar."""
+    hits = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    with torch.no_grad():
+        for lo in range(0, hidden.shape[1], chunk):
+            pred = head_fn(hidden[:, lo:lo + chunk]).argmax(-1)
+            hits += ((pred == labels[:, lo:lo + chunk]).float()
+                     * mask[:, lo:lo + chunk]).sum()
+    return hits
+
+
+def sft_loss(model, batch) -> tuple:
+    """batch: input_ids (B, S), attention_mask, response_mask (1 on tokens
+    the model must predict), optional positions / vision_batch / slot_map.
+    → (loss, {"loss", "token_accuracy"})."""
+    ids = batch["input_ids"]
+    _, hidden = model(ids, return_logits=False,
+                      **{k: batch.get(k) for k in _MODEL_KEYS})
+    labels = torch.roll(ids, -1, dims=1)[:, :-1]
+    logp = chunked_token_log_probs(model.compute_logits, hidden[:, :-1],
+                                   labels)
+    # token t predicts t+1 → shift the response mask left
+    mask = torch.roll(batch["response_mask"], -1, dims=1)[:, :-1].float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = -(logp * mask).sum() / denom
+    acc = token_accuracy(model.compute_logits, hidden[:, :-1].detach(),
+                         labels, mask) / denom
+    return loss, {"loss": loss.detach(), "token_accuracy": acc}
+
+
+def make_sft_step(model, cfg: SFTConfig):
+    """Freeze the tower (cfg.freeze_vision_tower) and build the optimizer
+    over the trainable parameters. → (optimizer, step): step(batch) runs
+    one update in place and returns {"loss", "token_accuracy",
+    "grad_norm"}, grad_norm before clipping. The learning rate warms up
+    linearly from 0 over max(warmup_steps, 1) steps, then stays at lr."""
+    if cfg.ulysses_size > 1:
+        raise NotImplementedError(
+            f"ulysses_size={cfg.ulysses_size}: sequence parallelism is not "
+            "ported (one GPU)")
+    if cfg.freeze_vision_tower:
+        for name, p in model.named_parameters():
+            if cfg.vision_key in name.split("."):
+                p.requires_grad_(False)
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer = adamw_from_config(
+        params, constant_schedule_with_warmup(cfg.lr,
+                                              max(cfg.warmup_steps, 1)),
+        weight_decay=cfg.weight_decay, state_dtype=cfg.optimizer_state_dtype)
+    device = next(model.parameters()).device
+
+    def put(v):
+        if isinstance(v, dict):
+            return {k: put(x) for k, x in v.items()}
+        return torch.as_tensor(v, device=device)
+
+    def step(batch) -> Dict[str, torch.Tensor]:
+        batch = {k: put(v) for k, v in batch.items() if v is not None}
+        loss, metrics = sft_loss(model, batch)
+        loss.backward()
+        gnorm = clip_by_global_norm_(params, cfg.grad_clip)
+        optimizer.step()
+        for p in params:
+            p.grad = None
+        return dict(metrics, grad_norm=gnorm)
+
+    return optimizer, step

@@ -115,19 +115,24 @@ is non-zero; no phase catches an error and carries on):
   8. the 7B model freed, four RL prompts written as a jsonl (two with 3
      page images, two text-only) and encoded by the RL driver's
      encode_qwen_prompt_row; then K4 (segment-id attention: forward with
-     the LSE, dq, dk/dv) against its plain version's forward and
-     written-out backward on the card, at the first packed micro-batch the
-     trainer will build from those prompts (first-fit ids, 16/2 heads,
-     d = 128, causal), at one 16640-token row, at the 7B head grouping
-     (28/4), at edge cases (segments of 1, 63, 64 and 65 tokens,
-     non-ascending and negative ids, an all-pad row, Sq != Sk), and K3's
-     backward (K3 forward with the LSE, K4's dq and dk/dv) at the vision
-     tower's window and image ids (d = 80, non-causal): o, dq, dk, dv within
-     2e-2 relative Frobenius error, the LSE within 2e-2 abs, exact zeros on
-     pad rows and keys; timed beside the plain version and SDPA (its causal
-     flag for one segment, a boolean block-diagonal mask for packed rows,
-     enable_gqa; forward, and backward alone), with the bound from the
-     visible pairs; then K1 with the LSE and K2 at d = 128 with grouped kv
+     the LSE and dk/dv on wgmma + TMA at d 64 / 128, dq on mma.sync)
+     against its plain version's forward and written-out backward on the
+     card, at the first packed micro-batch the trainer will build from
+     those prompts (first-fit ids, 16/2 heads, d = 128, causal), at one
+     16640-token row, at the 7B head grouping (28/4), at edge cases
+     (segments of 1, 63, 64 and 65 tokens, non-ascending and negative ids,
+     an all-pad row, Sq != Sk; segments of 127, 128 and 129 tokens and a
+     row one segment fills in whole 128-row tiles, at d 128 and 64), and
+     K3's backward (K3 forward with the LSE, K4's mma.sync dq and dk/dv)
+     at the vision tower's window and image ids (d = 80, non-causal): o,
+     dq, dk, dv within 2e-2 relative Frobenius error, the LSE within 2e-2
+     abs, exact zeros on pad rows and keys; the kernels' pre-pass (tile
+     classes) equal to segment_tile_classes_reference; timed beside the
+     plain version, SDPA (its causal flag for one segment, a boolean
+     block-diagonal mask for packed rows, enable_gqa; forward, and
+     backward alone) and, in turns, PR 4's mma.sync forward and dk/dv
+     (new, PR 4, PR 4, new), with the bound from the visible pairs; then
+     K1 with the LSE and K2 at d = 128 with grouped kv
      heads (16/2 and 28/4, causal) at the padded update's micro-batch and
      at lengths 1, 63, 64, 65 and full, against the plain forward and
      autograd (2e-2 relative), timed beside SDPA with enable_gqa;
@@ -180,7 +185,8 @@ K1 + LSE, K2 dq and K2 dk/dv at d = 128 with grouped kv heads, and K7 as
 `rmsnorm` (launches from phase 10's SFT run, numbers at its batch) and
 `layernorm` (launches from phase 3's encode, numbers at the ViT's rows):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
-max_abs_err; every checked shape under "checks"), and
+max_abs_err, and for K4 pr4_ms, PR 4's kernel in the same turns; every
+checked shape under "checks"), and
 {"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11;
 it ends without the ok line and exits 1.
 """
@@ -2190,9 +2196,9 @@ def _count_pairs(seg, qs, ks, causal):
 
 def segment_bound(kind, pairs, q_rows, k_rows, b, sq, sk, h, hk, d):
     """Least time for one K4 kernel's work on this run's ids: the products
-    on the visible pairs (forward QK^T and PV; dq S, dP and dQ; dk/dv S, dP,
-    dV and dK), inputs counted on rows with a positive id (K/V at the kv
-    heads), every output row written once."""
+    on the visible pairs, 2 forward (QK^T, PV), 3 for dq (S, dP, dQ) and 4
+    for dk/dv (S, dP, dV, dK), inputs counted on rows with a positive id
+    (K/V at the kv heads), every output row written once."""
     q_in, kv_in = q_rows * h * d * 2, k_rows * hk * d * 2
     q_out, kv_out = b * sq * h * d * 2, b * sk * hk * d * 2
     stat_in, stat_out = q_rows * h * 4, b * h * sq * 4
@@ -2320,8 +2326,23 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
         lib_b = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                     retain_graph=True))
         del out, mask
+    # PR 4's mma.sync forward and dk/dv at the same d, timed in turns with
+    # the wgmma kernels (new, PR 4, PR 4, new; launched past the wrappers,
+    # so they count no launch)
+    pr4 = {}
+    if d in seg.HOPPER_HEAD_DIMS:
+        pr4 = {"seg_fwd": lambda: seg._launch_segment(
+                   "fwd", q, k, v, qs, ks, causal, scale, o=o2, lse=lse,
+                   legacy=True),
+               "seg_dkv": lambda: seg._launch_segment(
+                   "dkv", q, k, v, qs, ks, causal, scale, do=do, dk=dk2,
+                   dv=dv2, lse=lse, delta=delta, legacy=True)}
     for kind, fn in kern.items():
-        ms = cuda_ms(fn)
+        turns = {"new": [], "pr4": []}
+        for which in (("new", "pr4", "pr4", "new") if kind in pr4
+                      else ("new",)):
+            turns[which].append(cuda_ms(fn if which == "new" else pr4[kind]))
+        ms = statistics.mean(turns["new"])
         bound = segment_bound(kind, *args)
         e = max(errs["dk"], errs["dv"]) if kind == "seg_dkv" else errs[kind]
         records[kind] = {
@@ -2330,19 +2351,51 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
             if kind == "seg_dkv" else max_abs[kind],
             "ms": ms, "plain_ms": plain_f if kind == "seg_fwd" else plain_b,
             "library_ms": lib_f if kind == "seg_fwd" else lib_b,
-            "bound_ms": bound[0], "bound_by": bound[1]}
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "pr4_ms": statistics.mean(turns["pr4"]) if turns["pr4"]
+            else None, "turns": turns}
     fmt = lambda x: "n/a" if x is None else f"{x:.4f}"   # noqa: E731
-    fwd = records["seg_fwd"]
+    fwd, dkv = records["seg_fwd"], records["seg_dkv"]
     log(f"[8] K4 {label}: {pairs} visible pairs per head | forward "
-        f"{fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f} {fwd['bound_by']}"
-        f", plain {plain_f:.4f}, SDPA {fmt(lib_f)}) | dq "
+        f"{fwd['ms']:.4f} ms (turns {fwd['turns']}; bound "
+        f"{fwd['bound_ms']:.4f} {fwd['bound_by']}, PR 4's kernel "
+        f"{fmt(fwd['pr4_ms'])}, plain {plain_f:.4f}, SDPA {fmt(lib_f)}) | dq "
         f"{records['seg_dq']['ms']:.4f} ms (bound "
-        f"{records['seg_dq']['bound_ms']:.4f}) | dk/dv "
-        f"{records['seg_dkv']['ms']:.4f} ms (bound "
-        f"{records['seg_dkv']['bound_ms']:.4f}) | plain backward (all grads) "
-        f"{plain_b:.4f} ms, SDPA backward {fmt(lib_b)} ms (medians, CUDA "
-        f"events) | {smi()}")
+        f"{records['seg_dq']['bound_ms']:.4f}) | dk/dv {dkv['ms']:.4f} ms "
+        f"(turns {dkv['turns']}; bound {dkv['bound_ms']:.4f}, PR 4's kernel "
+        f"{fmt(dkv['pr4_ms'])}) | plain backward (all grads) {plain_b:.4f} "
+        f"ms, SDPA backward {fmt(lib_b)} ms (medians, CUDA events) | "
+        f"{smi()}")
     return records
+
+
+def _check_tile_classes(label, ids_np, causal):
+    """The kernels' pre-pass on the card against
+    segment_tile_classes_reference at every tile size the wgmma kernels
+    use, and the count of skipped / masked / unmasked pairs of the
+    forward's and dk/dv's tiles. Raises on any difference."""
+    from visrag_tpu_torch.ops import attention as seg
+    ids = torch.as_tensor(ids_np)
+    tiles = seg.HOPPER_TILES
+    sizes = sorted({n for bq_bk in tiles.values() for n in bq_bk})
+    for tile in sizes:
+        got = seg.segment_tile_classes(ids.to(DEV), tile).cpu()
+        want = seg.segment_tile_classes_reference(ids, tile)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"pre-pass at {label}, {tile}-row tiles: "
+                               f"the card's classes differ from the plain "
+                               f"version's")
+    counts = {}
+    for kind, (bq, bk) in tiles.items():
+        cls = seg.segment_pair_classes_reference(
+            seg.segment_tile_classes_reference(ids, bq),
+            seg.segment_tile_classes_reference(ids, bk), bq, bk, causal)
+        counts[kind] = [int((cls == c).sum()) for c in
+                        (seg.SKIP, seg.MASKED, seg.UNMASKED)]
+    log(f"[8] pre-pass at {label}: equal to segment_tile_classes_reference "
+        f"at {sizes}-row tiles; pairs skipped / masked / unmasked: forward "
+        f"{tiles['fwd']} tiles {counts['fwd']}, dk/dv {tiles['dkv']} tiles "
+        f"{counts['dkv']}")
 
 
 def phase8_segment_kernels(gen, prompts, cfg):
@@ -2367,8 +2420,10 @@ def phase8_segment_kernels(gen, prompts, cfg):
         f"{sorted(set(seqlens))} tokens → {n_micro} micro-batches; the first "
         f"packs {ids.shape[0]} rows x {ids.shape[1]} with ids "
         f"{[sorted(set(r[r > 0].tolist())) for r in ids]}")
+    _check_tile_classes("the packed update", ids, True)
     run("packed update", ids, ids, h, hk, d, True)
     one = np.ones((1, 16640), np.int32)
+    _check_tile_classes("one 16640-token row", one, True)
     run("one 16640-token row", one, one, h, hk, d, True)
     run("7B grouping 28/4", ids[:1, :1024], ids[:1, :1024], 28, 4, 128, True,
         library=False)
@@ -2380,6 +2435,18 @@ def phase8_segment_kernels(gen, prompts, cfg):
     run("edge segments", edge, edge, h, hk, d, True, timed=False)
     run("edge segments, non-causal d 64", edge, edge, 4, 4, 64, False,
         timed=False)
+    # 128-row tiles: segments of 127, 128 and 129 tokens, and a row that one
+    # segment fills in whole tiles (the unmasked pairs)
+    tiles = np.zeros((2, 700), np.int32)
+    tiles[0, :127], tiles[0, 127:255], tiles[0, 255:384] = 4, 6, 8
+    tiles[1, :640] = 3
+    _check_tile_classes("the 127/128/129 edges", tiles, True)
+    run("127/128/129 and whole tiles", tiles, tiles, h, hk, d, True,
+        timed=False)
+    run("127/128/129 and whole tiles, d 64", tiles, tiles, 4, 4, 64, True,
+        timed=False)
+    run("127/128/129 and whole tiles, non-causal d 64", tiles, tiles, 4, 4,
+        64, False, timed=False)
     qid = np.concatenate([np.full(100, 1), np.full(91, 2)])[None]
     kid = np.concatenate([np.full(150, 2), np.full(107, 1), np.zeros(20)])
     run("Sq != Sk", qid.astype(np.int32), kid[None].astype(np.int32), h, hk,
@@ -3109,13 +3176,15 @@ def segment_kernel_rows(seg_results, rl_launches):
     padded update: launches from phase 9's padded micro-batch)."""
     from visrag_tpu_torch.ops import attention as seg
     from visrag_tpu_torch.ops import attention_lengths as al
-    rows = [{"name": name, "route": "cuda", "source": seg.SOURCE,
+    rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": SEG_REPLACES[kind], "launches": rl_launches[kind],
              **{k: seg_results[kind][0][k] for k in KEYS},
+             "pr4_ms": seg_results[kind][0].get("pr4_ms"),
              "checks": seg_results[kind]}
-            for kind, name in (("seg_fwd", "segment_fwd"),
-                               ("seg_dq", "segment_bwd_dq"),
-                               ("seg_dkv", "segment_bwd_dkv"))]
+            for kind, name, source in (
+                ("seg_fwd", "segment_fwd", seg.HOPPER_SOURCE),
+                ("seg_dq", "segment_bwd_dq", seg.SOURCE),
+                ("seg_dkv", "segment_bwd_dkv", seg.HOPPER_SOURCE))]
     k2 = seg_results["k2"]
     for kind, name, source, replaces in (
             ("fwd_lse", "flash_fwd_lse (GQA, d=128)", al.SOURCE,

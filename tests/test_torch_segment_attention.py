@@ -59,6 +59,13 @@ def _case(name):
         ids[0, 64:100] = 9
         ids[1, 10:75] = 2          # row 1: pads on both sides of one run
         return ids, ids, 2, 1, 32
+    if name == "edges_128":
+        # segments of 127, 128 and 129 tokens across 128-row tiles, and a
+        # row where one segment fills whole tiles (the unmasked pairs)
+        ids = np.zeros((2, 520), np.int32)
+        ids[0, :127], ids[0, 127:255], ids[0, 255:384] = 4, 6, 8
+        ids[1, :512] = 3
+        return ids, ids, 4, 2, 64
     raise ValueError(name)
 
 
@@ -248,7 +255,7 @@ def _cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + ["edges_128"])
 def test_cuda_k4_matches_plain(name, causal):
     """bf16 on the card: forward, LSE and the three gradients within 2e-2
     of the fp32 plain version (P and dS are rounded to bf16 before their

@@ -1,13 +1,17 @@
-"""Build the segment-attention kernels (K4) and K3, print the compiler's
-report, and hold each kernel against its plain PyTorch version on the card.
+"""Build the segment-attention kernels (K4, both the wgmma and the mma.sync
+sources) and K3, print the compiler's report, and hold each kernel against
+its plain PyTorch version on the card.
 
     python3 tools/torch_check_segment.py [--time]
 
 A short first check for an edited kernel: registers and spills from ptxas,
-then forward, LSE, dq, dk, dv at a few shapes (packed first-fit ids, grouped
-kv heads, Sq != Sk, pad and negative ids, d = 64 / 80 / 128). With --time it
-also times the kernels with CUDA events (median of 10). Needs one CUDA
-card; exits 1 on any disagreement.
+the pre-pass's tile classes against `segment_tile_classes_reference`, then
+forward, LSE, dq, dk, dv at a few shapes (packed first-fit ids, grouped kv
+heads, Sq != Sk, pad and negative ids, segments of 127/128/129 tokens, a
+segment filling whole 128-row tiles, d = 64 / 80 / 128), and the mma.sync
+forward and dk/dv at d 64 / 128 as well. With --time it also times the
+kernels with CUDA events (median of 10), the wgmma and the mma.sync forward
+and dk/dv in turns. Needs one CUDA card; exits 1 on any disagreement.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ def median_ms(fn, n=10):
     return float(np.median(out))
 
 
-def check(name, q_seg, kv_seg, h, hk, d, causal, do_time, banded=False):
+def check(name, q_seg, kv_seg, h, hk, d, causal, do_time, banded=False,
+          legacy=False):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(len(name))
     b, sq = q_seg.shape
@@ -87,6 +92,19 @@ def check(name, q_seg, kv_seg, h, hk, d, causal, do_time, banded=False):
         seg.segment_fwd(q, k, v, qs, ks, causal, scale, torch.empty_like(o),
                         lse)
         want_lse = seg.segment_lse_reference(q, k, qs, ks, causal, scale)
+    if legacy:
+        o = torch.empty_like(o)
+        dk, dv = torch.empty_like(dk), torch.empty_like(dv)
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            seg._launch_segment("fwd", q, k, v, qs, ks, causal, scale, o=o,
+                                lse=lse, legacy=True)
+            seg.segment_bwd_dq(q, k, v, o, do, lse, delta, qs, ks, causal,
+                               scale, torch.empty_like(dq))
+            seg._launch_segment("dkv", q, k, v, qs, ks, causal, scale, do=do,
+                                dk=dk, dv=dv, lse=lse, delta=delta,
+                                legacy=True)
+        torch.cuda.synchronize()
     err = dict(o=(o.float() - want_o).abs().max().item(),
                lse=(lse - want_lse).abs().max().item(),
                dq=(dq.float() - want[0]).abs().max().item(),
@@ -107,14 +125,35 @@ def check(name, q_seg, kv_seg, h, hk, d, causal, do_time, banded=False):
             o2 = torch.empty_like(o)
             delta = torch.empty_like(lse)
             dq2, dk2, dv2 = (torch.empty_like(x) for x in (q, k, v))
-            t_f = median_ms(lambda: seg.segment_fwd(q, k, v, qs, ks, causal,
-                                                    scale, o2, lse))
             t_q = median_ms(lambda: seg.segment_bwd_dq(
                 q, k, v, o, do, lse, delta, qs, ks, causal, scale, dq2))
-            t_kv = median_ms(lambda: seg.segment_bwd_dkv(
-                q, k, v, do, lse, delta, qs, ks, causal, scale, dk2, dv2))
-        line += f" fwd={t_f:.3f}ms dq={t_q:.3f}ms dkv={t_kv:.3f}ms"
+            times = {}
+            for tag, old in (("", False), ("old ", True), ("old ", True),
+                             ("", False)):
+                t_f = median_ms(lambda: seg._launch_segment(
+                    "fwd", q, k, v, qs, ks, causal, scale, o=o2, lse=lse,
+                    legacy=old))
+                t_kv = median_ms(lambda: seg._launch_segment(
+                    "dkv", q, k, v, qs, ks, causal, scale, do=do, dk=dk2,
+                    dv=dv2, lse=lse, delta=delta, legacy=old))
+                times.setdefault(tag + "fwd", []).append(t_f)
+                times.setdefault(tag + "dkv", []).append(t_kv)
+        line += " " + " ".join(f"{kk}={min(x):.4f}ms" for kk, x in
+                               times.items()) + f" dq={t_q:.4f}ms"
     print(line, flush=True)
+    return ok
+
+
+def check_classes(rng):
+    """The pre-pass on the card against segment_tile_classes_reference."""
+    ok = True
+    for width, tile in ((300, 64), (700, 128), (4864, 128), (1000, 64)):
+        ids = first_fit_ids(rng, 3, width, list(rng.integers(1, 400, 12)))
+        ids[0, :5] = -1
+        got = seg.segment_tile_classes(torch.from_numpy(ids).cuda(), tile)
+        want = seg.segment_tile_classes_reference(torch.from_numpy(ids), tile)
+        ok &= bool(torch.equal(got.cpu(), want))
+    print(f"pre-pass tile classes equal the plain version: {ok}", flush=True)
     return ok
 
 
@@ -126,9 +165,11 @@ def main(argv=None):
         print("no CUDA device", file=sys.stderr)
         return 1
     t0 = time.time()
-    _build.build_all(("attention_segment", "attention_kvgrid"))
+    names = ("attention_segment", "attention_segment_hopper",
+             "attention_kvgrid")
+    _build.build_all(names)
     print(f"built in {time.time() - t0:.1f}s", flush=True)
-    for name in ("attention_segment", "attention_kvgrid"):
+    for name in names:
         print((_build.BUILD_DIR / f"{name}.log").read_text(), flush=True)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip(), flush=True)
@@ -141,8 +182,20 @@ def main(argv=None):
     edge[0, 128:193] = 2
     edge[0, 200:260] = -4           # negative ids match nothing
     kv_edge = edge.copy()
+    ok &= check_classes(rng)
     ok &= check("edges d128 causal", edge, kv_edge, 4, 2, 128, True,
                 args.time)
+    ok &= check("edges d128 causal, mma.sync", edge, kv_edge, 4, 2, 128, True,
+                False, legacy=True)
+    ok &= check("edges d64, mma.sync", edge, kv_edge, 2, 2, 64, False, False,
+                legacy=True)
+    tiles = np.zeros((2, 700), np.int32)
+    tiles[0, :127], tiles[0, 127:255], tiles[0, 255:384] = 4, 6, 8
+    tiles[1, :640] = 3                    # whole 128-row tiles: unmasked
+    for hk, d, causal in ((2, 128, True), (4, 64, False), (1, 128, False),
+                          (4, 64, True)):
+        ok &= check(f"127/128/129 and whole tiles, d{d} causal {causal}",
+                    tiles, tiles, 4, hk, d, causal, False)
     ok &= check("edges d64", edge, kv_edge, 2, 2, 64, False, args.time)
     ids = first_fit_ids(rng, 3, 1280, [900, 700, 500, 300, 260, 200, 64, 1])
     ok &= check("first-fit 16/2 d128", ids, ids, 16, 2, 128, True, args.time)

@@ -1,0 +1,424 @@
+// Hopper (sm_90a) building blocks for kernels written by hand: TMA tile
+// loads completing on mbarriers, the mbarrier ring's operations, wgmma
+// shared-memory descriptors for 128-byte-swizzled bf16 tiles, wgmma
+// m64nNk16 (bf16 in, fp32 accumulate) with A from shared memory (SS, N 32,
+// 64 or 128) or from registers (RS, N 64 or 128), and setmaxnreg. Inline PTX
+// only; the host side encodes tensor maps through the driver entry point
+// that the runtime hands out, so a library built from this needs no -lcuda.
+//
+// Shared-memory tiles. A TMA box of 64 bf16 columns (128 bytes) x R rows,
+// loaded with CU_TENSOR_MAP_SWIZZLE_128B, lands as R rows of 128 bytes in
+// which the eight 16-byte chunks of row r are permuted by chunk ^ (r % 8).
+// The tile's base must be 1024-byte aligned (one 8-row swizzle atom), and a
+// head dim of 128 is two such tiles side by side ("column halves"). wgmma
+// reads these tiles through a descriptor (make_desc below):
+//   K-major operand (the reduced dim runs along the 128-byte rows, as Q and
+//     K in Q K^T): 8-row groups SBO = 1024 bytes apart; a k16 step inside
+//     the 64-column half is +32 bytes on the start address, the next half
+//     is the next tile.
+//   MN-major operand (the reduced dim runs down the rows, as V in P V):
+//     TRANS_B = 1; a k16 step is +16 rows (+2048 bytes), 8-row groups SBO =
+//     1024 bytes apart, and LBO is the distance between the 64-column halves.
+//
+// Fragments. The fp32 accumulator of m64nNk16 holds, in warp w of the
+// warpgroup and lane 4g + t, rows 16w + g and 16w + g + 8, columns
+// 8j + 2t + {0, 1} for j < N/8, as d[4j + {0, 1}] and d[4j + {2, 3}]: the
+// mma.sync m16n8 C layout stacked four warps deep. The bf16 A operand of the
+// RS form for k-step kk is {pack(d[8kk], d[8kk+1]), pack(d[8kk+2], d[8kk+3]),
+// pack(d[8kk+4], d[8kk+5]), pack(d[8kk+6], d[8kk+7])}: the C fragment of one
+// product is the A fragment of the next, with no trip through shared memory.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace visrag {
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers --------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the barrier's phase with parity `parity` has completed. A
+// wait that outlasts ~2^33 cycles (over 4 s) traps, so that a pipeline
+// fault surfaces as a launch error instead of a hung card. (No printf here:
+// a call inside the consumers' loop would serialize their wgmma pipeline
+// and save every live accumulator to the stack around it.)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 33)) __trap();
+  }
+}
+
+// The value, hidden from the compiler's loop-invariant code motion: a
+// descriptor built from it is rebuilt where it is used instead of being
+// hoisted into registers for the whole loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+// A ring position: stage index and the parity of its current phase.
+template <int STAGES>
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// ---- TMA ----------------------------------------------------------------
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completes `bytes` of transactions on `bar`. Out-of-bounds
+// elements are written as zeros and still counted.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled tile at shared address `addr`
+// (1024-byte aligned atoms): LBO and SBO in bytes (see the header note).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr,
+                                              uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16;
+  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32;
+  d |= static_cast<uint64_t>(1) << 62;   // 128-byte swizzle
+  return d;
+}
+
+// The same descriptor moved by `bytes` (a multiple of 16). The add is kept
+// in program order with the wgmma that reads it, so a batch of products
+// holds one or two descriptors in registers, not one pair per product.
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  uint64_t out;
+  asm volatile("add.s64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(desc), "l"(static_cast<uint64_t>(bytes >> 4)));
+  return out;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator or
+// operand register across an asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// D (64 x 32, fp32) {+}= A (64 x 16, smem) * B (16 x 32, smem); A K-major,
+// B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 64, fp32) {+}= A (64 x 16, smem) * B (16 x 64, smem); A K-major,
+// B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 128, fp32) {+}= A (64 x 16, smem) * B (16 x 128, smem); A K-major,
+// B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 64, fp32) {+}= A (64 x 16, bf16 registers in the C-fragment order)
+// * B (16 x 64, smem); B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 128, fp32) {+}= A (64 x 16, bf16 registers in the C-fragment order)
+// * B (16 x 128, smem); B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32-128");
+  if constexpr (N == 32) wgmma_m64n32k16_ss<TRANS_B>(d, da, db, accumulate);
+  else if constexpr (N == 64) wgmma_m64n64k16_ss<TRANS_B>(d, da, db, accumulate);
+  else wgmma_m64n128k16_ss<TRANS_B>(d, da, db, accumulate);
+}
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64) wgmma_m64n64k16_rs<TRANS_B>(d, a, db, accumulate);
+  else wgmma_m64n128k16_rs<TRANS_B>(d, a, db, accumulate);
+}
+
+// ---- registers ------------------------------------------------------------
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+// ---- host: tensor maps ----------------------------------------------------
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, looked
+// up once; nullptr if the driver does not offer it.
+inline decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
+  static decltype(&cuTensorMapEncodeTiled) fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(p);
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 view with element strides (batch, row, head) and a
+// contiguous head dim as the 4-D tensor map (D, S, H, B), read in boxes of
+// 64 columns x `box_rows` rows of one head, 128-byte swizzled; rows past S
+// read as zeros. A stride of a dim of extent 1 is never used to address and
+// is replaced by a valid one. → false if the encoder refuses (alignment,
+// strides) or is missing.
+inline bool encode_bshd(CUtensorMap* map, const void* base, int b, int s,
+                        int h, int d, long long sb, long long sr, long long sh,
+                        int box_rows) {
+  auto encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(sr) * 2;
+  cuuint64_t head = static_cast<cuuint64_t>(sh) * 2;
+  cuuint64_t batch = static_cast<cuuint64_t>(sb) * 2;
+  if (h == 1) head = row * static_cast<cuuint64_t>(s);
+  if (b == 1) batch = head * static_cast<cuuint64_t>(h);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {row, head, batch};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper
+}  // namespace visrag

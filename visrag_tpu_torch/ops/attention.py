@@ -3,18 +3,23 @@ plain chunked-prefill attention.
 
 Counterpart of visrag_tpu/ops/attention.py.
 
-  * K4, csrc/attention_segment.cu (CUDA C++ for sm_90a, bound with ctypes),
-    replaces the TPU kernels `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel`
-    (`_flash_core` and its custom VJP) and the library detour
+  * K4 replaces the TPU kernels `_fwd_kernel`, `_dq_kernel` and
+    `_dkv_kernel` (`_flash_core` and its custom VJP) and the library detour
     `_flash_library_segment`: one forward kernel that also writes the
     log-sum-exp, one dq kernel (it also stores delta = rowsum(o*do)) and one
-    dk/dv kernel, launched in that order. What bounds them on the H100 is
-    the work on the 64 x 64 score tile, not HBM, so scores and accumulators
-    stay in tensor-core fragments; K/V (or Q/dO) stream through shared
-    memory 64 rows at a time, so any length runs and the JAX package's
-    `_pick_blocks` and 4096-key bound have no counterpart here. Grouped kv
-    heads are read through strides, and dk/dv sum over a group inside one
-    block, without atomics.
+    dk/dv kernel, launched in that order. At head dims 64 and 128 the
+    forward and dk/dv are csrc/attention_segment_hopper.cu (wgmma from
+    shared memory that TMA fills, one producer warp and two consumer
+    warpgroups; 128-row forward tiles, 64-key dk/dv blocks whose
+    warpgroups split dV and dK; tile pairs classed skipped / unmasked /
+    masked by a pre-pass); dq at every d, and the forward and dk/dv at d =
+    80 (K3's backward, the vision tower), are csrc/attention_segment.cu
+    (mma.sync, 64-row tiles, cp.async). Both are CUDA C++ for sm_90a bound
+    with ctypes; `_route` picks by head dim alone. Scores and accumulators
+    stay in registers; K/V (or Q/dO) stream through shared memory, so any
+    length runs and the JAX package's `_pick_blocks` and 4096-key bound
+    have no counterpart here. Grouped kv heads are read through strides,
+    and dk/dv sum over a group inside one block, without atomics.
   * `flash_attention` has the JAX function's dispatch: `lengths` goes to
     the valid-length kernels (ops/attention_lengths.py, K1/K2), segment ids
     go to K4.
@@ -49,7 +54,17 @@ from .attention_lengths import LSE_PAD, _check_cuda, _stream, _strides, \
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SEG_HEAD_DIMS = (64, 80, 128)   # MiniCPM LM, Qwen vision tower, Qwen text
+HOPPER_HEAD_DIMS = (64, 128)    # forward and dk/dv on wgmma + TMA
 SOURCE = "visrag_tpu_torch/csrc/attention_segment.cu"
+HOPPER_SOURCE = "visrag_tpu_torch/csrc/attention_segment_hopper.cu"
+# (query rows, keys) per tile of each kernel; the pre-pass classes tiles of
+# these sizes
+HOPPER_TILES = {"fwd": (128, 128), "dkv": (64, 64)}
+LEGACY_TILES = (64, 64)
+_LEGACY_ENTRY = {"fwd": "visrag_segment_attention_fwd",
+                 "dq": "visrag_segment_attention_bwd_dq",
+                 "dkv": "visrag_segment_attention_bwd_dkv"}
+SKIP, MASKED, UNMASKED = 0, 1, 2    # classes of a (query tile, key tile) pair
 
 seg_fwd_launches = 0    # K4 forward, by segment_fwd
 seg_dq_launches = 0     # K4 dq, by segment_bwd_dq
@@ -196,6 +211,85 @@ def segment_lse_reference(q, k, q_seg, kv_seg, causal: bool, sm_scale: float):
                        torch.full_like(lse, LSE_PAD))
 
 
+def _route(kind, d, legacy=False):
+    """→ (library, entry point, (query rows, keys) per tile) of K4's `kind`
+    kernel ("fwd", "dq", "dkv") at head dim d: the wgmma kernels for the
+    forward and dk/dv at d in HOPPER_HEAD_DIMS, else the mma.sync ones.
+    `legacy` selects the mma.sync forward or dk/dv at any d (to time one
+    against the other); the port's callers never set it."""
+    if kind != "dq" and d in HOPPER_HEAD_DIMS and not legacy:
+        return ("attention_segment_hopper", f"visrag_segment_hopper_{kind}",
+                HOPPER_TILES[kind])
+    return "attention_segment", _LEGACY_ENTRY[kind], LEGACY_TILES
+
+
+def segment_tile_classes_reference(seg, tile: int):
+    """Plain version of the kernels' pre-pass: seg (B, S) int → (B,
+    ceil(S / tile), 3) int32 rows (lo, hi, uniform): the least and greatest
+    positive id of each tile of `tile` rows ((2**31 - 1, 0) when it has
+    none) and 1 when every row holds the same positive id (rows past S
+    count as pad)."""
+    b, s = seg.shape
+    n = -(-s // tile)
+    ids = torch.zeros((b, n * tile), dtype=torch.int64, device=seg.device)
+    ids[:, :s] = seg
+    ids = ids.reshape(b, n, tile)
+    pos = ids > 0
+    big = torch.iinfo(torch.int32).max
+    lo = torch.where(pos, ids, torch.full_like(ids, big)).amin(-1)
+    hi = torch.where(pos, ids, torch.zeros_like(ids)).amax(-1)
+    uniform = pos.all(-1) & (lo == hi)
+    return torch.stack([lo, hi, uniform.long()], -1).to(torch.int32)
+
+
+def segment_pair_classes_reference(q_cls, k_cls, bq: int, bk: int,
+                                   causal: bool):
+    """(B, nq, nk) class of each (query tile, key tile) pair from the tile
+    classes of segment_tile_classes_reference at bq and bk rows: SKIP when
+    the id ranges cannot meet or (causal) the key tile lies wholly after the
+    query tile; UNMASKED when both tiles are uniform with the same id and
+    (causal) the key tile ends at or before the query tile's first row;
+    MASKED otherwise. The kernels' `pair_class` is the same."""
+    qc, kc = q_cls[:, :, None].long(), k_cls[:, None, :].long()
+    q0 = torch.arange(q_cls.shape[1], device=q_cls.device)[:, None] * bq
+    k0 = torch.arange(k_cls.shape[1], device=q_cls.device)[None, :] * bk
+    meet = (qc[..., 0] <= kc[..., 1]) & (kc[..., 0] <= qc[..., 1])
+    full = (qc[..., 2] == 1) & (kc[..., 2] == 1) & (qc[..., 0] == kc[..., 0])
+    if causal:
+        meet = meet & (k0 <= q0 + bq - 1)
+        full = full & (k0 + bk - 1 <= q0)
+    out = torch.full(meet.shape, MASKED, dtype=torch.int32,
+                     device=q_cls.device)
+    out[full] = UNMASKED
+    out[~meet] = SKIP
+    return out
+
+
+def segment_tile_classes(seg, tile: int):
+    """The kernels' pre-pass on its own: seg (B, S) int32 → (B, ceil(S /
+    tile), 3) int32 as segment_tile_classes_reference, which a CPU tensor
+    runs. Launches no attention kernel and counts nothing."""
+    if seg.device.type == "cpu":
+        return segment_tile_classes_reference(seg, tile)
+    from ._build import load_library
+    if seg.dtype != torch.int32 or not seg.is_contiguous() or seg.dim() != 2:
+        raise ValueError("segment ids must be a contiguous (B, S) int32 "
+                         "tensor")
+    b, s = seg.shape
+    out = torch.empty((b, -(-s // tile), 4), dtype=torch.int32,
+                      device=seg.device)
+    fn = load_library("attention_segment_hopper").visrag_segment_tile_classes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(seg.device):
+        rc = fn(seg.data_ptr(), b, s, tile, out.data_ptr(), _stream(seg))
+    if rc != 0:
+        raise RuntimeError(f"segment_tile_classes launch failed: CUDA error "
+                           f"{rc}")
+    return out[..., :3]
+
+
 def _check_segment(q, k, v, q_seg, kv_seg):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
@@ -210,12 +304,14 @@ def _check_segment(q, k, v, q_seg, kv_seg):
                          f"{tuple(q.shape)} and k {tuple(k.shape)}")
 
 
-def _launch_segment(entry, q, k, v, q_seg, kv_seg, causal, sm_scale, *,
+def _launch_segment(kind, q, k, v, q_seg, kv_seg, causal, sm_scale, *,
                     o=None, do=None, dq=None, dk=None, dv=None, lse=None,
-                    delta=None):
-    """One K4 entry point. The tensors a kernel does not use stay None; the
-    strides of the ones it does are (batch, row, head) in elements. Raises
-    unless the kernel launched."""
+                    delta=None, legacy=False):
+    """One K4 kernel, `kind` "fwd", "dq" or "dkv", routed by `_route`. The
+    tensors a kernel does not use stay None; the strides of the ones it
+    does are (batch, row, head) in elements. The wgmma kernels read q, k,
+    v and do through TMA, which needs 16-byte-aligned bases and strides
+    (`_check_cuda` raises otherwise). Raises unless the kernel launched."""
     from ._build import load_library
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -240,18 +336,20 @@ def _launch_segment(entry, q, k, v, q_seg, kv_seg, causal, sm_scale, *,
                               or t.device != q.device):
             raise ValueError(f"{name} must be contiguous fp32 {(b, h, sq)} "
                              f"on {q.device}")
-    nq, nk = -(-sq // 64), -(-sk // 64)
-    ranges = torch.empty((2 * b * (nq + nk),), dtype=torch.int32,
-                         device=q.device)
+    library, entry, (bq, bk) = _route(kind, d, legacy)
+    # the pre-pass's tile classes: (lo, hi, uniform, -) per query tile, then
+    # per key tile
+    classes = torch.empty((4 * b * (-(-sq // bq) + -(-sk // bk)),),
+                          dtype=torch.int32, device=q.device)
     order = (q, k, v, o, do, dq, dk, dv)
     ptrs = (ctypes.c_void_p * 13)(*(
         None if t is None else t.data_ptr()
-        for t in (*order, lse, delta, q_seg, kv_seg, ranges)))
+        for t in (*order, lse, delta, q_seg, kv_seg, classes)))
     strides = (ctypes.c_longlong * 24)(*(
         x for t in order
         for x in ((0, 0, 0) if t is None else _strides(t))))
     dims = (ctypes.c_int * 7)(b, sq, sk, h, kvh, d, int(causal))
-    fn = getattr(load_library("attention_segment"), entry)
+    fn = getattr(load_library(library), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_float, ctypes.c_void_p]
@@ -260,9 +358,14 @@ def _launch_segment(entry, q, k, v, q_seg, kv_seg, causal, sm_scale, *,
                 ctypes.cast(dims, ctypes.c_void_p),
                 ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
                 _stream(q))
+    if rc == -1:
+        raise RuntimeError(f"{library} ({entry}): the driver refused a TMA "
+                           f"tensor map for q {tuple(q.shape)} strides "
+                           f"{q.stride()}, k {tuple(k.shape)} strides "
+                           f"{k.stride()}")
     if rc != 0:
-        raise RuntimeError(f"attention_segment ({entry}) launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{library} ({entry}) launch failed: CUDA error "
+                           f"{rc}")
 
 
 def segment_fwd(q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float, o,
@@ -271,8 +374,8 @@ def segment_fwd(q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float, o,
     dim) into `o`, and the LSE (B, H, Sq) fp32 into `lse` if given. CUDA
     only."""
     global seg_fwd_launches
-    _launch_segment("visrag_segment_attention_fwd", q, k, v, q_seg, kv_seg,
-                    causal, sm_scale, o=o, lse=lse)
+    _launch_segment("fwd", q, k, v, q_seg, kv_seg, causal, sm_scale, o=o,
+                    lse=lse)
     seg_fwd_launches += 1
     return o
 
@@ -282,8 +385,8 @@ def segment_bwd_dq(q, k, v, o, do, lse, delta, q_seg, kv_seg, causal: bool,
     """K4's dq kernel: writes dq and delta (B, H, Sq) fp32 = rowsum(o*do),
     which segment_bwd_dkv reads. CUDA only."""
     global seg_dq_launches
-    _launch_segment("visrag_segment_attention_bwd_dq", q, k, v, q_seg, kv_seg,
-                    causal, sm_scale, o=o, do=do, dq=dq, lse=lse, delta=delta)
+    _launch_segment("dq", q, k, v, q_seg, kv_seg, causal, sm_scale, o=o,
+                    do=do, dq=dq, lse=lse, delta=delta)
     seg_dq_launches += 1
     return dq
 
@@ -294,9 +397,8 @@ def segment_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal: bool,
     group of query heads); run after segment_bwd_dq on the same stream (it
     reads the delta that one writes). CUDA only."""
     global seg_dkv_launches
-    _launch_segment("visrag_segment_attention_bwd_dkv", q, k, v, q_seg,
-                    kv_seg, causal, sm_scale, do=do, dk=dk, dv=dv, lse=lse,
-                    delta=delta)
+    _launch_segment("dkv", q, k, v, q_seg, kv_seg, causal, sm_scale, do=do,
+                    dk=dk, dv=dv, lse=lse, delta=delta)
     seg_dkv_launches += 1
     return dk, dv
 

@@ -10,7 +10,8 @@ is non-zero; no phase catches an error and carries on):
 
   0. environment: torch/CUDA versions, the card, nvcc, Pillow and pyarrow;
   1. build every kernel source in visrag_tpu_torch/csrc with nvcc, one
-     process per source, all at once;
+     process per source, all at once, and print each kernel's registers
+     and whether any spills;
  1b. K7 (csrc/norms.cu, the fused RMSNorm / LayerNorm forward) against its
      plain version at the widths each path gives it (LayerNorm at the
      encode's ViT rows 126,208 x 1152 and the resampler's x 2304; RMSNorm
@@ -22,13 +23,22 @@ is non-zero; no phase catches an error and carries on):
      |y| plus that scale; the
      gradients through its autograd.Function against plain autograd
      (1e-6 relative); timed beside the plain version and F.layer_norm /
-     F.rms_norm (CUDA events, median of 10), bound = bytes / 3.35 TB/s.
+     F.rms_norm, bound = bytes / 3.35 TB/s; RMSNorm on the kernel
+     norms.rms_route picks (a warp per row at D <= 4096 and 2112 rows or
+     more) in turns with the block-per-row kernel (pr6_ms), with host us
+     per call at <= 64 rows; where the route gives the rows to the block
+     kernel, the warp-per-row kernel is also launched directly and held to
+     the same bound.
      From here on every RMSNorm and LayerNorm of the port runs K7;
-  2. K1 without the LSE against its plain PyTorch version on the card
-     (bf16 unit-normal inputs, 2e-2 max abs on valid rows) at the shapes and
-     lengths phase 3's page and query batches give it (ViT flat 116 slices x
-     S=1088 and the query batch's empty slice, LM causal 16 x 704 and
-     8 x 128), and at two edge-case shapes; then one full-width ViT block
+  2. K1 without the LSE (the Hopper kernel, attention_lengths_hopper.cu)
+     against its plain PyTorch version on the card (bf16 unit-normal
+     inputs, 2e-2 max abs on valid rows, pad rows exactly 0) at the shapes
+     and lengths phase 3's page and query batches give it (ViT flat 116
+     slices x S=1088 and the query batch's empty slice, LM causal 16 x 704
+     and 8 x 128), and at three edge-case shapes (d 72 flat with lengths 0,
+     1, 63-65, 127-129 and a partial last query tile among them), timed in
+     turns with the legacy mma.sync kernel (pr1_ms); then one full-width
+     ViT block
      and one full-width LM layer at the page batch's lengths against the
      same block in fp32 on the CPU (2e-2 relative Frobenius error);
   3. the full-width embedding slice on random weights from seed 0: 16
@@ -36,8 +46,9 @@ is non-zero; no phase catches an error and carries on):
      encode_dataset, then StreamingSearcher top-10, build_run and
      evaluate_run; checks finite unit-norm embeddings, self-retrieval at
      rank 1, and that every encode batch launched K1 26 (ViT) + 40 (LM)
-     times and K7 56 LayerNorms (2 x 26 + 1 ViT, 3 resampler) and 81
-     RMSNorms (2 x 40 + 1);
+     times, all on the Hopper kernel (the route counters; so in phases 3b,
+     5, 7, 9, 10 and 11), and K7 56 LayerNorms (2 x 26 + 1 ViT, 3
+     resampler) and 81 RMSNorms (2 x 40 + 1);
  3b. the int8 encode: K6 (the w8a8 GEMM) against its plain version (exact
      int32 product, every bf16 output within one bf16 ulp) at the four
      GEMM shapes of the page batch (ViT qkv and fc1, 126,208 rows; LM
@@ -52,14 +63,17 @@ is non-zero; no phase catches an error and carries on):
      ViT flat at the training micro-batch's pages (4 pages = 40 slice slots
      x S=1152, length-0 slots included) and at its query batch (one empty
      slice), LM causal at both token batches, and an edge shape per form
-     with lengths 0, 1, 63, 64, 65 and full. bf16 unit-normal q/k/v and a
+     with lengths 0, 1, 63, 64, 65, 127, 128, 129 and full. bf16
+     unit-normal q/k/v and a
      `do` that is non-zero on pad rows; each of o, dq, dk, dv within 2e-2
      relative Frobenius error on valid rows, the LSE within 2e-2 abs on
      valid rows, every output finite, and exact zeros where the contract
-     says (dq on pad query rows, dk/dv on pad keys, LSE_PAD on pad LSE
-     rows). Kernels, the plain version and F.scaled_dot_product_attention
+     says (o and dq on pad query rows, dk/dv on pad keys, LSE_PAD on pad
+     LSE rows). Kernels (K1 + LSE in turns with the legacy mma.sync
+     kernel), the plain version and F.scaled_dot_product_attention
      (boolean length mask; forward, and backward alone) timed by CUDA
-     events, median of 10;
+     events between the calls of bursts of 10 that the host queues while
+     the device spins, medians (cuda_ms);
   5. the full-width training slice: a 16-pair synthetic parquet (PIL pages
      in bench.py's size mix, query texts), then
      visrag_tpu_torch.driver.train_retriever.main with the paper config
@@ -82,7 +96,8 @@ is non-zero; no phase catches an error and carries on):
      image segments and an edge case (a 1-token segment, segments
      straddling tile edges, a pad tail; pad rows exactly 0), K1 stacked
      causal with grouped kv heads (28/4, d = 128) at the whole and batched
-     prefill shapes and at lengths 0, 1, 63, 64, 65 and full, and K5 (paged
+     prefill shapes and at lengths 0, 1, 63, 64, 65 and full (pad rows
+     exactly 0; in turns with the legacy kernel), and K5 (paged
      decode) at the engine's decode shape (a table with null blocks past
      each length) and at lengths 1, bs and bs + 1, each against its plain
      version (2e-2 relative Frobenius error, finite) and timed beside its
@@ -155,7 +170,10 @@ is non-zero; no phase catches an error and carries on):
      gradient), and its loss and parameter gradients through 2 layers at
      full width with the kernels against the plain versions (5e-2 relative),
      and the same for the padded update of those sequences (K1 with the
-     LSE, K2 at d = 128 with grouped kv heads, one launch each per layer);
+     LSE, K2 at d = 128 with grouped kv heads, one launch each per layer;
+     the PPO loss's clip and clamp branches taken at the plain run's
+     log-probs in both runs, so that the gradients differ by the kernels'
+     error alone);
      prints each step's time split from the trainer's Timers, tokens/s and
      peak memory;
  10. EVisRAG stage-1 SFT at Qwen2.5-VL-3B's full width on random weights
@@ -185,8 +203,10 @@ K1 + LSE, K2 dq and K2 dk/dv at d = 128 with grouped kv heads, and K7 as
 `rmsnorm` (launches from phase 10's SFT run, numbers at its batch) and
 `layernorm` (launches from phase 3's encode, numbers at the ViT's rows):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
-max_abs_err, and for K4 pr4_ms, PR 4's kernel in the same turns; every
-checked shape under "checks"), and
+max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
+forward and dk/dv (the mma.sync kernels), pr1_ms for K1 (the mma.sync
+attention_lengths.cu), pr6_ms for RMSNorm (the block-per-row kernel);
+every checked shape under "checks"), and
 {"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11;
 it ends without the ok line and exits 1.
 """
@@ -236,20 +256,28 @@ def smi():
         check=True).stdout.strip()
 
 
+SPIN_CYCLES = 4_000_000   # ~2 ms of device time: the host queues a burst
+
+
 def cuda_ms(fn, reps=10):
-    """Median ms of fn() over reps launches, each timed with CUDA events."""
+    """Median ms of one fn() in a burst of reps calls with a CUDA event
+    recorded between consecutive calls, after a warm-up. The device first
+    spins for SPIN_CYCLES, so that the host has queued the burst before the
+    device reaches it: each interval is then the device's time for one call,
+    not the host's time to issue it (a call timed alone between two events
+    counts both, and Python and ctypes take up to ~50 us to issue one)."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    fn()
+    events[0].record()
+    for e in events[1:]:
         fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b)
+                             for a, b in zip(events, events[1:]))
 
 
 def _pairs(lens, causal):
@@ -293,6 +321,30 @@ def _sdpa_mask(lens, s, causal, device):
     if causal:
         allow = allow & (pos[:, None] >= pos[None, :])[None, None]
     return allow
+
+
+def _k1_routes(tag, launches):
+    """Every K1 launch of a path on the Hopper kernel: the route counters
+    against the path's K1 launches (flat + stacked + fwd_lse). → the
+    counters; raises if one launch took the legacy kernel."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    routes = al.route_counts()
+    k1 = launches["flat"] + launches["stacked"] + launches["fwd_lse"]
+    if routes != {"hopper": k1, "legacy": 0}:
+        raise RuntimeError(f"{tag} K1 launches by route {routes}: want all "
+                           f"{k1} on the Hopper kernel")
+    log(f"{tag} K1 routes: {routes['hopper']} launches on the Hopper kernel "
+        f"({al.SOURCE}), 0 on the legacy one")
+    return routes
+
+
+def _turns(new, old):
+    """new and old timed in turns (new, old, old, new) by cuda_ms. → (mean
+    new ms, mean old ms, {"new": [...], "old": [...]})."""
+    turns = {"new": [], "old": []}
+    for which in ("new", "old", "old", "new"):
+        turns[which].append(cuda_ms(new if which == "new" else old))
+    return statistics.mean(turns["new"]), statistics.mean(turns["old"]), turns
 
 
 def phase0_environment():
@@ -410,6 +462,9 @@ def _check_norm(gen, label, kind, rows, d, xdt, wdt):
 
     def kern():
         return norms._launch(x, w, b, NORM_EPS)
+
+    def block_kernel():     # the block-per-row RMSNorm, for the turns
+        return norms._launch(x, w, b, NORM_EPS, legacy=True)
     lib = None
     if b is not None:
         def lib():
@@ -419,7 +474,6 @@ def _check_norm(gen, label, kind, rows, d, xdt, wdt):
             return F.rms_norm(x, (d,), w.to(xdt), NORM_EPS)
     out, ref = kern(), plain()
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs()
     # the fp32 computation's own error scale: |x| and |μ| (rounded before
     # the centring), times rstd and |w|, plus |b|
     xf = x.float()
@@ -430,16 +484,36 @@ def _check_norm(gen, label, kind, rows, d, xdt, wdt):
     if b is not None:
         scale += b.float().abs()
     del xf
-    if xdt == torch.bfloat16:
-        bound = _bf16_ulp(torch.maximum(out.float().abs(),
-                                        ref.float().abs())) \
-            + 2.0 ** -16 * scale
-    else:
-        bound = RTOL_NORM_FP32 * (ref.abs() + scale)
-    ok = bool(torch.isfinite(out).all()) and bool((err <= bound).all())
-    max_err = float(err.max())
-    worst = float((err / bound.clamp(min=1e-30)).max())
-    del err, bound, scale
+
+    def within(y):
+        """→ (inside the bound and finite, max abs error, worst
+        error / bound) of the output y."""
+        err = (y.float() - ref.float()).abs()
+        if xdt == torch.bfloat16:
+            bound = _bf16_ulp(torch.maximum(y.float().abs(),
+                                            ref.float().abs())) \
+                + 2.0 ** -16 * scale
+        else:
+            bound = RTOL_NORM_FP32 * (ref.abs() + scale)
+        return (bool(torch.isfinite(y).all()) and bool((err <= bound).all()),
+                float(err.max()), float((err / bound.clamp(min=1e-30)).max()))
+    ok, max_err, worst = within(out)
+    route = norms.rms_route(xdt, d, rows) if b is None else "layernorm"
+    warp = None
+    if route in ("block", "block_scalar") and d % 8 == 0 \
+            and d <= norms.WARP_MAX_WIDTH:
+        # the warp-per-row kernel at this width too, launched directly
+        # (the route gives these rows to the block-per-row kernel)
+        y = torch.empty_like(x)
+        rc = norms._kernel("visrag_rmsnorm_warp")(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d,
+            float(NORM_EPS), norms._IS_FP32[xdt], norms._IS_FP32[wdt],
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        warp = within(y) if rc == 0 else (False, None, None)
+        ok = ok and warp[0]
+        del y
+    del scale
     item = x.element_size()
     nbytes = 2 * rows * d * item + (1 if b is None else 2) * d * \
         w.element_size()
@@ -447,27 +521,46 @@ def _check_norm(gen, label, kind, rows, d, xdt, wdt):
     if rows <= 64:
         # host time per call (the decode step is host-bound)
         host = {"host_us": _host_us(kern), "plain_host_us": _host_us(plain)}
+        if b is None:
+            host["pr6_host_us"] = _host_us(block_kernel)
     else:
         host = {}
+    # RMSNorm: the kernel rms_route picks and the block-per-row kernel in
+    # turns (new, old, old, new)
+    if b is None:
+        ms, pr6_ms, turns = _turns(kern, block_kernel)
+    else:
+        ms, pr6_ms, turns = cuda_ms(kern), None, None
     rec = {"label": label, "kind": kind, "shape": [rows, d],
            "dtype": str(xdt).replace("torch.", ""),
            "weight_dtype": str(wdt).replace("torch.", ""),
-           "max_abs_err": max_err, "err_over_bound": worst,
-           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+           "route": route, "max_abs_err": max_err, "err_over_bound": worst,
+           **({"warp_max_abs_err": warp[1], "warp_err_over_bound": warp[2]}
+              if warp else {}),
+           "ms": ms, "pr6_ms": pr6_ms, "turns": turns,
+           "plain_ms": cuda_ms(plain),
            "library_ms": cuda_ms(lib) if lib is not None else None,
            "bound_ms": bound_ms, "bound_by": bound_by, **host}
     log(f"[1b] K7 {kind} {label} {rows} x {d} {rec['dtype']} (w "
-        f"{rec['weight_dtype']}): max_abs_err {max_err:.3g}, worst "
-        f"err/bound {worst:.3g} | kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['weight_dtype']}, {rec['route']}): max_abs_err {max_err:.3g}, "
+        f"worst err/bound {worst:.3g}"
+        + (f" (the warp-per-row kernel launched directly: max_abs_err "
+           f"{warp[1]}, worst err/bound {warp[2]})" if warp else "")
+        + f" | kernel {rec['ms']:.4f} ms"
+        + (f" (block-per-row kernel in turns {pr6_ms:.4f} ms, {turns})"
+           if pr6_ms is not None else "") + f", plain "
         f"{rec['plain_ms']:.4f} ms, library "
         + (f"{rec['library_ms']:.4f} ms" if lib is not None
            else "none (this torch has no F.rms_norm)")
         + f", bound {bound_ms:.4f} ms ({bound_by})"
         + (f" | host {host['host_us']:.1f} us per call, plain "
-           f"{host['plain_host_us']:.1f} us" if host else ""))
+           f"{host['plain_host_us']:.1f} us" if host else "")
+        + (f", block-per-row kernel {host['pr6_host_us']:.1f} us"
+           if "pr6_host_us" in host else ""))
     if not ok:
         raise RuntimeError(f"K7 {kind} {label}: outside the bound "
-                           f"(max_abs_err {max_err}, err/bound {worst})")
+                           f"(max_abs_err {max_err}, err/bound {worst}; the "
+                           f"warp-per-row kernel launched directly: {warp})")
     return rec
 
 
@@ -538,6 +631,9 @@ def phase2_kernel(gen, setup):
     flat = [(name, *raw["patch_mask"].shape, _lengths(raw["patch_mask"]))
             for name, raw in batches.items()]
     flat.append(("edge", 8, 1088, [1088, 1032, 600, 0, 1, 64, 65, 1000]))
+    # lengths at the 128-row tiles' edges; S 1088 ends in a partial tile
+    flat.append(("edge tiles", 10, 1088, [0, 1, 63, 64, 65, 127, 128, 129,
+                                          1088, 1000]))
     stacked = [(name, *raw["attention_mask"].shape,
                 _lengths(raw["attention_mask"]))
                for name, raw in batches.items()]
@@ -552,6 +648,9 @@ def phase2_kernel(gen, setup):
         q, k, v = qkv.view(n, s, 3, h, d).unbind(2)
         kern = lambda: al.flash_fwd_lengths_flat(qkv, lens_t, n, s, h, d,
                                                  False, d ** -0.5)
+        o_old = torch.empty(n, s, h, d, dtype=torch.bfloat16, device=dev)
+        old = lambda: al._fwd(q, k, v, o_old, None, lens_t, False, d ** -0.5,
+                              legacy=True)
         plain = lambda: al.lengths_attention_reference(
             q, k, v, lens_t, False, d ** -0.5).reshape(n * s, h * d)
         mask = _sdpa_mask(lens_t, s, False, dev)
@@ -563,14 +662,17 @@ def phase2_kernel(gen, setup):
         results["flat"].append(_compare(
             f"ViT flat {name} n={n} S={s} H={h} d={d} lengths "
             f"{min(lens)}-{max(lens)}", kern, plain, lib, valid,
-            attention_bound("fwd", lens, s, h, d, False)))
-        del qkv, q, k, v, kern, plain, lib, mask
+            attention_bound("fwd", lens, s, h, d, False), old))
+        del qkv, q, k, v, kern, plain, lib, mask, old, o_old
     for name, b, s, lens in stacked:
         h, d = lm_h, lm_d
         q, k, v = (torch.randn(b, s, h, d, generator=gen,
                                device=dev).bfloat16() for _ in range(3))
         lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
         kern = lambda: al.flash_fwd_lengths(q, k, v, lens_t, True, d ** -0.5)
+        o_old = torch.empty_like(q)
+        old = lambda: al._fwd(q, k, v, o_old, None, lens_t, True, d ** -0.5,
+                              legacy=True)
         plain = lambda: al.lengths_attention_reference(q, k, v, lens_t, True,
                                                        d ** -0.5)
         mask = _sdpa_mask(lens_t, s, True, dev)
@@ -581,30 +683,37 @@ def phase2_kernel(gen, setup):
         results["stacked"].append(_compare(
             f"LM causal {name} B={b} S={s} H={h} d={d} lengths "
             f"{min(lens)}-{max(lens)}", kern, plain, lib, valid,
-            attention_bound("fwd", lens, s, h, d, True)))
-        del q, k, v, kern, plain, lib, mask
+            attention_bound("fwd", lens, s, h, d, True), old))
+        del q, k, v, kern, plain, lib, mask, old, o_old
     torch.cuda.empty_cache()
     _full_width_blocks(gen, batches["pages"])
     return results
 
 
-def _compare(label, kern, plain, lib, valid, bound):
+def _compare(label, kern, plain, lib, valid, bound, old):
+    """K1 (kern) against its plain version on the valid rows (ATOL_KERNEL),
+    pad rows exactly 0; then timed in turns with the legacy mma.sync kernel
+    (old), beside the plain version and SDPA (lib)."""
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         raise RuntimeError(f"{label}: kernel output not finite")
     diff = (out.float() - ref.float()).abs()[valid]
     err = diff.max().item() if diff.numel() else 0.0
+    pad_zero = bool((out[~valid] == 0).all())
     del out, ref, diff
-    ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
-    log(f"[2] K1 {label}: max_abs_err {err:.6g} (bound {ATOL_KERNEL}) | "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-        f"bound {bound[0]:.4f} ms ({bound[1]}) (median of 10, CUDA events) "
-        f"| {smi()}")
-    if err > ATOL_KERNEL:
-        raise RuntimeError(f"{label}: kernel disagrees with plain ({err})")
-    return {"shape": label, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
+    ms, pr1_ms, turns = _turns(kern, old)
+    plain_ms, lib_ms = cuda_ms(plain), cuda_ms(lib)
+    log(f"[2] K1 {label}: max_abs_err {err:.6g} (bound {ATOL_KERNEL}), pad "
+        f"rows exactly 0 {pad_zero} | kernel {ms:.4f} ms (legacy mma.sync "
+        f"kernel in turns {pr1_ms:.4f} ms, {turns}), plain {plain_ms:.4f} "
+        f"ms, SDPA {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) "
+        f"(medians in bursts of 10, CUDA events) | {smi()}")
+    if err > ATOL_KERNEL or not pad_zero:
+        raise RuntimeError(f"{label}: kernel disagrees with plain ({err}, "
+                           f"pad rows exactly 0 {pad_zero})")
+    return {"shape": label, "max_abs_err": err, "ms": ms, "pr1_ms": pr1_ms,
+            "turns": turns, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
@@ -773,6 +882,7 @@ def phase3_slice(setup):
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     launches = al.launch_counts()
+    _k1_routes("[3]", launches)
     norm_launches = norms.launch_counts()
     n_batches = 2
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -971,6 +1081,7 @@ def phase3b_int8_encode(gen, setup):
     e2e_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {**al.launch_counts(), "int8_gemm": mi.launches}
+    _k1_routes("[3b]", launches)
     per_batch = 2 * bb.vit.depth + 6 * bb.llm.num_hidden_layers
     want = {"flat": 2 * bb.vit.depth, "stacked": 2 * bb.llm.num_hidden_layers,
             "fwd_lse": 0, "dq": 0, "dkv": 0, "int8_gemm": 2 * per_batch}
@@ -1034,12 +1145,14 @@ def phase4_training_kernels(gen, setup):
          False),
         ("ViT flat, training queries", "flat", raw_q["patch_mask"], vh, vd,
          False),
-        ("ViT flat, edge", "flat", [0, 1, 63, 64, 65, 1152], vh, vd, False),
+        ("ViT flat, edge", "flat", [0, 1, 63, 64, 65, 127, 128, 129, 1152],
+         vh, vd, False),
         ("LM causal, training pages", "stacked", raw_p["attention_mask"], lh,
          ld, True),
         ("LM causal, training queries", "stacked", raw_q["attention_mask"],
          lh, ld, True),
-        ("LM causal, edge", "stacked", [0, 1, 63, 64, 65, 704], lh, ld, True),
+        ("LM causal, edge", "stacked", [0, 1, 63, 64, 65, 127, 128, 129, 704],
+         lh, ld, True),
     ]
     results = {"fwd_lse": [], "dq": [], "dkv": []}
     for label, form, mask, h, d, causal in shapes:
@@ -1108,7 +1221,7 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
                for name, got, want in zip(("o", "dq", "dk", "dv"),
                                           (o, *grads), (o_ref, *g_ref))}
     pad = ~valid
-    zeros_ok = all(bool((t[pad] == 0).all()) for t in grads) and \
+    zeros_ok = all(bool((t[pad] == 0).all()) for t in (o, *grads)) and \
         bool((lse[~vm] == al.LSE_PAD).all())
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (o, lse[vm], *grads))
@@ -1119,9 +1232,14 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
                            f"version: {errs}, zeros where the contract says "
                            f"{zeros_ok}, finite {finite}")
 
-    # timings: kernels, plain forward and backward (retained graph), SDPA
-    t_fwd = cuda_ms(lambda: al.flash_fwd_lse(q, k, v, lens_t, causal, scale,
-                                             o))
+    # timings: kernels (K1 + LSE in turns with the legacy mma.sync kernel),
+    # plain forward and backward (retained graph), SDPA
+    o_old, lse_old = torch.empty_like(o), torch.empty_like(lse)
+    t_fwd, t_fwd_old, fwd_turns = _turns(
+        lambda: al.flash_fwd_lse(q, k, v, lens_t, causal, scale, o),
+        lambda: al._fwd(q, k, v, o_old, lse_old, lens_t, causal, scale,
+                        legacy=True))
+    del o_old, lse_old
     t_dq = cuda_ms(lambda: al.flash_bwd_dq(q, k, v, o, do, lse, delta,
                                            lens_t, causal, scale, dq))
     t_dkv = cuda_ms(lambda: al.flash_bwd_dkv(q, k, v, o, do, lse, delta,
@@ -1164,14 +1282,17 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
                                      "dkv": max(max_abs["dk"],
                                                 max_abs["dv"])}[kind],
                      "rel_err": err}
+    out["fwd_lse"].update(pr1_ms=t_fwd_old, turns=fwd_turns)
     log(f"{tag} {shape}: rel_err o {errs['o']:.4g} dq {errs['dq']:.4g} dk "
         f"{errs['dk']:.4g} dv {errs['dv']:.4g}, LSE max abs "
         f"{errs['lse_max_abs']:.4g} (bound {RTOL_TRAIN}); pad rows zero, "
-        f"finite | ms: K1+LSE {t_fwd:.4f}, dq {t_dq:.4f}, dk/dv {t_dkv:.4f} "
+        f"finite | ms: K1+LSE {t_fwd:.4f} (legacy mma.sync kernel in turns "
+        f"{t_fwd_old:.4f}, {fwd_turns}), dq {t_dq:.4f}, dk/dv {t_dkv:.4f} "
         f"| plain fwd {t_plain_fwd:.4f}, plain bwd {t_plain_bwd:.4f} | SDPA "
         f"fwd {t_sdpa_fwd:.4f}, bwd {t_sdpa_bwd:.4f} | bound fwd_lse "
         f"{out['fwd_lse']['bound_ms']:.4f}, dq {out['dq']['bound_ms']:.4f}, "
-        f"dkv {out['dkv']['bound_ms']:.4f} ms (median of 10, CUDA events) | "
+        f"dkv {out['dkv']['bound_ms']:.4f} ms (medians in bursts of 10, "
+        f"CUDA events) | "
         f"{smi()}")
     return out
 
@@ -1238,6 +1359,7 @@ def phase5_training(setup):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = al.launch_counts()
+        _k1_routes("[5]", launches)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         gc.collect()                      # the driver's model and optimizer
         torch.cuda.empty_cache()
@@ -1470,7 +1592,8 @@ def _timed_check(tag, label, kern, plain, lib, out, ref, rows, bound):
         f"max_abs_err {max_abs:.4g}, finite {finite} | kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-        f"{bound[0]:.4f} ms ({bound[1]}) (median of 10, CUDA events) | "
+        f"{bound[0]:.4f} ms ({bound[1]}) (medians in bursts of 10, CUDA "
+        f"events) | "
         f"{smi()}")
     if not finite or rel > RTOL_BLOCK:
         raise RuntimeError(f"{tag} {label}: kernel disagrees with its plain "
@@ -1563,15 +1686,26 @@ def phase6_serving_kernels(gen, reqs, cfg):
                 d ** -0.5) for i in range(b)])
         out, ref = kern(), plain()
         valid = torch.arange(s, device=DEV)[None] < lens_t[:, None]
+        if not bool((out[~valid] == 0).all()):
+            raise RuntimeError(f"K1 GQA {label}: pad rows are not exactly 0")
         mask = _sdpa_mask(lens_t, s, True, DEV)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=d ** -0.5, enable_gqa=True)
-        res["gqa"].append(_timed_check(
+        rec = _timed_check(
             "K1 GQA", f"{label} B={b} S={s} H={h}/{kvh} d={d} lengths "
-            f"{lens}", kern, plain, lib, out, ref, valid,
-            attention_bound("fwd", lens, s, h, d, True, kv_heads=kvh)))
-        del q, k, v, out, ref, mask, qt, kt, vt
+            f"{lens}; pad rows exactly 0", kern, plain, lib, out, ref, valid,
+            attention_bound("fwd", lens, s, h, d, True, kv_heads=kvh))
+        # in turns with the legacy mma.sync kernel
+        o_old = torch.empty_like(q)
+        rec["ms"], rec["pr1_ms"], rec["turns"] = _turns(
+            kern, lambda: al._fwd(q, k, v, o_old, None, lens_t, True,
+                                  d ** -0.5, legacy=True))
+        log(f"[6] K1 GQA {label}: in turns with the legacy mma.sync kernel "
+            f"{rec['ms']:.4f} ms against {rec['pr1_ms']:.4f} ms "
+            f"({rec['turns']})")
+        res["gqa"].append(rec)
+        del q, k, v, out, ref, mask, qt, kt, vt, o_old
     torch.cuda.empty_cache()
 
     # K5 at the engine's decode shape: the four live requests' lengths at
@@ -1833,6 +1967,7 @@ def phase7_serving(reqs, cfg):
     launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
                 "paged": pk.launches, "flat": al.flat_launches,
                 "fwd_lse": al.fwd_lse_launches}
+    _k1_routes("[7]", launches)
     norm_launches = norms.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -2505,7 +2640,8 @@ def _micro_check(trainer, stash, cfg):
     the full model's packed forward (K4) against the same sequences' padded
     forward (K1), both without gradients. (b) Its loss and parameter
     gradients through a 2-layer model at full width with the kernels
-    against the same model with the plain versions, on the card. (c) The
+    against the same model with the plain versions, on the card, the
+    loss's branches taken at the plain log-probs in both. (c) The
     same for the padded update of those sequences (padding_free=False or a
     raw vision batch): K1 with the LSE forward, K2 backward at d = 128 with
     grouped kv heads. → the padded update's launch counts."""
@@ -2547,17 +2683,36 @@ def _micro_check(trainer, stash, cfg):
             use_reentrant=False) for i in range(q.shape[0])])
     # (b) the packed update through K4, and (c) the padded update through
     # K1 with the LSE and K2 (d = 128, grouped kv heads), each against the
-    # plain versions
+    # plain versions. The PPO loss is piecewise in the log-probs (the clip
+    # ratios, the dual clip, the clamps): a token whose log-prob the kernels
+    # move across a boundary flips its whole gradient term. So the kernels'
+    # run takes its branches at the plain run's log-probs, value of the
+    # plain log-prob and gradient of its own (straight through), and its
+    # gradients differ from the plain run's only by the kernels' error; the
+    # loss is compared at the kernels' own log-probs.
     out, k2_launches = {}, {}
+    terms = probe._ppo_terms
     for layout, batch, packed in (("packed", micro, True),
                                   ("padded", padded, False)):
-        for which in ("kernels", "plain"):
+        plain_logp = {}
+        for which in ("plain", "kernels"):
             if which == "plain":
                 qmod.flash_attention = \
                     lambda q, k, v, qs, ks, causal: \
                     seg.segment_attention_reference(q, k, v, qs, ks,
                                                     causal=causal)
                 qmod.flash_fwd_lengths = plain_lengths
+
+                def probe_terms(logp, b, t):
+                    plain_logp["x"] = logp.detach()
+                    return terms(logp, b, t)
+            else:
+                def probe_terms(logp, b, t):
+                    own = terms(logp.detach(), b, t)[0].item()
+                    plain_logp["own_loss"] = own
+                    st = plain_logp["x"] + (logp - logp.detach())
+                    return terms(st, b, t)
+            probe._ppo_terms = probe_terms
             al.reset_launch_counts()
             try:
                 loss, _ = probe.micro_loss(batch, total, packed)
@@ -2565,11 +2720,14 @@ def _micro_check(trainer, stash, cfg):
             finally:
                 qmod.flash_attention = seg.flash_attention
                 qmod.flash_fwd_lengths = al.flash_fwd_lengths
+                probe._ppo_terms = terms
             if which == "kernels" and layout == "padded":
                 k2_launches = al.launch_counts()
-            out[layout, which] = (loss.item(),
-                                  [p.grad.float().clone()
-                                   for p in probe.train_params])
+                _k1_routes("[9] the padded update:", k2_launches)
+            value = plain_logp["own_loss"] if which == "kernels" \
+                else loss.item()
+            out[layout, which] = (value, [p.grad.float().clone()
+                                          for p in probe.train_params])
             for p in probe.train_params:
                 p.grad = None
     layers = small.text.num_hidden_layers
@@ -2693,6 +2851,7 @@ def phase9_rl(rows_path, cfg, tmp):
     launches = {**al.launch_counts(), "kvgrid": kg.launches,
                 "kvgrid_lse": kg.lse_launches, "paged": pk.launches,
                 **seg.launch_counts()}
+    _k1_routes("[9]", launches)
     if resumed_ok != [True]:
         raise RuntimeError(f"the second run did not resume at step 1 with "
                            f"the saved rng and data cursor: {resumed_ok}")
@@ -2833,6 +2992,7 @@ def _sft_micro_check(batch, cfg):
             loss = loss_and_grads()
         if which == "kernels":
             launches = {**al.launch_counts(), **norms.launch_counts()}
+            _k1_routes("[10] one batch through 2 layers:", launches)
         out[which] = (loss.item(), [p.grad.float().clone() for p in params])
         for p in params:
             p.grad = None
@@ -2918,6 +3078,8 @@ def phase10_sft(tmp):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {**al.launch_counts(), **norms.launch_counts()}
+    _k1_routes("[10]", launches)
+    log(f"[10] RMSNorm launches by kernel: {norms.route_counts()}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers = cfg.text.num_hidden_layers
     n = len(history)
@@ -3050,6 +3212,7 @@ def phase11_gae(rows_path, tmp):
     launches = {**al.launch_counts(), "kvgrid": kg.launches,
                 "paged": pk.launches, **seg.launch_counts(),
                 **norms.launch_counts()}
+    _k1_routes("[11]", launches)
     critic.update = update
     if [s for s, _ in history] != [1, 2] or len(seen) != 2:
         raise RuntimeError(f"GAE steps {[s for s, _ in history]}, critic "
@@ -3197,6 +3360,8 @@ def segment_kernel_rows(seg_results, rl_launches):
                      "replaces": replaces,
                      "launches": rl_launches["padded_update"][kind],
                      **{k: k2[kind][0][k] for k in KEYS},
+                     **({"pr1_ms": k2[kind][0]["pr1_ms"]}
+                        if kind == "fwd_lse" else {}),
                      "checks": k2[kind]})
     return rows
 
@@ -3216,6 +3381,8 @@ def norm_kernel_rows(norm_results, sft_launches, encode_launches):
         out.append({"name": name, "route": "cuda", "source": norms.SOURCE,
                     "replaces": norms.REPLACES[name], "launches": launches,
                     **{k: first[k] for k in KEYS},
+                    **({"pr6_ms": first["pr6_ms"]}
+                       if name == "rmsnorm" else {}),
                     "checks": norm_results[name]})
     return out
 
@@ -3280,6 +3447,7 @@ def main(argv=None):
                         "replaces": REPLACES["fwd"],
                         "launches": serve_launches[form],
                         **{k: page[k] for k in keys},
+                        "pr1_ms": page["pr1_ms"],
                         "sdpa_ms": page["library_ms"],
                         "checks": results[form]})
     for kind, name, source, replaces in (
@@ -3291,6 +3459,8 @@ def main(argv=None):
                         "replaces": replaces,
                         "launches": train_launches[kind],
                         **{k: page[k] for k in keys},
+                        **({"pr1_ms": page["pr1_ms"]}
+                           if kind == "fwd_lse" else {}),
                         "sdpa_ms": page["library_ms"],
                         "checks": train_results[kind]})
     for kind, name, source, replaces, count in (
@@ -3305,6 +3475,8 @@ def main(argv=None):
                         "replaces": replaces,
                         "launches": qwen_launches[count],
                         **{k: first[k] for k in keys},
+                        **({"pr1_ms": first["pr1_ms"]}
+                           if kind == "gqa" else {}),
                         "checks": qwen_results[kind]})
     kernels.append({"name": "int8_matmul_fused", "route": "cuda",
                     "source": mi.SOURCE, "replaces": INT8_REPLACES,

@@ -29,8 +29,8 @@ from visrag_tpu_torch.ops import matmul_int8 as mi
 from visrag_tpu_torch.ops import quant
 from visrag_tpu_torch.serving import paged_kv as pk
 
-SOURCES = ("attention_lengths", "attention_lengths_bwd", "paged_decode",
-           "matmul_int8")
+SOURCES = ("attention_lengths_hopper", "attention_lengths_bwd",
+           "paged_decode", "matmul_int8")
 DEV = "cuda"
 
 

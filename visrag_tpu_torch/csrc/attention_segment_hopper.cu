@@ -23,15 +23,13 @@
 //     empty mbarriers and stages the streamed side's ids (and, for dk/dv,
 //     its lse and delta, three independent loads a row) beside them; the
 //     consumers only compute, and each releases a stage with one arrival.
-//   * Forward: a 128-row Q tile (64 rows per consumer warpgroup) against
-//     128-key K/V tiles, 2 stages (3 at d = 64). S = Q K^T is an SS wgmma
-//     m64n128k16 over d/16 steps; the online softmax runs in base 2 with
-//     scale * log2(e) folded into one FMA per score; P is rounded to bf16 in
-//     registers and is the A operand of the RS wgmma for O += P V, with V
-//     read MN-major (the C fragment of S is the A fragment of P). O / l is
-//     written as bf16 and the LSE in natural log; rows that see no key give
-//     exact zeros and LSE_PAD. Causal query tiles are launched heaviest
-//     first.
+//   * Forward: the body shared with K1, hopper_attention_fwd.cuh, with the
+//     segment mask below (SegmentMask): a 128-row Q tile (64 rows per
+//     consumer warpgroup) against 128-key K/V tiles, 2 stages (3 at d = 64),
+//     S = Q K^T an SS wgmma, the online softmax in base 2, P in registers as
+//     the A operand of the RS wgmma for O += P V; the LSE in natural log;
+//     rows that see no key give exact zeros and LSE_PAD. Causal query tiles
+//     are launched heaviest first.
 //   * dk/dv: a block owns 64 keys of one kv head and walks the group's
 //     query heads and their 64-row query tiles, so every dk/dv element is
 //     written by one block (no atomics, deterministic), 4 stages.
@@ -65,22 +63,14 @@
 
 #include <limits.h>
 
-#include "attention_lengths_common.cuh"
-#include "hopper.cuh"
+#include "hopper_attention_fwd.cuh"
 
 namespace {
 
 using namespace visrag;
 using namespace visrag::hopper;
 
-constexpr int CONSUMERS = 2;                  // consumer warpgroups
-constexpr int PRODUCER = 128 * CONSUMERS;    // first thread of the producer
-constexpr int WS_THREADS = PRODUCER + 128;   // its warpgroup
-// registers a thread, 56 x 128 + 2 x 224 x 128 = the 64,512 of the launch
-constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
-constexpr int FWD_BQ = 128, FWD_BK = 128;     // forward tile rows
 constexpr int DKV_BQ = 64, DKV_BK = 64;       // dk/dv tile rows
-constexpr int HALF_ROW = 128;                 // bytes of a 64-column row
 
 struct Params {
   __nv_bfloat16* o;          // forward output
@@ -129,8 +119,6 @@ __global__ void segment_tile_classes_kernel(const int* seg, int seq, int tile,
         make_int4(lo, hi, !pad && lo == hi ? 1 : 0, 0);
 }
 
-enum PairClass { SKIP = 0, MASKED = 1, UNMASKED = 2 };
-
 // The class of the pair (query tile at row q0 of bq rows, key tile at k0 of
 // bk rows); ops/attention.py segment_pair_classes_reference is the same.
 __device__ __forceinline__ int pair_class(int4 qc, int q0, int bq, int4 kc,
@@ -142,253 +130,81 @@ __device__ __forceinline__ int pair_class(int4 qc, int q0, int bq, int4 kc,
   return MASKED;
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
+// ---- forward: the shared body (hopper_attention_fwd.cuh) with the segment
+// mask ---------------------------------------------------------------------
+
+// Ids staged by the producer beside each K/V tile, the pre-pass's classes,
+// id equality (and key <= query when causal).
+template <bool C>
+struct SegmentMask {
+  static constexpr bool CAUSAL = C;
+  static constexpr int IDS = FWD_BK;     // key ids staged per stage
+  struct Params {
+    const int* q_seg;        // (B, Sq)
+    const int* kv_seg;       // (B, Sk)
+    const int4* q_cls;       // (B, nq): lo, hi, uniform
+    const int4* k_cls;       // (B, nk)
+  };
+  struct Rows {
+    int lo, hi;              // the ids of the thread's two query rows
+  };
+  int4 qc;
+  const int4* kcls;
+  const int* qsegb;
+  const int* ksegb;
+  int qt, q0, nk, sq, sk;
+
+  __device__ __forceinline__ SegmentMask(const Params& mp, int b, int qt_,
+                                         int q0_, int nq, int nk_, int sq_,
+                                         int sk_)
+      : qc(mp.q_cls[static_cast<long long>(b) * nq + qt_]),
+        kcls(mp.k_cls + static_cast<long long>(b) * nk_),
+        qsegb(mp.q_seg + static_cast<long long>(b) * sq_),
+        ksegb(mp.kv_seg + static_cast<long long>(b) * sk_),
+        qt(qt_), q0(q0_), nk(nk_), sq(sq_), sk(sk_) {}
+
+  // causal query tiles heaviest first
+  static __device__ __forceinline__ int qtile(const Params&, int, int z,
+                                              int nq, int) {
+    return CAUSAL ? nq - 1 - z : z;
+  }
+  __device__ __forceinline__ bool q_live() const { return true; }
+  __device__ __forceinline__ int ntiles() const {
+    return CAUSAL ? min(nk, qt + 1) : nk;
+  }
+  __device__ __forceinline__ int pair(int t) const {
+    return pair_class(qc, q0, FWD_BQ, kcls[t], t * FWD_BK, FWD_BK, CAUSAL);
+  }
+  __device__ __forceinline__ void stage(int* ids, int t, int lane) const {
+    for (int r = lane; r < FWD_BK; r += 32) {
+      const int j = t * FWD_BK + r;
+      ids[r] = j < sk ? ksegb[j] : 0;
+    }
+  }
+  __device__ __forceinline__ Rows rows(int row_lo, int row_hi) const {
+    return {row_lo < sq ? qsegb[row_lo] : 0, row_hi < sq ? qsegb[row_hi] : 0};
+  }
+  // same positive id (keys past Sk carry id 0), key <= query
+  __device__ __forceinline__ void apply(float (&s)[64], const Rows& r,
+                                        const int* ids, int k0, int row_lo,
+                                        int row_hi, int t4) const {
 #pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
-
-// ---- forward ----------------------------------------------------------------
-
-template <int D>
-struct FwdSmem {
-  static constexpr int STAGES = D == 64 ? 3 : 2;
-  static constexpr int Q = FWD_BQ * D * 2;          // bytes of the Q tile
-  static constexpr int KV = FWD_BK * D * 2;         // bytes of a K or V tile
-  static constexpr int IDS = STAGES * FWD_BK * 4;
-  static constexpr int BARS = (1 + 2 * STAGES) * 8;
-  static constexpr size_t BYTES = 1024 + Q + 2 * STAGES * KV + IDS + BARS;
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t4 + e;
+        const int ks = ids[c];
+        const bool ok_lo =
+            r.lo > 0 && ks == r.lo && (!CAUSAL || k0 + c <= row_lo);
+        const bool ok_hi =
+            r.hi > 0 && ks == r.hi && (!CAUSAL || k0 + c <= row_hi);
+        if (!ok_lo) s[4 * j + e] = -INFINITY;
+        if (!ok_hi) s[4 * j + 2 + e] = -INFINITY;
+      }
+    }
+  }
+  __device__ __forceinline__ bool row_live(int) const { return true; }
 };
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(WS_THREADS, 1)
-segment_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                         const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v,
-                         const Params p) {
-  using S = FwdSmem<D>;
-  constexpr int STAGES = S::STAGES;
-  constexpr int HALVES = D / 64;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sQ = smem;
-  unsigned char* sK = sQ + S::Q;                    // STAGES K tiles
-  unsigned char* sV = sK + STAGES * S::KV;          // STAGES V tiles
-  int* sIds = reinterpret_cast<int*>(sV + STAGES * S::KV);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sIds + STAGES * FWD_BK);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + STAGES;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int sq = p.sq, sk = p.sk;
-  const int nq = (sq + FWD_BQ - 1) / FWD_BQ, nk = (sk + FWD_BK - 1) / FWD_BK;
-  const int qt = CAUSAL ? nq - 1 - static_cast<int>(blockIdx.z)
-                        : static_cast<int>(blockIdx.z);
-  const int q0 = qt * FWD_BQ;
-  const int hk = h / p.kv_group;
-  const int4 qc = p.q_cls[static_cast<long long>(b) * nq + qt];
-  const int4* kcls = p.k_cls + static_cast<long long>(b) * nk;
-  const int ntiles = CAUSAL ? min(nk, qt + 1) : nk;
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= PRODUCER) {
-    // ---- producer: one warp issues every load
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x >= PRODUCER + 32) return;
-    const int lane = threadIdx.x - PRODUCER;
-    const int* ksegb = p.kv_seg + static_cast<long long>(b) * sk;
-    if (lane == 0) {
-      tma_prefetch(&tm_q);
-      tma_prefetch(&tm_k);
-      tma_prefetch(&tm_v);
-      mbar_arrive_expect_tx(q_full, S::Q);
-#pragma unroll
-      for (int hf = 0; hf < HALVES; ++hf)
-        tma_load_4d(sQ + hf * FWD_BQ * HALF_ROW, &tm_q, q_full, 64 * hf, q0,
-                    h, b);
-    }
-    Ring<STAGES> ring;
-    for (int t = 0; t < ntiles; ++t) {
-      if (pair_class(qc, q0, FWD_BQ, kcls[t], t * FWD_BK, FWD_BK, CAUSAL) ==
-          SKIP)
-        continue;
-      mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
-      int* ids = sIds + ring.stage * FWD_BK;
-      for (int r = lane; r < FWD_BK; r += 32) {
-        const int j = t * FWD_BK + r;
-        ids[r] = j < sk ? ksegb[j] : 0;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        unsigned char* k_dst = sK + ring.stage * S::KV;
-        unsigned char* v_dst = sV + ring.stage * S::KV;
-        mbar_arrive_expect_tx(&full[ring.stage], 2 * S::KV);
-#pragma unroll
-        for (int hf = 0; hf < HALVES; ++hf) {
-          tma_load_4d(k_dst + hf * FWD_BK * HALF_ROW, &tm_k, &full[ring.stage],
-                      64 * hf, t * FWD_BK, hk, b);
-          tma_load_4d(v_dst + hf * FWD_BK * HALF_ROW, &tm_v, &full[ring.stage],
-                      64 * hf, t * FWD_BK, hk, b);
-        }
-      }
-      ring.advance();
-    }
-    return;
-  }
-
-  // ---- consumers: warpgroup cw owns query rows [64 cw, 64 cw + 64)
-  setmaxnreg_inc<CONSUMER_REGS>();
-  const int cw = threadIdx.x / 128;
-  const int tid = threadIdx.x % 128;
-  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
-  const int row_lo = q0 + 64 * cw + 16 * warp + g, row_hi = row_lo + 8;
-  const int* qsegb = p.q_seg + static_cast<long long>(b) * sq;
-  const int qid_lo = row_lo < sq ? qsegb[row_lo] : 0;
-  const int qid_hi = row_hi < sq ? qsegb[row_hi] : 0;
-  const float sl2 = p.scale * LOG2E;
-
-  float o[D / 2];
-  zero(o);
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  mbar_wait(q_full, 0);
-
-  Ring<STAGES> ring;
-  for (int t = 0; t < ntiles; ++t) {
-    const int cls =
-        pair_class(qc, q0, FWD_BQ, kcls[t], t * FWD_BK, FWD_BK, CAUSAL);
-    if (cls == SKIP) continue;
-    mbar_wait(&full[ring.stage], ring.phase);
-    const uint32_t k_src = smem_u32(sK) + ring.stage * S::KV;
-    const uint32_t v_src = smem_u32(sV) + ring.stage * S::KV;
-
-    // S = Q K^T: 64 rows x 128 keys; Q rows of this warpgroup as the
-    // K-major A operand, K as the K-major B operand
-    float s[64];
-    const uint64_t q_desc =
-        make_desc(opaque(smem_u32(sQ) + 64 * cw * HALF_ROW), 16, 1024);
-    const uint64_t k_desc = make_desc(k_src, 16, 1024);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off_q = (kk / 4) * FWD_BQ * HALF_ROW + (kk % 4) * 32;
-      const uint32_t off_k = (kk / 4) * FWD_BK * HALF_ROW + (kk % 4) * 32;
-      wgmma_ss<128, 0>(s, desc_add(q_desc, off_q), desc_add(k_desc, off_k),
-                       kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    if (cls == MASKED) {
-      // same positive id (keys past Sk carry id 0), key <= query
-      const int* ids = sIds + ring.stage * FWD_BK;
-      const int k0 = t * FWD_BK;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * j + 2 * t4 + e;
-          const int ks = ids[c];
-          const bool ok_lo = qid_lo > 0 && ks == qid_lo &&
-                             (!CAUSAL || k0 + c <= row_lo);
-          const bool ok_hi = qid_hi > 0 && ks == qid_hi &&
-                             (!CAUSAL || k0 + c <= row_hi);
-          if (!ok_lo) s[4 * j + e] = -INFINITY;
-          if (!ok_hi) s[4 * j + 2 + e] = -INFINITY;
-        }
-      }
-    }
-
-    // online softmax in base 2 on raw scores; a row with no key yet keeps
-    // max -inf and takes 0 as its reference, so every exp2 is 0 or finite
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    const float ref_lo = mx_lo == -INFINITY ? 0.f : mx_lo * sl2;
-    const float ref_hi = mx_hi == -INFINITY ? 0.f : mx_hi * sl2;
-    const float corr_lo = exp2f(m_lo * sl2 - ref_lo);
-    const float corr_hi = exp2f(m_hi * sl2 - ref_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-    uint32_t pa[8][4];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p0 = exp2f(fmaf(s[4 * j], sl2, -ref_lo));
-      const float p1 = exp2f(fmaf(s[4 * j + 1], sl2, -ref_lo));
-      const float p2 = exp2f(fmaf(s[4 * j + 2], sl2, -ref_hi));
-      const float p3 = exp2f(fmaf(s[4 * j + 3], sl2, -ref_hi));
-      sum_lo += p0 + p1;
-      sum_hi += p2 + p3;
-      pa[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
-      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
-    }
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[4 * j] *= corr_lo;
-      o[4 * j + 1] *= corr_lo;
-      o[4 * j + 2] *= corr_hi;
-      o[4 * j + 3] *= corr_hi;
-    }
-
-    // O += P V: P from registers, V MN-major (k16 = 16 keys = 2048 bytes)
-    const uint64_t v_desc = make_desc(v_src, FWD_BK * HALF_ROW, 1024);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < FWD_BK / 16; ++kk)
-      wgmma_rs<D, 1>(o, pa[kk], desc_add(v_desc, kk * 16 * HALF_ROW), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    if (tid == 0) mbar_arrive(&empty[ring.stage]);
-    ring.advance();
-  }
-
-  // epilogue: o / l over the quad's summed l (l == 0 gives exact zeros)
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
-  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * t4;
-    if (row_lo < sq)
-      *reinterpret_cast<uint32_t*>(ob + row_lo * p.o_sr + col) =
-          pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
-    if (row_hi < sq)
-      *reinterpret_cast<uint32_t*>(ob + row_hi * p.o_sr + col) =
-          pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
-  }
-  if (p.lse && t4 == 0) {
-    float* lb = p.lse + (static_cast<long long>(b) * p.heads + h) * sq;
-    if (row_lo < sq)
-      lb[row_lo] = l_lo > 0.f ? (m_lo * sl2 + log2f(l_lo)) * LN2 : LSE_PAD;
-    if (row_hi < sq)
-      lb[row_hi] = l_hi > 0.f ? (m_hi * sl2 + log2f(l_hi)) * LN2 : LSE_PAD;
-  }
-}
 
 // ---- dk/dv --------------------------------------------------------------------
 
@@ -706,48 +522,42 @@ segment_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---- host ---------------------------------------------------------------------
 
 enum Which { FWD = 0, DKV = 2 };
-constexpr int TMA_ENCODE_FAILED = -1;
-
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, size_t bytes, dim3 grid, cudaStream_t stream,
-                   Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, WS_THREADS, bytes, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-struct View {
-  const void* ptr;
-  long long sb, sr, sh;
-};
 
 template <int D, bool CAUSAL>
 int dispatch(int which, const Params& p, int batch, const View& q,
              const View& k, const View& v, const View& dO,
              cudaStream_t stream) {
   const int kvh = p.heads / p.kv_group;
-  CUtensorMap tq, tk, tv, tdo;
-  const int q_rows = which == FWD ? FWD_BQ : DKV_BQ;
-  const int k_rows = which == FWD ? FWD_BK : DKV_BK;
-  if (!encode_bshd(&tq, q.ptr, batch, p.sq, p.heads, D, q.sb, q.sr, q.sh,
-                   q_rows) ||
-      !encode_bshd(&tk, k.ptr, batch, p.sk, kvh, D, k.sb, k.sr, k.sh,
-                   k_rows) ||
-      !encode_bshd(&tv, v.ptr, batch, p.sk, kvh, D, v.sb, v.sr, v.sh, k_rows))
-    return TMA_ENCODE_FAILED;
   if (which == FWD) {
-    const int nq = (p.sq + FWD_BQ - 1) / FWD_BQ;
-    return int(launch(segment_fwd_wgmma_kernel<D, CAUSAL>, FwdSmem<D>::BYTES,
-                      dim3(p.heads, batch, nq), stream, tq, tk, tv, p));
+    FwdMaps maps;
+    if (!encode_fwd_maps<D>(&maps, batch, p.sq, p.sk, p.heads, kvh, q, k, v))
+      return TMA_ENCODE_FAILED;
+    FwdParams fp;
+    fp.o = p.o;
+    fp.lse = p.lse;
+    fp.o_sb = p.o_sb, fp.o_sr = p.o_sr, fp.o_sh = p.o_sh;
+    fp.sq = p.sq, fp.sk = p.sk, fp.heads = p.heads, fp.kv_group = p.kv_group;
+    fp.sl2 = p.scale * LOG2E;
+    const typename SegmentMask<CAUSAL>::Params mp{p.q_seg, p.kv_seg, p.q_cls,
+                                                  p.k_cls};
+    return p.lse ? launch_fwd<D, true, SegmentMask<CAUSAL>>(maps, fp, mp,
+                                                            batch, stream)
+                 : launch_fwd<D, false, SegmentMask<CAUSAL>>(maps, fp, mp,
+                                                             batch, stream);
   }
-  if (!encode_bshd(&tdo, dO.ptr, batch, p.sq, p.heads, D, dO.sb, dO.sr, dO.sh,
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_bshd(&tq, q.ptr, batch, p.sq, p.heads, D, q.sb, q.sr, q.sh,
+                   DKV_BQ) ||
+      !encode_bshd(&tk, k.ptr, batch, p.sk, kvh, D, k.sb, k.sr, k.sh,
+                   DKV_BK) ||
+      !encode_bshd(&tv, v.ptr, batch, p.sk, kvh, D, v.sb, v.sr, v.sh,
+                   DKV_BK) ||
+      !encode_bshd(&tdo, dO.ptr, batch, p.sq, p.heads, D, dO.sb, dO.sr, dO.sh,
                    DKV_BQ))
     return TMA_ENCODE_FAILED;
   const int nk = (p.sk + DKV_BK - 1) / DKV_BK;
-  return int(launch(segment_dkv_wgmma_kernel<D, CAUSAL>, DkvSmem<D>::BYTES,
-                    dim3(kvh, batch, nk), stream, tq, tk, tv, tdo, p));
+  return int(launch_ws(segment_dkv_wgmma_kernel<D, CAUSAL>, DkvSmem<D>::BYTES,
+                       dim3(kvh, batch, nk), stream, tq, tk, tv, tdo, p));
 }
 
 void tile_classes(const int* seg, int batch, int seq, int tile, int4* out,

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for kernels written by hand: TMA tile
 // loads completing on mbarriers, the mbarrier ring's operations, wgmma
-// shared-memory descriptors for 128-byte-swizzled bf16 tiles, wgmma
-// m64nNk16 (bf16 in, fp32 accumulate) with A from shared memory (SS, N 32,
-// 64 or 128) or from registers (RS, N 64 or 128), and setmaxnreg. Inline PTX
-// only; the host side encodes tensor maps through the driver entry point
-// that the runtime hands out, so a library built from this needs no -lcuda.
+// shared-memory descriptors for 128- and 32-byte-swizzled bf16 tiles, wgmma
+// m64nNk16 (bf16 in, fp32 accumulate) with A from shared memory (SS, N 16,
+// 32, 64 or 128) or from registers (RS, N 16, 64 or 128), and setmaxnreg.
+// Inline PTX only; the host side encodes tensor maps through the
+// cuTensorMapEncodeTiled entry point that the runtime hands out, so a
+// library built from this needs no -lcuda.
 //
 // Shared-memory tiles. A TMA box of 64 bf16 columns (128 bytes) x R rows,
 // loaded with CU_TENSOR_MAP_SWIZZLE_128B, lands as R rows of 128 bytes in
@@ -19,6 +20,15 @@
 //   MN-major operand (the reduced dim runs down the rows, as V in P V):
 //     TRANS_B = 1; a k16 step is +16 rows (+2048 bytes), 8-row groups SBO =
 //     1024 bytes apart, and LBO is the distance between the 64-column halves.
+//
+// A 16-column piece (32 bytes a row: the columns 64-79 of a head dim of 72,
+// see hopper_attention_fwd.cuh) is loaded with CU_TENSOR_MAP_SWIZZLE_32B:
+// the two 16-byte chunks of row r are swapped when (r / 4) is odd, an atom
+// is 8 rows x 32 bytes = 256 bytes, and the piece's base must be 256-byte
+// aligned. Its descriptors (make_desc<32>):
+//   K-major: the piece is one k16 step; 8-row groups SBO = 256 bytes apart.
+//   MN-major: its 16 columns are one atom wide (N = 16); a k16 step is +16
+//     rows (+512 bytes), 8-row groups SBO = 256 bytes apart.
 //
 // Fragments. The fp32 accumulator of m64nNk16 holds, in warp w of the
 // warpgroup and lane 4g + t, rows 16w + g and 16w + g + 8, columns
@@ -130,15 +140,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 
 // ---- wgmma ----------------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled tile at shared address `addr`
-// (1024-byte aligned atoms): LBO and SBO in bytes (see the header note).
+// Descriptor of a SWIZZLE-byte-swizzled tile (128: 1024-byte atoms, 32:
+// 256-byte atoms) at shared address `addr`: LBO and SBO in bytes (see the
+// header note).
+template <int SWIZZLE = 128>
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr,
                                               uint32_t lbo_bytes,
                                               uint32_t sbo_bytes) {
+  static_assert(SWIZZLE == 128 || SWIZZLE == 32, "make_desc: 128B or 32B");
+  // layout type, bits 62-63: 1 = 128-byte swizzle, 3 = 32-byte swizzle
+  constexpr uint64_t layout = SWIZZLE == 128 ? 1 : 3;
   uint64_t d = (addr & 0x3FFFFu) >> 4;
   d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16;
   d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32;
-  d |= static_cast<uint64_t>(1) << 62;   // 128-byte swizzle
+  d |= layout << 62;
   return d;
 }
 
@@ -180,6 +195,39 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// D (64 x 16, fp32) {+}= A (64 x 16, smem) * B (16 x 16, smem); A K-major,
+// B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D (64 x 16, fp32) {+}= A (64 x 16, bf16 registers in the C-fragment order)
+// * B (16 x 16, smem); B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TRANS_B));
 }
 
 // D (64 x 32, fp32) {+}= A (64 x 16, smem) * B (16 x 32, smem); A K-major,
@@ -338,8 +386,10 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32-128");
-  if constexpr (N == 32) wgmma_m64n32k16_ss<TRANS_B>(d, da, db, accumulate);
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_ss: N is 16-128");
+  if constexpr (N == 16) wgmma_m64n16k16_ss<TRANS_B>(d, da, db, accumulate);
+  else if constexpr (N == 32) wgmma_m64n32k16_ss<TRANS_B>(d, da, db, accumulate);
   else if constexpr (N == 64) wgmma_m64n64k16_ss<TRANS_B>(d, da, db, accumulate);
   else wgmma_m64n128k16_ss<TRANS_B>(d, da, db, accumulate);
 }
@@ -348,8 +398,9 @@ template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
-  if constexpr (N == 64) wgmma_m64n64k16_rs<TRANS_B>(d, a, db, accumulate);
+  static_assert(N == 16 || N == 64 || N == 128, "wgmma_rs: N is 16-128");
+  if constexpr (N == 16) wgmma_m64n16k16_rs<TRANS_B>(d, a, db, accumulate);
+  else if constexpr (N == 64) wgmma_m64n64k16_rs<TRANS_B>(d, a, db, accumulate);
   else wgmma_m64n128k16_rs<TRANS_B>(d, a, db, accumulate);
 }
 
@@ -392,13 +443,17 @@ inline decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
 
 // A (B, S, H, D) bf16 view with element strides (batch, row, head) and a
 // contiguous head dim as the 4-D tensor map (D, S, H, B), read in boxes of
-// 64 columns x `box_rows` rows of one head, 128-byte swizzled; rows past S
+// `box_cols` columns x `box_rows` rows of one head, swizzled by `swizzle`
+// bytes (64 columns with 128, 16 with 32); rows past S and columns past D
 // read as zeros. A stride of a dim of extent 1 is never used to address and
 // is replaced by a valid one. → false if the encoder refuses (alignment,
-// strides) or is missing.
+// strides, box) or is missing.
 inline bool encode_bshd(CUtensorMap* map, const void* base, int b, int s,
                         int h, int d, long long sb, long long sr, long long sh,
-                        int box_rows) {
+                        int box_rows, int box_cols = 64, int swizzle = 128) {
+  if (!((box_cols == 64 && swizzle == 128) ||
+        (box_cols == 16 && swizzle == 32)))
+    return false;
   auto encode = tensor_map_encoder();
   if (!encode) return false;
   const cuuint64_t row = static_cast<cuuint64_t>(sr) * 2;
@@ -411,11 +466,14 @@ inline bool encode_bshd(CUtensorMap* map, const void* base, int b, int s,
                               static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(b)};
   const cuuint64_t strides[3] = {row, head, batch};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

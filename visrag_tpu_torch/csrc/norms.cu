@@ -26,8 +26,26 @@
 // variant): D up to 16,384 bf16 or 8,192 fp32 elements, or 8,192 on the
 // scalar variant. Where D is not a multiple of the vector
 // width, or a pointer is not aligned for it, the wrapper picks the scalar
-// variant (VEC = 1) of the same kernel. A first, simple kernel: a warp per
-// row for narrow D is left for later.
+// variant (VEC = 1) of the same kernel.
+//
+// RMSNorm at D <= 4096, D a multiple of 8 (every RMSNorm of the models:
+// 1280, 2048, 2304, 3584), over enough rows to fill the card (the wrapper's
+// rms_route) runs a warp per row instead (rms_warp_kernel):
+// the block kernel pays two __syncthreads reductions a row and has one row
+// of a block in flight, its next row's loads waiting on this row's store.
+// Here 8 warps a block, no shared memory, no block barrier: each lane holds
+// its NV 16-byte vectors of the row (D / 256 at bf16: 5 at 1280, 8 at 2048,
+// 9 at 2304, 14 at 3584; tail vectors predicated off), the weight is loaded
+// once per warp into registers (packed, in its own type) where they hold it,
+// each warp walks rows grid-stride (two rows a warp: the grid below) and
+// issues the next row's loads before it reduces and stores this one (two
+// rows in flight where the registers hold both), the sum of squares is a
+// warp-shuffle reduction and y leaves through streaming 16-byte stores.
+// At the paths' widths it runs at the speed of a plain copy of the same
+// bytes, as the block kernel does (PERF.md). Same arithmetic as the block
+// kernel:
+// fp32 sum, rsqrt(mean + eps), then x * r, then * w, each rounded as
+// written (no fused multiply-add).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,6 +179,166 @@ row_norm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
+// ---- RMSNorm, a warp per row -------------------------------------------------
+
+constexpr int WARP_THREADS = 256;        // 8 warps a block, a row each
+constexpr int WARP_MAX_D = 4096;
+
+// x's 16-byte vector as floats, and back (round to nearest)
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+
+// Registers of one row (x) and of the weight a lane holds: two rows in
+// flight where both fit beside the weight, the weight in registers where it
+// fits beside the rows, else read again from L1 where it is used. (Capping
+// the registers to fit two blocks an SM measured no faster: every variant
+// tried was within 7 % of a plain copy of the same bytes, PERF.md.)
+template <typename TX, typename TW, int NV>
+struct WarpPlan {
+  static constexpr int VEC = 16 / sizeof(TX);   // x elements a vector
+  static constexpr int X_REGS = 4 * NV;
+  static constexpr int W_REGS = NV * VEC * int(sizeof(TW)) / 4;
+  static constexpr bool AHEAD = 2 * X_REGS + W_REGS <= 176;
+  static constexpr bool W_IN_REGS = (AHEAD ? 2 : 1) * X_REGS + W_REGS <= 160;
+};
+
+template <typename TX, typename TW, int NV>
+__global__ void __launch_bounds__(WARP_THREADS)
+rms_warp_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                TX* __restrict__ y, int rows, int d, float eps) {
+  using P = WarpPlan<TX, TW, NV>;
+  constexpr int VEC = P::VEC;
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (WARP_THREADS / 32);
+  const int nvec = d / VEC;                 // vectors a row
+  const float fd = static_cast<float>(d);
+  int row = blockIdx.x * (WARP_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+
+  Pack<TW, VEC> wv[P::W_IN_REGS ? NV : 1];
+  if constexpr (P::W_IN_REGS) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int i = lane + 32 * c;
+      if (i < nvec) wv[c] = reinterpret_cast<const Pack<TW, VEC>*>(w)[i];
+    }
+  }
+  auto load_row = [&](uint4 (&dst)[NV], int r) {
+    const uint4* xr =
+        reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * d);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int i = lane + 32 * c;
+      dst[c] = i < nvec ? __ldcs(xr + i) : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  uint4 cur[NV];
+  uint4 nxt[P::AHEAD ? NV : 1];
+  load_row(cur, row);
+  for (; row < rows; row += warps) {
+    const int next = row + warps;
+    if constexpr (P::AHEAD) {
+      if (next < rows) load_row(nxt, next);
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      float v[VEC];
+      unpack16(cur[c], v);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) s = __fadd_rn(s, __fmul_rn(v[k], v[k]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float rstd = rsqrtf(s / fd + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + static_cast<size_t>(row) * d);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int i = lane + 32 * c;
+      if (i >= nvec) continue;
+      float v[VEC], out[VEC];
+      unpack16(cur[c], v);
+      Pack<TW, VEC> wp;
+      if constexpr (P::W_IN_REGS) wp = wv[c];
+      else wp = reinterpret_cast<const Pack<TW, VEC>*>(w)[i];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        out[k] = __fmul_rn(__fmul_rn(v[k], rstd), to_f(wp.v[k]));
+      __stcs(yr + i, pack16(out));
+    }
+    if constexpr (P::AHEAD) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) cur[c] = nxt[c];
+    } else if (next < rows) {
+      load_row(cur, next);
+    }
+  }
+}
+
+// Grid: two rows a warp, the pair that the warp has in flight at once; the
+// block scheduler keeps the SMs full. (Sizing the grid to the resident
+// blocks instead, so that each warp walks ~16 rows, measured up to 3 %
+// slower: PERF.md.)
+constexpr int WARP_ROWS = 2;
+
+template <typename TX, typename TW, int NV>
+int launch_warp(const void* x, const void* w, void* y, int rows, int d,
+                float eps, cudaStream_t stream) {
+  constexpr int ROWS_A_BLOCK = WARP_THREADS / 32 * WARP_ROWS;
+  const int grid = static_cast<int>(
+      (static_cast<long long>(rows) + ROWS_A_BLOCK - 1) / ROWS_A_BLOCK);
+  rms_warp_kernel<TX, TW, NV><<<grid, WARP_THREADS, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w),
+      static_cast<TX*>(y), rows, d, eps);
+  return int(cudaGetLastError());
+}
+
+// NV, the vectors a lane holds, from the instantiated set: the least one
+// that covers the row (bf16 rows of up to 4096 take up to 16, fp32 32).
+template <typename TX, typename TW>
+int dispatch_warp(const void* x, const void* w, void* y, int rows, int d,
+                  float eps, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(TX);
+  const int need = (d / VEC + 31) / 32;
+#define VISRAG_RMS_NV(N)                                                  \
+  if (need <= N) return launch_warp<TX, TW, N>(x, w, y, rows, d, eps, stream);
+  VISRAG_RMS_NV(1) VISRAG_RMS_NV(2) VISRAG_RMS_NV(3) VISRAG_RMS_NV(4)
+  VISRAG_RMS_NV(5) VISRAG_RMS_NV(6) VISRAG_RMS_NV(8) VISRAG_RMS_NV(9)
+  VISRAG_RMS_NV(10) VISRAG_RMS_NV(12) VISRAG_RMS_NV(14) VISRAG_RMS_NV(16)
+  if constexpr (VEC == 4) {
+    VISRAG_RMS_NV(18) VISRAG_RMS_NV(20) VISRAG_RMS_NV(24)
+    VISRAG_RMS_NV(28) VISRAG_RMS_NV(32)
+  }
+#undef VISRAG_RMS_NV
+  return int(cudaErrorInvalidValue);
+}
+
 template <typename TX, typename TW, int VEC, bool LN>
 int launch_vec(const void* x, const void* w, const void* b, void* y, int rows,
                int d, float eps, cudaStream_t stream) {
@@ -233,6 +411,26 @@ extern "C" int visrag_rmsnorm(const void* x, const void* w, void* y, int rows,
                               int vec, void* stream) {
   return dispatch<false>(x, w, nullptr, y, rows, d, eps, x_fp32, w_fp32, vec,
                          stream);
+}
+
+// RMSNorm, a warp per row: as visrag_rmsnorm for d <= 4096 and a multiple
+// of 8, every pointer 16-byte aligned (8-byte for a bf16 w beside fp32 x);
+// any other d is an error, not another kernel.
+extern "C" int visrag_rmsnorm_warp(const void* x, const void* w, void* y,
+                                   int rows, int d, float eps, int x_fp32,
+                                   int w_fp32, void* stream) {
+  if (rows < 0 || d <= 0 || d % 8 || d > WARP_MAX_D)
+    return int(cudaErrorInvalidValue);
+  if (rows == 0) return int(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_fp32)
+    return w_fp32 ? dispatch_warp<float, float>(x, w, y, rows, d, eps, st)
+                  : dispatch_warp<float, __nv_bfloat16>(x, w, y, rows, d,
+                                                        eps, st);
+  return w_fp32
+      ? dispatch_warp<__nv_bfloat16, float>(x, w, y, rows, d, eps, st)
+      : dispatch_warp<__nv_bfloat16, __nv_bfloat16>(x, w, y, rows, d, eps,
+                                                    st);
 }
 
 // As visrag_rmsnorm, with the bias b (d,) in w's type.

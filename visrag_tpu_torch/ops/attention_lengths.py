@@ -3,9 +3,17 @@
 Counterpart of visrag_tpu/ops/attention_lengths.py. The kernels are CUDA
 C++ for sm_90a, bound with ctypes:
 
-  * K1, csrc/attention_lengths.cu, replaces the TPU kernel
+  * K1, csrc/attention_lengths_hopper.cu, replaces the TPU kernel
     `_fwd_kernel_grid`, with or without the log-sum-exp (LSE) that the
-    backward needs;
+    backward needs: the Hopper forward shared with K4
+    (csrc/hopper_attention_fwd.cuh: wgmma, TMA, one producer warp and two
+    consumer warpgroups, 128-row tiles) with a valid-length mask whose tile
+    classes are closed-form in the length (`lengths_pair_classes_reference`
+    is their plain version). A head dim of 72 is read as a 64-column and a
+    16-column piece (`column_plan`). `_route` sends every K1 launch on the
+    card there, by head dim alone; `legacy=True` reaches the first, mma.sync
+    kernel, csrc/attention_lengths.cu, which only chip_smoke.py and tools
+    set, to time the two in turns;
   * K2, csrc/attention_lengths_bwd.cu, replaces `_dq_kernel` and
     `_dkv_kernel`: one kernel for dq (it also computes delta = rowsum(o·do)
     and stores it) and one for dk/dv, launched in that order.
@@ -23,9 +31,10 @@ Two public forms:
 
 Every kernel takes (batch, row, head) element strides, so neither form is
 relaid out, forward or backward. Valid rows (< length) hold the masked
-softmax attention; rows at or past the length are outside the contract
-(the plain version writes zeros there, the kernel attention over the
-valid keys), every caller masks them, and their gradient is zero: the
+softmax attention; rows at or past the length are outside the contract and
+every caller masks them, but K1 writes there what the plain version
+writes: zeros, and LSE_PAD as their LSE (the legacy mma.sync kernel
+writes attention over the valid keys there). Their gradient is zero: the
 backward ignores the caller's `do` on pad rows and writes zero dq there,
 and pad keys get zero dk and dv.
 
@@ -42,12 +51,15 @@ no repeat in memory), and raises for anything else.
 Launch counters, one per kernel entry point (each launch covers all rows
 and heads): `flat_launches` and `stacked_launches` (K1 without the LSE, by
 form), `fwd_lse_launches` (K1 with the LSE, either form), `dq_launches`
-and `dkv_launches` (K2).
+and `dkv_launches` (K2); and one per K1 route (`route_counts()`):
+`hopper_launches` and `legacy_launches`, so that a run can show that no
+K1 launch of its path went to the legacy kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,27 +67,91 @@ LOG2E = 1.4426950408889634
 LSE_PAD = 0.7 * 3.4028234663852886e38   # LSE of a row with no valid key
 KERNEL_HEAD_DIMS = (64, 72, 128)   # MiniCPM LM, SigLIP ViT, Qwen2.5 text
 BWD_HEAD_DIMS = (64, 72, 128)      # K2: retriever training, the RL update
-SOURCE = "visrag_tpu_torch/csrc/attention_lengths.cu"
+SOURCE = "visrag_tpu_torch/csrc/attention_lengths_hopper.cu"
 BWD_SOURCE = "visrag_tpu_torch/csrc/attention_lengths_bwd.cu"
+HOPPER_TILE = (128, 128)   # (query rows, keys) per tile of the Hopper K1
+_ROUTES = {False: ("attention_lengths_hopper", "visrag_lengths_hopper_fwd"),
+           True: ("attention_lengths", "visrag_lengths_attention_fwd")}
+SKIP, MASKED, UNMASKED = 0, 1, 2   # classes of a (query tile, key tile) pair
 
 flat_launches = 0      # K1 without the LSE, by flash_fwd_lengths_flat
 stacked_launches = 0   # K1 without the LSE, by flash_fwd_lengths
 fwd_lse_launches = 0   # K1 with the LSE, by flash_fwd_lse
 dq_launches = 0        # K2 dq, by flash_bwd_dq
 dkv_launches = 0       # K2 dk/dv, by flash_bwd_dkv
+hopper_launches = 0    # K1 launches on attention_lengths_hopper.cu
+legacy_launches = 0    # K1 launches on attention_lengths.cu (legacy=True)
 
 
 def reset_launch_counts() -> None:
     global flat_launches, stacked_launches, fwd_lse_launches
-    global dq_launches, dkv_launches
+    global dq_launches, dkv_launches, hopper_launches, legacy_launches
     flat_launches = stacked_launches = fwd_lse_launches = 0
     dq_launches = dkv_launches = 0
+    hopper_launches = legacy_launches = 0
 
 
 def launch_counts() -> dict:
     return {"flat": flat_launches, "stacked": stacked_launches,
             "fwd_lse": fwd_lse_launches, "dq": dq_launches,
             "dkv": dkv_launches}
+
+
+def route_counts() -> dict:
+    """K1 launches by route since the last reset: "hopper" + "legacy" ==
+    flat + stacked + fwd_lse of launch_counts() when only the public
+    functions launched."""
+    return {"hopper": hopper_launches, "legacy": legacy_launches}
+
+
+def column_plan(d: int):
+    """How the Hopper K1 reads a head dim of d: (first column, width,
+    swizzle bytes) per piece. TMA's 128-byte swizzle takes at most 64 bf16
+    columns and a wgmma k-step is 16, so d is cut into 64-column pieces
+    (128-byte swizzle) and, where 64 does not divide it, one 16-column piece
+    (32-byte swizzle) whose columns past d read as zeros: d 72 →
+    ((0, 64, 128), (64, 16, 32)). The wrapper passes it to the kernel, which
+    refuses a plan other than the one it was compiled with."""
+    if d <= 0 or d % 8 or d % 64 > 16:
+        raise ValueError(f"head_dim {d} has no column plan (64 k, or 64 k + "
+                         "8 or + 16)")
+    plan = tuple((64 * i, 64, 128) for i in range(d // 64))
+    if d % 64:
+        plan += ((64 * (d // 64), 16, 32),)
+    return plan
+
+
+def lengths_pair_classes_reference(lengths, s: int, bq: int, bk: int,
+                                   causal: bool):
+    """Plain version of the Hopper K1's tile classes: lengths (B,) int →
+    (B, ceil(s / bq), ceil(s / bk)) int32, per (query tile at q0, key tile
+    at k0) SKIP when k0 >= len or (causal) k0 > q0 + bq - 1, UNMASKED when
+    k0 + bk <= len and (causal) k0 + bk - 1 <= q0, MASKED otherwise (the
+    kernel masks those per element on key < len and key <= query when
+    causal). A query tile with q0 >= len is skipped whole: the kernel
+    writes its rows as zeros and LSE_PAD."""
+    ln = torch.as_tensor(lengths).long().clamp(0, s)[:, None, None]
+    q0 = torch.arange(0, s, bq)[None, :, None]
+    k0 = torch.arange(0, s, bk)[None, None, :]
+    skip = (k0 >= ln) | (q0 >= ln)
+    full = (k0 + bk <= ln).expand(skip.shape)
+    if causal:
+        skip = skip | (k0 > q0 + bq - 1)
+        full = full & (k0 + bk - 1 <= q0)
+    out = torch.full(skip.shape, MASKED, dtype=torch.int32)
+    out[full] = UNMASKED
+    out[skip] = SKIP
+    return out
+
+
+def _route(d: int, legacy: bool = False):
+    """→ (library, entry point) of K1 at head dim d: the Hopper kernel for
+    every d in KERNEL_HEAD_DIMS; `legacy` selects the mma.sync kernel
+    (to time one against the other); the port's callers never set it."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not compiled into the kernel "
+                         f"(have {KERNEL_HEAD_DIMS})")
+    return _ROUTES[bool(legacy)]
 
 
 def _allowed(s, lengths, causal, device):
@@ -175,25 +251,53 @@ def flash_fwd_lse(q, k, v, lengths, causal: bool, sm_scale: float, o):
     return lse
 
 
-def _fwd(q, k, v, o, lse, lengths, causal, sm_scale):
-    """Launches K1; lse None for the inference variant. Raises unless the
-    kernel launched."""
+@functools.lru_cache(maxsize=None)
+def _entry(legacy: bool):
+    """The C entry point of K1 on one route with its argument types, set
+    once: the Hopper one also takes the column plan."""
     from ._build import load_library
-    _check_launch(q, lengths, *([lse] if lse is not None else []))
-    b, s, h, d = q.shape
-    fn = load_library("attention_lengths").visrag_lengths_attention_fwd
+    library, entry = _ROUTES[legacy]
+    fn = getattr(load_library(library), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_float]
+                   + ([] if legacy else [ctypes.c_void_p, ctypes.c_int])
+                   + [ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_args(d: int):
+    """column_plan(d) as the (int array, piece count) the kernel takes."""
+    plan = [x for piece in column_plan(d) for x in piece]
+    return (ctypes.c_int * len(plan))(*plan), len(plan) // 3
+
+
+def _fwd(q, k, v, o, lse, lengths, causal, sm_scale, legacy=False):
+    """Launches K1 on the route `_route` picks; lse None for the inference
+    variant. Raises unless the kernel launched."""
+    global hopper_launches, legacy_launches
+    _check_launch(q, lengths, *([lse] if lse is not None else []))
+    b, s, h, d = q.shape
+    legacy = bool(legacy)
+    library, _ = _route(d, legacy)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), lengths.data_ptr(),
+            b, s, h, k.shape[2], d, *_strides(q, k, v, o), int(causal),
+            float(sm_scale * LOG2E), *(() if legacy else _plan_args(d)))
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                None if lse is None else lse.data_ptr(), lengths.data_ptr(),
-                b, s, h, k.shape[2], d, *_strides(q, k, v, o), int(causal),
-                float(sm_scale * LOG2E), _stream(q))
+        rc = _entry(legacy)(*args, _stream(q))
+    if rc == -1:
+        raise RuntimeError(f"{library}: cuTensorMapEncodeTiled refused a TMA "
+                           f"tensor map for q {tuple(q.shape)} strides "
+                           f"{q.stride()}, k {tuple(k.shape)} strides "
+                           f"{k.stride()}")
     if rc != 0:
-        raise RuntimeError(f"attention_lengths kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{library} kernel launch failed: CUDA error {rc}")
+    if legacy:
+        legacy_launches += 1
+    else:
+        hopper_launches += 1
     return o
 
 

@@ -63,14 +63,16 @@ is non-zero; no phase catches an error and carries on):
      ViT flat at the training micro-batch's pages (4 pages = 40 slice slots
      x S=1152, length-0 slots included) and at its query batch (one empty
      slice), LM causal at both token batches, and an edge shape per form
-     with lengths 0, 1, 63, 64, 65, 127, 128, 129 and full. bf16
-     unit-normal q/k/v and a
+     with lengths 0, 1, 63, 64, 65, 127, 128, 129 and full (and the same
+     lengths with the other mask: ViT flat causal, LM stacked
+     bidirectional). bf16 unit-normal q/k/v and a
      `do` that is non-zero on pad rows; each of o, dq, dk, dv within 2e-2
      relative Frobenius error on valid rows, the LSE within 2e-2 abs on
      valid rows, every output finite, and exact zeros where the contract
      says (o and dq on pad query rows, dk/dv on pad keys, LSE_PAD on pad
-     LSE rows). Kernels (K1 + LSE in turns with the legacy mma.sync
-     kernel), the plain version and F.scaled_dot_product_attention
+     LSE rows). Kernels (K1 + LSE, and the Hopper K2 dq and dk/dv, each
+     in turns with its legacy mma.sync kernel: pr1_ms, pr5_ms), the plain
+     version and F.scaled_dot_product_attention
      (boolean length mask; forward, and backward alone) timed by CUDA
      events between the calls of bursts of 10 that the host queues while
      the device spins, medians (cuda_ms);
@@ -85,7 +87,9 @@ is non-zero; no phase catches an error and carries on):
      step: 4 micro-batches x 2 encodes (queries, pages) x (26 ViT + 40 LM)
      attention layers; K1 without the LSE once per layer in pass 1, K1 with
      the LSE twice per layer in pass 2 (forward, and the remat recompute),
-     K2 dq and dk/dv once per layer). Then, from one set of weights, one
+     K2 dq and dk/dv once per layer), every K1 and K2 launch on the
+     Hopper kernels (the route counters, by head dim for K2: the ViT's
+     d 72, the LM's d 64). Then, from one set of weights, one
      direct step and one GradCache step (micro-batch 2) on 4 pairs must give
      parameter gradients within 2e-2 relative of each other, and three
      direct steps at lr 1e-4 must lower the loss on that fixed batch;
@@ -150,7 +154,8 @@ is non-zero; no phase catches an error and carries on):
      K1 with the LSE and K2 at d = 128 with grouped kv
      heads (16/2 and 28/4, causal) at the padded update's micro-batch and
      at lengths 1, 63, 64, 65 and full, against the plain forward and
-     autograd (2e-2 relative), timed beside SDPA with enable_gqa;
+     autograd (2e-2 relative), timed beside SDPA with enable_gqa and, in
+     turns, the legacy mma.sync K1 and K2;
   9. Qwen2.5-VL-3B at full width on random weights from seed 0, whole-block
      remat, a frozen copy as the reference policy (in-loss KL 0.01), through
      rl_main's build_trainer and run_training: two RS-GRPO steps of 4
@@ -197,15 +202,17 @@ is non-zero; no phase catches an error and carries on):
      that restores the critic's state from the step-2 checkpoint.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
-line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq,
-K2 dk/dv, K1 stacked GQA, K3, K5, K6, K5 int8, K4 forward, K4 dq, K4 dk/dv,
-K1 + LSE, K2 dq and K2 dk/dv at d = 128 with grouped kv heads, and K7 as
+line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq and
+K2 dk/dv for the ViT (d 72) and for the LM (d 64), K1 stacked GQA, K3, K5,
+K6, K5 int8, K4 forward, K4 dq, K4 dk/dv, K1 + LSE, K2 dq and K2 dk/dv at
+d = 128 with grouped kv heads, and K7 as
 `rmsnorm` (launches from phase 10's SFT run, numbers at its batch) and
 `layernorm` (launches from phase 3's encode, numbers at the ViT's rows):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
 max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
 forward and dk/dv (the mma.sync kernels), pr1_ms for K1 (the mma.sync
-attention_lengths.cu), pr6_ms for RMSNorm (the block-per-row kernel);
+attention_lengths.cu), pr5_ms for K2 (the mma.sync
+attention_lengths_bwd.cu), pr6_ms for RMSNorm (the block-per-row kernel);
 every checked shape under "checks"), and
 {"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11;
 it ends without the ok line and exits 1.
@@ -323,19 +330,27 @@ def _sdpa_mask(lens, s, causal, device):
     return allow
 
 
-def _k1_routes(tag, launches):
-    """Every K1 launch of a path on the Hopper kernel: the route counters
-    against the path's K1 launches (flat + stacked + fwd_lse). → the
-    counters; raises if one launch took the legacy kernel."""
+def _lengths_routes(tag, launches):
+    """Every K1 and K2 launch of a path on the Hopper kernels: the route
+    counters against the path's K1 launches (flat + stacked + fwd_lse) and
+    K2 launches (dq + dkv). → the K2 launches by kernel and head dim;
+    raises if one launch took a legacy kernel."""
     from visrag_tpu_torch.ops import attention_lengths as al
-    routes = al.route_counts()
+    routes, bwd = al.route_counts(), al.bwd_route_counts()
     k1 = launches["flat"] + launches["stacked"] + launches["fwd_lse"]
+    k2 = launches.get("dq", 0) + launches.get("dkv", 0)
     if routes != {"hopper": k1, "legacy": 0}:
         raise RuntimeError(f"{tag} K1 launches by route {routes}: want all "
                            f"{k1} on the Hopper kernel")
+    if bwd != {"hopper": k2, "legacy": 0}:
+        raise RuntimeError(f"{tag} K2 launches by route {bwd}: want all "
+                           f"{k2} on the Hopper kernels")
+    by_d = al.bwd_head_dim_counts()
     log(f"{tag} K1 routes: {routes['hopper']} launches on the Hopper kernel "
-        f"({al.SOURCE}), 0 on the legacy one")
-    return routes
+        f"({al.SOURCE}), 0 on the legacy one; K2 routes: {bwd['hopper']} on "
+        f"the Hopper kernels ({al.BWD_SOURCE}; by head dim {by_d}), 0 on the "
+        f"legacy ones")
+    return by_d
 
 
 def _turns(new, old):
@@ -882,7 +897,7 @@ def phase3_slice(setup):
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     launches = al.launch_counts()
-    _k1_routes("[3]", launches)
+    _lengths_routes("[3]", launches)
     norm_launches = norms.launch_counts()
     n_batches = 2
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1081,7 +1096,7 @@ def phase3b_int8_encode(gen, setup):
     e2e_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {**al.launch_counts(), "int8_gemm": mi.launches}
-    _k1_routes("[3b]", launches)
+    _lengths_routes("[3b]", launches)
     per_batch = 2 * bb.vit.depth + 6 * bb.llm.num_hidden_layers
     want = {"flat": 2 * bb.vit.depth, "stacked": 2 * bb.llm.num_hidden_layers,
             "fwd_lse": 0, "dq": 0, "dkv": 0, "int8_gemm": 2 * per_batch}
@@ -1147,12 +1162,16 @@ def phase4_training_kernels(gen, setup):
          False),
         ("ViT flat, edge", "flat", [0, 1, 63, 64, 65, 127, 128, 129, 1152],
          vh, vd, False),
+        ("ViT flat, edge, causal", "flat", [0, 1, 63, 64, 65, 127, 128, 129,
+                                            300], vh, vd, True),
         ("LM causal, training pages", "stacked", raw_p["attention_mask"], lh,
          ld, True),
         ("LM causal, training queries", "stacked", raw_q["attention_mask"],
          lh, ld, True),
         ("LM causal, edge", "stacked", [0, 1, 63, 64, 65, 127, 128, 129, 704],
          lh, ld, True),
+        ("LM stacked, edge, bidirectional", "stacked",
+         [0, 1, 63, 64, 65, 127, 128, 129, 700], lh, ld, False),
     ]
     results = {"fwd_lse": [], "dq": [], "dkv": []}
     for label, form, mask, h, d, causal in shapes:
@@ -1240,10 +1259,21 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
         lambda: al._fwd(q, k, v, o_old, lse_old, lens_t, causal, scale,
                         legacy=True))
     del o_old, lse_old
-    t_dq = cuda_ms(lambda: al.flash_bwd_dq(q, k, v, o, do, lse, delta,
-                                           lens_t, causal, scale, dq))
-    t_dkv = cuda_ms(lambda: al.flash_bwd_dkv(q, k, v, o, do, lse, delta,
-                                             lens_t, causal, scale, dk, dv))
+    # K2 in turns with PR 5's mma.sync kernels (legacy=True: outputs of
+    # their own, counted on the legacy route only)
+    dq_old, delta_old = torch.empty_like(dq), torch.empty_like(delta)
+    dk_old, dv_old = torch.empty_like(dk), torch.empty_like(dv)
+    t_dq, t_dq_old, dq_turns = _turns(
+        lambda: al.flash_bwd_dq(q, k, v, o, do, lse, delta, lens_t, causal,
+                                scale, dq),
+        lambda: al._bwd("dq", q, k, v, o, do, lse, delta_old, lens_t, causal,
+                        scale, dq_old, k, v, legacy=True))
+    t_dkv, t_dkv_old, dkv_turns = _turns(
+        lambda: al.flash_bwd_dkv(q, k, v, o, do, lse, delta, lens_t, causal,
+                                 scale, dk, dv),
+        lambda: al._bwd("dkv", q, k, v, o, do, lse, delta_old, lens_t,
+                        causal, scale, q, dk_old, dv_old, legacy=True))
+    del dq_old, delta_old, dk_old, dv_old
     t_plain_fwd = cuda_ms(lambda: al.lengths_attention_reference(
         q, k, v, lens_t, causal, scale))
     t_plain_bwd = cuda_ms(lambda: torch.autograd.grad(
@@ -1274,7 +1304,8 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
              max(errs["dk"], errs["dv"]))):
         bound_ms, bound_by = attention_bound(kind, lens, s, h, d, causal,
                                              kv_heads=hk)
-        out[kind] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+        out[kind] = {"shape": shape, "head_dim": d, "ms": ms,
+                     "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by,
                      "max_abs_err": {"fwd_lse": max_abs["o"],
@@ -1283,11 +1314,17 @@ def _check_training_kernels(al, label, form, lens, s, h, d, causal, gen,
                                                 max_abs["dv"])}[kind],
                      "rel_err": err}
     out["fwd_lse"].update(pr1_ms=t_fwd_old, turns=fwd_turns)
+    out["dq"].update(pr5_ms=t_dq_old, turns=dq_turns)
+    out["dkv"].update(pr5_ms=t_dkv_old, turns=dkv_turns)
     log(f"{tag} {shape}: rel_err o {errs['o']:.4g} dq {errs['dq']:.4g} dk "
         f"{errs['dk']:.4g} dv {errs['dv']:.4g}, LSE max abs "
         f"{errs['lse_max_abs']:.4g} (bound {RTOL_TRAIN}); pad rows zero, "
         f"finite | ms: K1+LSE {t_fwd:.4f} (legacy mma.sync kernel in turns "
-        f"{t_fwd_old:.4f}, {fwd_turns}), dq {t_dq:.4f}, dk/dv {t_dkv:.4f} "
+        f"{t_fwd_old:.4f}, {fwd_turns}), dq {t_dq:.4f} (legacy in turns "
+        f"{t_dq_old:.4f}, {dq_turns}), dk/dv {t_dkv:.4f} (legacy "
+        f"{t_dkv_old:.4f}, {dkv_turns}); dq + dk/dv {t_dq + t_dkv:.4f} vs "
+        f"SDPA bwd {t_sdpa_bwd:.4f}: "
+        f"{'faster' if t_dq + t_dkv < t_sdpa_bwd else 'SLOWER'} "
         f"| plain fwd {t_plain_fwd:.4f}, plain bwd {t_plain_bwd:.4f} | SDPA "
         f"fwd {t_sdpa_fwd:.4f}, bwd {t_sdpa_bwd:.4f} | bound fwd_lse "
         f"{out['fwd_lse']['bound_ms']:.4f}, dq {out['dq']['bound_ms']:.4f}, "
@@ -1359,7 +1396,7 @@ def phase5_training(setup):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = al.launch_counts()
-        _k1_routes("[5]", launches)
+        k2_by_d = _lengths_routes("[5]", launches)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         gc.collect()                      # the driver's model and optimizer
         torch.cuda.empty_cache()
@@ -1485,7 +1522,7 @@ def phase5_training(setup):
                            f"{after}")
     del trainer
     torch.cuda.empty_cache()
-    return launches
+    return {**launches, "k2_by_head_dim": k2_by_d}
 
 # ---------------------------------------------------------------------------
 # Phases 6-7: EVisRAG serving (Qwen2.5-VL-7B, paged KV engine)
@@ -1967,7 +2004,7 @@ def phase7_serving(reqs, cfg):
     launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
                 "paged": pk.launches, "flat": al.flat_launches,
                 "fwd_lse": al.fwd_lse_launches}
-    _k1_routes("[7]", launches)
+    _lengths_routes("[7]", launches)
     norm_launches = norms.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -2690,7 +2727,7 @@ def _micro_check(trainer, stash, cfg):
     # plain log-prob and gradient of its own (straight through), and its
     # gradients differ from the plain run's only by the kernels' error; the
     # loss is compared at the kernels' own log-probs.
-    out, k2_launches = {}, {}
+    out, k2_launches, k2_by_d = {}, {}, {}
     terms = probe._ppo_terms
     for layout, batch, packed in (("packed", micro, True),
                                   ("padded", padded, False)):
@@ -2723,7 +2760,8 @@ def _micro_check(trainer, stash, cfg):
                 probe._ppo_terms = terms
             if which == "kernels" and layout == "padded":
                 k2_launches = al.launch_counts()
-                _k1_routes("[9] the padded update:", k2_launches)
+                k2_by_d = _lengths_routes("[9] the padded update:",
+                                          k2_launches)
             value = plain_logp["own_loss"] if which == "kernels" \
                 else loss.item()
             out[layout, which] = (value, [p.grad.float().clone()
@@ -2756,7 +2794,7 @@ def _micro_check(trainer, stash, cfg):
     del model, probe, out
     gc.collect()
     torch.cuda.empty_cache()
-    return k2_launches
+    return {**k2_launches, "k2_by_head_dim": k2_by_d}
 
 
 def phase9_rl(rows_path, cfg, tmp):
@@ -2851,7 +2889,7 @@ def phase9_rl(rows_path, cfg, tmp):
     launches = {**al.launch_counts(), "kvgrid": kg.launches,
                 "kvgrid_lse": kg.lse_launches, "paged": pk.launches,
                 **seg.launch_counts()}
-    _k1_routes("[9]", launches)
+    _lengths_routes("[9]", launches)
     if resumed_ok != [True]:
         raise RuntimeError(f"the second run did not resume at step 1 with "
                            f"the saved rng and data cursor: {resumed_ok}")
@@ -2992,7 +3030,7 @@ def _sft_micro_check(batch, cfg):
             loss = loss_and_grads()
         if which == "kernels":
             launches = {**al.launch_counts(), **norms.launch_counts()}
-            _k1_routes("[10] one batch through 2 layers:", launches)
+            _lengths_routes("[10] one batch through 2 layers:", launches)
         out[which] = (loss.item(), [p.grad.float().clone() for p in params])
         for p in params:
             p.grad = None
@@ -3078,7 +3116,7 @@ def phase10_sft(tmp):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {**al.launch_counts(), **norms.launch_counts()}
-    _k1_routes("[10]", launches)
+    k2_by_d = _lengths_routes("[10]", launches)
     log(f"[10] RMSNorm launches by kernel: {norms.route_counts()}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers = cfg.text.num_hidden_layers
@@ -3135,7 +3173,7 @@ def phase10_sft(tmp):
     gc.collect()
     torch.cuda.empty_cache()
     probe = _sft_micro_check(batches[0], cfg)
-    return {"run": launches, "probe": probe}
+    return {"run": launches, "probe": probe, "k2_by_head_dim": k2_by_d}
 
 
 def _checksums(tensors):
@@ -3212,7 +3250,7 @@ def phase11_gae(rows_path, tmp):
     launches = {**al.launch_counts(), "kvgrid": kg.launches,
                 "paged": pk.launches, **seg.launch_counts(),
                 **norms.launch_counts()}
-    _k1_routes("[11]", launches)
+    k2_by_d = _lengths_routes("[11]", launches)
     critic.update = update
     if [s for s, _ in history] != [1, 2] or len(seen) != 2:
         raise RuntimeError(f"GAE steps {[s for s, _ in history]}, critic "
@@ -3290,7 +3328,7 @@ def phase11_gae(rows_path, tmp):
     del trainer, critic, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {**launches, "k2_by_head_dim": k2_by_d}
 
 
 def rl_phases(gen):
@@ -3361,7 +3399,8 @@ def segment_kernel_rows(seg_results, rl_launches):
                      "launches": rl_launches["padded_update"][kind],
                      **{k: k2[kind][0][k] for k in KEYS},
                      **({"pr1_ms": k2[kind][0]["pr1_ms"]}
-                        if kind == "fwd_lse" else {}),
+                        if kind == "fwd_lse" else
+                        {"pr5_ms": k2[kind][0]["pr5_ms"]}),
                      "checks": k2[kind]})
     return rows
 
@@ -3433,7 +3472,12 @@ def main(argv=None):
     del reqs, qmodel, dec_ref
     gc.collect()
     torch.cuda.empty_cache()
-    seg_results, rl_launches, sft_launches, _ = rl_phases(gen)
+    seg_results, rl_launches, sft_launches, gae_launches = rl_phases(gen)
+    log(f"[K2] Hopper launches by kernel and head dim (route counters): "
+        f"phase 5 {train_launches['k2_by_head_dim']}, phase 9 (padded "
+        f"update) {rl_launches['padded_update']['k2_by_head_dim']}, phase 10 "
+        f"{sft_launches['k2_by_head_dim']}, phase 11 "
+        f"{gae_launches['k2_by_head_dim']}")
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
     from visrag_tpu_torch.ops import matmul_int8 as mi
@@ -3450,19 +3494,31 @@ def main(argv=None):
                         "pr1_ms": page["pr1_ms"],
                         "sdpa_ms": page["library_ms"],
                         "checks": results[form]})
-    for kind, name, source, replaces in (
-            ("fwd_lse", "flash_fwd_lse", al.SOURCE, REPLACES["fwd"]),
-            ("dq", "flash_bwd_dq", al.BWD_SOURCE, REPLACES["dq"]),
-            ("dkv", "flash_bwd_dkv", al.BWD_SOURCE, REPLACES["dkv"])):
-        page = train_results[kind][0]
+    # K2 by form: the ViT's flat d 72 (the micro-batch's pages) and the
+    # LM's stacked causal d 64 (its token batch), launches from phase 5's
+    # route counters by head dim
+    k2_by_d = train_launches["k2_by_head_dim"]
+    lm_at = next(i for i, r in enumerate(train_results["dq"])
+                 if r["shape"].startswith("LM causal, training pages"))
+    for kind, name, source, replaces, at in (
+            ("fwd_lse", "flash_fwd_lse", al.SOURCE, REPLACES["fwd"], 0),
+            ("dq", "flash_bwd_dq", al.BWD_SOURCE, REPLACES["dq"], 0),
+            ("dkv", "flash_bwd_dkv", al.BWD_SOURCE, REPLACES["dkv"], 0),
+            ("dq", "flash_bwd_dq (LM causal, d=64)", al.BWD_SOURCE,
+             REPLACES["dq"], lm_at),
+            ("dkv", "flash_bwd_dkv (LM causal, d=64)", al.BWD_SOURCE,
+             REPLACES["dkv"], lm_at)):
+        page = train_results[kind][at]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": train_launches[kind],
+                        "launches": train_launches[kind] if kind == "fwd_lse"
+                        else k2_by_d[kind][page["head_dim"]],
                         **{k: page[k] for k in keys},
                         **({"pr1_ms": page["pr1_ms"]}
-                           if kind == "fwd_lse" else {}),
+                           if kind == "fwd_lse" else
+                           {"pr5_ms": page["pr5_ms"]}),
                         "sdpa_ms": page["library_ms"],
-                        "checks": train_results[kind]})
+                        "checks": train_results[kind] if at == 0 else []})
     for kind, name, source, replaces, count in (
             ("gqa", "flash_fwd_lengths (GQA 28/4, d=128)", al.SOURCE,
              REPLACES["fwd"], "stacked"),

@@ -1,6 +1,6 @@
-"""Build K2 (valid-length backward), K5 (paged decode, bf16 and int8) and K6
-(the int8 GEMM), print the compiler's report, and hold each kernel against
-its plain PyTorch version on the card.
+"""Build K2 (valid-length backward, on the Hopper core), K5 (paged decode,
+bf16 and int8) and K6 (the int8 GEMM), print the compiler's report, and
+hold each kernel against its plain PyTorch version on the card.
 
     python3 tools/torch_check_int8.py [--time]
 
@@ -29,7 +29,7 @@ from visrag_tpu_torch.ops import matmul_int8 as mi
 from visrag_tpu_torch.ops import quant
 from visrag_tpu_torch.serving import paged_kv as pk
 
-SOURCES = ("attention_lengths_hopper", "attention_lengths_bwd",
+SOURCES = ("attention_lengths_hopper", "attention_lengths_bwd_hopper",
            "paged_decode", "matmul_int8")
 DEV = "cuda"
 

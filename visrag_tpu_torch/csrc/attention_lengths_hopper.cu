@@ -10,8 +10,8 @@
 //
 // bf16 in and out; scores, running max / sum and the accumulator in fp32.
 // Rows at or past len[b] are written as zeros and, with the LSE template
-// flag (training: the backward in attention_lengths_bwd.cu reads it), get
-// the log-sum-exp LSE_PAD, the plain version's values
+// flag (training: the backward, attention_lengths_bwd_hopper.cu, reads it),
+// get the log-sum-exp LSE_PAD, the plain version's values
 // (ops/attention_lengths.py lengths_attention_reference /
 // lengths_lse_reference); no caller reads them. Without the flag the LSE is
 // neither computed nor written.
@@ -106,23 +106,6 @@ struct LengthsMask {
     return row < len;
   }
 };
-
-// The compiled column plan of D as (first column, width, swizzle bytes)
-// triples, to hold the wrapper's against.
-template <int D>
-bool plan_matches(const int* plan, int n) {
-  using C = ColumnPlan<D>;
-  if (!plan || n != C::HALVES + (C::TAIL > 0)) return false;
-  for (int i = 0; i < C::HALVES; ++i)
-    if (plan[3 * i] != 64 * i || plan[3 * i + 1] != 64 ||
-        plan[3 * i + 2] != 128)
-      return false;
-  if (C::TAIL > 0) {
-    const int* t = plan + 3 * C::HALVES;
-    if (t[0] != C::MAIN || t[1] != C::TAIL || t[2] != 32) return false;
-  }
-  return true;
-}
 
 template <int D, bool CAUSAL>
 int dispatch(const FwdParams& p, const int* lengths, int batch, int kv_heads,

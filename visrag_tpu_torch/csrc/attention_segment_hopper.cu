@@ -1,6 +1,8 @@
 // Segment-id flash attention for Hopper (sm_90a), K4 at head dims 64 and
 // 128: the forward with its log-sum-exp, and the dk/dv kernel, built on
-// wgmma, TMA and a warp-specialised producer (hopper.cuh).
+// wgmma, TMA and a warp-specialised producer (hopper.cuh); both bodies are
+// shared with the valid-length kernels (hopper_attention_fwd.cuh,
+// hopper_attention_bwd.cuh).
 //
 // Replaces the TPU kernels `_fwd_kernel` (visrag_tpu/ops/attention.py:219)
 // and `_dkv_kernel` (:338). The segment contract, the formulas and the
@@ -30,21 +32,13 @@
 //     the A operand of the RS wgmma for O += P V; the LSE in natural log;
 //     rows that see no key give exact zeros and LSE_PAD. Causal query tiles
 //     are launched heaviest first.
-//   * dk/dv: a block owns 64 keys of one kv head and walks the group's
-//     query heads and their 64-row query tiles, so every dk/dv element is
-//     written by one block (no atomics, deterministic), 4 stages.
-//     Registers decide its shape: ptxas keeps a consumer thread within 168
-//     registers (the launch's 384 threads put three warps on each SM
-//     sub-partition, and the allocator did not use the setmaxnreg grant,
-//     see PERF.md), and dK + dV alone are 128 of them at d = 128; holding
-//     both, the scores and the A fragments spilled and serialized every
-//     wgmma. So the two consumer warpgroups split the accumulators: both
-//     compute S^T = K Q^T and P^T = exp2(S^T scale log2(e) - lse log2(e));
-//     warpgroup 0 adds dV += P^T dO (S^T an SS m64n64k16, P^T rounded to
-//     bf16 as the A operand of an RS m64n{d}k16, dO MN-major), warpgroup 1
-//     dK += dS^T Q with dS^T = P^T (dP^T - delta) (S^T and dP^T = V dO^T as
-//     SS m64n32k16 on 32-query halves, Q MN-major): five products instead
-//     of four, no spills, the wgmma pipeline intact.
+//   * dk/dv: the body shared with K2, hopper_attention_bwd.cuh, with the
+//     segment mask's key-major view (SegmentMask::KeyBlock): a block owns 64
+//     keys of one kv head and walks the group's query heads and their
+//     64-row query tiles (no atomics, deterministic), 4 stages; warpgroup 0
+//     accumulates dV, warpgroup 1 dK, so that each fits the 168 registers
+//     ptxas gives a consumer thread (five products instead of four, see
+//     that header and PERF.md).
 //   * Tile classes. A pre-pass reduces each tile of ids to [min, max] of its
 //     positive ids and whether it is uniform (one positive id, no pad row).
 //     A (query tile, key tile) pair is skipped when the ranges cannot meet
@@ -63,14 +57,12 @@
 
 #include <limits.h>
 
-#include "hopper_attention_fwd.cuh"
+#include "hopper_attention_bwd.cuh"
 
 namespace {
 
 using namespace visrag;
 using namespace visrag::hopper;
-
-constexpr int DKV_BQ = 64, DKV_BK = 64;       // dk/dv tile rows
 
 struct Params {
   __nv_bfloat16* o;          // forward output
@@ -204,320 +196,79 @@ struct SegmentMask {
     }
   }
   __device__ __forceinline__ bool row_live(int) const { return true; }
-};
 
-// ---- dk/dv --------------------------------------------------------------------
+  // dk/dv (hopper_attention_bwd.cuh): the block's 64 keys against the
+  // 64-row query tiles, classes from the pre-pass at 64 / 64, the query ids
+  // staged by the producer beside lse and delta
+  struct KeyBlock {
+    struct Keys {
+      int lo, hi;            // the ids of the thread's two keys
+    };
+    int4 kc;
+    const int4* qcls;
+    const int* qsegb;
+    const int* ksegb;
+    int k0, nq, sq, sk;
 
-template <int D>
-struct DkvSmem {
-  static constexpr int STAGES = 4;
-  static constexpr int KV = DKV_BK * D * 2;          // K or V tile
-  static constexpr int QT = DKV_BQ * D * 2;          // a Q or dO tile
-  static constexpr int ROWS = DKV_BQ * 12;           // lse, delta, ids
-  static constexpr int BARS = (1 + 2 * STAGES) * 8;
-  static constexpr size_t BYTES =
-      1024 + 2 * KV + 2 * STAGES * QT + STAGES * ROWS + BARS;
-};
+    __device__ __forceinline__ KeyBlock(const Params& mp, int b, int kt,
+                                        int k0_, int nq_, int nk, int sq_,
+                                        int sk_)
+        : kc(mp.k_cls[static_cast<long long>(b) * nk + kt]),
+          qcls(mp.q_cls + static_cast<long long>(b) * nq_),
+          qsegb(mp.q_seg + static_cast<long long>(b) * sq_),
+          ksegb(mp.kv_seg + static_cast<long long>(b) * sk_),
+          k0(k0_), nq(nq_), sq(sq_), sk(sk_) {}
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(WS_THREADS, 1)
-segment_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                         const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v,
-                         const __grid_constant__ CUtensorMap tm_do,
-                         const Params p) {
-  using S = DkvSmem<D>;
-  constexpr int STAGES = S::STAGES;
-  constexpr int HALVES = D / 64;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sK = smem;
-  unsigned char* sV = sK + S::KV;
-  unsigned char* sQ = sV + S::KV;                   // STAGES Q tiles
-  unsigned char* sdO = sQ + STAGES * S::QT;         // STAGES dO tiles
-  // per stage: lse * log2(e), delta, then the ids, DKV_BQ each
-  float* sRows = reinterpret_cast<float*>(sdO + STAGES * S::QT);
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sRows + STAGES * 3 * DKV_BQ);
-  uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + STAGES;
-
-  const int hk = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
-  const int k0 = kt * DKV_BK;
-  const int sq = p.sq, sk = p.sk;
-  const int nq = (sq + DKV_BQ - 1) / DKV_BQ, nk = (sk + DKV_BK - 1) / DKV_BK;
-  const int4 kc = p.k_cls[static_cast<long long>(b) * nk + kt];
-  const int4* qcls = p.q_cls + static_cast<long long>(b) * nq;
-  // the work: the group's query heads (outer) x the query tiles from the
-  // first one that can see this key tile (inner), active pairs only
-  const int i_begin = CAUSAL ? min(k0 / DKV_BQ, nq) : 0;
-  auto cls_of = [&](int qt) {
-    return pair_class(qcls[qt], qt * DKV_BQ, DKV_BQ, kc, k0, DKV_BK, CAUSAL);
-  };
-
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
+    __device__ __forceinline__ bool k_live() const { return true; }
+    // from the first query tile that can see this key tile
+    __device__ __forceinline__ int q_begin() const {
+      return CAUSAL ? min(k0 / DKV_BQ, nq) : 0;
     }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= PRODUCER) {
-    // ---- producer: one warp stages each query tile's lse * log2(e), delta
-    // and ids; its lane 0 issues the TMA loads
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x >= PRODUCER + 32) return;
-    const int lane = threadIdx.x - PRODUCER;
-    if (lane == 0) {
-      tma_prefetch(&tm_q);
-      tma_prefetch(&tm_do);
-      mbar_arrive_expect_tx(kv_full, 2 * S::KV);
+    __device__ __forceinline__ int q_end() const { return nq; }
+    __device__ __forceinline__ int pair(int qt) const {
+      return pair_class(qcls[qt], qt * DKV_BQ, DKV_BQ, kc, k0, DKV_BK,
+                        CAUSAL);
+    }
+    // lse * log2(e), delta and the id of each row of query tile qt; a pad
+    // row (id <= 0) matches nothing and stages zeros
+    __device__ __forceinline__ void stage(float* rows, const float* lse,
+                                          const float* delta, int qt,
+                                          int lane) const {
 #pragma unroll
-      for (int hf = 0; hf < HALVES; ++hf) {
-        tma_load_4d(sK + hf * DKV_BK * HALF_ROW, &tm_k, kv_full, 64 * hf, k0,
-                    hk, b);
-        tma_load_4d(sV + hf * DKV_BK * HALF_ROW, &tm_v, kv_full, 64 * hf, k0,
-                    hk, b);
+      for (int r = lane; r < DKV_BQ; r += 32) {
+        // three independent loads in flight at once
+        const int row = qt * DKV_BQ + r;
+        const bool in = row < sq;
+        const int id = in ? qsegb[row] : 0;
+        const float l = in ? lse[row] : 0.f;
+        const float dl = in ? delta[row] : 0.f;
+        rows[r] = id > 0 ? l * LOG2E : 0.f;
+        rows[DKV_BQ + r] = id > 0 ? dl : 0.f;
+        reinterpret_cast<int*>(rows)[2 * DKV_BQ + r] = id;
       }
     }
-    const int* qsegb = p.q_seg + static_cast<long long>(b) * sq;
-    Ring<STAGES> ring;
-    for (int h = hk * p.kv_group; h < (hk + 1) * p.kv_group; ++h) {
-      const long long at = (static_cast<long long>(b) * p.heads + h) * sq;
-      for (int qt = i_begin; qt < nq; ++qt) {
-        if (cls_of(qt) == SKIP) continue;
-        mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
-        float* rows = sRows + ring.stage * 3 * DKV_BQ;
-#pragma unroll
-        for (int r = lane; r < DKV_BQ; r += 32) {
-          // three independent loads in flight at once
-          const int row = qt * DKV_BQ + r;
-          const bool in = row < sq;
-          const int id = in ? qsegb[row] : 0;
-          const float l = in ? p.lse[at + row] : 0.f;
-          const float dl = in ? p.delta[at + row] : 0.f;
-          rows[r] = id > 0 ? l * LOG2E : 0.f;
-          rows[DKV_BQ + r] = id > 0 ? dl : 0.f;
-          reinterpret_cast<int*>(rows)[2 * DKV_BQ + r] = id;
-        }
-        __syncwarp();
-        if (lane == 0) {
-          mbar_arrive_expect_tx(&full[ring.stage], 2 * S::QT);
-#pragma unroll
-          for (int hf = 0; hf < HALVES; ++hf) {
-            tma_load_4d(sQ + ring.stage * S::QT + hf * DKV_BQ * HALF_ROW,
-                        &tm_q, &full[ring.stage], 64 * hf, qt * DKV_BQ, h, b);
-            tma_load_4d(sdO + ring.stage * S::QT + hf * DKV_BQ * HALF_ROW,
-                        &tm_do, &full[ring.stage], 64 * hf, qt * DKV_BQ, h,
-                        b);
-          }
-        }
-        ring.advance();
-      }
+    __device__ __forceinline__ Keys keys(int key_lo, int key_hi) const {
+      return {key_lo < sk ? ksegb[key_lo] : 0, key_hi < sk ? ksegb[key_hi] : 0};
     }
-    return;
-  }
-
-  // ---- consumers: both warpgroups walk the block's 64 keys; warpgroup 0
-  // accumulates dV, warpgroup 1 dK
-  setmaxnreg_inc<CONSUMER_REGS>();
-  const int cw = threadIdx.x / 128;
-  const int tid = threadIdx.x % 128;
-  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
-  const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
-  const int* ksegb = p.kv_seg + static_cast<long long>(b) * sk;
-  const int kid_lo = key_lo < sk ? ksegb[key_lo] : 0;
-  const int kid_hi = key_hi < sk ? ksegb[key_hi] : 0;
-  const float sl2 = p.scale * LOG2E;
-
-  mbar_wait(kv_full, 0);
-
-  // P^T of one pair of query columns c, c + 1 for this thread's two keys:
-  // exp2(S^T scale log2(e) - lse log2(e)), masked per element on a MASKED
-  // pair (same positive id, key <= query when causal)
-  auto probs = [&](const float* rows, int cls, int q0, int c, float s0,
-                   float s1, float s2, float s3, float (&pr)[4]) {
-    const float2 l2 = *reinterpret_cast<const float2*>(rows + c);
-    pr[0] = exp2f(fmaf(s0, sl2, -l2.x));
-    pr[1] = exp2f(fmaf(s1, sl2, -l2.y));
-    pr[2] = exp2f(fmaf(s2, sl2, -l2.x));
-    pr[3] = exp2f(fmaf(s3, sl2, -l2.y));
-    if (cls == MASKED) {
+    // same positive id, key <= query when causal; pr: (query r0, key_lo),
+    // (r0 + 1, key_lo), (r0, key_hi), (r0 + 1, key_hi)
+    __device__ __forceinline__ void apply(float (&pr)[4], const Keys& k,
+                                          const float* rows, int c, int r0,
+                                          int key_lo, int key_hi) const {
       const int2 qs = *reinterpret_cast<const int2*>(rows + 2 * DKV_BQ + c);
-      const int r0 = q0 + c;
-      if (!(qs.x > 0 && qs.x == kid_lo && (!CAUSAL || r0 >= key_lo)))
+      if (!(qs.x > 0 && qs.x == k.lo && (!CAUSAL || r0 >= key_lo)))
         pr[0] = 0.f;
-      if (!(qs.y > 0 && qs.y == kid_lo && (!CAUSAL || r0 + 1 >= key_lo)))
+      if (!(qs.y > 0 && qs.y == k.lo && (!CAUSAL || r0 + 1 >= key_lo)))
         pr[1] = 0.f;
-      if (!(qs.x > 0 && qs.x == kid_hi && (!CAUSAL || r0 >= key_hi)))
+      if (!(qs.x > 0 && qs.x == k.hi && (!CAUSAL || r0 >= key_hi)))
         pr[2] = 0.f;
-      if (!(qs.y > 0 && qs.y == kid_hi && (!CAUSAL || r0 + 1 >= key_hi)))
+      if (!(qs.y > 0 && qs.y == k.hi && (!CAUSAL || r0 + 1 >= key_hi)))
         pr[3] = 0.f;
     }
+    // a pad key matched nothing, so its rows are exact zeros already
+    __device__ __forceinline__ bool key_live(int) const { return true; }
   };
-  // the K (or V) tile as the K-major A operand
-  auto kv_desc = [&](unsigned char* tile) {
-    return make_desc(opaque(smem_u32(tile)), 16, 1024);
-  };
-  // writes one accumulator's rows times `mul`; a pad key matched nothing,
-  // so its rows are exact zeros
-  auto store = [&](const float (&acc)[D / 2], __nv_bfloat16* out,
-                   long long sr, float mul) {
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + 2 * t4;
-      if (key_lo < sk)
-        *reinterpret_cast<uint32_t*>(out + key_lo * sr + col) =
-            pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-      if (key_hi < sk)
-        *reinterpret_cast<uint32_t*>(out + key_hi * sr + col) =
-            pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
-    }
-  };
-
-  // One accumulator a warpgroup (64 fp32 a thread at d = 128), so that it
-  // and the scores fit the registers ptxas gives a consumer thread (168)
-  // without serializing the wgmma pipeline. Both compute S^T (5 products
-  // instead of 4); both release each stage.
-  Ring<STAGES> ring;
-  if (cw == 0) {
-    float dv[D / 2];
-    zero(dv);
-    for (int h = 0; h < p.kv_group; ++h) {
-      for (int qt = i_begin; qt < nq; ++qt) {
-        const int cls = cls_of(qt);
-        if (cls == SKIP) continue;
-        mbar_wait(&full[ring.stage], ring.phase);
-        const uint32_t q_src = smem_u32(sQ) + ring.stage * S::QT;
-        const uint32_t do_src = smem_u32(sdO) + ring.stage * S::QT;
-        const float* rows = sRows + ring.stage * 3 * DKV_BQ;
-
-        // S^T = K Q^T: 64 keys x 64 queries, Q the K-major B operand
-        float s[32];
-        const uint64_t k_desc = kv_desc(sK);
-        const uint64_t q_desc = make_desc(q_src, 16, 1024);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<64, 0>(
-              s, desc_add(k_desc, (kk / 4) * DKV_BK * HALF_ROW + (kk % 4) * 32),
-              desc_add(q_desc, (kk / 4) * DKV_BQ * HALF_ROW + (kk % 4) * 32),
-              kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-
-        // P^T, rounded to bf16 in the A-fragment order; dV += P^T dO with
-        // dO MN-major (k16 = 16 queries = 2048 bytes; LBO = the distance
-        // between the d halves)
-        uint32_t pa[4][4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float pr[4];
-          probs(rows, cls, qt * DKV_BQ, 8 * j + 2 * t4, s[4 * j], s[4 * j + 1],
-                s[4 * j + 2], s[4 * j + 3], pr);
-          pa[j / 2][2 * (j % 2)] = pack_bf16(pr[0], pr[1]);
-          pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pr[2], pr[3]);
-        }
-        const uint64_t do_mn = make_desc(do_src, DKV_BQ * HALF_ROW, 1024);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-          wgmma_rs<D, 1>(dv, pa[kk], desc_add(do_mn, kk * 16 * HALF_ROW), 1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dv);
-        fence_regs(pa);
-        if (tid == 0) mbar_arrive(&empty[ring.stage]);
-        ring.advance();
-      }
-    }
-    store(dv, p.dv + b * p.dv_sb + hk * p.dv_sh, p.dv_sr, 1.f);
-  } else {
-    float dk[D / 2];
-    zero(dk);
-    for (int h = 0; h < p.kv_group; ++h) {
-      for (int qt = i_begin; qt < nq; ++qt) {
-        const int cls = cls_of(qt);
-        if (cls == SKIP) continue;
-        mbar_wait(&full[ring.stage], ring.phase);
-        const uint32_t q_src = smem_u32(sQ) + ring.stage * S::QT;
-        const uint32_t do_src = smem_u32(sdO) + ring.stage * S::QT;
-        const float* rows = sRows + ring.stage * 3 * DKV_BQ;
-
-        // the 64 queries as two halves of 32
-#pragma unroll 1
-        for (int half = 0; half < 2; ++half) {
-          const int c0 = 32 * half;
-          const uint32_t q_half = q_src + c0 * HALF_ROW;
-          const uint32_t do_half = do_src + c0 * HALF_ROW;
-
-          // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 queries each
-          float s[16], dp[16];
-          const uint64_t k_desc = kv_desc(sK);
-          const uint64_t v_desc = kv_desc(sV);
-          const uint64_t q_desc = make_desc(q_half, 16, 1024);
-          const uint64_t do_desc = make_desc(do_half, 16, 1024);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
-            const uint32_t off_k =
-                (kk / 4) * DKV_BK * HALF_ROW + (kk % 4) * 32;
-            const uint32_t off_q =
-                (kk / 4) * DKV_BQ * HALF_ROW + (kk % 4) * 32;
-            wgmma_ss<32, 0>(s, desc_add(k_desc, off_k),
-                            desc_add(q_desc, off_q), kk > 0);
-          }
-#pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
-            const uint32_t off_k =
-                (kk / 4) * DKV_BK * HALF_ROW + (kk % 4) * 32;
-            const uint32_t off_q =
-                (kk / 4) * DKV_BQ * HALF_ROW + (kk % 4) * 32;
-            wgmma_ss<32, 0>(dp, desc_add(v_desc, off_k),
-                            desc_add(do_desc, off_q), kk > 0);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(s);
-          fence_regs(dp);
-
-          // dS^T = P^T (dP^T - delta) in bf16; dK += dS^T Q, Q MN-major
-          uint32_t da[2][4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = c0 + 8 * j + 2 * t4;
-            float pr[4];
-            probs(rows, cls, qt * DKV_BQ, c, s[4 * j], s[4 * j + 1],
-                  s[4 * j + 2], s[4 * j + 3], pr);
-            const float2 dl =
-                *reinterpret_cast<const float2*>(rows + DKV_BQ + c);
-            da[j / 2][2 * (j % 2)] = pack_bf16(
-                pr[0] * (dp[4 * j] - dl.x), pr[1] * (dp[4 * j + 1] - dl.y));
-            da[j / 2][2 * (j % 2) + 1] =
-                pack_bf16(pr[2] * (dp[4 * j + 2] - dl.x),
-                          pr[3] * (dp[4 * j + 3] - dl.y));
-          }
-          const uint64_t q_mn = make_desc(q_half, DKV_BQ * HALF_ROW, 1024);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk)
-            wgmma_rs<D, 1>(dk, da[kk], desc_add(q_mn, kk * 16 * HALF_ROW), 1);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(dk);
-          fence_regs(da);
-        }
-        if (tid == 0) mbar_arrive(&empty[ring.stage]);
-        ring.advance();
-      }
-    }
-    store(dk, p.dk + b * p.dk_sb + hk * p.dk_sh, p.dk_sr, p.scale);
-  }
-}
+};
 
 // ---- host ---------------------------------------------------------------------
 
@@ -545,19 +296,19 @@ int dispatch(int which, const Params& p, int batch, const View& q,
                  : launch_fwd<D, false, SegmentMask<CAUSAL>>(maps, fp, mp,
                                                              batch, stream);
   }
-  CUtensorMap tq, tk, tv, tdo;
-  if (!encode_bshd(&tq, q.ptr, batch, p.sq, p.heads, D, q.sb, q.sr, q.sh,
-                   DKV_BQ) ||
-      !encode_bshd(&tk, k.ptr, batch, p.sk, kvh, D, k.sb, k.sr, k.sh,
-                   DKV_BK) ||
-      !encode_bshd(&tv, v.ptr, batch, p.sk, kvh, D, v.sb, v.sr, v.sh,
-                   DKV_BK) ||
-      !encode_bshd(&tdo, dO.ptr, batch, p.sq, p.heads, D, dO.sb, dO.sr, dO.sh,
-                   DKV_BQ))
-    return TMA_ENCODE_FAILED;
-  const int nk = (p.sk + DKV_BK - 1) / DKV_BK;
-  return int(launch_ws(segment_dkv_wgmma_kernel<D, CAUSAL>, DkvSmem<D>::BYTES,
-                       dim3(kvh, batch, nk), stream, tq, tk, tv, tdo, p));
+  BwdParams bp{};
+  bp.dk = p.dk;
+  bp.dv = p.dv;
+  bp.lse = p.lse;
+  bp.delta = const_cast<float*>(p.delta);
+  bp.dk_sb = p.dk_sb, bp.dk_sr = p.dk_sr, bp.dk_sh = p.dk_sh;
+  bp.dv_sb = p.dv_sb, bp.dv_sr = p.dv_sr, bp.dv_sh = p.dv_sh;
+  bp.sq = p.sq, bp.sk = p.sk, bp.heads = p.heads, bp.kv_group = p.kv_group;
+  bp.scale = p.scale;
+  const typename SegmentMask<CAUSAL>::Params mp{p.q_seg, p.kv_seg, p.q_cls,
+                                                p.k_cls};
+  return launch_dkv<D, SegmentMask<CAUSAL>>(bp, mp, batch, q, k, v, dO,
+                                            stream);
 }
 
 void tile_classes(const int* seg, int batch, int seq, int tile, int4* out,

@@ -432,6 +432,23 @@ inline bool encode_fwd_maps(FwdMaps* m, int batch, int sq, int sk, int heads,
   return true;
 }
 
+// The compiled column plan of D as (first column, width, swizzle bytes)
+// triples, to hold the wrapper's against.
+template <int D>
+inline bool plan_matches(const int* plan, int n) {
+  using C = ColumnPlan<D>;
+  if (!plan || n != C::HALVES + (C::TAIL > 0)) return false;
+  for (int i = 0; i < C::HALVES; ++i)
+    if (plan[3 * i] != 64 * i || plan[3 * i + 1] != 64 ||
+        plan[3 * i + 2] != 128)
+      return false;
+  if (C::TAIL > 0) {
+    const int* t = plan + 3 * C::HALVES;
+    if (t[0] != C::MAIN || t[1] != C::TAIL || t[2] != 32) return false;
+  }
+  return true;
+}
+
 // A warp-specialised launch: opts into `bytes` of dynamic shared memory,
 // launches WS_THREADS threads a block, returns the launch's error.
 template <typename Kernel, typename... Args>

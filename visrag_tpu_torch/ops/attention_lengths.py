@@ -14,9 +14,16 @@ C++ for sm_90a, bound with ctypes:
     card there, by head dim alone; `legacy=True` reaches the first, mma.sync
     kernel, csrc/attention_lengths.cu, which only chip_smoke.py and tools
     set, to time the two in turns;
-  * K2, csrc/attention_lengths_bwd.cu, replaces `_dq_kernel` and
+  * K2, csrc/attention_lengths_bwd_hopper.cu, replaces `_dq_kernel` and
     `_dkv_kernel`: one kernel for dq (it also computes delta = rowsum(o·do)
-    and stores it) and one for dk/dv, launched in that order.
+    and stores it) and one for dk/dv, launched in that order, on the
+    Hopper backward bodies of csrc/hopper_attention_bwd.cuh (dk/dv at
+    d 128 the one K4's dk/dv shares, at d 64 / 72 a warpgroup a 64-key
+    tile), with closed-form classes at 64 x 64 tiles
+    (`lengths_bwd_pair_classes_reference`) and K1's column plan.
+    `_bwd_route` sends every K2 launch on the card there;
+    `legacy=True` reaches the mma.sync kernels, csrc/attention_lengths_bwd.cu,
+    which only chip_smoke.py and tools set, to time the two in turns.
 
 Two public forms:
 
@@ -51,9 +58,12 @@ no repeat in memory), and raises for anything else.
 Launch counters, one per kernel entry point (each launch covers all rows
 and heads): `flat_launches` and `stacked_launches` (K1 without the LSE, by
 form), `fwd_lse_launches` (K1 with the LSE, either form), `dq_launches`
-and `dkv_launches` (K2); and one per K1 route (`route_counts()`):
-`hopper_launches` and `legacy_launches`, so that a run can show that no
-K1 launch of its path went to the legacy kernel.
+and `dkv_launches` (K2); one per K1 route (`route_counts()`):
+`hopper_launches` and `legacy_launches`; and one per K2 route
+(`bwd_route_counts()`: `bwd_hopper_launches`, `bwd_legacy_launches`, each
+dq and each dk/dv launch counting one), with the Hopper ones by kernel and
+head dim (`bwd_head_dim_counts()`), so that a run can show that no K1 or
+K2 launch of its path went to a legacy kernel, and which forms it ran.
 """
 
 from __future__ import annotations
@@ -68,10 +78,20 @@ LSE_PAD = 0.7 * 3.4028234663852886e38   # LSE of a row with no valid key
 KERNEL_HEAD_DIMS = (64, 72, 128)   # MiniCPM LM, SigLIP ViT, Qwen2.5 text
 BWD_HEAD_DIMS = (64, 72, 128)      # K2: retriever training, the RL update
 SOURCE = "visrag_tpu_torch/csrc/attention_lengths_hopper.cu"
-BWD_SOURCE = "visrag_tpu_torch/csrc/attention_lengths_bwd.cu"
+BWD_SOURCE = "visrag_tpu_torch/csrc/attention_lengths_bwd_hopper.cu"
 HOPPER_TILE = (128, 128)   # (query rows, keys) per tile of the Hopper K1
+# (query rows, keys) of the Hopper K2's tile classes: 64 keys of dk/dv
+# against 64-row query tiles, a dq warpgroup's 64 rows against 64-key tiles
+BWD_TILE = (64, 64)
 _ROUTES = {False: ("attention_lengths_hopper", "visrag_lengths_hopper_fwd"),
            True: ("attention_lengths", "visrag_lengths_attention_fwd")}
+_BWD_ROUTES = {
+    False: ("attention_lengths_bwd_hopper",
+            {"dq": "visrag_lengths_hopper_bwd_dq",
+             "dkv": "visrag_lengths_hopper_bwd_dkv"}),
+    True: ("attention_lengths_bwd",
+           {"dq": "visrag_lengths_attention_bwd_dq",
+            "dkv": "visrag_lengths_attention_bwd_dkv"})}
 SKIP, MASKED, UNMASKED = 0, 1, 2   # classes of a (query tile, key tile) pair
 
 flat_launches = 0      # K1 without the LSE, by flash_fwd_lengths_flat
@@ -81,14 +101,20 @@ dq_launches = 0        # K2 dq, by flash_bwd_dq
 dkv_launches = 0       # K2 dk/dv, by flash_bwd_dkv
 hopper_launches = 0    # K1 launches on attention_lengths_hopper.cu
 legacy_launches = 0    # K1 launches on attention_lengths.cu (legacy=True)
+bwd_hopper_launches = 0   # K2 launches on attention_lengths_bwd_hopper.cu
+bwd_legacy_launches = 0   # K2 launches on attention_lengths_bwd.cu
+_bwd_by_head_dim = {}     # (kind, d) → Hopper K2 launches
 
 
 def reset_launch_counts() -> None:
     global flat_launches, stacked_launches, fwd_lse_launches
     global dq_launches, dkv_launches, hopper_launches, legacy_launches
+    global bwd_hopper_launches, bwd_legacy_launches
     flat_launches = stacked_launches = fwd_lse_launches = 0
     dq_launches = dkv_launches = 0
     hopper_launches = legacy_launches = 0
+    bwd_hopper_launches = bwd_legacy_launches = 0
+    _bwd_by_head_dim.clear()
 
 
 def launch_counts() -> dict:
@@ -102,6 +128,21 @@ def route_counts() -> dict:
     flat + stacked + fwd_lse of launch_counts() when only the public
     functions launched."""
     return {"hopper": hopper_launches, "legacy": legacy_launches}
+
+
+def bwd_route_counts() -> dict:
+    """K2 launches by route since the last reset (a dq and a dk/dv launch
+    count one each): "hopper" + "legacy" == dq + dkv of launch_counts()
+    when only the public functions launched."""
+    return {"hopper": bwd_hopper_launches, "legacy": bwd_legacy_launches}
+
+
+def bwd_head_dim_counts() -> dict:
+    """Hopper K2 launches since the last reset by kernel and head dim:
+    {"dq": {d: n}, "dkv": {d: n}} over BWD_HEAD_DIMS (the forms: the ViT's
+    d 72, the MiniCPM LM's d 64, the Qwen text model's d 128)."""
+    return {kind: {d: _bwd_by_head_dim.get((kind, d), 0)
+                   for d in BWD_HEAD_DIMS} for kind in ("dq", "dkv")}
 
 
 def column_plan(d: int):
@@ -144,6 +185,31 @@ def lengths_pair_classes_reference(lengths, s: int, bq: int, bk: int,
     return out
 
 
+def lengths_bwd_pair_classes_reference(lengths, s: int, bq: int, bk: int,
+                                       causal: bool):
+    """Plain version of the Hopper K2's tile classes: lengths (B,) int →
+    (B, ceil(s / bq), ceil(s / bk)) int32, per (query tile at q0, key tile
+    at k0) SKIP when q0 >= len, k0 >= len or (causal) k0 > q0 + bq - 1,
+    UNMASKED when q0 + bq <= len, k0 + bk <= len and (causal) k0 + bk - 1
+    <= q0, MASKED otherwise (the kernels mask those per element on query <
+    len, key < len and key <= query when causal). Unlike the forward's
+    classes (`lengths_pair_classes_reference`), a pair that holds a query
+    row at or past the length is never unmasked: the caller's `do` there is
+    garbage, so the backward masks those rows out of P and dS."""
+    ln = torch.as_tensor(lengths).long().clamp(0, s)[:, None, None]
+    q0 = torch.arange(0, s, bq)[None, :, None]
+    k0 = torch.arange(0, s, bk)[None, None, :]
+    skip = (k0 >= ln) | (q0 >= ln)
+    full = (k0 + bk <= ln) & (q0 + bq <= ln)
+    if causal:
+        skip = skip | (k0 > q0 + bq - 1)
+        full = full & (k0 + bk - 1 <= q0)
+    out = torch.full(skip.shape, MASKED, dtype=torch.int32)
+    out[full] = UNMASKED
+    out[skip] = SKIP
+    return out
+
+
 def _route(d: int, legacy: bool = False):
     """→ (library, entry point) of K1 at head dim d: the Hopper kernel for
     every d in KERNEL_HEAD_DIMS; `legacy` selects the mma.sync kernel
@@ -152,6 +218,17 @@ def _route(d: int, legacy: bool = False):
         raise ValueError(f"head_dim {d} not compiled into the kernel "
                          f"(have {KERNEL_HEAD_DIMS})")
     return _ROUTES[bool(legacy)]
+
+
+def _bwd_route(d: int, legacy: bool = False):
+    """→ (library, {"dq": entry point, "dkv": entry point}) of K2 at head
+    dim d: the Hopper kernels for every d in BWD_HEAD_DIMS; `legacy`
+    selects the mma.sync kernels (to time one against the other); the
+    port's callers never set it."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not compiled into the backward "
+                         f"kernels (have {BWD_HEAD_DIMS})")
+    return _BWD_ROUTES[bool(legacy)]
 
 
 def _allowed(s, lengths, causal, device):
@@ -301,9 +378,27 @@ def _fwd(q, k, v, o, lse, lengths, causal, sm_scale, legacy=False):
     return o
 
 
-def _bwd(entry, q, k, v, o, do, lse, delta, lengths, causal, sm_scale,
-         dq, dk, dv):
+@functools.lru_cache(maxsize=None)
+def _bwd_entry(kind: str, legacy: bool):
+    """The C entry point of K2's `kind` kernel ("dq" or "dkv") on one route
+    with its argument types, set once: the Hopper ones also take the column
+    plan."""
     from ._build import load_library
+    library, entries = _BWD_ROUTES[legacy]
+    fn = getattr(load_library(library), entries[kind])
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+                   + ([] if legacy else [ctypes.c_void_p, ctypes.c_int])
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def _bwd(kind, q, k, v, o, do, lse, delta, lengths, causal, sm_scale,
+         dq, dk, dv, legacy=False):
+    """Launches K2's `kind` kernel ("dq" or "dkv") on the route `_bwd_route`
+    picks. Raises unless the kernel launched."""
+    global bwd_hopper_launches, bwd_legacy_launches
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
                     ("dq", dq), ("dk", dk), ("dv", dv)):
         _check_cuda(name, t)
@@ -317,21 +412,30 @@ def _bwd(entry, q, k, v, o, do, lse, delta, lengths, causal, sm_scale,
                          f"{tuple(dk.shape)}")
     _check_launch(q, lengths, lse, delta, head_dims=BWD_HEAD_DIMS)
     b, s, h, d = q.shape
-    fn = getattr(load_library("attention_lengths_bwd"), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+    legacy = bool(legacy)
+    library, entries = _bwd_route(d, legacy)
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+            b, s, h, k.shape[2], d, ctypes.cast(strides, ctypes.c_void_p),
+            int(causal), float(sm_scale),
+            *(() if legacy else _plan_args(d)))
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
-                b, s, h, k.shape[2], d, ctypes.cast(strides, ctypes.c_void_p),
-                int(causal), float(sm_scale), _stream(q))
+        rc = _bwd_entry(kind, legacy)(*args, _stream(q))
+    if rc == -1:
+        raise RuntimeError(f"{library} ({entries[kind]}): "
+                           f"cuTensorMapEncodeTiled refused a TMA tensor map "
+                           f"for q {tuple(q.shape)} strides {q.stride()}, k "
+                           f"{tuple(k.shape)} strides {k.stride()}")
     if rc != 0:
-        raise RuntimeError(f"attention_lengths backward ({entry}) launch "
-                           f"failed: CUDA error {rc}")
+        raise RuntimeError(f"{library} ({entries[kind]}) launch failed: CUDA "
+                           f"error {rc}")
+    if legacy:
+        bwd_legacy_launches += 1
+    else:
+        bwd_hopper_launches += 1
+        _bwd_by_head_dim[kind, d] = _bwd_by_head_dim.get((kind, d), 0) + 1
 
 
 def flash_bwd_dq(q, k, v, o, do, lse, delta, lengths, causal: bool,
@@ -339,8 +443,8 @@ def flash_bwd_dq(q, k, v, o, do, lse, delta, lengths, causal: bool,
     """K2's dq kernel on (B, S, H, D) views: writes dq and delta
     (B, H, S) fp32 = rowsum(o·do), which flash_bwd_dkv reads. CUDA only."""
     global dq_launches
-    _bwd("visrag_lengths_attention_bwd_dq", q, k, v, o, do, lse, delta,
-         lengths, causal, sm_scale, dq, k, v)   # dq writes no dk/dv
+    _bwd("dq", q, k, v, o, do, lse, delta, lengths, causal, sm_scale, dq, k,
+         v)   # dq writes no dk/dv
     dq_launches += 1
     return dq
 
@@ -350,8 +454,8 @@ def flash_bwd_dkv(q, k, v, o, do, lse, delta, lengths, causal: bool,
     """K2's dk/dv kernel; run after flash_bwd_dq on the same stream (it
     reads the delta that one writes). CUDA only."""
     global dkv_launches
-    _bwd("visrag_lengths_attention_bwd_dkv", q, k, v, o, do, lse, delta,
-         lengths, causal, sm_scale, q, dk, dv)  # dk/dv writes no dq
+    _bwd("dkv", q, k, v, o, do, lse, delta, lengths, causal, sm_scale, q,
+         dk, dv)  # dk/dv writes no dq
     dkv_launches += 1
     return dk, dv
 

@@ -11,7 +11,7 @@ is non-zero; no phase catches an error and carries on):
   0. environment: torch/CUDA versions, the card, nvcc, Pillow and pyarrow;
   1. build every kernel source in visrag_tpu_torch/csrc with nvcc, one
      process per source, all at once, and print each kernel's registers
-     and whether any spills;
+     and whether any spills (a spill in a Hopper source fails the run);
  1b. K7 (csrc/norms.cu, the fused RMSNorm / LayerNorm forward) against its
      plain version at the widths each path gives it (LayerNorm at the
      encode's ViT rows 126,208 x 1152 and the resampler's x 2304; RMSNorm
@@ -49,15 +49,19 @@ is non-zero; no phase catches an error and carries on):
      times, all on the Hopper kernel (the route counters; so in phases 3b,
      5, 7, 9, 10 and 11), and K7 56 LayerNorms (2 x 26 + 1 ViT, 3
      resampler) and 81 RMSNorms (2 x 40 + 1);
- 3b. the int8 encode: K6 (the w8a8 GEMM) against its plain version (exact
-     int32 product, every bf16 output within one bf16 ulp) at the four
+ 3b. the int8 encode: K6 (the w8a8 GEMM on wgmma s8 and TMA,
+     csrc/matmul_int8_hopper.cu) against its plain version, every output
+     bit-equal (exact int32 product, the same fp32 rounding), at the four
      GEMM shapes of the page batch (ViT qkv and fc1, 126,208 rows; LM
-     q/k/v/o and gate/up, 11,264 rows), timed beside the plain version and
-     torch._int_mm + scaling; then VisRAG-Ret with quant="int8" in the ViT
-     and the LM on phase 3's weights through encode_dataset: 292 K6
-     launches per batch, per-page cosine to phase 3's bf16 embeddings
-     (>= 0.99), the query top-10 overlap, pages/s beside bf16 in turns and
-     peak memory;
+     q/k/v/o and gate/up, 11,264 rows) and at edge shapes (N 4305, N 1, M
+     1, K 1000, fp32 output), timed in turns with the mma.sync K6 it
+     replaced (pr5_ms) beside the plain version, torch._int_mm alone
+     (int_mm_ms) and torch._int_mm + scaling; then VisRAG-Ret with
+     quant="int8" in the ViT and the LM on phase 3's weights through
+     encode_dataset: 292 K6 launches per batch, every one on the Hopper
+     kernel (the route counters), per-page cosine to phase 3's bf16
+     embeddings (>= 0.99), the query top-10 overlap, pages/s beside bf16
+     in turns and peak memory;
   4. K1 with the LSE and K2 (dq; dk/dv) against the plain version's forward
      and autograd on the card, at the shapes the training step gives them:
      ViT flat at the training micro-batch's pages (4 pages = 40 slice slots
@@ -134,8 +138,9 @@ is non-zero; no phase catches an error and carries on):
   8. the 7B model freed, four RL prompts written as a jsonl (two with 3
      page images, two text-only) and encoded by the RL driver's
      encode_qwen_prompt_row; then K4 (segment-id attention: forward with
-     the LSE and dk/dv on wgmma + TMA at d 64 / 128, dq on mma.sync)
-     against its plain version's forward and written-out backward on the
+     the LSE, dq and dk/dv on wgmma + TMA at d 64 / 128, every launch on
+     the Hopper kernels by the route counters) against its plain
+     version's forward and written-out backward on the
      card, at the first packed micro-batch the trainer will build from
      those prompts (first-fit ids, 16/2 heads, d = 128, causal), at one
      16640-token row, at the 7B head grouping (28/4), at edge cases
@@ -146,11 +151,13 @@ is non-zero; no phase catches an error and carries on):
      at the vision tower's window and image ids (d = 80, non-causal): o,
      dq, dk, dv within 2e-2 relative Frobenius error, the LSE within 2e-2
      abs, exact zeros on pad rows and keys; the kernels' pre-pass (tile
-     classes) equal to segment_tile_classes_reference; timed beside the
-     plain version, SDPA (its causal flag for one segment, a boolean
-     block-diagonal mask for packed rows, enable_gqa; forward, and
-     backward alone) and, in turns, PR 4's mma.sync forward and dk/dv
-     (new, PR 4, PR 4, new), with the bound from the visible pairs; then
+     classes) equal to segment_tile_classes_reference; the Hopper dq's
+     delta (1e-4 of its scale) and the dk/dv that reads it (1e-3
+     relative) against the mma.sync dq's; timed beside the plain version, SDPA
+     (its causal flag for one segment, a boolean block-diagonal mask for
+     packed rows, enable_gqa; forward, and backward alone) and, in turns,
+     the mma.sync forward, dq and dk/dv (new, old, old, new), with the
+     bound from the visible pairs; then
      K1 with the LSE and K2 at d = 128 with grouped kv
      heads (16/2 and 28/4, causal) at the padded update's micro-batch and
      at lengths 1, 63, 64, 65 and full, against the plain forward and
@@ -168,7 +175,9 @@ is non-zero; no phase catches an error and carries on):
      second step. Checks the launch counts exactly as reckoned (K4 forward
      2 x 36 per packed micro-batch, dq and dk/dv 36; K1 36 per prefill
      dispatch and per log-prob micro-batch; K3 32 per vision-tower run; K5
-     36 per decode step), a finite non-zero grad_norm and no skipped step,
+     36 per decode step), every K4 launch on the Hopper kernels (the route
+     counters; so in phase 11), a finite non-zero grad_norm and no skipped
+     step,
      changed text weights and a bit-identical tower, an empty prefix cache
      after each rollout, complete responses without the image token; then
      one packed micro-batch's loss against the padded forward's (K1, no
@@ -210,8 +219,9 @@ d = 128 with grouped kv heads, and K7 as
 `layernorm` (launches from phase 3's encode, numbers at the ViT's rows):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
 max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
-forward and dk/dv (the mma.sync kernels), pr1_ms for K1 (the mma.sync
-attention_lengths.cu), pr5_ms for K2 (the mma.sync
+forward, dq and dk/dv (the mma.sync kernels), pr5_ms for K6 (the
+mma.sync kernel, beside int_mm_ms, torch._int_mm alone), pr1_ms for K1
+(the mma.sync attention_lengths.cu), pr5_ms for K2 (the mma.sync
 attention_lengths_bwd.cu), pr6_ms for RMSNorm (the block-per-row kernel);
 every checked shape under "checks"), and
 {"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11;
@@ -382,17 +392,16 @@ def phase1_build():
     t0 = time.perf_counter()
     paths = _build.build_all()
     dt = time.perf_counter() - t0
+    spills = {}
     for name, path in zip(_build.SOURCES, paths):
-        lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
-        regs = sorted({line.split("Used ")[1].split(",")[0]
-                       for line in lines if "Used " in line})
-        spilled = [prev.split("for ")[-1].strip()
-                   for prev, line in zip(lines, lines[1:])
-                   if "spill stores" in line
-                   and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        regs, spilled = _build.ptxas_report(name)
         log(f"[1] built {path.name} (registers per kernel: "
-            f"{', '.join(regs)}; spill-free: {not spilled})"
+            f"{', '.join(map(str, regs))}; spill-free: {not spilled})"
             + (f" spills in {spilled}" if spilled else ""))
+        if spilled and "hopper" in name:
+            spills[name] = spilled
+    if spills:
+        raise RuntimeError(f"Hopper kernels spill registers: {spills}")
     log(f"[1] {len(paths)} sources built in {dt:.2f} s, one nvcc each")
     return dt
 
@@ -985,12 +994,17 @@ def int8_gemm_bound(m, k, n):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _check_int8_gemm(gen, label, m, k, n, bias):
-    """K6 against its plain version at one shape (bf16 unit-normal
-    activations and 0.03-scaled weights, quantized as the model does): the
-    int32 product is exact on both sides, so every bf16 output must lie
-    within one bf16 rounding of the plain value; then kernel, plain and
-    torch._int_mm + scaling times and the bound."""
+def _check_int8_gemm(gen, label, m, k, n, bias, timed=True,
+                     out_dtype=torch.bfloat16):
+    """K6 (the Hopper kernel) against its plain version at one shape (bf16
+    unit-normal activations and 0.03-scaled weights, quantized as the model
+    does): the int32 product is exact on both sides and the epilogue rounds
+    in the same order, so every output must be bit-equal. timed: the kernel
+    in turns with the mma.sync kernel it replaced (new, old, old, new:
+    pr5_ms),
+    the plain version, torch._int_mm alone (the int32 product, no
+    epilogue: int_mm_ms) and torch._int_mm + scaling (the same function:
+    library_ms), and the bound."""
     from visrag_tpu_torch.ops import matmul_int8 as mi
     from visrag_tpu_torch.ops import quant
     x = torch.randn(m, k, generator=gen, device=DEV).bfloat16()
@@ -1000,35 +1014,42 @@ def _check_int8_gemm(gen, label, m, k, n, bias):
     wq, ws = quant.quant_weight_colwise(w.t())
     wq = wq.t().contiguous()
     xs = xs[:, 0].contiguous()
-    kern = lambda: mi.int8_matmul_fused(xq, xs, wq, ws, b)
-    plain = lambda: mi.int8_matmul_reference(xq, xs, wq, ws, b)
+    kern = lambda: mi.int8_matmul_fused(xq, xs, wq, ws, b, out_dtype)
+    plain = lambda: mi.int8_matmul_reference(xq, xs, wq, ws, b, out_dtype)
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    equal = torch.equal(out, ref)
+    finite = bool(torch.isfinite(out.float()).all())
+    max_abs = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    shape = (f"{label} {m} x {k} -> {n}"
+             + (", fp32 output" if out_dtype == torch.float32 else ""))
+    log(f"[3b] K6 {shape}: bit-equal to the plain version {equal} "
+        f"(max_abs_err {max_abs:.4g}), finite {finite}")
+    if not (equal and finite):
+        raise RuntimeError(f"K6 {shape}: the kernel's outputs are not the "
+                           f"plain version's bit for bit")
+    record = {"shape": shape, "max_abs_err": max_abs}
+    if not timed:
+        return record
+    ms, pr5_ms, turns = _turns(kern, lambda: mi.int8_matmul_fused(
+        xq, xs, wq, ws, b, legacy=True))
+    plain_ms = cuda_ms(plain, reps=3)
+    int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wq.t()))
 
     def library():
         y = torch._int_mm(xq, wq.t()).float() * xs[:, None] * ws[None, :]
         return (y if b is None else y + b[None, :]).to(torch.bfloat16)
-    out, ref = kern(), plain()
-    torch.cuda.synchronize()
-    diff = (out.float() - ref.float()).abs()
-    ulp = ref.float().abs() * 2 ** -7          # one bf16 ulp, at most
-    ok = bool((diff <= ulp).all()) and bool(torch.isfinite(out.float()).all())
-    max_abs = diff.max().item()
-    exact = int((diff == 0).sum())
-    del out, ref, diff, ulp
-    ms = cuda_ms(kern)
-    plain_ms = cuda_ms(plain, reps=3)
     lib_ms = cuda_ms(library)
     bound = int8_gemm_bound(m, k, n)
-    log(f"[3b] K6 {label} {m} x {k} -> {n}: max_abs_err {max_abs:.4g}, "
-        f"{exact} of {m * n} outputs bit-equal, all within one bf16 ulp "
-        f"{ok} | kernel {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} TOP/s), "
-        f"plain {plain_ms:.4f} ms, torch._int_mm + scaling {lib_ms:.4f} ms, "
-        f"bound {bound[0]:.4f} ms ({bound[1]}) (CUDA events) | {smi()}")
-    if not ok:
-        raise RuntimeError(f"K6 {label}: kernel disagrees with its plain "
-                           f"version by more than one bf16 ulp")
-    return {"shape": f"{label} {m} x {k} -> {n}", "max_abs_err": max_abs,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound[0], "bound_by": bound[1]}
+    log(f"[3b] K6 {shape}: kernel {ms:.4f} ms "
+        f"({2 * m * k * n / ms / 1e9:.1f} TOP/s; turns {turns}), the mma.sync "
+        f"kernel {pr5_ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
+        f"alone {int_mm_ms:.4f} ms, + scaling {lib_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}) (CUDA events) | {smi()}")
+    return {**record, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "pr5_ms": pr5_ms,
+            "int_mm_ms": int_mm_ms, "turns": turns}
 
 
 def phase3b_int8_encode(gen, setup):
@@ -1063,6 +1084,16 @@ def phase3b_int8_encode(gen, setup):
             ("LM gate/up", m_lm, hid, bb.llm.intermediate_size, False)):
         checks.append(_check_int8_gemm(gen, label, m, k, n, bias))
         torch.cuda.empty_cache()
+    # edges: an odd N, N = 1, M = 1, K off the 16-byte unit (padded on the
+    # host), and fp32 output
+    for label, m, k, n, bias, dt in (
+            ("odd N", 333, e, 4305, True, torch.bfloat16),
+            ("N = 1", 130, 256, 1, True, torch.bfloat16),
+            ("M = 1", 1, hid, hid, False, torch.bfloat16),
+            ("K off 16", 129, 1000, 257, True, torch.bfloat16),
+            ("LM q/k/v/o", m_lm, hid, hid, False, torch.float32)):
+        checks.append(_check_int8_gemm(gen, label, m, k, n, bias,
+                                       timed=False, out_dtype=dt))
 
     # inference only: the int8 configs refuse remat, which the driver's
     # ModelConfig turns on for training
@@ -1097,6 +1128,9 @@ def phase3b_int8_encode(gen, setup):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {**al.launch_counts(), "int8_gemm": mi.launches}
     _lengths_routes("[3b]", launches)
+    if mi.route_counts() != {"hopper": mi.launches, "legacy": 0}:
+        raise RuntimeError(f"K6 launches by route {mi.route_counts()}: want "
+                           f"all {mi.launches} on the Hopper kernel")
     per_batch = 2 * bb.vit.depth + 6 * bb.llm.num_hidden_layers
     want = {"flat": 2 * bb.vit.depth, "stacked": 2 * bb.llm.num_hidden_layers,
             "fwd_lse": 0, "dq": 0, "dkv": 0, "int8_gemm": 2 * per_batch}
@@ -1121,7 +1155,8 @@ def phase3b_int8_encode(gen, setup):
     log(f"[3b] VisRAG-Ret full width, quant=int8 (ViT qkv + fc1, LM q/k/v/o "
         f"+ gate/up through K6), phase 3's weights: encode_dataset pages + "
         f"queries {e2e_s:.2f} s | launches {launches} (= {per_batch} K6 per "
-        f"batch) | per-page cosine to bf16 min {cos_p.min():.5f} mean "
+        f"batch, every one on the Hopper kernel {mi.SOURCE}) | per-page "
+        f"cosine to bf16 min {cos_p.min():.5f} mean "
         f"{cos_p.mean():.5f}, per-query min {cos_q.min():.5f} | query top-10 "
         f"overlap with bf16 mean {statistics.mean(overlap):.3f} min "
         f"{min(overlap):.1f} | steady state {ms['int8']:.1f} ms per "
@@ -2382,6 +2417,48 @@ def segment_bound(kind, pairs, q_rows, k_rows, b, sq, sk, h, hk, d):
     return _bound(matmuls * 2 * pairs * h * d, nbytes)
 
 
+def _segment_routes(tag, launches):
+    """Every K4 launch of a path on the Hopper kernels: the route counters
+    against the path's K4 launches; raises if one took the mma.sync ones."""
+    from visrag_tpu_torch.ops import attention as seg
+    routes = seg.route_counts()
+    want = {kind: {"hopper": launches[f"seg_{kind}"], "legacy": 0}
+            for kind in ("fwd", "dq", "dkv")}
+    if routes != want:
+        raise RuntimeError(f"{tag} K4 launches by route {routes}: want "
+                           f"{want}")
+    log(f"{tag} K4 routes: forward {routes['fwd']['hopper']}, dq "
+        f"{routes['dq']['hopper']}, dk/dv {routes['dkv']['hopper']} launches "
+        f"on the Hopper kernels ({seg.HOPPER_SOURCE}), 0 on the mma.sync "
+        f"ones")
+
+
+def _delta_handoff(seg, q, k, v, o, do, lse, qs, ks, causal, scale):
+    """The Hopper dq's delta against the mma.sync dq's, and the Hopper dk/dv
+    that reads each: delta within 1e-4 of its scale (fp32, summation order
+    apart), dk and dv within 1e-3 relative (a delta that differs in its last
+    bits moves a bf16 dk/dv element by one rounding at most)."""
+    out = []
+    for legacy in (False, True):
+        delta = torch.empty_like(lse)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        seg._launch_segment("dq", q, k, v, qs, ks, causal, scale, o=o, do=do,
+                            dq=torch.empty_like(q), lse=lse, delta=delta,
+                            legacy=legacy)
+        seg._launch_segment("dkv", q, k, v, qs, ks, causal, scale, do=do,
+                            dk=dk, dv=dv, lse=lse, delta=delta)
+        out.append((delta, dk, dv))
+    torch.cuda.synchronize()
+    (d1, k1, v1), (d0, k0, v0) = out
+    d_err = (d1 - d0).abs().max().item()
+    kv_err = max(_rel(k1, k0), _rel(v1, v0))
+    if d_err > 1e-4 * max(1.0, d0.abs().max().item()) or kv_err > 1e-3:
+        raise RuntimeError(f"the Hopper dq's delta hands dk/dv other "
+                           f"values than the mma.sync dq: delta {d_err}, "
+                           f"dk/dv {kv_err}")
+    return {"delta_max_abs": d_err, "dkv_rel": kv_err}
+
+
 def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
                            banded=False, library=True, timed=True):
     """K4 forward (+ LSE), dq and dk/dv at one shape against the plain
@@ -2403,12 +2480,23 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
                                  (b, sk, hk, d), (b, sq, h, d)))
     scale = d ** -0.5
     q.requires_grad_(True), k.requires_grad_(True), v.requires_grad_(True)
+    seg.reset_launch_counts()
     if banded:
         o = kg.flash_attention_kvgrid(q, k, v, qs)
     else:
         o = seg.flash_attention(q, k, v, qs, ks, causal=causal)
     dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
     q, k, v, o = (t.detach() for t in (q, k, v, o))
+    # the routes: d 64 / 128 on the Hopper kernels, d 80 on mma.sync (K3's
+    # forward is not K4's)
+    route = "hopper" if d in seg.HOPPER_HEAD_DIMS else "legacy"
+    want_routes = {kind: {"hopper": 0, "legacy": 0}
+                   for kind in ("fwd", "dq", "dkv")}
+    for kind in ("dq", "dkv") if banded else ("fwd", "dq", "dkv"):
+        want_routes[kind][route] = 1
+    if seg.route_counts() != want_routes:
+        raise RuntimeError(f"K4 {label}: launches by route "
+                           f"{seg.route_counts()}, want {want_routes}")
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=DEV)
     delta = torch.empty_like(lse)
     o2, dq2, dk2, dv2 = (torch.empty_like(t) for t in (o, q, k, v))
@@ -2448,6 +2536,14 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
             or lse_err > ATOL_KERNEL:
         raise RuntimeError(f"K4 {label}: kernels disagree with the plain "
                            f"version: {errs}, lse {lse_err}, zeros {zeros}")
+    handoff = None
+    if route == "hopper" and not banded:
+        handoff = _delta_handoff(seg, q, k, v, o, do, lse, qs, ks, causal,
+                                 scale)
+        log(f"[8] K4 {label}: routes {seg.route_counts()} | the Hopper dq "
+            f"hands dk/dv the delta the mma.sync dq does: delta max_abs_err "
+            f"{handoff['delta_max_abs']:.3g} (bound 1e-4 of its scale), "
+            f"dk/dv after each rel_err {handoff['dkv_rel']:.3g} (bound 1e-3)")
     records = {}
     if not timed:
         for kind in SEG_REPLACES:
@@ -2456,6 +2552,7 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
             records[kind] = {"shape": label, "rel_err": e,
                              "max_abs_err": max(max_abs["dk"], max_abs["dv"])
                              if kind == "seg_dkv" else max_abs[kind]}
+        records["seg_dq"]["handoff"] = handoff
         return records
     pairs = _count_pairs(seg, qs, ks, causal)
     args = (pairs, int(qreal.sum()), int(kreal.sum()), b, sq, sk, h, hk, d)
@@ -2498,14 +2595,17 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
         lib_b = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                     retain_graph=True))
         del out, mask
-    # PR 4's mma.sync forward and dk/dv at the same d, timed in turns with
-    # the wgmma kernels (new, PR 4, PR 4, new; launched past the wrappers,
-    # so they count no launch)
+    # the mma.sync forward, dq and dk/dv at the same d, timed in turns
+    # with the wgmma kernels (new, old, old, new; launched past the
+    # wrappers, so they count no launch)
     pr4 = {}
     if d in seg.HOPPER_HEAD_DIMS:
         pr4 = {"seg_fwd": lambda: seg._launch_segment(
                    "fwd", q, k, v, qs, ks, causal, scale, o=o2, lse=lse,
                    legacy=True),
+               "seg_dq": lambda: seg._launch_segment(
+                   "dq", q, k, v, qs, ks, causal, scale, o=o, do=do, dq=dq2,
+                   lse=lse, delta=delta, legacy=True),
                "seg_dkv": lambda: seg._launch_segment(
                    "dkv", q, k, v, qs, ks, causal, scale, do=do, dk=dk2,
                    dv=dv2, lse=lse, delta=delta, legacy=True)}
@@ -2526,14 +2626,16 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
             "bound_ms": bound[0], "bound_by": bound[1],
             "pr4_ms": statistics.mean(turns["pr4"]) if turns["pr4"]
             else None, "turns": turns}
+    records["seg_dq"]["handoff"] = handoff
     fmt = lambda x: "n/a" if x is None else f"{x:.4f}"   # noqa: E731
-    fwd, dkv = records["seg_fwd"], records["seg_dkv"]
+    fwd, dq_r, dkv = records["seg_fwd"], records["seg_dq"], records["seg_dkv"]
     log(f"[8] K4 {label}: {pairs} visible pairs per head | forward "
         f"{fwd['ms']:.4f} ms (turns {fwd['turns']}; bound "
         f"{fwd['bound_ms']:.4f} {fwd['bound_by']}, PR 4's kernel "
         f"{fmt(fwd['pr4_ms'])}, plain {plain_f:.4f}, SDPA {fmt(lib_f)}) | dq "
-        f"{records['seg_dq']['ms']:.4f} ms (bound "
-        f"{records['seg_dq']['bound_ms']:.4f}) | dk/dv {dkv['ms']:.4f} ms "
+        f"{dq_r['ms']:.4f} ms (turns {dq_r['turns']}; bound "
+        f"{dq_r['bound_ms']:.4f}, mma.sync {fmt(dq_r['pr4_ms'])}) | "
+        f"dk/dv {dkv['ms']:.4f} ms "
         f"(turns {dkv['turns']}; bound {dkv['bound_ms']:.4f}, PR 4's kernel "
         f"{fmt(dkv['pr4_ms'])}) | plain backward (all grads) {plain_b:.4f} "
         f"ms, SDPA backward {fmt(lib_b)} ms (medians, CUDA events) | "
@@ -2890,6 +2992,7 @@ def phase9_rl(rows_path, cfg, tmp):
                 "kvgrid_lse": kg.lse_launches, "paged": pk.launches,
                 **seg.launch_counts()}
     _lengths_routes("[9]", launches)
+    _segment_routes("[9]", launches)
     if resumed_ok != [True]:
         raise RuntimeError(f"the second run did not resume at step 1 with "
                            f"the saved rng and data cursor: {resumed_ok}")
@@ -3251,6 +3354,7 @@ def phase11_gae(rows_path, tmp):
                 "paged": pk.launches, **seg.launch_counts(),
                 **norms.launch_counts()}
     k2_by_d = _lengths_routes("[11]", launches)
+    _segment_routes("[11]", launches)
     critic.update = update
     if [s for s, _ in history] != [1, 2] or len(seen) != 2:
         raise RuntimeError(f"GAE steps {[s for s, _ in history]}, critic "
@@ -3377,15 +3481,14 @@ def segment_kernel_rows(seg_results, rl_launches):
     padded update: launches from phase 9's padded micro-batch)."""
     from visrag_tpu_torch.ops import attention as seg
     from visrag_tpu_torch.ops import attention_lengths as al
-    rows = [{"name": name, "route": "cuda", "source": source,
+    rows = [{"name": name, "route": "cuda", "source": seg.HOPPER_SOURCE,
              "replaces": SEG_REPLACES[kind], "launches": rl_launches[kind],
              **{k: seg_results[kind][0][k] for k in KEYS},
              "pr4_ms": seg_results[kind][0].get("pr4_ms"),
              "checks": seg_results[kind]}
-            for kind, name, source in (
-                ("seg_fwd", "segment_fwd", seg.HOPPER_SOURCE),
-                ("seg_dq", "segment_bwd_dq", seg.SOURCE),
-                ("seg_dkv", "segment_bwd_dkv", seg.HOPPER_SOURCE))]
+            for kind, name in (("seg_fwd", "segment_fwd"),
+                               ("seg_dq", "segment_bwd_dq"),
+                               ("seg_dkv", "segment_bwd_dkv"))]
     k2 = seg_results["k2"]
     for kind, name, source, replaces in (
             ("fwd_lse", "flash_fwd_lse (GQA, d=128)", al.SOURCE,
@@ -3538,6 +3641,8 @@ def main(argv=None):
                     "source": mi.SOURCE, "replaces": INT8_REPLACES,
                     "launches": int8_launches["int8_gemm"],
                     **{k: int8_checks[0][k] for k in keys},
+                    "pr5_ms": int8_checks[0]["pr5_ms"],
+                    "int_mm_ms": int8_checks[0]["int_mm_ms"],
                     "checks": int8_checks})
     kernels.append({"name": "paged_decode_attention (int8 pools)",
                     "route": "cuda", "source": pk.SOURCE,

@@ -19,7 +19,7 @@ import torch
 
 from visrag_tpu_torch.ops import attention as seg
 
-TILE_SIZES = [(128, 128), (64, 64), (64, 128)]   # forward, dk/dv, mixed
+TILE_SIZES = [(128, 128), (64, 64), (64, 128)]   # fwd, dq and dk/dv, mixed
 
 
 def _row(rng, width):
@@ -107,16 +107,15 @@ def test_tile_classes_ranges():
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_router_sends_64_and_128_to_the_wgmma_kernels(d):
-    for kind in ("fwd", "dkv"):
+    for kind in ("fwd", "dq", "dkv"):
         lib, entry, tiles = seg._route(kind, d)
         assert lib == "attention_segment_hopper"
         assert entry == f"visrag_segment_hopper_{kind}"
         assert tiles == seg.HOPPER_TILES[kind]
         # the private switch reaches the mma.sync kernel at the same d
         assert seg._route(kind, d, legacy=True)[0] == "attention_segment"
-    # dq stays on the mma.sync core at every d
-    assert seg._route("dq", d) == ("attention_segment",
-                                   "visrag_segment_attention_bwd_dq", (64, 64))
+    # dq classes its 128-row blocks by 64-row halves: dk/dv's classes
+    assert seg.HOPPER_TILES["dq"] == seg.HOPPER_TILES["dkv"] == (64, 64)
 
 
 def test_router_keeps_80_on_the_mma_sync_kernels():

@@ -1,4 +1,4 @@
-"""Hold K4's Hopper forward and dk/dv kernels of this tree bit for bit
+"""Hold K4's Hopper forward, dq and dk/dv kernels of this tree bit for bit
 against another tree's (an A/B of a refactor that must not change them).
 
     python3 tools/torch_ab_segment.py --other DIR [--time]
@@ -10,8 +10,9 @@ with this tree's nvcc flags into DIR's `visrag_tpu_torch/build/`, and both
 libraries run on the same inputs through this tree's wrapper
 (`ops/attention._launch_segment`): the packed update of chip_smoke.py's
 phase 8 (its RL prompts, packed by the trainer's own functions: 16/2 heads,
-d 128, causal) and one 16,640-token row. The forward's output and LSE and
-dk/dv's outputs must be equal bit for bit. With --time it also times both
+d 128, causal) and one 16,640-token row. The forward's output and LSE,
+dq's output and delta (when the other tree has the Hopper dq) and dk/dv's
+outputs must be equal bit for bit. With --time it also times both
 trees' kernels in turns (this, other, other, this), each the median of a
 burst of calls queued while the device spins (chip_smoke.cuda_ms). Needs
 one CUDA card; exits 1 if an output differs.
@@ -105,6 +106,14 @@ def ab_case(label, ids_np, h, hk, d, other, do_time, gen):
         run(lib, "fwd", o=o, lse=lse)
         outs[tag, "fwd"] = (o, lse)
     o, lse = outs["this", "fwd"]
+    kinds = ["fwd", "dkv"]
+    if hasattr(other, "visrag_segment_hopper_dq"):
+        kinds.insert(1, "dq")
+        for tag, lib in (("this", this), ("other", other)):
+            dq = torch.empty_like(q)
+            delta = torch.empty(b, h, s, device=dev)
+            run(lib, "dq", o=o, do=do, dq=dq, lse=lse, delta=delta)
+            outs[tag, "dq"] = (dq, delta)
     dq = torch.empty_like(q)
     delta = torch.empty(b, h, s, device=dev)
     seg._launch_segment("dq", q, k, v, ids, ids, True, scale, o=o, do=do,
@@ -116,14 +125,18 @@ def ab_case(label, ids_np, h, hk, d, other, do_time, gen):
     torch.cuda.synchronize()
     same = {kind: all(torch.equal(a, c) for a, c in
                       zip(outs["this", kind], outs["other", kind]))
-            for kind in ("fwd", "dkv")}
+            for kind in kinds}
     line = (f"[ab] {label} B={b} S={s} H={h}/{hk} d={d} causal: bitwise "
-            f"equal forward (o, lse) {same['fwd']}, dk/dv {same['dkv']}")
+            f"equal forward (o, lse) {same['fwd']}, dq (dq, delta) "
+            f"{same.get('dq', 'not in the other tree')}, dk/dv "
+            f"{same['dkv']}")
     if do_time:
         dk, dv = outs["this", "dkv"]
-        for kind, kw in (("fwd", dict(o=o, lse=lse)),
-                         ("dkv", dict(do=do, dk=dk, dv=dv, lse=lse,
-                                      delta=delta))):
+        args = {"fwd": dict(o=o, lse=lse),
+                "dq": dict(o=o, do=do, dq=dq, lse=lse, delta=delta),
+                "dkv": dict(do=do, dk=dk, dv=dv, lse=lse, delta=delta)}
+        for kind in kinds:
+            kw = args[kind]
             turns = {"this": [], "other": []}
             for tag in ("this", "other", "other", "this"):
                 lib = this if tag == "this" else other

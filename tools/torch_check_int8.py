@@ -1,14 +1,18 @@
 """Build K2 (valid-length backward, on the Hopper core), K5 (paged decode,
-bf16 and int8) and K6 (the int8 GEMM), print the compiler's report, and
-hold each kernel against its plain PyTorch version on the card.
+bf16 and int8) and K6 (the int8 GEMM, on wgmma s8 and TMA), print the
+compiler's report, and hold each kernel against its plain PyTorch version
+on the card.
 
-    python3 tools/torch_check_int8.py [--time]
+    python3 tools/torch_check_int8.py [--time] [--only k2|k5|k6]
 
 A short first check for these kernels: registers and spills from ptxas,
 then K2 at d = 64 / 72 / 128 with grouped kv heads (16/2, 28/4), K6 at the
-encode's GEMM shapes with a ragged M, K5 int8 and bf16 at the 7B decode
-grouping with edge lengths. With --time it also times them with CUDA
-events (median of 10). Needs one CUDA card; exits 1 on any disagreement.
+encode's GEMM shapes and at edge shapes (odd N, N = 1, M = 1, K not a
+multiple of 16, fp32 output), bit for bit, K5 int8 and bf16 at the 7B
+decode grouping with edge lengths. With --time it also times them with
+CUDA events (median of 10), K6 in turns with the mma.sync kernel beside
+torch._int_mm alone and with the scaling. Needs one
+CUDA card; exits 1 on any disagreement.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from visrag_tpu_torch.ops import quant
 from visrag_tpu_torch.serving import paged_kv as pk
 
 SOURCES = ("attention_lengths_hopper", "attention_lengths_bwd_hopper",
-           "paged_decode", "matmul_int8")
+           "paged_decode", "matmul_int8_hopper", "matmul_int8")
 DEV = "cuda"
 
 
@@ -91,29 +95,47 @@ def check_k2(name, lens, s, h, hk, d, causal, do_time):
     return ok
 
 
-def check_k6(name, m, k, n, do_time):
+def check_k6(name, m, k, n, do_time, bias=True):
+    """K6 bit for bit against its plain version, bf16 and fp32 output."""
     g = torch.Generator(device=DEV).manual_seed(m + n)
     x = torch.randn(m, k, generator=g, device=DEV).bfloat16()
     w = (torch.randn(n, k, generator=g, device=DEV) * 0.03).bfloat16()
-    bias = torch.randn(n, generator=g, device=DEV)
+    b = torch.randn(n, generator=g, device=DEV) if bias else None
     xq, xs = quant.quant_rowwise(x)
     wq, ws = quant.quant_weight_colwise(w.t())
-    wq = wq.t().contiguous()
-    out = mi.int8_matmul_fused(xq, xs[:, 0], wq, ws, bias)
-    ref = mi.int8_matmul_reference(xq, xs[:, 0], wq, ws, bias)
-    torch.cuda.synchronize()
-    diff = (out.float() - ref.float()).abs()
-    ulp = ref.float().abs() * 2 ** -7
-    ok = bool((diff <= ulp).all()) and bool(torch.isfinite(out.float()).all())
-    line = (f"K6 {name} {m}x{k}->{n}: max_abs {diff.max().item():.4g}, "
-            f"exact bf16 {int((diff == 0).sum())}/{diff.numel()} "
-            f"{'ok' if ok else 'FAIL'}")
+    wq, xs = wq.t().contiguous(), xs[:, 0].contiguous()
+    ok = True
+    line = f"K6 {name} {m}x{k}->{n}:"
+    for dt in (torch.bfloat16, torch.float32):
+        out = mi.int8_matmul_fused(xq, xs, wq, ws, b, dt)
+        ref = mi.int8_matmul_reference(xq, xs, wq, ws, b, dt)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        diff = (out.float() - ref.float()).abs()
+        ok &= same and bool(torch.isfinite(out.float()).all())
+        line += (f" {str(dt)[6:]} bit-equal {same} (max_abs "
+                 f"{diff.max().item():.4g}, {int((diff != 0).sum())} of "
+                 f"{diff.numel()} differ)")
+    line += f" {'ok' if ok else 'FAIL'}"
     if do_time:
-        t = median_ms(lambda: mi.int8_matmul_fused(xq, xs[:, 0], wq, ws,
-                                                   bias))
-        t_bf16 = median_ms(lambda: torch.nn.functional.linear(x, w))
-        line += (f" kernel={t:.3f}ms ({2 * m * k * n / t / 1e9:.1f} TOP/s) "
-                 f"bf16 cuBLAS={t_bf16:.3f}ms")
+        new = lambda: mi.int8_matmul_fused(xq, xs, wq, ws, b)   # noqa: E731
+        old = lambda: mi.int8_matmul_fused(xq, xs, wq, ws, b,   # noqa: E731
+                                           legacy=True)
+        t = {"new": [], "old": []}
+        for which in ("new", "old", "old", "new"):
+            t[which].append(median_ms(new if which == "new" else old))
+        t_mm = median_ms(lambda: torch._int_mm(xq, wq.t()))
+
+        def scaled():
+            y = torch._int_mm(xq, wq.t()).float() * xs[:, None] \
+                * ws[None, :]
+            return (y if b is None else y + b[None, :]).to(torch.bfloat16)
+        t_lib = median_ms(scaled)
+        mean = {kk: sum(v) / len(v) for kk, v in t.items()}
+        line += (f" | kernel {mean['new']:.4f} ms "
+                 f"({2 * m * k * n / mean['new'] / 1e9:.1f} TOP/s) in turns "
+                 f"with mma.sync {mean['old']:.4f} ({t}); torch._int_mm alone "
+                 f"{t_mm:.4f}, + scaling {t_lib:.4f}")
     print(line, flush=True)
     return ok
 
@@ -164,6 +186,7 @@ def check_k5(name, lens, quantized, do_time, h=28, kvh=4, d=128, bs=128):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--only", choices=("k2", "k5", "k6"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -172,27 +195,39 @@ def main(argv=None):
     _build.build_all(SOURCES)
     print(f"built in {time.time() - t0:.1f}s", flush=True)
     for name in SOURCES[1:]:
-        print((_build.BUILD_DIR / f"{name}.log").read_text(), flush=True)
+        regs, spilled = _build.ptxas_report(name)
+        print(f"{name}: registers {regs}, spills {spilled or 'none'}",
+              flush=True)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip(), flush=True)
     ok = True
     t = args.time
-    ok &= check_k2("3B padded update", [1920, 1500, 700, 64], 1920, 16, 2,
-                   128, True, t)
-    ok &= check_k2("7B grouping edges", [1, 63, 64, 65, 256], 256, 28, 4,
-                   128, True, t)
-    ok &= check_k2("non-causal d128", [200, 129], 200, 8, 2, 128, False, t)
-    ok &= check_k2("LM d64", [704, 300, 1], 704, 36, 36, 64, True, t)
-    ok &= check_k2("ViT d72", [1152, 600, 0, 65], 1152, 16, 16, 72, False, t)
-    m_vit, m_lm = (126208, 11264) if t else (4176, 1104)
-    ok &= check_k6("ViT qkv", m_vit, 1152, 3456, t)
-    ok &= check_k6("ViT fc1", m_vit, 1152, 4304, t)
-    ok &= check_k6("LM q/k/v/o", m_lm, 2304, 2304, t)
-    ok &= check_k6("LM gate/up", m_lm, 2304, 5760, t)
-    ok &= check_k6("ragged K", 77, 200, 70, False)
-    for quantized in (True, False):
-        ok &= check_k5("decode", [4815, 4643, 4879, 650], quantized, t)
-        ok &= check_k5("edges", [1, 127, 128, 129], quantized, t)
+    run = lambda kind: args.only in (None, kind)   # noqa: E731
+    if run("k2"):
+        ok &= check_k2("3B padded update", [1920, 1500, 700, 64], 1920, 16,
+                       2, 128, True, t)
+        ok &= check_k2("7B grouping edges", [1, 63, 64, 65, 256], 256, 28, 4,
+                       128, True, t)
+        ok &= check_k2("non-causal d128", [200, 129], 200, 8, 2, 128, False,
+                       t)
+        ok &= check_k2("LM d64", [704, 300, 1], 704, 36, 36, 64, True, t)
+        ok &= check_k2("ViT d72", [1152, 600, 0, 65], 1152, 16, 16, 72, False,
+                       t)
+    if run("k6"):
+        m_vit, m_lm = (126208, 11264) if t else (4176, 1104)
+        ok &= check_k6("ViT qkv", m_vit, 1152, 3456, t)
+        ok &= check_k6("ViT fc1", m_vit, 1152, 4304, t)
+        ok &= check_k6("LM q/k/v/o", m_lm, 2304, 2304, t, bias=False)
+        ok &= check_k6("LM gate/up", m_lm, 2304, 5760, t, bias=False)
+        for name, m, k, n in (("ragged K", 77, 200, 70),
+                              ("odd N", 333, 1152, 4305),
+                              ("N = 1", 130, 256, 1), ("M = 1", 1, 2304, 2304),
+                              ("K off 16", 129, 1000, 257)):
+            ok &= check_k6(name, m, k, n, False)
+    if run("k5"):
+        for quantized in (True, False):
+            ok &= check_k5("decode", [4815, 4643, 4879, 650], quantized, t)
+            ok &= check_k5("edges", [1, 127, 128, 129], quantized, t)
     print("ALL OK" if ok else "SOME FAILED", flush=True)
     return 0 if ok else 1
 

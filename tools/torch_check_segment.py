@@ -8,10 +8,13 @@ A short first check for an edited kernel: registers and spills from ptxas,
 the pre-pass's tile classes against `segment_tile_classes_reference`, then
 forward, LSE, dq, dk, dv at a few shapes (packed first-fit ids, grouped kv
 heads, Sq != Sk, pad and negative ids, segments of 127/128/129 tokens, a
-segment filling whole 128-row tiles, d = 64 / 80 / 128), and the mma.sync
-forward and dk/dv at d 64 / 128 as well. With --time it also times the
-kernels with CUDA events (median of 10), the wgmma and the mma.sync forward
-and dk/dv in turns. Needs one CUDA card; exits 1 on any disagreement.
+segment filling whole 128-row tiles, d = 64 / 80 / 128), the mma.sync
+forward, dq and dk/dv at d 64 / 128 as well, and the delta hand-off: the
+Hopper dq's delta against the mma.sync dq's, and the dk/dv that follows
+each.
+With --time it also times the kernels with CUDA events (median of 10), the
+wgmma and the mma.sync forward, dq and dk/dv in turns. Needs one CUDA
+card; exits 1 on any disagreement.
 """
 
 from __future__ import annotations
@@ -99,8 +102,10 @@ def check(name, q_seg, kv_seg, h, hk, d, causal, do_time, banded=False,
         with torch.no_grad():
             seg._launch_segment("fwd", q, k, v, qs, ks, causal, scale, o=o,
                                 lse=lse, legacy=True)
-            seg.segment_bwd_dq(q, k, v, o, do, lse, delta, qs, ks, causal,
-                               scale, torch.empty_like(dq))
+            dq = torch.empty_like(dq)
+            seg._launch_segment("dq", q, k, v, qs, ks, causal, scale, o=o,
+                                do=do, dq=dq, lse=lse, delta=delta,
+                                legacy=True)
             seg._launch_segment("dkv", q, k, v, qs, ks, causal, scale, do=do,
                                 dk=dk, dv=dv, lse=lse, delta=delta,
                                 legacy=True)
@@ -119,14 +124,18 @@ def check(name, q_seg, kv_seg, h, hk, d, causal, do_time, banded=False,
     ok = zeros and all(
         err[kk] <= TOL[kk] * scale_ref.get(kk, 1.0) for kk in err)
     line = f"{name}: " + " ".join(f"{kk}={x:.3g}" for kk, x in err.items()) \
-        + f" pad_zeros={zeros} {'ok' if ok else 'FAIL'}"
+        + f" pad_zeros={zeros}"
+    if d in seg.HOPPER_HEAD_DIMS and not banded and not legacy:
+        hand = handoff(q, k, v, o.detach(), do, lse, qs, ks, causal, scale)
+        ok &= hand["ok"]
+        line += (f" handoff: delta max_abs {hand['delta']:.3g}, dk/dv rel "
+                 f"{hand['dkv']:.3g}")
+    line += f" {'ok' if ok else 'FAIL'}"
     if do_time and not banded:
         with torch.no_grad():
             o2 = torch.empty_like(o)
             delta = torch.empty_like(lse)
             dq2, dk2, dv2 = (torch.empty_like(x) for x in (q, k, v))
-            t_q = median_ms(lambda: seg.segment_bwd_dq(
-                q, k, v, o, do, lse, delta, qs, ks, causal, scale, dq2))
             times = {}
             for tag, old in (("", False), ("old ", True), ("old ", True),
                              ("", False)):
@@ -136,12 +145,47 @@ def check(name, q_seg, kv_seg, h, hk, d, causal, do_time, banded=False,
                 t_kv = median_ms(lambda: seg._launch_segment(
                     "dkv", q, k, v, qs, ks, causal, scale, do=do, dk=dk2,
                     dv=dv2, lse=lse, delta=delta, legacy=old))
+                t_q = median_ms(lambda: seg._launch_segment(
+                    "dq", q, k, v, qs, ks, causal, scale, o=o, do=do, dq=dq2,
+                    lse=lse, delta=delta, legacy=old))
                 times.setdefault(tag + "fwd", []).append(t_f)
+                times.setdefault(tag + "dq", []).append(t_q)
                 times.setdefault(tag + "dkv", []).append(t_kv)
-        line += " " + " ".join(f"{kk}={min(x):.4f}ms" for kk, x in
-                               times.items()) + f" dq={t_q:.4f}ms"
+        line += " " + " ".join(f"{kk}={sum(x) / len(x):.4f}ms" for kk, x in
+                               times.items())
     print(line, flush=True)
     return ok
+
+
+def handoff(q, k, v, o, do, lse, qs, ks, causal, scale):
+    """The Hopper dq's delta against the mma.sync dq's (fp32, summation order
+    apart), and the Hopper dk/dv after each: within 1e-3 relative (a delta
+    that differs in its last bits moves a bf16 dk/dv element by one
+    rounding at most)."""
+    out = {}
+    for legacy in (False, True):
+        delta = torch.empty_like(lse)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        with torch.no_grad():
+            seg._launch_segment("dq", q, k, v, qs, ks, causal, scale, o=o,
+                                do=do, dq=torch.empty_like(q), lse=lse,
+                                delta=delta, legacy=legacy)
+            seg._launch_segment("dkv", q, k, v, qs, ks, causal, scale, do=do,
+                                dk=dk, dv=dv, lse=lse, delta=delta)
+        out[legacy] = (delta, dk, dv)
+    torch.cuda.synchronize()
+    (d1, k1, v1), (d0, k0, v0) = out[False], out[True]
+    d_err = (d1 - d0).abs().max().item()
+    kv_err = max(rel(k1, k0), rel(v1, v0))
+    ok = d_err <= 1e-4 * max(1.0, d0.abs().max().item()) and kv_err <= 1e-3
+    return {"delta": d_err, "dkv": kv_err, "ok": ok}
+
+
+def rel(a, b):
+    a, b = a.float(), b.float()
+    nb = torch.linalg.norm(b).item()
+    return torch.linalg.norm(a - b).item() / nb if nb else \
+        torch.linalg.norm(a).item()
 
 
 def check_classes(rng):
@@ -170,7 +214,9 @@ def main(argv=None):
     _build.build_all(names)
     print(f"built in {time.time() - t0:.1f}s", flush=True)
     for name in names:
-        print((_build.BUILD_DIR / f"{name}.log").read_text(), flush=True)
+        regs, spilled = _build.ptxas_report(name)
+        print(f"{name}: registers {regs}, spills {spilled or 'none'}",
+              flush=True)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip(), flush=True)
     rng = np.random.default_rng(0)

@@ -124,6 +124,8 @@ struct LengthsMask {
 
   // dq: the block's 128 query rows from q0, 64 per consumer warpgroup
   struct QueryBlock {
+    static constexpr int IDS = 0;      // nothing staged beside K and V
+    struct Rows {};
     int len, q0, nk;
 
     __device__ __forceinline__ QueryBlock(const Params& mp, int b, int,
@@ -147,9 +149,14 @@ struct LengthsMask {
     __device__ __forceinline__ int pair(int t, int cw) const {
       return lengths_pair<CAUSAL>(len, q0 + 64 * cw, t * DQ_BK);
     }
+    __device__ __forceinline__ void stage(int*, int, int) const {}
+    __device__ __forceinline__ Rows rows(int, int) const { return {}; }
     // pr: (row_lo, key), (row_lo, key + 1), (row_hi, key), (row_hi, key + 1)
-    __device__ __forceinline__ void apply(float (&pr)[4], int row_lo,
-                                          int row_hi, int key) const {
+    // with key = key0 + c
+    __device__ __forceinline__ void apply(float (&pr)[4], const Rows&,
+                                          const int*, int row_lo, int row_hi,
+                                          int key0, int c) const {
+      const int key = key0 + c;
       const bool q_lo = row_lo < len, q_hi = row_hi < len;
       const bool k0 = key < len, k1 = key + 1 < len;
       if (!(q_lo && k0 && (!CAUSAL || key <= row_lo))) pr[0] = 0.f;

@@ -1,15 +1,15 @@
 // Segment-id flash attention for Hopper (sm_90a), K4 at head dims 64 and
-// 128: the forward with its log-sum-exp, and the dk/dv kernel, built on
-// wgmma, TMA and a warp-specialised producer (hopper.cuh); both bodies are
-// shared with the valid-length kernels (hopper_attention_fwd.cuh,
-// hopper_attention_bwd.cuh).
+// 128: the forward with its log-sum-exp, the dq kernel (which also writes
+// delta) and the dk/dv kernel, built on wgmma, TMA and a warp-specialised
+// producer (hopper.cuh); all three bodies are shared with the valid-length
+// kernels (hopper_attention_fwd.cuh, hopper_attention_bwd.cuh).
 //
-// Replaces the TPU kernels `_fwd_kernel` (visrag_tpu/ops/attention.py:219)
-// and `_dkv_kernel` (:338). The segment contract, the formulas and the
-// dq kernel that writes delta are those of attention_segment.cu, whose
-// mma.sync kernels stay compiled at every head dim: they serve d = 80 (K3's
-// backward, the vision tower) and the dq kernel at every d. Routing is by
-// head dim alone (ops/attention.py `_route`), never by failure.
+// Replaces the TPU kernels `_fwd_kernel` (visrag_tpu/ops/attention.py:219),
+// `_dq_kernel` (:302) and `_dkv_kernel` (:338). The segment contract and
+// the formulas are those of attention_segment.cu, whose mma.sync kernels
+// stay compiled at every head dim: they serve d = 80 (K3's backward, the
+// vision tower). Routing is by head dim alone (ops/attention.py `_route`),
+// never by failure.
 //
 // What bounds it on the H100: the operations. The products on the visible
 // pairs (2 forward, 4 for dk/dv) reach the 989 TFLOP/s bf16 peak only
@@ -39,6 +39,16 @@
 //     accumulates dV, warpgroup 1 dK, so that each fits the 168 registers
 //     ptxas gives a consumer thread (five products instead of four, see
 //     that header and PERF.md).
+//   * dq: the dq body of hopper_attention_bwd.cuh with the segment mask's
+//     query-major view (SegmentMask::QueryBlock): a block owns a 128-row
+//     query tile of one query head (64 rows a consumer warpgroup, Q and dO
+//     resident) and walks its kv head's 64-key tiles through a 4-stage
+//     ring, the producer warp staging each key tile's ids beside it; each
+//     warpgroup classes its own 64 rows against each key tile, and a tile
+//     both skip is not loaded. Delta = rowsum(o do) in fp32, 0 on pad rows,
+//     is computed in the prologue and stored (B, H, Sq) for the dk/dv
+//     launch. Causal query tiles are launched heaviest first; a tile of pad
+//     rows only writes zeros and exits.
 //   * Tile classes. A pre-pass reduces each tile of ids to [min, max] of its
 //     positive ids and whether it is uniform (one positive id, no pad row).
 //     A (query tile, key tile) pair is skipped when the ranges cannot meet
@@ -66,16 +76,20 @@ using namespace visrag::hopper;
 
 struct Params {
   __nv_bfloat16* o;          // forward output
+  const __nv_bfloat16* dO;
+  __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  float* lse;                // (B, H, Sq): forward writes, dk/dv reads
-  const float* delta;        // (B, H, Sq): written by the dq kernel
+  float* lse;                // (B, H, Sq): forward writes, dq and dk/dv read
+  float* delta;              // (B, H, Sq): dq writes, dk/dv reads
   const int* q_seg;          // (B, Sq)
   const int* kv_seg;         // (B, Sk)
   const int4* q_cls;         // (B, nq): lo, hi, uniform
   const int4* k_cls;         // (B, nk)
   int sq, sk, heads, kv_group;
   long long o_sb, o_sr, o_sh;
+  long long do_sb, do_sr, do_sh;
+  long long dq_sb, dq_sr, dq_sh;
   long long dk_sb, dk_sr, dk_sh;
   long long dv_sb, dv_sr, dv_sh;
   float scale;
@@ -268,11 +282,94 @@ struct SegmentMask {
     // a pad key matched nothing, so its rows are exact zeros already
     __device__ __forceinline__ bool key_live(int) const { return true; }
   };
+
+  // dq (hopper_attention_bwd.cuh): the block's 128 query rows from q0, 64
+  // per consumer warpgroup, against 64-key tiles; the classes are the
+  // pre-pass's at 64 / 64 (those of dk/dv), taken for each 64-row half
+  // apart, and the producer stages a masked key tile's ids beside it
+  struct QueryBlock {
+    static constexpr int IDS = DQ_BK;    // key ids staged per stage
+    struct Rows {
+      int lo, hi;            // the ids of the thread's two query rows
+    };
+    int4 qc0, qc1;           // the classes of rows [q0, q0 + 64), [+64, +128)
+    const int4* kcls;
+    const int* qsegb;
+    const int* ksegb;
+    int q0, nk, sq, sk;
+
+    __device__ __forceinline__ QueryBlock(const Params& mp, int b, int qt,
+                                          int q0_, int, int nk_, int sq_,
+                                          int sk_)
+        : kcls(mp.k_cls + static_cast<long long>(b) * nk_),
+          qsegb(mp.q_seg + static_cast<long long>(b) * sq_),
+          ksegb(mp.kv_seg + static_cast<long long>(b) * sk_),
+          q0(q0_), nk(nk_), sq(sq_), sk(sk_) {
+      static_assert(DQ_BQ == 2 * DKV_BQ && DQ_BK == DKV_BK,
+                    "dq classes a 128-row tile as two 64-row tiles");
+      const int nq64 = (sq_ + DKV_BQ - 1) / DKV_BQ;
+      const int4* qcls = mp.q_cls + static_cast<long long>(b) * nq64;
+      qc0 = qcls[2 * qt];
+      // past Sq: a tile of pad rows, which meets nothing
+      qc1 = 2 * qt + 1 < nq64 ? qcls[2 * qt + 1] : make_int4(INT_MAX, 0, 0, 0);
+    }
+
+    // causal query tiles heaviest first
+    static __device__ __forceinline__ int qtile(const Params&, int, int z,
+                                                int nq, int) {
+      return CAUSAL ? nq - 1 - z : z;
+    }
+    // some row holds a positive id
+    __device__ __forceinline__ bool q_live() const {
+      return qc0.y > 0 || qc1.y > 0;
+    }
+    // causal: the key tiles up to the tile's last row
+    __device__ __forceinline__ int ntiles() const {
+      return CAUSAL ? min(nk, (min(q0 + DQ_BQ, sq) + DQ_BK - 1) / DQ_BK) : nk;
+    }
+    __device__ __forceinline__ int pair(int t, int cw) const {
+      return pair_class(cw ? qc1 : qc0, q0 + DKV_BQ * cw, DKV_BQ, kcls[t],
+                        t * DQ_BK, DQ_BK, CAUSAL);
+    }
+    // the ids of key tile t's rows; keys past Sk stage id 0
+    __device__ __forceinline__ void stage(int* ids, int t, int lane) const {
+#pragma unroll
+      for (int r = lane; r < DQ_BK; r += 32) {
+        const int j = t * DQ_BK + r;
+        ids[r] = j < sk ? ksegb[j] : 0;
+      }
+    }
+    __device__ __forceinline__ Rows rows(int row_lo, int row_hi) const {
+      return {row_lo < sq ? qsegb[row_lo] : 0,
+              row_hi < sq ? qsegb[row_hi] : 0};
+    }
+    // same positive id, key <= query when causal; pr: (row_lo, key),
+    // (row_lo, key + 1), (row_hi, key), (row_hi, key + 1), key = key0 + c
+    __device__ __forceinline__ void apply(float (&pr)[4], const Rows& r,
+                                          const int* ids, int row_lo,
+                                          int row_hi, int key0, int c) const {
+      const int2 ks = *reinterpret_cast<const int2*>(ids + c);
+      const int key = key0 + c;
+      if (!(r.lo > 0 && ks.x == r.lo && (!CAUSAL || key <= row_lo)))
+        pr[0] = 0.f;
+      if (!(r.lo > 0 && ks.y == r.lo && (!CAUSAL || key + 1 <= row_lo)))
+        pr[1] = 0.f;
+      if (!(r.hi > 0 && ks.x == r.hi && (!CAUSAL || key <= row_hi)))
+        pr[2] = 0.f;
+      if (!(r.hi > 0 && ks.y == r.hi && (!CAUSAL || key + 1 <= row_hi)))
+        pr[3] = 0.f;
+    }
+    // a pad row (id <= 0) gets dq 0 and delta 0 whatever do holds; a
+    // positive-id row that sees no key has P = 0 on every pair, so dq 0
+    __device__ __forceinline__ bool row_live(int row) const {
+      return row < sq && qsegb[row] > 0;
+    }
+  };
 };
 
 // ---- host ---------------------------------------------------------------------
 
-enum Which { FWD = 0, DKV = 2 };
+enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
 template <int D, bool CAUSAL>
 int dispatch(int which, const Params& p, int batch, const View& q,
@@ -297,16 +394,25 @@ int dispatch(int which, const Params& p, int batch, const View& q,
                                                              batch, stream);
   }
   BwdParams bp{};
+  bp.o = p.o;
+  bp.dO = p.dO;
+  bp.dq = p.dq;
   bp.dk = p.dk;
   bp.dv = p.dv;
   bp.lse = p.lse;
-  bp.delta = const_cast<float*>(p.delta);
+  bp.delta = p.delta;
+  bp.o_sb = p.o_sb, bp.o_sr = p.o_sr, bp.o_sh = p.o_sh;
+  bp.do_sb = p.do_sb, bp.do_sr = p.do_sr, bp.do_sh = p.do_sh;
+  bp.dq_sb = p.dq_sb, bp.dq_sr = p.dq_sr, bp.dq_sh = p.dq_sh;
   bp.dk_sb = p.dk_sb, bp.dk_sr = p.dk_sr, bp.dk_sh = p.dk_sh;
   bp.dv_sb = p.dv_sb, bp.dv_sr = p.dv_sr, bp.dv_sh = p.dv_sh;
   bp.sq = p.sq, bp.sk = p.sk, bp.heads = p.heads, bp.kv_group = p.kv_group;
   bp.scale = p.scale;
   const typename SegmentMask<CAUSAL>::Params mp{p.q_seg, p.kv_seg, p.q_cls,
                                                 p.k_cls};
+  if (which == DQ)
+    return launch_dq<D, SegmentMask<CAUSAL>>(bp, mp, batch, q, k, v, dO,
+                                             stream);
   return launch_dkv<D, SegmentMask<CAUSAL>>(bp, mp, batch, q, k, v, dO,
                                             stream);
 }
@@ -321,7 +427,7 @@ void tile_classes(const int* seg, int batch, int seq, int tile, int4* out,
 // ptrs, dims and strides as attention_segment.cu's entry points (q, k, v,
 // o, do, dq, dk, dv, lse, delta, q_seg, kv_seg, classes); classes: scratch
 // of 4 * batch * (ceil(sq / BQ) + ceil(sk / BK)) ints at the kernel's tile
-// rows (forward 128 / 128, dk/dv 64 / 64), filled here.
+// rows (forward 128 / 128, dq and dk/dv 64 / 64), filled here.
 int run(int which, void* const* ptrs, const int* dims, const long long* st,
         float scale, void* stream) {
   const int batch = dims[0], sq = dims[1], sk = dims[2], heads = dims[3],
@@ -330,10 +436,12 @@ int run(int which, void* const* ptrs, const int* dims, const long long* st,
   if (batch <= 0 || sq <= 0 || sk <= 0) return int(cudaSuccess);
   Params p;
   p.o = static_cast<__nv_bfloat16*>(ptrs[3]);
+  p.dO = static_cast<const __nv_bfloat16*>(ptrs[4]);
+  p.dq = static_cast<__nv_bfloat16*>(ptrs[5]);
   p.dk = static_cast<__nv_bfloat16*>(ptrs[6]);
   p.dv = static_cast<__nv_bfloat16*>(ptrs[7]);
   p.lse = static_cast<float*>(ptrs[8]);
-  p.delta = static_cast<const float*>(ptrs[9]);
+  p.delta = static_cast<float*>(ptrs[9]);
   p.q_seg = static_cast<const int*>(ptrs[10]);
   p.kv_seg = static_cast<const int*>(ptrs[11]);
   const int bq = which == FWD ? FWD_BQ : DKV_BQ;
@@ -348,6 +456,8 @@ int run(int which, void* const* ptrs, const int* dims, const long long* st,
   p.heads = heads;
   p.kv_group = heads / kv_heads;
   p.o_sb = st[9], p.o_sr = st[10], p.o_sh = st[11];
+  p.do_sb = st[12], p.do_sr = st[13], p.do_sh = st[14];
+  p.dq_sb = st[15], p.dq_sr = st[16], p.dq_sh = st[17];
   p.dk_sb = st[18], p.dk_sr = st[19], p.dk_sh = st[20];
   p.dv_sb = st[21], p.dv_sr = st[22], p.dv_sh = st[23];
   p.scale = scale;
@@ -378,6 +488,14 @@ extern "C" int visrag_segment_hopper_fwd(void* const* ptrs, const int* dims,
                                          const long long* strides, float scale,
                                          void* stream) {
   return run(FWD, ptrs, dims, strides, scale, stream);
+}
+
+// dq and delta: run before visrag_segment_hopper_dkv on the same stream,
+// which reads the delta written here.
+extern "C" int visrag_segment_hopper_dq(void* const* ptrs, const int* dims,
+                                        const long long* strides, float scale,
+                                        void* stream) {
+  return run(DQ, ptrs, dims, strides, scale, stream);
 }
 
 extern "C" int visrag_segment_hopper_dkv(void* const* ptrs, const int* dims,

@@ -2,7 +2,8 @@
 // loads completing on mbarriers, the mbarrier ring's operations, wgmma
 // shared-memory descriptors for 128- and 32-byte-swizzled bf16 tiles, wgmma
 // m64nNk16 (bf16 in, fp32 accumulate) with A from shared memory (SS, N 16,
-// 32, 64 or 128) or from registers (RS, N 16, 64 or 128), and setmaxnreg.
+// 32, 64 or 128) or from registers (RS, N 16, 64 or 128), wgmma
+// m64n256k32 s8 x s8 -> s32 (SS; K6), and setmaxnreg.
 // Inline PTX only; the host side encodes tensor maps through the
 // cuTensorMapEncodeTiled entry point that the runtime hands out, so a
 // library built from this needs no -lcuda.
@@ -37,6 +38,13 @@
 // RS form for k-step kk is {pack(d[8kk], d[8kk+1]), pack(d[8kk+2], d[8kk+3]),
 // pack(d[8kk+4], d[8kk+5]), pack(d[8kk+6], d[8kk+7])}: the C fragment of one
 // product is the A fragment of the next, with no trip through shared memory.
+//
+// 8-bit operands (K6). wgmma takes s8 A and B only K-major, from shared
+// memory. A TMA box of 128 int8 columns (128 bytes) x R rows with the
+// 128-byte swizzle is the same bytes-and-swizzle layout as a 64-column bf16
+// box, so make_desc(addr, 16, 1024) describes it as it is, and a k32 step
+// (32 bytes) is +32 bytes on the start address, as bf16's k16 step. The s32
+// accumulator of m64n256k32 has the fp32 accumulator's fragment layout.
 
 #pragma once
 
@@ -138,6 +146,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D tensor map (coordinates innermost first) into shared
+// memory, as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // ---- wgmma ----------------------------------------------------------------
 
 // Descriptor of a SWIZZLE-byte-swizzled tile (128: 1024-byte atoms, 32:
@@ -187,6 +207,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 template <int M, int N>
@@ -404,6 +430,70 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else wgmma_m64n128k16_rs<TRANS_B>(d, a, db, accumulate);
 }
 
+// D (64 x 256, s32) {+}= A (64 x 32, s8, smem) * B (32 x 256, s8, smem);
+// both operands K-major (the only layout wgmma takes for 8-bit types).
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+
 // ---- registers ------------------------------------------------------------
 
 template <int R>
@@ -474,6 +564,27 @@ inline bool encode_bshd(CUtensorMap* map, const void* base, int b, int s,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (rows, cols) uint8 matrix with a row pitch of `pitch` bytes (a multiple
+// of 16) as the 2-D tensor map (cols, rows), read in boxes of 128 columns
+// (128 bytes, the 128-byte swizzle) x `box_rows` rows; rows past `rows` and
+// columns past `cols` read as zeros. → false if the encoder refuses or is
+// missing.
+inline bool encode_u8_2d(CUtensorMap* map, const void* base, long long rows,
+                         long long cols, long long pitch, int box_rows) {
+  auto encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

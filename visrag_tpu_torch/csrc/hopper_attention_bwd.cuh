@@ -1,11 +1,11 @@
 // The flash-attention backward on the Hopper core (hopper.cuh): the dk/dv
 // body shared by K4 (segment ids, attention_segment_hopper.cu) and K2 (valid
 // lengths, attention_lengths_bwd_hopper.cu), and a dq body on the same core
-// (instantiated for K2). As in hopper_attention_fwd.cuh, the kernels differ
-// only in which (query, key) pairs are visible; a mask policy says that, and
-// everything else (tiles, the TMA ring, the products, the epilogue) is this
-// one body. With p = exp(scale q.k - lse) on the visible pairs and 0
-// elsewhere:
+// (instantiated for K2 and K4). As in hopper_attention_fwd.cuh, the kernels
+// differ only in which (query, key) pairs are visible; a mask policy says
+// that, and everything else (tiles, the TMA ring, the products, the
+// epilogue) is this one body. With p = exp(scale q.k - lse) on the visible
+// pairs and 0 elsewhere:
 //
 //   delta[i] = sum_d o[i][d] do[i][d]
 //   ds[i][j] = p[i][j] (do[i].v[j] - delta[i])
@@ -41,7 +41,11 @@
 //     and V tiles stream through a 4-stage ring. Each warpgroup computes S =
 //     Q K^T and dP = dO V^T (SS m64n64k16), P = exp2(S scale log2(e) - lse
 //     log2(e)) and dS = P (dP - delta) in registers, rounded to bf16 as the
-//     A operand of dQ += dS K (RS, K MN-major). Delta = rowsum(o do) in fp32
+//     A operand of dQ += dS K (RS, K MN-major). The producer classes each
+//     key tile for both warpgroups, loads the ones not both skip and hands
+//     each stage's tile index and classes to the consumers beside it (and a
+//     policy's key ids, K4), then a last stage that ends the walk: the
+//     consumers hold no class state. Delta = rowsum(o do) in fp32
 //     is computed in the prologue by each quad of threads for its two rows
 //     from o and do in device memory, and stored (B, H, Sq) for the dk/dv
 //     launch that follows on the same stream. dq = scale dQ at the end.
@@ -70,7 +74,11 @@
 //   tile index names), q_live() (false: zeros and delta 0 and exit), ntiles()
 //   (key tiles to walk), pair(t, cw) (the class of key tile t for
 //   warpgroup cw's 64 rows; a tile that both warpgroups skip is not
-//   loaded), apply() and row_live() (a dead row gets dq 0 and delta 0).
+//   loaded), IDS and stage(ids, t, lane) (the producer warp's staging of
+//   IDS ints beside each K / V stage; IDS = 0 stages nothing), rows()
+//   (per-thread state of its two query rows), apply() (the per-element mask
+//   of a MASKED pair on four probabilities) and row_live() (a dead row gets
+//   dq 0 and delta 0).
 
 #pragma once
 
@@ -701,13 +709,16 @@ attention_dkv_pair_kernel(const __grid_constant__ BwdMaps maps,
 
 // ---- dq -----------------------------------------------------------------------
 
-template <int D>
+template <int D, int IDS>
 struct DqSmem {
   static constexpr int STAGES = 4;
   static constexpr int QT = DQ_BQ * ColumnPlan<D>::ROW;   // the Q or dO tile
   static constexpr int KV = DQ_BK * ColumnPlan<D>::ROW;   // a K or V tile
+  static constexpr int IDS_BYTES = STAGES * IDS * 4;      // staged key ids
+  static constexpr int INFO_BYTES = STAGES * 4;           // a stage's tile
   static constexpr int BARS = (1 + 2 * STAGES) * 8;
-  static constexpr size_t BYTES = 1024 + 2 * QT + 2 * STAGES * KV + BARS;
+  static constexpr size_t BYTES =
+      1024 + 2 * QT + 2 * STAGES * KV + IDS_BYTES + INFO_BYTES + BARS;
 };
 
 // sum_d o[row][d] * do[row][d] in fp32 over the columns this thread of a
@@ -735,14 +746,20 @@ __device__ __forceinline__ float row_dot(const __nv_bfloat16* o,
   return acc;
 }
 
+// A loaded key tile as the producer hands it to the consumers: its index
+// and the classes of warpgroups 0 and 1 (-1 ends the walk).
+__device__ __forceinline__ int pack_tile(int t, int c0, int c1) {
+  return (t << 4) | (c1 << 2) | c0;
+}
+
 template <int D, class Mask>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
                           const BwdParams p,
                           const typename Mask::Params mp) {
-  using S = DqSmem<D>;
-  using C = ColumnPlan<D>;
   using QB = typename Mask::QueryBlock;
+  using S = DqSmem<D, QB::IDS>;
+  using C = ColumnPlan<D>;
   constexpr int STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -751,7 +768,9 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
   unsigned char* sdO = sQ + S::QT;
   unsigned char* sK = sdO + S::QT;                  // STAGES K tiles
   unsigned char* sV = sK + STAGES * S::KV;          // STAGES V tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * S::KV);
+  int* sIds = reinterpret_cast<int*>(sV + STAGES * S::KV);   // STAGES x IDS
+  int* sInfo = sIds + STAGES * QB::IDS;                       // STAGES
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sInfo + STAGES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
 
@@ -786,7 +805,8 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
   __syncthreads();
 
   if (threadIdx.x >= PRODUCER) {
-    // ---- producer: one warp issues every load
+    // ---- producer: one warp issues every load (lane 0) and stages the
+    // policy's key ids (the whole warp)
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x >= PRODUCER + 32) return;
     const int lane = threadIdx.x - PRODUCER;
@@ -800,17 +820,34 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       mbar_arrive_expect_tx(q_full, 2 * S::QT);
       load_tile<D>(sQ, DQ_BQ, &maps.q, &maps.q_tail, q_full, q0, h, b);
       load_tile<D>(sdO, DQ_BQ, &maps.dO, &maps.do_tail, q_full, q0, h, b);
-      Ring<STAGES> ring;
-      for (int t = 0; t < ntiles; ++t) {
-        if (mask.pair(t, 0) == SKIP && mask.pair(t, 1) == SKIP) continue;
-        mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+    }
+    if (QB::IDS == 0 && lane != 0) return;
+    Ring<STAGES> ring;
+    for (int t = 0; t < ntiles; ++t) {
+      const int c0 = mask.pair(t, 0), c1 = mask.pair(t, 1);
+      if (c0 == SKIP && c1 == SKIP) continue;
+      mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+      // ids only where a warpgroup masks per element
+      if constexpr (QB::IDS > 0) {
+        if (c0 == MASKED || c1 == MASKED)
+          mask.stage(sIds + ring.stage * QB::IDS, t, lane);
+        __syncwarp();
+      }
+      if (lane == 0) {
+        sInfo[ring.stage] = pack_tile(t, c0, c1);
         mbar_arrive_expect_tx(&full[ring.stage], 2 * S::KV);
         load_tile<D>(sK + ring.stage * S::KV, DQ_BK, &maps.k, &maps.k_tail,
                      &full[ring.stage], t * DQ_BK, hk, b);
         load_tile<D>(sV + ring.stage * S::KV, DQ_BK, &maps.v, &maps.v_tail,
                      &full[ring.stage], t * DQ_BK, hk, b);
-        ring.advance();
       }
+      ring.advance();
+    }
+    // the end of the walk: one more stage, with no tile
+    if (lane == 0) {
+      mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+      sInfo[ring.stage] = -1;
+      mbar_arrive(&full[ring.stage]);
     }
     return;
   }
@@ -822,6 +859,7 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
   const int row_lo = q0 + 64 * cw + 16 * warp + g, row_hi = row_lo + 8;
   const bool live_lo = mask.row_live(row_lo), live_hi = mask.row_live(row_hi);
+  const typename QB::Rows rows = mask.rows(row_lo, row_hi);
   const float sl2 = p.scale * LOG2E;
 
   // delta = rowsum(o do) of the thread's two rows, a quad a row pair, while
@@ -851,11 +889,15 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
   zero(dqt);
   mbar_wait(q_full, 0);
 
+  // the loaded key tiles in the producer's order, each with its classes,
+  // until the stage that ends the walk
   Ring<STAGES> ring;
-  for (int t = 0; t < ntiles; ++t) {
-    const int cls = mask.pair(t, cw);
-    if (cls == SKIP && mask.pair(t, cw ^ 1) == SKIP) continue;
+  while (true) {
     mbar_wait(&full[ring.stage], ring.phase);
+    const int info = sInfo[ring.stage];
+    if (info < 0) break;
+    const int t = info >> 4;
+    const int cls = (info >> (2 * cw)) & 3;
     if (cls != SKIP) {
       const uint32_t k_src = smem_u32(sK) + ring.stage * S::KV;
       const uint32_t v_src = smem_u32(sV) + ring.stage * S::KV;
@@ -915,7 +957,8 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
                        exp2f(fmaf(s[4 * j + 2], sl2, -l2_hi)),
                        exp2f(fmaf(s[4 * j + 3], sl2, -l2_hi))};
         if (cls == MASKED)
-          mask.apply(pr, row_lo, row_hi, t * DQ_BK + 8 * j + 2 * t4);
+          mask.apply(pr, rows, sIds + ring.stage * QB::IDS, row_lo, row_hi,
+                     t * DQ_BK, 8 * j + 2 * t4);
         da[j / 2][2 * (j % 2)] = pack_bf16(pr[0] * (dp[4 * j] - dl_lo),
                                            pr[1] * (dp[4 * j + 1] - dl_lo));
         da[j / 2][2 * (j % 2) + 1] =
@@ -1091,7 +1134,8 @@ int launch_dq(const BwdParams& p, const typename Mask::Params& mp, int batch,
   const int nq = (p.sq + DQ_BQ - 1) / DQ_BQ;
   BwdParams bp = p;
   bp.tile_fastest = tile_fastest(static_cast<long long>(p.heads) * batch);
-  return int(launch_ws(attention_dq_wgmma_kernel<D, Mask>, DqSmem<D>::BYTES,
+  return int(launch_ws(attention_dq_wgmma_kernel<D, Mask>,
+                       DqSmem<D, Mask::QueryBlock::IDS>::BYTES,
                        bp.tile_fastest ? dim3(nq, p.heads, batch)
                                        : dim3(p.heads, batch, nq),
                        stream, maps, bp, mp));

@@ -7,15 +7,16 @@ Counterpart of visrag_tpu/ops/attention.py.
     `_dkv_kernel` (`_flash_core` and its custom VJP) and the library detour
     `_flash_library_segment`: one forward kernel that also writes the
     log-sum-exp, one dq kernel (it also stores delta = rowsum(o*do)) and one
-    dk/dv kernel, launched in that order. At head dims 64 and 128 the
-    forward and dk/dv are csrc/attention_segment_hopper.cu (wgmma from
-    shared memory that TMA fills, one producer warp and two consumer
-    warpgroups; 128-row forward tiles, 64-key dk/dv blocks whose
-    warpgroups split dV and dK; tile pairs classed skipped / unmasked /
-    masked by a pre-pass); dq at every d, and the forward and dk/dv at d =
-    80 (K3's backward, the vision tower), are csrc/attention_segment.cu
-    (mma.sync, 64-row tiles, cp.async). Both are CUDA C++ for sm_90a bound
-    with ctypes; `_route` picks by head dim alone. Scores and accumulators
+    dk/dv kernel, launched in that order. At head dims 64 and 128 all
+    three are csrc/attention_segment_hopper.cu (wgmma from shared memory
+    that TMA fills, one producer warp and two consumer warpgroups; 128-row
+    forward and dq tiles, 64-key dk/dv blocks whose warpgroups split dV and
+    dK; tile pairs classed skipped / unmasked / masked by a pre-pass); at d
+    = 80 (K3's backward, the vision tower) they are
+    csrc/attention_segment.cu (mma.sync, 64-row tiles, cp.async), the first
+    kernels, which `legacy=True` also reaches at d 64 and 128 to time one
+    against the other. Both are CUDA C++ for sm_90a bound with ctypes;
+    `_route` picks by head dim alone. Scores and accumulators
     stay in registers; K/V (or Q/dO) stream through shared memory, so any
     length runs and the JAX package's `_pick_blocks` and 4096-key bound
     have no counterpart here. Grouped kv heads are read through strides,
@@ -40,7 +41,8 @@ the JAX oracle `mha_reference` lets id-0 rows attend id-0 keys instead
 A CPU tensor takes `segment_attention_reference`, the plain PyTorch
 version, and autograd through it is the plain backward. A CUDA tensor
 launches the kernels or raises; there is no fallback. Launch counters, one
-per kernel: `seg_fwd_launches`, `seg_dq_launches`, `seg_dkv_launches`.
+per kernel: `seg_fwd_launches`, `seg_dq_launches`, `seg_dkv_launches`;
+`route_counts()` splits each kernel's launches by source.
 """
 
 from __future__ import annotations
@@ -54,12 +56,13 @@ from .attention_lengths import LSE_PAD, _check_cuda, _stream, _strides, \
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SEG_HEAD_DIMS = (64, 80, 128)   # MiniCPM LM, Qwen vision tower, Qwen text
-HOPPER_HEAD_DIMS = (64, 128)    # forward and dk/dv on wgmma + TMA
+HOPPER_HEAD_DIMS = (64, 128)    # forward, dq and dk/dv on wgmma + TMA
 SOURCE = "visrag_tpu_torch/csrc/attention_segment.cu"
 HOPPER_SOURCE = "visrag_tpu_torch/csrc/attention_segment_hopper.cu"
-# (query rows, keys) per tile of each kernel; the pre-pass classes tiles of
-# these sizes
-HOPPER_TILES = {"fwd": (128, 128), "dkv": (64, 64)}
+# (query rows, keys) per tile of each kernel's classes; the pre-pass classes
+# tiles of these sizes (dq's 128-row blocks class each 64-row half, so dq
+# and dk/dv take the same classes)
+HOPPER_TILES = {"fwd": (128, 128), "dq": (64, 64), "dkv": (64, 64)}
 LEGACY_TILES = (64, 64)
 _LEGACY_ENTRY = {"fwd": "visrag_segment_attention_fwd",
                  "dq": "visrag_segment_attention_bwd_dq",
@@ -69,16 +72,26 @@ SKIP, MASKED, UNMASKED = 0, 1, 2    # classes of a (query tile, key tile) pair
 seg_fwd_launches = 0    # K4 forward, by segment_fwd
 seg_dq_launches = 0     # K4 dq, by segment_bwd_dq
 seg_dkv_launches = 0    # K4 dk/dv, by segment_bwd_dkv
+_routes = {kind: {"hopper": 0, "legacy": 0} for kind in _LEGACY_ENTRY}
 
 
 def reset_launch_counts() -> None:
     global seg_fwd_launches, seg_dq_launches, seg_dkv_launches
     seg_fwd_launches = seg_dq_launches = seg_dkv_launches = 0
+    for counts in _routes.values():
+        counts["hopper"] = counts["legacy"] = 0
 
 
 def launch_counts() -> dict:
     return {"seg_fwd": seg_fwd_launches, "seg_dq": seg_dq_launches,
             "seg_dkv": seg_dkv_launches}
+
+
+def route_counts() -> dict:
+    """The wrappers' launches of each K4 kernel ("fwd", "dq", "dkv") by
+    source: "hopper" (csrc/attention_segment_hopper.cu) or "legacy" (the
+    mma.sync csrc/attention_segment.cu, which d = 80 takes)."""
+    return {kind: dict(counts) for kind, counts in _routes.items()}
 
 
 def _group(q, kvh):
@@ -213,11 +226,11 @@ def segment_lse_reference(q, k, q_seg, kv_seg, causal: bool, sm_scale: float):
 
 def _route(kind, d, legacy=False):
     """→ (library, entry point, (query rows, keys) per tile) of K4's `kind`
-    kernel ("fwd", "dq", "dkv") at head dim d: the wgmma kernels for the
-    forward and dk/dv at d in HOPPER_HEAD_DIMS, else the mma.sync ones.
-    `legacy` selects the mma.sync forward or dk/dv at any d (to time one
-    against the other); the port's callers never set it."""
-    if kind != "dq" and d in HOPPER_HEAD_DIMS and not legacy:
+    kernel ("fwd", "dq", "dkv") at head dim d: the wgmma kernels at d in
+    HOPPER_HEAD_DIMS, else the mma.sync ones. `legacy` selects the mma.sync
+    kernel at any d (to time one against the other); the port's callers
+    never set it."""
+    if d in HOPPER_HEAD_DIMS and not legacy:
         return ("attention_segment_hopper", f"visrag_segment_hopper_{kind}",
                 HOPPER_TILES[kind])
     return "attention_segment", _LEGACY_ENTRY[kind], LEGACY_TILES
@@ -262,6 +275,35 @@ def segment_pair_classes_reference(q_cls, k_cls, bq: int, bk: int,
                      device=q_cls.device)
     out[full] = UNMASKED
     out[~meet] = SKIP
+    return out
+
+
+def segment_dq_pair_classes_reference(q_seg, kv_seg, causal: bool):
+    """Plain version of the Hopper dq kernel's walk: (B, ceil(Sq / 128), 2,
+    ceil(Sk / 64)) int32, the class that warpgroup w of the 128-row query
+    block gives 64-key tile t, SKIP past the block's walk. Each warpgroup
+    classes its 64 rows as segment_pair_classes_reference does at the
+    pre-pass's 64 / 64 tiles (rows past Sq are pad); a block whose rows all
+    hold ids <= 0 walks nothing (it stores zeros); a causal block walks the
+    key tiles below ceil(min(q0 + 128, Sq) / 64). A key tile both
+    warpgroups skip is not loaded."""
+    b, sq = q_seg.shape
+    bq, bk = HOPPER_TILES["dq"]
+    q_cls = segment_tile_classes_reference(q_seg, bq)
+    cls = segment_pair_classes_reference(
+        q_cls, segment_tile_classes_reference(kv_seg, bk), bq, bk, causal)
+    nblk, nk = -(-sq // (2 * bq)), cls.shape[2]
+    out = torch.full((b, 2 * nblk, nk), SKIP, dtype=torch.int32,
+                     device=cls.device)
+    out[:, :cls.shape[1]] = cls
+    out = out.reshape(b, nblk, 2, nk)
+    live = torch.zeros((b, 2 * nblk), dtype=torch.bool, device=cls.device)
+    live[:, :q_cls.shape[1]] = q_cls[..., 1] > 0
+    out[~live.reshape(b, nblk, 2).any(-1)] = SKIP
+    if causal:
+        for j in range(nblk):
+            end = min((j + 1) * 2 * bq, sq)
+            out[:, j, :, -(-end // bk):] = SKIP
     return out
 
 
@@ -368,6 +410,12 @@ def _launch_segment(kind, q, k, v, q_seg, kv_seg, causal, sm_scale, *,
                            f"{rc}")
 
 
+def _count(kind, d):
+    """One wrapper launch of `kind` at head dim d, on the route it took."""
+    hopper = _route(kind, d)[0] == "attention_segment_hopper"
+    _routes[kind]["hopper" if hopper else "legacy"] += 1
+
+
 def segment_fwd(q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float, o,
                 lse=None):
     """K4 forward on (B, S, H, D) views (any strides with a contiguous head
@@ -377,17 +425,19 @@ def segment_fwd(q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float, o,
     _launch_segment("fwd", q, k, v, q_seg, kv_seg, causal, sm_scale, o=o,
                     lse=lse)
     seg_fwd_launches += 1
+    _count("fwd", q.shape[3])
     return o
 
 
 def segment_bwd_dq(q, k, v, o, do, lse, delta, q_seg, kv_seg, causal: bool,
                    sm_scale: float, dq):
-    """K4's dq kernel: writes dq and delta (B, H, Sq) fp32 = rowsum(o*do),
-    which segment_bwd_dkv reads. CUDA only."""
+    """K4's dq kernel: writes dq and delta (B, H, Sq) fp32 = rowsum(o*do)
+    (0 on pad rows), which segment_bwd_dkv reads. CUDA only."""
     global seg_dq_launches
     _launch_segment("dq", q, k, v, q_seg, kv_seg, causal, sm_scale, o=o,
                     do=do, dq=dq, lse=lse, delta=delta)
     seg_dq_launches += 1
+    _count("dq", q.shape[3])
     return dq
 
 
@@ -400,6 +450,7 @@ def segment_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal: bool,
     _launch_segment("dkv", q, k, v, q_seg, kv_seg, causal, sm_scale, do=do,
                     dk=dk, dv=dv, lse=lse, delta=delta)
     seg_dkv_launches += 1
+    _count("dkv", q.shape[3])
     return dk, dv
 
 

@@ -10,8 +10,10 @@ is non-zero; no phase catches an error and carries on):
 
   0. environment: torch/CUDA versions, the card, nvcc, Pillow and pyarrow;
   1. build every kernel source in visrag_tpu_torch/csrc with nvcc, one
-     process per source, all at once, and print each kernel's registers
-     and whether any spills (a spill in a Hopper source fails the run);
+     process per source, all at once, and print each kernel's registers,
+     whether any spills and how many use a stack frame (a spill in a
+     Hopper source or in norms.cu, or a stack frame in
+     paged_decode_hopper.cu, fails the run);
  1b. K7 (csrc/norms.cu, the fused RMSNorm / LayerNorm forward) against its
      plain version at the widths each path gives it (LayerNorm at the
      encode's ViT rows 126,208 x 1152 and the resampler's x 2304; RMSNorm
@@ -105,14 +107,23 @@ is non-zero; no phase catches an error and carries on):
      straddling tile edges, a pad tail; pad rows exactly 0), K1 stacked
      causal with grouped kv heads (28/4, d = 128) at the whole and batched
      prefill shapes and at lengths 0, 1, 63, 64, 65 and full (pad rows
-     exactly 0; in turns with the legacy kernel), and K5 (paged
-     decode) at the engine's decode shape (a table with null blocks past
-     each length) and at lengths 1, bs and bs + 1, each against its plain
+     exactly 0; in turns with the legacy kernel), each against its plain
      version (2e-2 relative Frobenius error, finite) and timed beside its
      plain version and the library call (SDPA with a block-diagonal mask;
-     SDPA with enable_gqa and a causal length mask; none for K5, gather +
-     SDPA noted); then one full-width vision block and one 7B text layer,
-     bf16 on the card against fp32 on the CPU;
+     SDPA with enable_gqa and a causal length mask); K5 (paged decode,
+     csrc/paged_decode_hopper.cu) through the engine's table (a
+     power-of-two width, null blocks past each length) at K5_SHAPES: the
+     7B engine's decode shape (the four live requests' final lengths,
+     28/4, d 128) at 128-token blocks, in turns with the first kernel
+     (csrc/paged_decode.cu, legacy=True: legacy_ms), and at 8-token
+     blocks, MiniCPM-2B's (36/36, d 64, 4 slots up to 4,096 tokens) and
+     the 3B rollout's (16/2, d 128, 8-token blocks, 8 slots up to 16,536),
+     each again at lengths 1, bs and bs + 1: 2e-2 relative and 2e-2 max
+     abs, finite, timed beside the plain version, gather + SDPA (no one
+     call computes K5) and the bound, with the split count (the cluster
+     size) and the blocks that hold work; then one full-width vision
+     block and one 7B text layer, bf16 on the card against fp32 on the
+     CPU;
   7. Qwen2.5-VL-7B at full width on random weights from seed 0 and the
      engine from evisrag_predict.build_engine (4 slots, 16k tokens, 2048-
      token chunked prefill, prefix cache): six requests, one of them an
@@ -122,16 +133,19 @@ is non-zero; no phase catches an error and carries on):
      (the driver's default is 2048). Checks complete outputs without the
      image token, a schedule with P, C/c and D, launch counts of exactly
      32 K3 per vision-tower run, 28 K1 per whole or batched prefill and 28
-     K5 per decode step, and decode logits over the paged pool within 2e-2
+     K5 per decode step (none on the first kernel), and decode logits
+     over the paged pool within 2e-2
      relative of a full causal pass at the same positions, after a whole
      and after a chunked prefill; prints the vision tower's ms per request,
      time to first token, prefill tokens/s, decode ms/step, output
      tokens/s and peak memory;
- 7b. K5's int8 variant against its plain version (0.0035 relative) at the
-     decode shape and at lengths 1, 127, 128, 129 with a null-block table
-     tail, timed beside K5 on bf16 pools; then the same six requests
+ 7b. K5's int8 variant against its plain version (RTOL_K5_INT8 = 0.0035
+     relative) at phase 6's K5 shapes and edge lengths, timed as there
+     (in turns with the first kernel at the 7B decode shape) and beside K5
+     on bf16 pools of the dequantized values; then the same six requests
      through build_engine(cache_dtype="int8") on the same 7B weights:
-     complete outputs, K5 int8 28 per decode step, output tokens/s, ms per
+     complete outputs, K5 int8 28 per decode step (none on bf16 K5 or the
+     first kernel), output tokens/s, ms per
      decode step, peak memory, pool bytes against bf16, and decode logits
      over int8 pools against phase 7's over bf16 pools at the same steps
      (0.1 relative);
@@ -175,7 +189,8 @@ is non-zero; no phase catches an error and carries on):
      second step. Checks the launch counts exactly as reckoned (K4 forward
      2 x 36 per packed micro-batch, dq and dk/dv 36; K1 36 per prefill
      dispatch and per log-prob micro-batch; K3 32 per vision-tower run; K5
-     36 per decode step), every K4 launch on the Hopper kernels (the route
+     36 per decode step, none on the first kernel, the engine at rl_main's
+     8-token pool blocks), every K4 launch on the Hopper kernels (the route
      counters; so in phase 11), a finite non-zero grad_norm and no skipped
      step,
      changed text weights and a bit-identical tower, an empty prefix cache
@@ -222,7 +237,8 @@ max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
 forward, dq and dk/dv (the mma.sync kernels), pr5_ms for K6 (the
 mma.sync kernel, beside int_mm_ms, torch._int_mm alone), pr1_ms for K1
 (the mma.sync attention_lengths.cu), pr5_ms for K2 (the mma.sync
-attention_lengths_bwd.cu), pr6_ms for RMSNorm (the block-per-row kernel);
+attention_lengths_bwd.cu), pr6_ms for RMSNorm (the block-per-row kernel),
+legacy_ms for K5 and K5 int8 (the first kernel, csrc/paged_decode.cu);
 every checked shape under "checks"), and
 {"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11;
 it ends without the ok line and exits 1.
@@ -387,21 +403,31 @@ def phase0_environment():
                            "synthetic pages and the training parquet")
 
 
+# sources in which a register spill fails the run (every Hopper source and
+# K7's norms), and those in which a stack frame does (the new K5)
+NO_SPILLS = ("hopper", "norms")
+NO_STACK = ("paged_decode_hopper",)
+
+
 def phase1_build():
     from visrag_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
     dt = time.perf_counter() - t0
-    spills = {}
+    faults = {}
     for name, path in zip(_build.SOURCES, paths):
-        regs, spilled = _build.ptxas_report(name)
+        regs, spilled, stacked = _build.ptxas_report(name)
         log(f"[1] built {path.name} (registers per kernel: "
-            f"{', '.join(map(str, regs))}; spill-free: {not spilled})"
+            f"{', '.join(map(str, regs))}; spill-free: {not spilled}; "
+            f"kernels with a stack frame: {len(stacked)})"
             + (f" spills in {spilled}" if spilled else ""))
-        if spilled and "hopper" in name:
-            spills[name] = spilled
-    if spills:
-        raise RuntimeError(f"Hopper kernels spill registers: {spills}")
+        if spilled and any(k in name for k in NO_SPILLS):
+            faults[name] = {"spills": spilled}
+        if stacked and name in NO_STACK:
+            faults.setdefault(name, {})["stack"] = stacked
+    if faults:
+        raise RuntimeError(f"kernels spill registers or use a stack frame: "
+                           f"{faults}")
     log(f"[1] {len(paths)} sources built in {dt:.2f} s, one nvcc each")
     return dt
 
@@ -1675,19 +1701,155 @@ def _timed_check(tag, label, kern, plain, lib, out, ref, rows, bound):
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
-def _decode_table(lens, perm, n_blocks, bs):
-    """The engine's decode table for these lengths: a power-of-two width
-    with room for a 16-step chunk, pool rows from `perm` (40 per slot), the
-    null block (the pool's last row) past each length. → (table, width)."""
+# K5's shapes: the 7B engine's decode (phase 7's four live requests at the
+# end of generation, 28/4, d 128) at the engine's 128-token blocks and at
+# 8-token blocks; MiniCPM-2B's decode (36/36, d 64, 4 slots up to 4,096);
+# the 3B rollout's (16/2, d 128, 8-token blocks, 8 slots up to 16,536).
+# (label, lengths or None for phase 7's, heads, kv heads, d, block size,
+# edge tail); each shape is checked again at lengths 1, bs, bs + 1 and the
+# edge tail.
+K5_SHAPES = (("7B decode", None, 28, 4, 128, 128, 4000),
+             ("7B decode bs 8", None, 28, 4, 128, 8, 4000),
+             ("MiniCPM-2B decode", [4096, 3371, 2050, 777], 36, 36, 64, 128,
+              4096),
+             ("3B rollout bs 8", [16536, 15064, 12011, 9007, 6005, 3003,
+                                  1501, 650], 16, 2, 128, 8, 16536))
+
+
+def _k5_pools(gen, n_blocks, kvh, bs, d, quantized):
+    """Random bf16 pools, or int8 pools holding random values quantized on
+    write. → (pools, the bf16 pools of the same values)."""
+    from visrag_tpu_torch.serving import paged_kv as pk
+    pools, bf16 = [], []
+    for _ in range(2):
+        x = torch.randn(n_blocks, kvh, bs, d, generator=gen,
+                        device=DEV).bfloat16()
+        if quantized:
+            pool = pk.KVQuant(torch.empty(x.shape, dtype=torch.int8,
+                                          device=DEV),
+                              torch.empty(x.shape[:-1], device=DEV))
+            pk.pool_write_rows(pool, torch.arange(n_blocks, device=DEV), x)
+            pools.append(pool)
+            bf16.append(pk.pool_gather(pool, torch.arange(n_blocks,
+                                                          device=DEV)))
+        else:
+            pools.append(x)
+            bf16.append(x)
+        del x
+    return pools, bf16
+
+
+def _k5_check(tag, gen, label, lens, h, kvh, d, bs, quantized, timed):
+    """K5 (int8 pools if `quantized`) against its plain version at these
+    lengths, through the engine's table (a power-of-two width with room for
+    a 16-step chunk, pool rows at random, the null block past each length):
+    finite; bf16 within RTOL_BLOCK relative and 2e-2 max abs, int8 within
+    RTOL_K5_INT8 relative. Timed: the kernel, in turns with the first
+    kernel (legacy=True) where it takes the shape (d = bs = 128), the
+    plain version, gather + SDPA (not one call: no single call computes
+    K5), the bound, and for int8 the kernel on bf16 pools of the
+    dequantized values. → the check record."""
+    from visrag_tpu_torch.serving import paged_kv as pk
+    n_blocks = sum(-(-n // bs) for n in lens) + 1
+    pools, bf16 = _k5_pools(gen, n_blocks, kvh, bs, d, quantized)
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=DEV)
     mb = 1
     while mb * bs < max(lens) + 17:
         mb *= 2
     table = torch.full((len(lens), mb), n_blocks - 1, dtype=torch.int32,
                        device=DEV)
+    at = 0
     for i, n in enumerate(lens):
         used = -(-n // bs)
-        table[i, :used] = perm[i * 40:i * 40 + used].int()
-    return table, mb
+        table[i, :used] = perm[at:at + used].int()
+        at += used
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    q = torch.randn(len(lens), h, d, generator=gen, device=DEV).bfloat16()
+    kern = lambda: pk.paged_decode_attention(q, *pools, table, lens_t)
+    plain = lambda: pk.paged_decode_reference(q, *pools, table, lens_t,
+                                              d ** -0.5)
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out.float()).all())
+    rel = _rel(out, ref)
+    max_abs = (out.float() - ref.float()).abs().max().item()
+    ok = finite and (rel <= RTOL_K5_INT8 if quantized else
+                     rel <= RTOL_BLOCK and max_abs <= ATOL_KERNEL)
+    splits = pk.split_plan(len(lens), kvh, mb, bs, pk._occupancy(
+        torch.cuda.current_device(), d, quantized))
+    bounds = pk.split_bounds(lens, mb, bs, splits)
+    busy = int((bounds[..., 1] > bounds[..., 0]).sum()) * kvh
+    tokens = sum(lens)
+    row = d + 4 if quantized else 2 * d
+    bound = _bound(2 * 2 * tokens * h * d,
+                   tokens * kvh * row * 2 + 2 * len(lens) * h * d * 2
+                   + table.numel() * 4)
+    form = "int8" if quantized else "bf16"
+    rec = {"shape": f"{label} slots={len(lens)} H={h}/{kvh} d={d} bs={bs} "
+                    f"table width {mb} lengths {lens}",
+           "max_abs_err": max_abs, "rel_err": rel, "splits": splits,
+           "blocks_with_work": busy, "blocks": splits * kvh * len(lens),
+           "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1]}
+    line = (f"{tag} K5 {form} {rec['shape']}: rel_err {rel:.4g} (bound "
+            f"{RTOL_K5_INT8 if quantized else RTOL_BLOCK}), max_abs_err "
+            f"{max_abs:.4g}, finite {finite} | {splits} splits (cluster "
+            f"size), {busy} of {rec['blocks']} blocks hold work")
+    if timed:
+        if d == bs == 128:
+            rec["ms"], rec["legacy_ms"], rec["turns"] = _turns(
+                kern, lambda: pk.paged_decode_attention(
+                    q, *pools, table, lens_t, legacy=True))
+        else:
+            rec["ms"] = cuda_ms(kern)
+        rec["plain_ms"] = cuda_ms(plain)
+        keep = (torch.arange(mb * bs, device=DEV)[None]
+                < lens_t[:, None])[:, None, None, :]
+        idx = table.long()
+
+        def gather_sdpa():
+            k_, v_ = (p_[idx].transpose(1, 2).reshape(len(lens), kvh, -1, d)
+                      for p_ in bf16)
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k_, v_, attn_mask=keep, enable_gqa=True)
+        rec["gather_sdpa_ms"] = cuda_ms(gather_sdpa)
+        line += (f" | kernel {rec['ms']:.4f} ms"
+                 + (f" (in turns with the first kernel, legacy=True: "
+                    f"{rec['legacy_ms']:.4f} ms; {rec['turns']})"
+                    if "legacy_ms" in rec else "")
+                 + f", plain {rec['plain_ms']:.4f} ms, gather + SDPA (not "
+                 f"one call) {rec['gather_sdpa_ms']:.4f} ms, bound "
+                 f"{bound[0]:.4f} ms ({bound[1]})")
+        if quantized:
+            rec["bf16_ms"] = cuda_ms(lambda: pk.paged_decode_attention(
+                q, *bf16, table, lens_t))
+            line += f", K5 bf16 on the dequantized pools {rec['bf16_ms']:.4f}"
+        line += f" (CUDA events) | {smi()}"
+    log(line)
+    if not ok:
+        raise RuntimeError(f"K5 {form} {label}: kernel disagrees with its "
+                           f"plain version (rel_err {rel}, max_abs_err "
+                           f"{max_abs}, finite {finite})")
+    del pools, bf16, q, table
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _k5_checks(tag, gen, live, tc, quantized):
+    """K5 at K5_SHAPES (phase 7's live lengths where the shape takes
+    them), timed, then each shape at lengths 1, bs, bs + 1 and its edge
+    tail. The 7B decode shape's heads come from `tc`. → check records, the
+    7B decode shape first."""
+    out = []
+    for label, lens, h, kvh, d, bs, tail in K5_SHAPES:
+        if lens is None:
+            lens, h, kvh, d = (live, tc.num_attention_heads,
+                               tc.num_key_value_heads, tc.head_dim)
+        out.append(_k5_check(tag, gen, label, lens, h, kvh, d, bs, quantized,
+                             True))
+        edge = [1, bs, bs + 1, tail] + lens[4:]
+        out.append(_k5_check(tag, gen, f"{label} edges", edge, h, kvh, d, bs,
+                             quantized, False))
+    return out
 
 
 def phase6_serving_kernels(gen, reqs, cfg):
@@ -1780,44 +1942,9 @@ def phase6_serving_kernels(gen, reqs, cfg):
         del q, k, v, out, ref, mask, qt, kt, vt, o_old
     torch.cuda.empty_cache()
 
-    # K5 at the engine's decode shape: the four live requests' lengths at
-    # the end of generation, a power-of-two table width, null blocks past
-    # each length; then lengths 1, bs, bs + 1
-    bs, n_blocks = 128, 513
-    kp, vp = (torch.randn(n_blocks, kvh, bs, d, generator=gen, device=DEV)
-              .bfloat16() for _ in range(2))
     live = [len(by[n]["input_ids"]) + SERVE_MAX_TOKENS
             for n in ("pages3_0", "pages3_1", "pages3_2", "page1_small")]
-    perm = torch.randperm(n_blocks - 1, device=DEV)
-    for label, lens in (("decode", live), ("edge", [1, bs, bs + 1, 4000])):
-        table, mb = _decode_table(lens, perm, n_blocks, bs)
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
-        q = torch.randn(4, h, d, generator=gen, device=DEV).bfloat16()
-        kern = lambda: pk.paged_decode_attention(q, kp, vp, table, lens_t)
-        plain = lambda: pk.paged_decode_reference(q, kp, vp, table, lens_t,
-                                                  d ** -0.5)
-        out, ref = kern(), plain()
-        keep = (torch.arange(mb * bs, device=DEV)[None]
-                < lens_t[:, None])[:, None, None, :]
-        gather_sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kp[table.long()].transpose(1, 2).reshape(
-                4, kvh, -1, d), vp[table.long()].transpose(1, 2).reshape(
-                4, kvh, -1, d), attn_mask=keep, enable_gqa=True))
-        tokens = sum(lens)
-        bound = _bound(2 * 2 * tokens * h * d,
-                       tokens * kvh * d * 2 * 2 + 2 * 4 * h * d * 2
-                       + table.numel() * 4)
-        check = _timed_check(
-            "K5", f"{label} slots=4 H={h}/{kvh} d={d} bs={bs} table width "
-            f"{mb} lengths {lens}", kern, plain, None, out, ref, slice(None),
-            bound)
-        check["gather_sdpa_ms"] = gather_sdpa
-        log(f"[6] K5 {label}: gather + SDPA (not one call) {gather_sdpa:.4f} "
-            f"ms")
-        res["paged"].append(check)
-        del keep
-    del kp, vp
-    torch.cuda.empty_cache()
+    res["paged"] = _k5_checks("[6]", gen, live, tc, quantized=False)
     _qwen_full_width_blocks(gen, cfg, vb)
     return res
 
@@ -2038,7 +2165,8 @@ def phase7_serving(reqs, cfg):
     run_s = time.perf_counter() - t0
     launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
                 "paged": pk.launches, "flat": al.flat_launches,
-                "fwd_lse": al.fwd_lse_launches}
+                "fwd_lse": al.fwd_lse_launches,
+                "paged_legacy": pk.legacy_launches}
     _lengths_routes("[7]", launches)
     norm_launches = norms.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2061,7 +2189,8 @@ def phase7_serving(reqs, cfg):
     layers = cfg.text.num_hidden_layers
     want = {"stacked": layers * whole,
             "kvgrid": cfg.vision.depth * vision_runs,
-            "paged": layers * steps, "flat": 0, "fwd_lse": 0}
+            "paged": layers * steps, "flat": 0, "fwd_lse": 0,
+            "paged_legacy": 0}
     if launches != want:
         raise RuntimeError(f"serving launches {launches} != {want}")
 
@@ -2132,66 +2261,15 @@ RTOL_INT8_LOGITS = 0.1    # decode logits over int8 vs bf16 pools: K/V
 
 
 def _k5_int8_checks(gen, reqs, cfg):
-    """K5's int8 variant against its plain version at the engine's decode
-    shape (the four live requests' final lengths, null blocks past each
-    length) and at lengths 1, 127, 128 and 129 (a table tail of null
-    blocks), timed beside K5 on bf16 pools holding the dequantized values.
-    → check records."""
-    from visrag_tpu_torch.serving import paged_kv as pk
-    tc = cfg.text
-    h, kvh, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    """K5's int8 variant against its plain version at phase 6's K5 shapes
+    (the 7B decode shape at the live requests' final lengths, 128- and
+    8-token blocks, MiniCPM-2B's, the 3B rollout's) and at lengths 1, bs,
+    bs + 1 at each, timed beside K5 on bf16 pools holding the dequantized
+    values. → check records."""
     by = {name: req for name, req, _ in reqs}
-    bs, n_blocks = 128, 513
-    pools, bf16 = [], []
-    for _ in range(2):
-        pool = pk.KVQuant(torch.empty((n_blocks, kvh, bs, d),
-                                      dtype=torch.int8, device=DEV),
-                          torch.empty((n_blocks, kvh, bs), device=DEV))
-        pk.pool_write_rows(pool, torch.arange(n_blocks, device=DEV),
-                           torch.randn(n_blocks, kvh, bs, d, generator=gen,
-                                       device=DEV).bfloat16())
-        pools.append(pool)
-        bf16.append(pk.pool_gather(pool, torch.arange(n_blocks, device=DEV)))
     live = [len(by[n]["input_ids"]) + SERVE_MAX_TOKENS
             for n in ("pages3_0", "pages3_1", "pages3_2", "page1_small")]
-    perm = torch.randperm(n_blocks - 1, generator=gen, device=DEV)
-    out_checks = []
-    for label, lens in (("decode", live), ("edge", [1, 127, 128, 129])):
-        table, mb = _decode_table(lens, perm, n_blocks, bs)
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
-        q = torch.randn(4, h, d, generator=gen, device=DEV).bfloat16()
-        kern = lambda: pk.paged_decode_attention(q, *pools, table, lens_t)
-        plain = lambda: pk.paged_decode_reference(q, *pools, table, lens_t,
-                                                  d ** -0.5)
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        finite = bool(torch.isfinite(out.float()).all())
-        rel, max_abs = _rel(out, ref), (out.float() - ref.float()).abs() \
-            .max().item()
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        bf16_ms = cuda_ms(lambda: pk.paged_decode_attention(q, *bf16, table,
-                                                            lens_t))
-        tokens = sum(lens)
-        bound = _bound(2 * 2 * tokens * h * d,
-                       tokens * kvh * (d + 4) * 2 + 2 * 4 * h * d * 2
-                       + table.numel() * 4)
-        log(f"[7b] K5 int8 {label} slots=4 H={h}/{kvh} d={d} bs={bs} table "
-            f"width {mb} lengths {lens}: rel_err {rel:.4g} (bound "
-            f"{RTOL_K5_INT8}), max_abs_err {max_abs:.4g}, finite {finite} | "
-            f"kernel {ms:.4f} ms, K5 bf16 on the dequantized pools "
-            f"{bf16_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}) (CUDA events) | {smi()}")
-        if not finite or rel > RTOL_K5_INT8:
-            raise RuntimeError(f"K5 int8 {label}: kernel disagrees with its "
-                               f"plain version ({rel})")
-        out_checks.append({
-            "shape": f"{label} slots=4 H={h}/{kvh} d={d} lengths {lens}",
-            "max_abs_err": max_abs, "rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None, "bf16_ms": bf16_ms,
-            "bound_ms": bound[0], "bound_by": bound[1]})
-    del pools, bf16
-    torch.cuda.empty_cache()
-    return out_checks
+    return _k5_checks("[7b]", gen, live, cfg.text, quantized=True)
 
 
 def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
@@ -2233,6 +2311,7 @@ def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
                 "paged": pk.launches, "paged_int8": pk.int8_launches,
+                "paged_legacy": pk.legacy_launches,
                 "int8_gemm": mi.launches}
     layers = cfg.text.num_hidden_layers
     log_s = "".join(engine.sched_log)
@@ -2240,7 +2319,8 @@ def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
     whole = counts.get("_prefill_one", 0) + counts.get("_prefill_many", 0)
     vision_runs = sum(1 for _, req, _ in reqs if "vision_batch" in req)
     want = {"stacked": layers * whole, "kvgrid": cfg.vision.depth * vision_runs,
-            "paged": 0, "paged_int8": layers * steps, "int8_gemm": 0}
+            "paged": 0, "paged_int8": layers * steps, "paged_legacy": 0,
+            "int8_gemm": 0}
     if launches != want:
         raise RuntimeError(f"int8 serving launches {launches} != {want}")
     image_id = StandInTokenizer.SPECIAL["<|image_pad|>"]
@@ -2990,6 +3070,7 @@ def phase9_rl(rows_path, cfg, tmp):
         u()
     launches = {**al.launch_counts(), "kvgrid": kg.launches,
                 "kvgrid_lse": kg.lse_launches, "paged": pk.launches,
+                "paged_legacy": pk.legacy_launches,
                 **seg.launch_counts()}
     _lengths_routes("[9]", launches)
     _segment_routes("[9]", launches)
@@ -3001,6 +3082,10 @@ def phase9_rl(rows_path, cfg, tmp):
 
     layers, depth = cfg.text.num_hidden_layers, cfg.vision.depth
     engine = trainer._engine
+    if engine.block_size != 8:
+        raise RuntimeError(f"the rollout engine's block size is "
+                           f"{engine.block_size}: rl_main's max_len "
+                           f"{engine.max_len} should give the JAX driver's 8")
     micro_n = counts["_pack_micro"]
     want = {"flat": 0, "fwd_lse": 0, "dq": 0, "dkv": 0, "kvgrid_lse": 0,
             "stacked": layers * (counts.get("_prefill_one", 0)
@@ -3008,6 +3093,7 @@ def phase9_rl(rows_path, cfg, tmp):
                                  + counts["_logp_fn"]),
             "kvgrid": depth * counts["encode_images"],
             "paged": layers * counts["_decode_chunk"] * engine.chunk,
+            "paged_legacy": 0,
             "seg_fwd": 2 * layers * micro_n, "seg_dq": layers * micro_n,
             "seg_dkv": layers * micro_n}
     if launches != want:
@@ -3041,7 +3127,9 @@ def phase9_rl(rows_path, cfg, tmp):
         f"{n_train / 1e9:.3f}B trained parameters + frozen tower + frozen "
         f"reference policy (init {init_s:.1f} s), fp32 AdamW states, lr "
         f"{rcfg.actor.lr} | engine {engine.num_slots} slots, max_len "
-        f"{engine.max_len}, chunked prefill {engine.chunk_tokens}, prefix "
+        f"{engine.max_len}, {engine.block_size}-token pool blocks (every K5 "
+        f"launch on the new kernel, none on the first), chunked prefill "
+        f"{engine.chunk_tokens}, prefix "
         f"cache on | {RL_STEPS} steps of 4 prompts x n 4 (prompt tokens "
         f"{prompt_tokens}), {RL_RESPONSE_TOKENS} response tokens | calls "
         f"{counts} | launches {launches} (= reckoned) | {moved} of "
@@ -3351,7 +3439,8 @@ def phase11_gae(rows_path, tmp):
     run_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {**al.launch_counts(), "kvgrid": kg.launches,
-                "paged": pk.launches, **seg.launch_counts(),
+                "paged": pk.launches, "paged_legacy": pk.legacy_launches,
+                **seg.launch_counts(),
                 **norms.launch_counts()}
     k2_by_d = _lengths_routes("[11]", launches)
     _segment_routes("[11]", launches)
@@ -3378,7 +3467,8 @@ def phase11_gae(rows_path, tmp):
     if seen[0]["critic"] == critic0 or seen[1]["critic"] == seen[0]["critic"]:
         raise RuntimeError("the critic's weights did not move")
     if not all(launches[k] > 0 for k in ("stacked", "fwd_lse", "dq", "dkv",
-                                          "kvgrid", "paged", "rmsnorm")):
+                                          "kvgrid", "paged", "rmsnorm")) \
+            or launches["paged_legacy"]:
         raise RuntimeError(f"GAE launches {launches}")
     # resume: zero the critic's weights and moments, restore them
     states = [st for st in critic.optimizer.state.values()]
@@ -3636,6 +3726,9 @@ def main(argv=None):
                         **{k: first[k] for k in keys},
                         **({"pr1_ms": first["pr1_ms"]}
                            if kind == "gqa" else {}),
+                        **({"legacy_ms": first["legacy_ms"],
+                            "legacy_source": pk.LEGACY_SOURCE}
+                           if kind == "paged" else {}),
                         "checks": qwen_results[kind]})
     kernels.append({"name": "int8_matmul_fused", "route": "cuda",
                     "source": mi.SOURCE, "replaces": INT8_REPLACES,
@@ -3649,6 +3742,8 @@ def main(argv=None):
                     "replaces": REPLACES["paged"] + " (quantized=True)",
                     "launches": k5q_launches["paged_int8"],
                     **{k: k5q_checks[0][k] for k in keys},
+                    "legacy_ms": k5q_checks[0]["legacy_ms"],
+                    "legacy_source": pk.LEGACY_SOURCE,
                     "checks": k5q_checks})
     kernels += segment_kernel_rows(seg_results, rl_launches)
     kernels += norm_kernel_rows(norm_results, sft_launches, serve_launches)

@@ -222,6 +222,38 @@ def test_paged_plain_matches_jax_bf16_gqa7():
                                rtol=1e-2)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("lengths", [(1, 8, 9, 300), (5, 150, 301)])
+def test_paged_plain_matches_jax_minicpm_grouping_bs8(lengths, dtype):
+    """MiniCPM-2B's grouping (one query head a kv head, d = 64; 6/6 heads
+    here) on 8-token pool blocks, the block size the engines take for the
+    RL rollout: the plain version against the JAX XLA path and the Pallas
+    kernel in interpret mode, on shared inputs. fp32: 1e-5 against XLA,
+    2e-2 / 8e-3 against the kernel (its bf16 operands), as above; bf16
+    pools: 1e-2 against both, as the 7-head bf16 test."""
+    rng = np.random.default_rng(len(lengths) + len(dtype))
+    q, kp, vp, table, lens = _pool_case(rng, len(lengths), 6, 6, 64, 8, 40,
+                                        list(lengths))
+    if dtype == "bf16":
+        tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, kp, vp))
+        jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, kp, vp))
+    else:
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, kp, vp))
+        jq, jk, jv = (jnp.asarray(x) for x in (q, kp, vp))
+    got = pk.paged_decode_attention(tq, tk, tv, torch.from_numpy(table),
+                                    torch.from_numpy(lens)).float().numpy()
+    jargs = (jq, jk, jv, jnp.asarray(table), jnp.asarray(lens))
+    xla = np.asarray(_xla_paged_decode(*jargs, 1.0 / np.sqrt(64)),
+                     np.float32)
+    kern = np.asarray(jpaged(*jargs, interpret=True), np.float32)
+    if dtype == "bf16":
+        np.testing.assert_allclose(got, xla, atol=1e-2, rtol=1e-2)
+        np.testing.assert_allclose(got, kern, atol=1e-2, rtol=1e-2)
+    else:
+        np.testing.assert_allclose(got, xla, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got, kern, rtol=2e-2, atol=8e-3)
+
+
 def test_paged_writes_and_split_plan():
     pool = torch.zeros(6, 2, 4, 3)
     table = torch.tensor([[3, 1, 5], [2, 0, 4]], dtype=torch.int32)
@@ -230,9 +262,21 @@ def test_paged_writes_and_split_plan():
     torch.testing.assert_close(pool[1, :, 1], x[0])
     torch.testing.assert_close(pool[2, :, 0], x[1])
     assert pool.abs().sum() == x.abs().sum()
-    for slots, kvh, mb in ((4, 4, 64), (4, 4, 8), (1, 4, 128), (8, 2, 1)):
-        splits, per = pk.split_plan(slots, kvh, mb)
-        assert splits * per >= mb > (splits - 1) * per
+    # the plan: a cluster of 1..MAX_SPLITS blocks a (slot, kv head), at
+    # most one a 64-token tile of the table, the grid one wave; the bounds
+    # cover each slot's tokens below its length once
+    clusters = tuple(264 // c for c in range(1, pk.MAX_SPLITS + 1))
+    for slots, kvh, mb, bs in ((4, 4, 64, 128), (4, 4, 8, 8),
+                               (1, 4, 128, 16), (8, 2, 1, 1)):
+        splits = pk.split_plan(slots, kvh, mb, bs, clusters)
+        assert 1 <= splits <= min(pk.MAX_SPLITS, -(-mb * bs // pk.TILE))
+        assert splits == 1 or slots * kvh <= clusters[splits - 1]
+        lens = torch.tensor([mb * bs, 1] + [mb * bs // 2] * (slots - 2))[
+            :slots]
+        bounds = pk.split_bounds(lens, mb, bs, splits)
+        assert (bounds[:, 0, 0] == 0).all()
+        assert torch.equal(bounds[:, -1, 1], lens)
+        assert torch.equal(bounds[:, 1:, 0], bounds[:, :-1, 1])
 
 
 def test_chunk_attention_matches_jax():
@@ -289,6 +333,38 @@ def test_kvgrid_kernel_matches_plain_on_card():
         err = (out.float() - ref.float())[0][real].abs().max().item()
         assert err <= 2e-2, err
         assert (out[0][~real] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,d,bs,lens", [
+    (36, 36, 64, 8, [1, 8, 9, 4096]),        # MiniCPM-2B, bs 8
+    (36, 36, 64, 128, [1, 128, 129, 4096]),  # MiniCPM-2B, bs 128
+    (16, 2, 128, 8, [1, 8, 9, 16536, 15064, 700, 64, 65]),   # 3B rollout
+    (28, 4, 128, 8, [4815, 4643, 4879, 650]),                # 7B, bs 8
+])
+def test_paged_kernel_new_shapes_on_card(h, kvh, d, bs, lens):
+    """K5 at the head dims, groupings and block sizes the JAX kernel takes
+    on the port's paths, lengths 1, bs and bs + 1 among them: 2e-2 max abs
+    against the plain version, finite."""
+    g = _card()
+    nb = sum(-(-n // bs) for n in lens) + 1
+    kp, vp = (torch.randn(nb, kvh, bs, d, generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
+    mb = max(-(-n // bs) for n in lens)
+    table = torch.full((len(lens), mb), nb - 1, dtype=torch.int32,
+                       device="cuda")
+    perm = torch.randperm(nb - 1, generator=g, device="cuda").int()
+    at = 0
+    for i, n in enumerate(lens):
+        used = -(-n // bs)
+        table[i, :used] = perm[at:at + used]
+        at += used
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), h, d, generator=g, device="cuda").bfloat16()
+    out = pk.paged_decode_attention(q, kp, vp, table, lengths)
+    ref = pk.paged_decode_reference(q, kp, vp, table, lengths, d ** -0.5)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.gpu

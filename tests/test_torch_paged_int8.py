@@ -121,13 +121,19 @@ def _decode_case(seed, h=8, kvh=2, d=64, bs=128, mb=4,
             np.asarray(lengths, np.int32))
 
 
-@pytest.mark.parametrize("case", ["mixed", "edges"])
+@pytest.mark.parametrize("case", ["mixed", "edges", "minicpm_bs8"])
 def test_quantized_decode_matches_pallas_interpret(case):
     """The plain int8 decode (the port's CPU path) against the JAX Pallas
     kernel's quantized branch in interpret mode and against its XLA path,
-    on the same pools; lengths straddling block edges and a length of 1."""
-    lengths = (5, 300, 512) if case == "mixed" else (1, 128, 129, 257)
-    q, (kp, vp), table, lens = _decode_case(2, lengths=lengths)
+    on the same pools; lengths straddling block edges and a length of 1;
+    and MiniCPM-2B's grouping (one query head a kv head, d 64; 6/6 here) on
+    8-token blocks, lengths 1, 8, 9 and 300."""
+    if case == "minicpm_bs8":
+        q, (kp, vp), table, lens = _decode_case(
+            3, h=6, kvh=6, d=64, bs=8, mb=40, lengths=(1, 8, 9, 300))
+    else:
+        lengths = (5, 300, 512) if case == "mixed" else (1, 128, 129, 257)
+        q, (kp, vp), table, lens = _decode_case(2, lengths=lengths)
     before = (pk.launches, pk.int8_launches)
     got = pk.paged_decode_attention(torch.from_numpy(q), kp, vp,
                                     torch.from_numpy(table),
@@ -172,6 +178,48 @@ def test_engine_refuses_other_cache_dtypes(models):  # noqa: F811
     with pytest.raises(ValueError):
         Engine(models[2], num_slots=2, max_len=64, prompt_buckets=(16,),
                cache_dtype="float16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,d,bs,lens", [
+    (36, 36, 64, 8, [1, 8, 9, 4096]),        # MiniCPM-2B, bs 8
+    (16, 2, 128, 8, [1, 8, 9, 16536, 15064, 700, 64, 65]),   # 3B rollout
+    (28, 4, 128, 8, [4815, 4643, 4879, 650]),                # 7B, bs 8
+])
+def test_int8_kernel_new_shapes_on_card(h, kvh, d, bs, lens):
+    """K5's int8 variant at the head dims, groupings and block sizes of
+    the port's paths, lengths 1, bs and bs + 1 among them: 0.0035 relative
+    Frobenius error against its plain version, finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    nb = sum(-(-n // bs) for n in lens) + 1
+    pools = []
+    for _ in range(2):
+        pool = pk.KVQuant(torch.zeros((nb, kvh, bs, d), dtype=torch.int8,
+                                      device="cuda"),
+                          torch.zeros((nb, kvh, bs), device="cuda"))
+        pk.pool_write_rows(pool, torch.arange(nb, device="cuda"),
+                           torch.randn(nb, kvh, bs, d, generator=g,
+                                       device="cuda"))
+        pools.append(pool)
+    mb = max(-(-n // bs) for n in lens)
+    table = torch.full((len(lens), mb), nb - 1, dtype=torch.int32,
+                       device="cuda")
+    perm = torch.randperm(nb - 1, generator=g, device="cuda").int()
+    at = 0
+    for i, n in enumerate(lens):
+        used = -(-n // bs)
+        table[i, :used] = perm[at:at + used]
+        at += used
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), h, d, generator=g, device="cuda").bfloat16()
+    out = pk.paged_decode_attention(q, *pools, table, lengths)
+    ref = pk.paged_decode_reference(q, *pools, table, lengths, d ** -0.5)
+    assert torch.isfinite(out.float()).all()
+    rel = (torch.linalg.norm((out - ref).float())
+           / torch.linalg.norm(ref.float())).item()
+    assert rel <= 3.5e-3, rel
 
 
 @pytest.mark.gpu

@@ -215,6 +215,41 @@ def shared():
                         {"params": convert_qwen25_vl(dict(ref.state_dict()))})
 
 
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_engine_settings_match_the_jax_driver(shared, kv):
+    """The rollout engine of the port's rl_main (engine_settings) is the
+    JAX driver's (the engine_kwargs of visrag_tpu/driver/rl_main.py):
+    max_len = prompt + response, 16,536 at the paper config, not rounded,
+    so both engines take the same block size (gcd(128, buckets, max_len) =
+    8), table width, buckets, chunked prefill, prefix cache and pools."""
+    from visrag_tpu.config import RLConfig as JRLConfig
+    from visrag_tpu.models.qwen25_vl import Qwen25VL as JQwen
+    from visrag_tpu.models.qwen25_vl import Qwen25VLConfig as JConfig
+    from visrag_tpu.serving.engine import Engine as JEngine
+    from visrag_tpu_torch.driver.rl_main import engine_settings
+    from visrag_tpu_torch.serving.engine import Engine
+    cfg = RLConfig()
+    cfg = dc.replace(cfg, rollout=dc.replace(cfg.rollout, kv_cache_dtype=kv))
+    jr = dc.replace(JRLConfig().rollout, kv_cache_dtype=kv)
+    cpt = jr.chunked_prefill_tokens
+    if cpt is None and jr.max_prompt_length >= 4096:
+        cpt = 2048
+    jkw = dict(num_slots=8, max_len=jr.max_prompt_length +
+               jr.max_response_length, chunked_prefill_tokens=cpt,
+               prefix_cache=bool(jr.prefix_cache and cpt is not None),
+               cache_dtype=jr.kv_cache_dtype)
+    kw = engine_settings(cfg)
+    assert kw["max_len"] == jkw["max_len"] == 16536
+    je = JEngine(JQwen(JConfig.tiny()), shared, **jkw)
+    pe = Engine(_port_model(shared), **kw)
+    for attr in ("block_size", "max_blocks", "max_len", "num_slots",
+                 "chunk_tokens", "kv_quant"):
+        assert getattr(pe, attr) == getattr(je, attr), attr
+    assert (pe.block_size, pe.max_blocks) == (8, 2067)
+    assert list(pe.prompt_buckets) == list(je.prompt_buckets)
+    assert (pe._prefix_cache is None) == (je._prefix_cache is None)
+
+
 def _port_model(shared, **text_over):
     cfg = Qwen25VLConfig.tiny()
     if text_over:

@@ -186,6 +186,39 @@ def test_flash_attention_dispatch():
         seg.flash_attention(q, k, v, ids[:, :5], ids)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_without_ids_at_d72_runs_k1(causal, monkeypatch):
+    """No ids, Sq == Sk and d = 72 (SigLIP's bi-tower, a head dim K4 does
+    not compile): flash_attention runs the valid-length path (K1, and K2
+    for the gradient) at full length, and equals the JAX flash_attention on
+    shared inputs, values (TOL) and gradients (GRAD_TOL)."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    rng = np.random.default_rng(17)
+    b, s, h, hk, d = 2, 20, 4, 2, 72
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hk, d)).astype(np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    seen, real = [], al.flash_fwd_lengths
+
+    def spy(*args):
+        seen.append(args[3].tolist())
+        return real(*args)
+    monkeypatch.setattr(al, "flash_fwd_lengths", spy)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = seg.flash_attention(tq, tk, tv, causal=causal)
+    assert seen == [[s] * b]
+    (out * torch.from_numpy(do)).sum().backward()
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    want = jflash(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    grads = jax.grad(lambda a, b_, c: (jflash(a, b_, c, causal=causal)
+                                       * do).sum(), argnums=(0, 1, 2))(
+        jq, jk, jv)
+    for got, g in zip((tq.grad, tk.grad, tv.grad), grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(g), **GRAD_TOL)
+
+
 def test_k3_backward_matches_jax_vjp():
     """The port's K3 (plain version, autograd) against jax.grad of the
     banded Pallas kernel in interpret mode, whose VJP replays the segment

@@ -1,15 +1,14 @@
-"""Build K2 (valid-length backward, on the Hopper core), K5 (paged decode,
-bf16 and int8) and K6 (the int8 GEMM, on wgmma s8 and TMA), print the
-compiler's report, and hold each kernel against its plain PyTorch version
-on the card.
+"""Build K2 (valid-length backward, on the Hopper core) and K6 (the int8
+GEMM, on wgmma s8 and TMA), print the compiler's report, and hold each
+kernel against its plain PyTorch version on the card (K5:
+tools/torch_check_paged.py).
 
-    python3 tools/torch_check_int8.py [--time] [--only k2|k5|k6]
+    python3 tools/torch_check_int8.py [--time] [--only k2|k6]
 
 A short first check for these kernels: registers and spills from ptxas,
 then K2 at d = 64 / 72 / 128 with grouped kv heads (16/2, 28/4), K6 at the
 encode's GEMM shapes and at edge shapes (odd N, N = 1, M = 1, K not a
-multiple of 16, fp32 output), bit for bit, K5 int8 and bf16 at the 7B
-decode grouping with edge lengths. With --time it also times them with
+multiple of 16, fp32 output), bit for bit. With --time it also times them with
 CUDA events (median of 10), K6 in turns with the mma.sync kernel beside
 torch._int_mm alone and with the scaling. Needs one
 CUDA card; exits 1 on any disagreement.
@@ -31,10 +30,9 @@ from visrag_tpu_torch.ops import _build
 from visrag_tpu_torch.ops import attention_lengths as al
 from visrag_tpu_torch.ops import matmul_int8 as mi
 from visrag_tpu_torch.ops import quant
-from visrag_tpu_torch.serving import paged_kv as pk
 
 SOURCES = ("attention_lengths_hopper", "attention_lengths_bwd_hopper",
-           "paged_decode", "matmul_int8_hopper", "matmul_int8")
+           "matmul_int8_hopper", "matmul_int8")
 DEV = "cuda"
 
 
@@ -140,53 +138,10 @@ def check_k6(name, m, k, n, do_time, bias=True):
     return ok
 
 
-def check_k5(name, lens, quantized, do_time, h=28, kvh=4, d=128, bs=128):
-    g = torch.Generator(device=DEV).manual_seed(len(name) + quantized)
-    nb = sum(-(-n // bs) for n in lens) + 2
-    pools = []
-    for _ in range(2):
-        x = torch.randn(nb, kvh, bs, d, generator=g, device=DEV)
-        if quantized:
-            pool = pk.KVQuant(torch.empty(x.shape, dtype=torch.int8,
-                                          device=DEV),
-                              torch.empty(x.shape[:-1], device=DEV))
-            pk.pool_write_rows(pool, torch.arange(nb, device=DEV), x)
-        else:
-            pool = x.bfloat16()
-        pools.append(pool)
-    mb = 1
-    while mb * bs < max(lens) + 17:
-        mb *= 2
-    table = torch.full((len(lens), mb), nb - 1, dtype=torch.int32,
-                       device=DEV)
-    perm = torch.randperm(nb - 1, generator=g, device=DEV)
-    at = 0
-    for i, n in enumerate(lens):
-        used = -(-n // bs)
-        table[i, :used] = perm[at:at + used].int()
-        at += used
-    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
-    q = torch.randn(len(lens), h, d, generator=g, device=DEV).bfloat16()
-    out = pk.paged_decode_attention(q, *pools, table, lens_t)
-    ref = pk.paged_decode_reference(q, *pools, table, lens_t, d ** -0.5)
-    torch.cuda.synchronize()
-    err = rel(out, ref)
-    tol = 3.5e-3 if quantized else 2e-2
-    ok = err <= tol and bool(torch.isfinite(out.float()).all())
-    line = (f"K5 {'int8' if quantized else 'bf16'} {name} lens {lens}: rel "
-            f"{err:.4g} (bound {tol}) {'ok' if ok else 'FAIL'}")
-    if do_time:
-        t = median_ms(lambda: pk.paged_decode_attention(q, *pools, table,
-                                                        lens_t))
-        line += f" kernel={t:.4f}ms"
-    print(line, flush=True)
-    return ok
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--time", action="store_true")
-    ap.add_argument("--only", choices=("k2", "k5", "k6"))
+    ap.add_argument("--only", choices=("k2", "k6"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -195,7 +150,7 @@ def main(argv=None):
     _build.build_all(SOURCES)
     print(f"built in {time.time() - t0:.1f}s", flush=True)
     for name in SOURCES[1:]:
-        regs, spilled = _build.ptxas_report(name)
+        regs, spilled, _ = _build.ptxas_report(name)
         print(f"{name}: registers {regs}, spills {spilled or 'none'}",
               flush=True)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit "
@@ -224,10 +179,6 @@ def main(argv=None):
                               ("N = 1", 130, 256, 1), ("M = 1", 1, 2304, 2304),
                               ("K off 16", 129, 1000, 257)):
             ok &= check_k6(name, m, k, n, False)
-    if run("k5"):
-        for quantized in (True, False):
-            ok &= check_k5("decode", [4815, 4643, 4879, 650], quantized, t)
-            ok &= check_k5("edges", [1, 127, 128, 129], quantized, t)
     print("ALL OK" if ok else "SOME FAILED", flush=True)
     return 0 if ok else 1
 

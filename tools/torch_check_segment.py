@@ -214,7 +214,7 @@ def main(argv=None):
     _build.build_all(names)
     print(f"built in {time.time() - t0:.1f}s", flush=True)
     for name in names:
-        regs, spilled = _build.ptxas_report(name)
+        regs, spilled, _ = _build.ptxas_report(name)
         print(f"{name}: registers {regs}, spills {spilled or 'none'}",
               flush=True)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit "

@@ -22,9 +22,10 @@
 // the row is read from memory once; the sum (and for LayerNorm the second,
 // centred sum) is a warp-shuffle reduction, then one across the block's
 // warps through shared memory. A block has at most 512 threads and a
-// thread at most 4 vectors (1024 threads and 8 elements on the scalar
-// variant): D up to 16,384 bf16 or 8,192 fp32 elements, or 8,192 on the
-// scalar variant. Where D is not a multiple of the vector
+// thread at most 4 vectors on the bf16 vector variant, 1024 threads and 2
+// vectors on the fp32 one, 1024 threads and 8 elements on the scalar one:
+// D up to 16,384 bf16 or 8,192 fp32 elements, or 8,192 on the scalar
+// variant. Where D is not a multiple of the vector
 // width, or a pointer is not aligned for it, the wrapper picks the scalar
 // variant (VEC = 1) of the same kernel.
 //
@@ -53,11 +54,13 @@
 
 namespace {
 
-// Threads per block and chunks per thread at most: 512 x 4 for the vector
-// variant (4 x 8 floats of the row in registers, up to 128 registers a
-// thread), 1024 x 8 for the scalar one (8 floats, up to 64 registers).
-#define NORM_MAX_THREADS(VEC) ((VEC) == 1 ? 1024 : 512)
-#define NORM_MAX_CHUNKS(VEC) ((VEC) == 1 ? 8 : 4)
+// Threads per block and chunks per thread at most: 512 x 4 for the bf16
+// vector variant (4 x 8 floats of the row in registers, up to 128 registers
+// a thread), 1024 x 2 for the fp32 one (2 x 4 floats, up to 64 registers:
+// at 512 x 4 its RMSNorm spilled) and 1024 x 8 for the scalar one (8
+// floats, up to 64 registers).
+#define NORM_MAX_THREADS(VEC) ((VEC) == 8 ? 512 : 1024)
+#define NORM_MAX_CHUNKS(VEC) ((VEC) == 1 ? 8 : (VEC) == 4 ? 2 : 4)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -365,12 +368,14 @@ int launch_vec(const void* x, const void* w, const void* b, void* y, int rows,
   else if (chunks == 2)
     row_norm_kernel<TX, TW, VEC, 2, LN>
         <<<grid, threads, 0, stream>>>(xp, wp, bp, yp, rows, d, eps);
-  else if (chunks <= 4)
-    row_norm_kernel<TX, TW, VEC, 4, LN>
-        <<<grid, threads, 0, stream>>>(xp, wp, bp, yp, rows, d, eps);
-  else if constexpr (VEC == 1)
-    row_norm_kernel<TX, TW, VEC, 8, LN>
-        <<<grid, threads, 0, stream>>>(xp, wp, bp, yp, rows, d, eps);
+  else if constexpr (NORM_MAX_CHUNKS(VEC) >= 4) {
+    if (chunks <= 4)
+      row_norm_kernel<TX, TW, VEC, 4, LN>
+          <<<grid, threads, 0, stream>>>(xp, wp, bp, yp, rows, d, eps);
+    else if constexpr (VEC == 1)
+      row_norm_kernel<TX, TW, VEC, 8, LN>
+          <<<grid, threads, 0, stream>>>(xp, wp, bp, yp, rows, d, eps);
+  }
   return int(cudaGetLastError());
 }
 

@@ -44,9 +44,9 @@ def engine_settings(cfg) -> dict:
     cpt = r.chunked_prefill_tokens
     if cpt is None and r.max_prompt_length >= 4096:
         cpt = 2048
-    # rounded up to the pool's 128-token blocks, the only block size the
-    # paged decode kernel takes (15000 + 1536 → 16640)
-    max_len = -(-(r.max_prompt_length + r.max_response_length) // 128) * 128
+    # as the JAX driver: the engine then takes the gcd block size (8 tokens
+    # at 15000 + 1536 = 16536), which the paged decode kernel reads
+    max_len = r.max_prompt_length + r.max_response_length
     buckets = tuple(b for b in (512, 1024, 2048, 4096) if b <= max_len) \
         or (max_len,)
     return dict(num_slots=8, max_len=max_len, prompt_buckets=buckets,

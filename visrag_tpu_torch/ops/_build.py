@@ -23,9 +23,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("attention_lengths_hopper", "attention_lengths_bwd_hopper",
            "attention_segment_hopper", "attention_lengths",
-           "attention_lengths_bwd", "attention_kvgrid", "paged_decode",
-           "attention_segment", "matmul_int8_hopper", "matmul_int8",
-           "norms")
+           "attention_lengths_bwd", "attention_kvgrid", "paged_decode_hopper",
+           "paged_decode", "attention_segment", "matmul_int8_hopper",
+           "matmul_int8", "norms")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -70,16 +70,20 @@ def build(name: str) -> Path:
 
 
 def ptxas_report(name: str):
-    """→ (registers per kernel, sorted; the kernels that spill) from
-    build/<name>.log, the compiler's report of the last build."""
+    """→ (registers per kernel, sorted; the kernels that spill; the kernels
+    with a stack frame) from build/<name>.log, the compiler's report of the
+    last build."""
     lines = (BUILD_DIR / f"{name}.log").read_text().splitlines()
     regs = sorted({int(line.split("Used ")[1].split()[0])
                    for line in lines if "Used " in line})
-    spilled = [prev.split("for ")[-1].strip()
-               for prev, line in zip(lines, lines[1:])
-               if "spill stores" in line
-               and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    return regs, spilled
+    pairs = [(prev.split("for ")[-1].strip(), line)
+             for prev, line in zip(lines, lines[1:])
+             if "spill stores" in line]
+    spilled = [k for k, line in pairs
+               if "0 bytes spill stores, 0 bytes spill loads" not in line]
+    stacked = [k for k, line in pairs
+               if not line.strip().startswith("0 bytes stack frame")]
+    return regs, spilled, stacked
 
 
 def build_all(names=SOURCES) -> list:

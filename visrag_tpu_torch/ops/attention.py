@@ -23,7 +23,8 @@ Counterpart of visrag_tpu/ops/attention.py.
     and dk/dv sum over a group inside one block, without atomics.
   * `flash_attention` has the JAX function's dispatch: `lengths` goes to
     the valid-length kernels (ops/attention_lengths.py, K1/K2), segment ids
-    go to K4.
+    go to K4; no ids at a head dim K4 does not compile (d = 72, Sq == Sk)
+    go to K1/K2 with full lengths.
   * `chunk_attention` (`xla_chunk_attention`): the chunked-prefill
     attention. The JAX package runs it as plain XLA, not as a Pallas kernel,
     so plain PyTorch is its port.
@@ -51,8 +52,8 @@ import ctypes
 
 import torch
 
-from .attention_lengths import LSE_PAD, _check_cuda, _stream, _strides, \
-    _wants_grad
+from .attention_lengths import KERNEL_HEAD_DIMS, LSE_PAD, _check_cuda, \
+    _stream, _strides, _wants_grad
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SEG_HEAD_DIMS = (64, 80, 128)   # MiniCPM LM, Qwen vision tower, Qwen text
@@ -508,6 +509,8 @@ def flash_attention(q, k, v, q_seg=None, kv_seg=None, *, lengths=None,
         valid-length kernels (K1, and K2 for the gradient);
       q_seg / kv_seg (B, S) int — segment ids of packed rows: K4 (None: one
         segment). See the module docstring for the contract on ids <= 0.
+        Without ids and with Sq == Sk, a head dim that K1 takes and K4 does
+        not (72) runs K1 (K2) at full length: the same function.
     """
     b, sq, h, d = q.shape
     if sm_scale is None:
@@ -520,6 +523,12 @@ def flash_attention(q, k, v, q_seg=None, kv_seg=None, *, lengths=None,
         return flash_fwd_lengths(
             q, k, v, lengths.to(device=q.device, dtype=torch.int32), causal,
             sm_scale)
+    if q_seg is None and kv_seg is None and k.shape[1] == sq \
+            and d not in SEG_HEAD_DIMS and d in KERNEL_HEAD_DIMS:
+        from .attention_lengths import flash_fwd_lengths
+        return flash_fwd_lengths(
+            q, k, v, torch.full((b,), sq, dtype=torch.int32, device=q.device),
+            causal, sm_scale)
     q_seg = _ids(q_seg, b, sq, q.device)
     kv_seg = _ids(kv_seg, b, k.shape[1], q.device)
     _check_segment(q, k, v, q_seg, kv_seg)

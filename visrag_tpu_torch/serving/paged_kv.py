@@ -14,36 +14,50 @@ on write (`quantize_kv`) and dequantized on read. The helpers here
 (`pool_write_rows`, `pool_gather`, `write_prefill`, `write_token`,
 `paged_decode_attention`) take either.
 
-`paged_decode_attention` launches csrc/paged_decode.cu on a CUDA tensor
-(a split-table partial kernel, bf16 or int8, and a combine kernel; the
-launch counters `launches` and `int8_launches` count calls) or raises; a
-CPU tensor takes `paged_decode_reference`, the plain PyTorch version: the
-JAX package's
-`_xla_paged_decode` for bf16 pools, and for int8 pools the TPU kernel's
-own arithmetic (the scales folded into the scores and the probabilities).
+`paged_decode_attention` launches csrc/paged_decode_hopper.cu on a CUDA
+tensor (one launch: each block takes an equal share of its slot's
+64-token tiles, read from the length on the device; a cp.async ring a
+warp; the products on the tensor cores; the splits of a (slot, kv head)
+one thread-block cluster that merges them in distributed shared memory;
+bf16 or int8 pools, head dim 64 or 128, 1-8 query heads a kv head, any
+power-of-two block size up to 128; the launch counters `launches` and
+`int8_launches` count calls) or raises. `legacy=True` launches the first
+kernel, csrc/paged_decode.cu (d = block size = 128; counted in
+`legacy_launches`), for timing the two in turns; no path passes it. A CPU
+tensor takes `paged_decode_reference`, the plain PyTorch version: the JAX
+package's `_xla_paged_decode` for bf16 pools, and for int8 pools the TPU
+kernel's own arithmetic (the scales folded into the scores and the
+probabilities). `split_bounds` and `paged_decode_schedule_reference` mirror
+the kernel's schedule on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import List
 
 import torch
 
-SOURCE = "visrag_tpu_torch/csrc/paged_decode.cu"
-KERNEL_HEAD_DIM = 128
-KERNEL_BLOCK_SIZE = 128
-TARGET_BLOCKS = 264     # partial-kernel blocks to aim for: 2 per H100 SM
+SOURCE = "visrag_tpu_torch/csrc/paged_decode_hopper.cu"
+LEGACY_SOURCE = "visrag_tpu_torch/csrc/paged_decode.cu"
+KERNEL_HEAD_DIMS = (64, 128)     # MiniCPM-2B; Qwen2.5-VL 3B / 7B
+KERNEL_BLOCK_SIZES = tuple(2 ** i for i in range(8))   # every gcd(128, ...)
+MAX_REP = 8                      # query heads a kv head: the MMA's n
+TILE = 64                        # tokens a kernel block takes a step
+MAX_SPLITS = 16                  # the blocks of a cluster merge the splits
+LEGACY_TARGET_BLOCKS = 264       # csrc/paged_decode.cu: 2 blocks per SM
 
-launches = 0        # K5 on bf16 pools
-int8_launches = 0   # K5's int8 variant, on KVQuant pools
+launches = 0          # K5 on bf16 pools
+int8_launches = 0     # K5's int8 variant, on KVQuant pools
+legacy_launches = 0   # csrc/paged_decode.cu, reached only with legacy=True
 
 
 def reset_launch_counts() -> None:
-    global launches, int8_launches
-    launches = int8_launches = 0
+    global launches, int8_launches, legacy_launches
+    launches = int8_launches = legacy_launches = 0
 
 
 class BlockAllocator:
@@ -225,19 +239,188 @@ def paged_decode_reference(q, k_pool, v_pool, table, lengths, sm_scale):
     return o.reshape(s, h, d).to(q.dtype)
 
 
-def split_plan(slots: int, kvh: int, max_blk: int):
-    """(splits, blocks_per_split): the table's columns cut into equal runs
-    so that slots * kvh * splits partial blocks come near TARGET_BLOCKS."""
-    want = max(1, min(max_blk, -(-TARGET_BLOCKS // (slots * kvh))))
+
+
+def split_plan(slots: int, kvh: int, max_blk: int, block_size: int,
+               clusters) -> int:
+    """The kernel's split count, which is its cluster size: the largest c
+    up to MAX_SPLITS and one split a TILE-token tile of the table's
+    capacity such that the slots * kvh clusters of c blocks run at once
+    (`clusters[c - 1]`: how many clusters of c blocks the card holds), so
+    the grid is one wave; 1 if none is. It depends on shapes only (never on
+    the lengths), so the grid does too."""
+    tiles = -(-max_blk * block_size // TILE)
+    for c in range(min(MAX_SPLITS, tiles, len(clusters)), 1, -1):
+        if slots * kvh <= clusters[c - 1]:
+            return c
+    return 1
+
+
+def split_bounds(lengths, max_blk: int, block_size: int, splits: int):
+    """The kernel's schedule on the host: (slots, splits, 2) int64 token
+    bounds [lo, hi) of each split. A slot's valid tokens (its length,
+    clamped to the table's capacity) form ceil(len / TILE) tiles; split j
+    takes tiles [j n / splits, (j + 1) n / splits), cut at the length."""
+    lens = torch.clamp(torch.as_tensor(lengths).long(), 0,
+                       max_blk * block_size)
+    n = -(-lens // TILE)
+    j = torch.arange(splits + 1)
+    edge = (j[None, :] * n[:, None]) // splits * TILE
+    edge = torch.minimum(edge, lens[:, None])
+    return torch.stack([edge[:, :-1], edge[:, 1:]], dim=-1)
+
+
+def paged_decode_schedule_reference(q, k_pool, v_pool, table, lengths,
+                                    sm_scale, splits: int):
+    """Plain mirror of the kernel's schedule over float pools: each split's
+    (m, l, acc) in fp32 over its tokens of `split_bounds`, every token read
+    through its own table entry (table[s, t // bs], row t % bs), then the
+    merge the cluster of a (slot, kv head) does: w_j = e^(m_j - M) / L.
+    → (out (slots, H, d) fp32, m (slots, kvh, splits, rep), l (same), acc
+    (slots, kvh, splits, rep, d))."""
+    s, h, d = q.shape
+    _, kvh, bs, _ = k_pool.shape
+    rep = h // kvh
+    bounds = split_bounds(lengths, table.shape[1], bs, splits)
+    m = torch.full((s, kvh, splits, rep), -math.inf)
+    l = torch.zeros((s, kvh, splits, rep))
+    acc = torch.zeros((s, kvh, splits, rep, d))
+    qg = q.float().reshape(s, kvh, rep, d)
+    for i in range(s):
+        for j in range(splits):
+            lo, hi = (int(x) for x in bounds[i, j])
+            if hi <= lo:
+                continue
+            tok = torch.arange(lo, hi)
+            blk = table[i, tok // bs].long()
+            kr = k_pool[blk, :, tok % bs].float()      # (n, kvh, d)
+            vr = v_pool[blk, :, tok % bs].float()
+            sc = torch.einsum("grd,ngd->grn", qg[i], kr) * sm_scale
+            mj = sc.amax(dim=-1)
+            p = torch.exp(sc - mj[..., None])
+            m[i, :, j], l[i, :, j] = mj, p.sum(-1)
+            acc[i, :, j] = torch.einsum("grn,ngd->grd", p, vr)
+    big = m.amax(dim=2, keepdim=True)
+    w = torch.where(m == -math.inf, torch.zeros_like(m),
+                    torch.exp(m - torch.where(big == -math.inf,
+                                              torch.zeros_like(big), big)))
+    den = (w * l).sum(dim=2, keepdim=True)
+    w = w / torch.clamp(den, min=1e-30)
+    out = (w[..., None] * acc).sum(dim=2).reshape(s, h, d)
+    return out, m, l, acc
+
+
+def _check_args(q, k_pool, v_pool, table, lengths):
+    """Shapes, dtypes, contiguity and device of a CUDA call; raises on what
+    no kernel takes. → (pointers of k, v, k scale, v scale)."""
+    quant = isinstance(k_pool, KVQuant)
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    tensors = [("q", q, torch.bfloat16)]
+    if quant:
+        tensors += [("k_pool.data", k_pool.data, pool_dtype),
+                    ("v_pool.data", v_pool.data, pool_dtype),
+                    ("k_pool.scale", k_pool.scale, torch.float32),
+                    ("v_pool.scale", v_pool.scale, torch.float32)]
+    else:
+        tensors += [("k_pool", k_pool, pool_dtype),
+                    ("v_pool", v_pool, pool_dtype)]
+    tensors += [("table", table, torch.int32),
+                ("lengths", lengths, torch.int32)]
+    for name, t, dtype in tensors:
+        if t.dtype != dtype or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
+                             f"{q.device}")
+    if quant:
+        return (k_pool.data.data_ptr(), v_pool.data.data_ptr(),
+                k_pool.scale.data_ptr(), v_pool.scale.data_ptr())
+    return k_pool.data_ptr(), v_pool.data_ptr(), None, None
+
+
+@functools.lru_cache(maxsize=None)
+def _hopper_fn():
+    """The kernel's C entry point, its ctypes signature set once."""
+    from ..ops._build import load_library
+    fn = load_library("paged_decode_hopper").visrag_paged_decode_hopper
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _legacy_fn():
+    from ..ops._build import load_library
+    fn = load_library("paged_decode").visrag_paged_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(device_index: int, d: int, quant: bool):
+    """How many clusters of 1..MAX_SPLITS kernel blocks the device holds at
+    once, read once per (device, head dim, pool type)."""
+    from ..ops._build import load_library
+    query = load_library("paged_decode_hopper") \
+        .visrag_paged_decode_hopper_clusters
+    query.restype = ctypes.c_int
+    query.argtypes = [ctypes.c_int] * 3
+    with torch.cuda.device(device_index):
+        out = tuple(query(d, int(quant), c) for c in range(1, MAX_SPLITS + 1))
+    if min(out) < 0:
+        raise RuntimeError("paged decode kernel: occupancy query failed")
+    return out
+
+
+def _legacy_split_plan(slots: int, kvh: int, max_blk: int):
+    """(splits, blocks_per_split) of csrc/paged_decode.cu: the table's
+    columns cut into equal runs so that slots * kvh * splits partial blocks
+    come near LEGACY_TARGET_BLOCKS."""
+    want = max(1, min(max_blk,
+                      -(-LEGACY_TARGET_BLOCKS // (slots * kvh))))
     per = -(-max_blk // want)
     return -(-max_blk // per), per
 
 
-def paged_decode_attention(q, k_pool, v_pool, table, lengths, sm_scale=None):
+def _launch_legacy(q, k_pool, v_pool, table, lengths, sm_scale, ptrs):
+    """csrc/paged_decode.cu: d = block size = 128, at most 8 query heads a
+    kv head; two kernels (partials, then their combine)."""
+    global legacy_launches
+    s, h, d = q.shape
+    _, kvh, bs, _ = k_pool.shape
+    if d != 128 or bs != 128 or h // kvh > MAX_REP:
+        raise ValueError(f"the legacy paged decode kernel takes head_dim "
+                         f"128, block size 128 and at most {MAX_REP} query "
+                         f"heads per kv head; got d={d}, bs={bs}, "
+                         f"{h}/{kvh} heads")
+    mb, rep = table.shape[1], h // kvh
+    splits, per = _legacy_split_plan(s, kvh, mb)
+    part_o = torch.empty((s, kvh, splits, rep, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((s, kvh, splits, rep, 2), dtype=torch.float32,
+                          device=q.device)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _legacy_fn()(q.data_ptr(), *ptrs, table.data_ptr(),
+                          lengths.data_ptr(), part_o.data_ptr(),
+                          part_ml.data_ptr(), o.data_ptr(), s, h, kvh, d, bs,
+                          mb, splits, per, float(sm_scale),
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"legacy paged decode kernel launch failed: CUDA "
+                           f"error {rc}")
+    legacy_launches += 1
+    return o
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, lengths, sm_scale=None,
+                           *, legacy: bool = False):
     """q (slots, H, d); k_pool/v_pool one layer's (n_blocks, kvh, bs, d)
     pools, bf16 or KVQuant; table (slots, max_blk) int32 pool rows; lengths
-    (slots,) int32 INCLUDING the current token. → (slots, H, d)."""
-    global launches, int8_launches
+    (slots,) int32 INCLUDING the current token (>= 1). → (slots, H, d).
+    `legacy` launches csrc/paged_decode.cu instead, for timing the two in
+    turns; nothing on a path passes it."""
     s, h, d = q.shape
     _, kvh, bs, dk = k_pool.shape
     quant = isinstance(k_pool, KVQuant)
@@ -256,52 +439,37 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, sm_scale=None):
                                       sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    from ..ops._build import load_library
-    if d != KERNEL_HEAD_DIM or bs != KERNEL_BLOCK_SIZE or h // kvh > 8:
-        raise ValueError(f"the paged decode kernel takes head_dim "
-                         f"{KERNEL_HEAD_DIM}, block size {KERNEL_BLOCK_SIZE} "
-                         f"and at most 8 query heads per kv head; got d={d}, "
-                         f"bs={bs}, {h}/{kvh} heads")
-    pool_dtype = torch.int8 if quant else torch.bfloat16
-    tensors = [("q", q, torch.bfloat16)]
-    if quant:
-        tensors += [("k_pool.data", k_pool.data, pool_dtype),
-                    ("v_pool.data", v_pool.data, pool_dtype),
-                    ("k_pool.scale", k_pool.scale, torch.float32),
-                    ("v_pool.scale", v_pool.scale, torch.float32)]
-    else:
-        tensors += [("k_pool", k_pool, pool_dtype),
-                    ("v_pool", v_pool, pool_dtype)]
-    for name, t, dtype in tensors:
-        if t.dtype != dtype or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
-                             f"{q.device}")
-    for name, t in (("table", table), ("lengths", lengths)):
-        if t.dtype != torch.int32 or not t.is_contiguous() \
-                or t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"{q.device}")
-    mb = table.shape[1]
-    rep = h // kvh
-    splits, per = split_plan(s, kvh, mb)
-    part_o = torch.empty((s, kvh, splits, rep, d), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((s, kvh, splits, rep, 2), dtype=torch.float32,
-                          device=q.device)
+    return _launch(q, k_pool, v_pool, table, lengths, sm_scale, legacy)
+
+
+def _launch(q, k_pool, v_pool, table, lengths, sm_scale, legacy=False):
+    """The CUDA side of paged_decode_attention (shapes already checked):
+    the argument checks, the split plan, one launch. Raises on what the
+    kernel does not take; never falls back."""
+    global launches, int8_launches
+    s, h, d = q.shape
+    _, kvh, bs, _ = k_pool.shape
+    quant = isinstance(k_pool, KVQuant)
+    ptrs = _check_args(q, k_pool, v_pool, table, lengths)
+    if legacy:
+        return _launch_legacy(q, k_pool, v_pool, table, lengths, sm_scale,
+                              ptrs)
+    if d not in KERNEL_HEAD_DIMS or bs not in KERNEL_BLOCK_SIZES \
+            or h // kvh > MAX_REP or table.shape[1] < 1:
+        raise ValueError(f"the paged decode kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, a power-of-two block size up "
+                         f"to 128 and at most {MAX_REP} query heads per kv "
+                         f"head; got d={d}, bs={bs}, {h}/{kvh} heads, table "
+                         f"{tuple(table.shape)}")
+    dev = q.device
+    splits = split_plan(s, kvh, table.shape[1], bs,
+                        _occupancy(dev.index, d, quant))
     o = torch.empty_like(q)
-    fn = load_library("paged_decode").visrag_paged_decode
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    ptrs = ((k_pool.data.data_ptr(), v_pool.data.data_ptr(),
-             k_pool.scale.data_ptr(), v_pool.scale.data_ptr()) if quant else
-            (k_pool.data_ptr(), v_pool.data_ptr(), None, None))
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), *ptrs,
-                table.data_ptr(), lengths.data_ptr(), part_o.data_ptr(),
-                part_ml.data_ptr(), o.data_ptr(), s, h, kvh, d, bs, mb,
-                splits, per, float(sm_scale),
-                torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _hopper_fn()(
+            q.data_ptr(), *ptrs, table.data_ptr(), lengths.data_ptr(),
+            o.data_ptr(), s, h, kvh, d, bs, table.shape[1], splits,
+            float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
                            f"{rc}")

@@ -13,7 +13,8 @@ is non-zero; no phase catches an error and carries on):
      process per source, all at once, and print each kernel's registers,
      whether any spills and how many use a stack frame (a spill in a
      Hopper source or in norms.cu, or a stack frame in
-     paged_decode_hopper.cu, fails the run);
+     paged_decode_hopper.cu, attention_kvgrid_hopper.cu or
+     attention_segment_hopper.cu, fails the run);
  1b. K7 (csrc/norms.cu, the fused RMSNorm / LayerNorm forward) against its
      plain version at the widths each path gives it (LayerNorm at the
      encode's ViT rows 126,208 x 1152 and the resampler's x 2304; RMSNorm
@@ -102,9 +103,15 @@ is non-zero; no phase catches an error and carries on):
   6. the retriever freed, the six serving requests of phase 7 assembled by
      evisrag_predict.assemble_request with StandInTokenizer (Qwen's
      special-token ids; no tokenizer files are in the repository), then K3
-     (banded segment attention) at the first 3-page request's window and
-     image segments and an edge case (a 1-token segment, segments
-     straddling tile edges, a pad tail; pad rows exactly 0), K1 stacked
+     (banded segment attention on the Hopper forward body,
+     csrc/attention_kvgrid_hopper.cu) on views of one fused qkv tensor at
+     the first 3-page request's window and image segments, each timed in
+     turns with the first kernel (csrc/attention_kvgrid.cu, legacy=True:
+     pr3_ms), and at edge ids (windows of 63/64/65 and 127/128/129 tokens
+     straddling tiles, a pad tail filling whole tiles beside a row of pad
+     only, one segment over all of S; pad rows exactly 0), every launch on
+     the Hopper kernel (kg.route_counts(); so in phases 7, 7b, 9 and 11),
+     and K3's time per vision-tower run (28 window + 4 full layers), K1 stacked
      causal with grouped kv heads (28/4, d = 128) at the whole and batched
      prefill shapes and at lengths 0, 1, 63, 64, 65 and full (pad rows
      exactly 0; in turns with the legacy kernel), each against its plain
@@ -136,7 +143,8 @@ is non-zero; no phase catches an error and carries on):
      K5 per decode step (none on the first kernel), and decode logits
      over the paged pool within 2e-2
      relative of a full causal pass at the same positions, after a whole
-     and after a chunked prefill; prints the vision tower's ms per request,
+     and after a chunked prefill; prints the vision tower's ms per request
+     (the first 3-page request's also in turns with the first K3 kernel),
      time to first token, prefill tokens/s, decode ms/step, output
      tokens/s and peak memory;
  7b. K5's int8 variant against its plain version (RTOL_K5_INT8 = 0.0035
@@ -152,7 +160,7 @@ is non-zero; no phase catches an error and carries on):
   8. the 7B model freed, four RL prompts written as a jsonl (two with 3
      page images, two text-only) and encoded by the RL driver's
      encode_qwen_prompt_row; then K4 (segment-id attention: forward with
-     the LSE, dq and dk/dv on wgmma + TMA at d 64 / 128, every launch on
+     the LSE, dq and dk/dv on wgmma + TMA at d 64 / 80 / 128, every launch on
      the Hopper kernels by the route counters) against its plain
      version's forward and written-out backward on the
      card, at the first packed micro-batch the trainer will build from
@@ -161,8 +169,11 @@ is non-zero; no phase catches an error and carries on):
      (segments of 1, 63, 64 and 65 tokens, non-ascending and negative ids,
      an all-pad row, Sq != Sk; segments of 127, 128 and 129 tokens and a
      row one segment fills in whole 128-row tiles, at d 128 and 64), and
-     K3's backward (K3 forward with the LSE, K4's mma.sync dq and dk/dv)
-     at the vision tower's window and image ids (d = 80, non-causal): o,
+     K3's backward (K3 forward with the LSE, K4's Hopper dq and dk/dv at
+     d 80 on sorted ids, which walk only the band) at the vision tower's
+     window and image ids, and K4 at d 80 on the window ids as
+     attn_impl="packed" runs it (non-causal), all timed in turns with the
+     mma.sync kernels, and K3's own LSE: o,
      dq, dk, dv within 2e-2 relative Frobenius error, the LSE within 2e-2
      abs, exact zeros on pad rows and keys; the kernels' pre-pass (tile
      classes) equal to segment_tile_classes_reference; the Hopper dq's
@@ -176,7 +187,9 @@ is non-zero; no phase catches an error and carries on):
      heads (16/2 and 28/4, causal) at the padded update's micro-batch and
      at lengths 1, 63, 64, 65 and full, against the plain forward and
      autograd (2e-2 relative), timed beside SDPA with enable_gqa and, in
-     turns, the legacy mma.sync K1 and K2;
+     turns, the legacy mma.sync K1 and K2; then K1, K2 and K4 at fixed
+     inputs bit for bit against the kernels of the tree before K3's
+     redesign (PARENT_DIGESTS);
   9. Qwen2.5-VL-3B at full width on random weights from seed 0, whole-block
      remat, a frozen copy as the reference policy (in-loss KL 0.01), through
      rl_main's build_trainer and run_training: two RS-GRPO steps of 4
@@ -227,7 +240,8 @@ is non-zero; no phase catches an error and carries on):
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq and
-K2 dk/dv for the ViT (d 72) and for the LM (d 64), K1 stacked GQA, K3, K5,
+K2 dk/dv for the ViT (d 72) and for the LM (d 64), K1 stacked GQA, K5, K3
+in the window and in the full-attention layers,
 K6, K5 int8, K4 forward, K4 dq, K4 dk/dv, K1 + LSE, K2 dq and K2 dk/dv at
 d = 128 with grouped kv heads, and K7 as
 `rmsnorm` (launches from phase 10's SFT run, numbers at its batch) and
@@ -238,7 +252,8 @@ forward, dq and dk/dv (the mma.sync kernels), pr5_ms for K6 (the
 mma.sync kernel, beside int_mm_ms, torch._int_mm alone), pr1_ms for K1
 (the mma.sync attention_lengths.cu), pr5_ms for K2 (the mma.sync
 attention_lengths_bwd.cu), pr6_ms for RMSNorm (the block-per-row kernel),
-legacy_ms for K5 and K5 int8 (the first kernel, csrc/paged_decode.cu);
+legacy_ms for K5 and K5 int8 (the first kernel, csrc/paged_decode.cu),
+pr3_ms for K3 (the first kernel, csrc/attention_kvgrid.cu);
 every checked shape under "checks"), and
 {"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11;
 it ends without the ok line and exits 1.
@@ -248,6 +263,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -379,6 +395,21 @@ def _lengths_routes(tag, launches):
     return by_d
 
 
+def _kvgrid_routes(tag):
+    """Every K3 launch of a path on the Hopper kernel: the route counters
+    against the wrapper's launch counters; raises if one took the first
+    kernel."""
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    want = {"fwd": {"hopper": kg.launches, "legacy": 0},
+            "fwd_lse": {"hopper": kg.lse_launches, "legacy": 0}}
+    if kg.route_counts() != want:
+        raise RuntimeError(f"{tag} K3 launches by route {kg.route_counts()}: "
+                           f"want {want}")
+    log(f"{tag} K3 routes: {kg.launches} launches (and {kg.lse_launches} "
+        f"with the LSE) on the Hopper kernel ({kg.SOURCE}), 0 on the first "
+        f"one")
+
+
 def _turns(new, old):
     """new and old timed in turns (new, old, old, new) by cuda_ms. → (mean
     new ms, mean old ms, {"new": [...], "old": [...]})."""
@@ -404,9 +435,11 @@ def phase0_environment():
 
 
 # sources in which a register spill fails the run (every Hopper source and
-# K7's norms), and those in which a stack frame does (the new K5)
+# K7's norms), and those in which a stack frame does (K5, K3 and K4's
+# Hopper kernels)
 NO_SPILLS = ("hopper", "norms")
-NO_STACK = ("paged_decode_hopper",)
+NO_STACK = ("paged_decode_hopper", "attention_kvgrid_hopper",
+            "attention_segment_hopper")
 
 
 def phase1_build():
@@ -1679,16 +1712,19 @@ def _vision_tensors(req):
 def _timed_check(tag, label, kern, plain, lib, out, ref, rows, bound):
     """A kernel's output against its plain version's on `rows`: finite, and
     within RTOL_BLOCK relative (Frobenius) error; then kernel, plain and
-    library times (lib None: no single call computes the function)."""
+    library times (lib None: no single call computes the function; plain
+    None: an edge shape, the plain version not timed)."""
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(out.float()).all())
     rel = _rel(out[rows], ref[rows])
     max_abs = (out[rows].float() - ref[rows].float()).abs().max().item()
-    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain) if plain is not None else None
     lib_ms = cuda_ms(lib) if lib is not None else None
     log(f"[6] {tag} {label}: rel_err {rel:.4g} (bound {RTOL_BLOCK}), "
         f"max_abs_err {max_abs:.4g}, finite {finite} | kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library "
+        f"plain {'n/a' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+        f"library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
         f"{bound[0]:.4f} ms ({bound[1]}) (medians in bursts of 10, CUDA "
         f"events) | "
@@ -1852,6 +1888,83 @@ def _k5_checks(tag, gen, live, tc, quantized):
     return out
 
 
+def _k3_edge_ids():
+    """K3's edge ids: (label, (B, S) int32) pairs. Windows of 63/64/65 and
+    127/128/129 tokens straddling 128-row tiles and a pad tail that fills
+    whole tiles beside a batch row of pad only; one segment over all of
+    S."""
+    import numpy as np
+    sizes = [1, 63, 64, 65, 127, 128, 129, 700, 63, 129]
+    row = np.repeat(np.arange(1, len(sizes) + 1), sizes)
+    edges = np.zeros((2, len(row) + 300), np.int32)
+    edges[0, :len(row)] = row
+    return [("edge: 63/64/65, 127/128/129, whole pad tiles, a pad row",
+             edges),
+            ("edge: one segment over all of S", np.ones((1, 2000), np.int32))]
+
+
+def _k3_checks(gen, vb, h, d):
+    """K3 on views of one fused (B, S, 3, H, D) qkv tensor (the vision
+    block's layout) at the window ids, the image ids and the edge ids,
+    against its plain version (RTOL_BLOCK, finite), pad rows exactly 0;
+    the window and image ids timed beside the plain version and SDPA with a
+    block-diagonal mask, and in turns with the first kernel (legacy=True:
+    pr3_ms). → records, window and image first."""
+    import numpy as np
+
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    out_recs = []
+    cases = [("seg_window", np.asarray(vb["seg_window"], np.int32)[None]),
+             ("seg_full", np.asarray(vb["seg_full"], np.int32)[None])]
+    for label, ids_np in cases + _k3_edge_ids():
+        seg = torch.as_tensor(ids_np, device=DEV)
+        b, s = seg.shape
+        qkv = torch.randn(b, s, 3, h, d, generator=gen,
+                          device=DEV).bfloat16()
+        q, k, v = qkv.unbind(2)
+        kern = lambda: kg.flash_attention_kvgrid(q, k, v, seg)
+        plain = lambda: kg.flash_attention_kvgrid_reference(q, k, v, seg)
+        out, ref = kern(), plain()
+        real = seg > 0
+        if not bool((out[~real] == 0).all()):
+            raise RuntimeError(f"K3 {label}: pad rows are not exactly 0")
+        ids = seg.long()
+        timed = label in ("seg_window", "seg_full")
+        sizes = [torch.unique_consecutive(r[r > 0], return_counts=True)[1]
+                 for r in ids]
+        pairs = int(sum((c.long() ** 2).sum() for c in sizes))
+        nreal = int(real.sum())
+        bound = _bound(2 * 2 * pairs * h * d,
+                       nreal * 3 * h * d * 2 + b * s * h * d * 2)
+        lib = None
+        if timed:
+            row = ids[0]
+            allow = (row[:, None] == row[None, :]) & (row[:, None] > 0)
+            allow |= torch.eye(s, dtype=torch.bool, device=DEV)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=allow)
+        largest = max(int(c.max()) for c in sizes if len(c))
+        rec = _timed_check(
+            "K3", f"{label} B={b} S={s} H={h} d={d} segments "
+            f"{sum(len(c) for c in sizes)} (largest {largest}) pad "
+            f"{b * s - nreal}, fused qkv views; pad rows exactly 0", kern,
+            plain if timed else None, lib, out, ref, real, bound)
+        if timed:
+            o_old = lambda: kg._launch(q, k, v, seg, d ** -0.5, legacy=True)
+            err_old = _rel(o_old()[real], ref[real])
+            rec["ms"], rec["pr3_ms"], rec["turns"] = _turns(kern, o_old)
+            log(f"[6] K3 {label}: in turns with the first kernel "
+                f"({kg.LEGACY_SOURCE}, rel_err {err_old:.4g}) "
+                f"{rec['ms']:.4f} ms against {rec['pr3_ms']:.4f} ms "
+                f"({rec['turns']}); bound {rec['bound_ms']:.4f} "
+                f"({rec['bound_by']})")
+            del allow, qt, kt, vt
+        out_recs.append(rec)
+        del q, k, v, qkv, out, ref
+    return out_recs
+
+
 def phase6_serving_kernels(gen, reqs, cfg):
     """K3, K1 (stacked causal, GQA 28/4, d = 128) and K5 against their plain
     versions on the card at the serving path's shapes and at edge cases;
@@ -1863,40 +1976,22 @@ def phase6_serving_kernels(gen, reqs, cfg):
     vc, tc = cfg.vision, cfg.text
     res = {"kvgrid": [], "gqa": [], "paged": []}
 
-    # K3 at the first 3-page request's window and image segments
+    # K3 at the first 3-page request's window and image segments and at
+    # edge ids, on views of one fused qkv tensor as the vision block passes
+    # them; timed in turns with the first kernel (legacy=True)
     by = {name: req for name, req, _ in reqs}
     vb = by["pages3_0"]["vision_batch"]
-    h, d = vc.num_heads, vc.head_dim
-    edge = torch.tensor([1] + [2] * 63 + [3] * 65 + [4] + [5] * 130
-                        + [6] * 700 + [0] * 37, dtype=torch.int32)
-    for label, seg in (("seg_window", vb["seg_window"]),
-                       ("seg_full", vb["seg_full"]), ("edge", edge)):
-        seg = torch.as_tensor(seg, dtype=torch.int32, device=DEV)[None]
-        s = seg.shape[1]
-        q, k, v = (torch.randn(1, s, h, d, generator=gen, device=DEV)
-                   .bfloat16() for _ in range(3))
-        kern = lambda: kg.flash_attention_kvgrid(q, k, v, seg)
-        plain = lambda: kg.flash_attention_kvgrid_reference(q, k, v, seg)
-        out, ref = kern(), plain()
-        real = seg[0] > 0
-        if not bool((out[0][~real] == 0).all()):
-            raise RuntimeError(f"K3 {label}: pad rows are not exactly 0")
-        ids = seg[0].long()
-        allow = (ids[:, None] == ids[None, :]) & (ids[:, None] > 0)
-        allow |= torch.eye(s, dtype=torch.bool, device=DEV)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                     attn_mask=allow)
-        sizes = torch.unique_consecutive(ids[ids > 0], return_counts=True)[1]
-        pairs = int((sizes.long() ** 2).sum())
-        nreal = int(real.sum())
-        bound = _bound(2 * 2 * pairs * h * d,
-                       nreal * 3 * h * d * 2 + s * h * d * 2 + s * 4)
-        res["kvgrid"].append(_timed_check(
-            "K3", f"{label} S={s} H={h} d={d} segments {len(sizes)} "
-            f"(largest {int(sizes.max())}) pad {s - nreal}; pad rows exactly "
-            f"0", kern, plain, lib, out[0], ref[0], real, bound))
-        del q, k, v, out, ref, allow, qt, kt, vt
+    res["kvgrid"] = _k3_checks(gen, vb, vc.num_heads, vc.head_dim)
+    _kvgrid_routes("[6]")
+    window, full = res["kvgrid"][0], res["kvgrid"][1]
+    n_full = len(vc.fullatt_block_indexes)
+    n_window = vc.depth - n_full
+    tower = {key: n_window * window[key] + n_full * full[key]
+             for key in ("ms", "pr3_ms")}
+    log(f"[6] K3 per vision-tower run of this request: "
+        f"{n_window} window + {n_full} full layers = {tower['ms']:.4f} ms "
+        f"(the first kernel in the same turns: {tower['pr3_ms']:.4f} ms)")
+    res["kvgrid_tower_ms"] = tower
     torch.cuda.empty_cache()
 
     # K1 stacked causal with grouped kv heads, at the whole and batched
@@ -2168,6 +2263,7 @@ def phase7_serving(reqs, cfg):
                 "fwd_lse": al.fwd_lse_launches,
                 "paged_legacy": pk.legacy_launches}
     _lengths_routes("[7]", launches)
+    _kvgrid_routes("[7]")
     norm_launches = norms.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -2236,6 +2332,26 @@ def phase7_serving(reqs, cfg):
                 tower[name] = round(cuda_ms(lambda: model.encode_images(vb),
                                             reps=3), 2)
     by = {name: req for name, req, _ in reqs}
+    # the first 3-page request's tower in turns with the first K3 kernel
+    # swapped in (launched past the counters, after the checks above)
+    vb0 = _vision_tensors(by["pages3_0"])
+    launch = kg._launch
+
+    def first_k3():
+        kg._launch = functools.partial(launch, legacy=True)
+        try:
+            return model.encode_images(vb0)
+        finally:
+            kg._launch = launch
+    turns = {"new": [], "first": []}
+    with torch.inference_mode():
+        for which in ("new", "first", "first", "new"):
+            turns[which].append(cuda_ms(
+                (lambda: model.encode_images(vb0)) if which == "new"
+                else first_k3, reps=3))
+    log(f"[7] vision tower of pages3_0 in turns with the first K3 kernel: "
+        f"{statistics.mean(turns['new']):.3f} ms against "
+        f"{statistics.mean(turns['first']):.3f} ms ({turns})")
     dec_ref = {"whole": _decode_vs_full(model, by["page1_small"], False),
                "chunked": _decode_vs_full(model, by["pages3_0"], True)}
     errs = {k: v[0] for k, v in dec_ref.items()}
@@ -2313,6 +2429,7 @@ def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
                 "paged": pk.launches, "paged_int8": pk.int8_launches,
                 "paged_legacy": pk.legacy_launches,
                 "int8_gemm": mi.launches}
+    _kvgrid_routes("[7b]")
     layers = cfg.text.num_hidden_layers
     log_s = "".join(engine.sched_log)
     steps = log_s.count("D") * engine.chunk
@@ -2540,14 +2657,17 @@ def _delta_handoff(seg, q, k, v, o, do, lse, qs, ks, causal, scale):
 
 
 def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
-                           banded=False, library=True, timed=True):
+                           banded=False, library=True, timed=True,
+                           plain=True):
     """K4 forward (+ LSE), dq and dk/dv at one shape against the plain
     version's forward and written-out backward (bf16 unit-normal q/k/v and a
     `do` that is non-zero on pad rows): each within RTOL_TRAIN relative
     Frobenius error on the rows with a positive id, the LSE within 2e-2 abs,
     every output finite, exact zeros on pad rows and pad keys. banded: the
     forward is K3 with the LSE (sorted ids) and the backward K4's kernels
-    through K3's autograd. → {kind: record}."""
+    through K3's autograd, which walk only the band (sorted_ids; so timed);
+    K4's own forward is checked and timed beside it. plain False: the plain
+    versions are not timed. → {kind: record}."""
     from visrag_tpu_torch.ops import attention as seg
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     b, sq = qs_np.shape
@@ -2567,8 +2687,8 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
         o = seg.flash_attention(q, k, v, qs, ks, causal=causal)
     dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
     q, k, v, o = (t.detach() for t in (q, k, v, o))
-    # the routes: d 64 / 128 on the Hopper kernels, d 80 on mma.sync (K3's
-    # forward is not K4's)
+    # the routes: every head dim on the Hopper kernels (K3's forward is not
+    # K4's)
     route = "hopper" if d in seg.HOPPER_HEAD_DIMS else "legacy"
     want_routes = {kind: {"hopper": 0, "legacy": 0}
                    for kind in ("fwd", "dq", "dkv")}
@@ -2590,28 +2710,63 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
                                               scale)
         sees = want_lse[:, 0] != seg.LSE_PAD          # (B, Sq)
         qreal, kreal = qs > 0, ks > 0
-    got = {"seg_fwd": (o, want_o, sees), "seg_dq": (dq, want[0], sees),
-           "dk": (dk, want[1], kreal), "dv": (dv, want[2], kreal)}
+    got = {"o": (o, want_o, sees), "seg_fwd": (o2, want_o, sees),
+           "seg_dq": (dq, want[0], sees), "dk": (dk, want[1], kreal),
+           "dv": (dv, want[2], kreal)}
     errs = {name: (_rel(a[rows], w[rows]) if bool(rows.any()) else 0.0)
             for name, (a, w, rows) in got.items()}
     max_abs = {name: ((a[rows].float() - w[rows].float()).abs().max().item()
                       if bool(rows.any()) else 0.0)
                for name, (a, w, rows) in got.items()}
-    lse_t = lse.transpose(1, 2)
-    lse_err = (lse_t[sees] - want_lse.transpose(1, 2)[sees]).abs().max() \
-        .item() if bool(sees.any()) else 0.0
+    lses = [lse]
+    if banded:
+        # K3's own LSE, which its backward reads
+        lses.append(torch.empty_like(lse))
+        kg._launch(q, k, v, qs, scale, lses[1])
+        torch.cuda.synchronize()
+    walks_equal = None
+    if banded:
+        # the sorted walk leaves out only tile pairs that hold no visible
+        # pair and keeps the others' order: dq, delta, dk and dv bit for
+        # bit those of the full walk
+        outs = []
+        for srt in (True, False):
+            got = (torch.empty_like(q), torch.empty_like(lse),
+                   torch.empty_like(k), torch.empty_like(v))
+            seg._launch_segment("dq", q, k, v, qs, ks, causal, scale, o=o,
+                                do=do, dq=got[0], lse=lses[1], delta=got[1],
+                                sorted_ids=srt)
+            seg._launch_segment("dkv", q, k, v, qs, ks, causal, scale, do=do,
+                                dk=got[2], dv=got[3], lse=lses[1],
+                                delta=got[1], sorted_ids=srt)
+            outs.append(got)
+        torch.cuda.synchronize()
+        walks_equal = all(torch.equal(a, c) for a, c in zip(*outs))
+        if not walks_equal:
+            raise RuntimeError(f"K4 {label}: dq / dk/dv on the sorted walk "
+                               f"differ from the full walk's")
+    lse_err, lse_pad = 0.0, True
+    for one in lses:
+        lse_t = one.transpose(1, 2)
+        if bool(sees.any()):
+            lse_err = max(lse_err, (lse_t[sees] - want_lse.transpose(1, 2)[
+                sees]).abs().max().item())
+        lse_pad &= bool((lse_t[~sees] == seg.LSE_PAD).all())
     zeros = bool((o[~sees] == 0).all() and (dq[~sees] == 0).all()
                  and (dk[~kreal] == 0).all() and (dv[~kreal] == 0).all()
-                 and (lse_t[~sees] == seg.LSE_PAD).all()
-                 and (o2[~sees] == 0).all())
+                 and lse_pad and (o2[~sees] == 0).all())
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (o, dq, dk, dv))
     log(f"[8] K4 {label} (B {b}, Sq {sq}, Sk {sk}, heads {h}/{hk}, d {d}, "
         f"causal {causal}{', K3 forward' if banded else ''}): rel_err "
-        f"o {errs['seg_fwd']:.4g} dq {errs['seg_dq']:.4g} dk "
+        f"o {errs['o']:.4g} (K4 forward + LSE {errs['seg_fwd']:.4g}) dq "
+        f"{errs['seg_dq']:.4g} dk "
         f"{errs['dk']:.4g} dv {errs['dv']:.4g} (bound {RTOL_TRAIN}), lse "
         f"max_abs_err {lse_err:.4g}, finite {finite}, exact zeros on pad "
-        f"rows and keys {zeros}")
+        f"rows and keys {zeros}"
+        + ("" if walks_equal is None else
+           f", dq / dk/dv on the sorted walk bit for bit the full walk's "
+           f"{walks_equal}"))
     if not finite or not zeros or max(errs.values()) > RTOL_TRAIN \
             or lse_err > ATOL_KERNEL:
         raise RuntimeError(f"K4 {label}: kernels disagree with the plain "
@@ -2640,14 +2795,18 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
         "seg_fwd": lambda: seg.segment_fwd(q, k, v, qs, ks, causal, scale, o2,
                                            lse),
         "seg_dq": lambda: seg.segment_bwd_dq(q, k, v, o, do, lse, delta, qs,
-                                             ks, causal, scale, dq2),
+                                             ks, causal, scale, dq2,
+                                             sorted_ids=banded),
         "seg_dkv": lambda: seg.segment_bwd_dkv(q, k, v, do, lse, delta, qs,
-                                               ks, causal, scale, dk2, dv2)}
-    with torch.no_grad():
-        plain_f = cuda_ms(lambda: seg.segment_attention_reference(
-            q, k, v, qs, ks, causal=causal), reps=3)
-        plain_b = cuda_ms(lambda: seg.segment_backward_reference(
-            q, k, v, do, qs, ks, causal, scale), reps=3)
+                                               ks, causal, scale, dk2, dv2,
+                                               sorted_ids=banded)}
+    plain_f = plain_b = None
+    if plain:
+        with torch.no_grad():
+            plain_f = cuda_ms(lambda: seg.segment_attention_reference(
+                q, k, v, qs, ks, causal=causal), reps=3)
+            plain_b = cuda_ms(lambda: seg.segment_backward_reference(
+                q, k, v, do, qs, ks, causal, scale), reps=3)
     lib_f = lib_b = None
     if library:
         # one segment: SDPA's own causal flag (its flash kernel); packed
@@ -2712,12 +2871,14 @@ def _check_segment_kernels(label, qs_np, ks_np, h, hk, d, causal, gen, *,
     log(f"[8] K4 {label}: {pairs} visible pairs per head | forward "
         f"{fwd['ms']:.4f} ms (turns {fwd['turns']}; bound "
         f"{fwd['bound_ms']:.4f} {fwd['bound_by']}, PR 4's kernel "
-        f"{fmt(fwd['pr4_ms'])}, plain {plain_f:.4f}, SDPA {fmt(lib_f)}) | dq "
+        f"{fmt(fwd['pr4_ms'])}, plain {fmt(plain_f)}, SDPA {fmt(lib_f)}) | dq "
         f"{dq_r['ms']:.4f} ms (turns {dq_r['turns']}; bound "
         f"{dq_r['bound_ms']:.4f}, mma.sync {fmt(dq_r['pr4_ms'])}) | "
         f"dk/dv {dkv['ms']:.4f} ms "
         f"(turns {dkv['turns']}; bound {dkv['bound_ms']:.4f}, PR 4's kernel "
-        f"{fmt(dkv['pr4_ms'])}) | plain backward (all grads) {plain_b:.4f} "
+        f"{fmt(dkv['pr4_ms'])})"
+        f"{' (dq, dk/dv on sorted ids)' if banded else ''}"
+        f" | plain backward (all grads) {fmt(plain_b)} "
         f"ms, SDPA backward {fmt(lib_b)} ms (medians, CUDA events) | "
         f"{smi()}")
     return records
@@ -2750,6 +2911,106 @@ def _check_tile_classes(label, ids_np, causal):
         f"at {sizes}-row tiles; pairs skipped / masked / unmasked: forward "
         f"{tiles['fwd']} tiles {counts['fwd']}, dk/dv {tiles['dkv']} tiles "
         f"{counts['dkv']}")
+
+
+# SHA-256 (first 16 hex digits) of K1's, K2's and K4's outputs on
+# kernel_digests()' inputs as the kernels of the tree before K3's redesign
+# gave them on an H100 (`tools/torch_ab_segment.py --other DIR --digests`
+# with DIR that tree). K3's band walk put hooks into the Hopper bodies that
+# these kernels share; phase 8 holds them to these values bit for bit.
+PARENT_DIGESTS = {
+    "K1/K2 d72 fwd": "4d3391c03dff5486",
+    "K1/K2 d72 dq": "01966ae934b9c9b1",
+    "K1/K2 d72 dkv": "082afc7b2491f053",
+    "K1/K2 d64 causal fwd": "c86dcdcde1421761",
+    "K1/K2 d64 causal dq": "dce928aa893461bf",
+    "K1/K2 d64 causal dkv": "c5a9dd472413e7fe",
+    "K1/K2 GQA d128 causal fwd": "68343bda76836a2c",
+    "K1/K2 GQA d128 causal dq": "7e34b929ab9c261b",
+    "K1/K2 GQA d128 causal dkv": "a52cbcad2a99867e",
+    "K4 packed d128 causal fwd": "cc64493525aa00a3",
+    "K4 packed d128 causal dq": "3c786c0e180835aa",
+    "K4 packed d128 causal dkv": "a366f95b5a290f81",
+    "K4 edge d64 fwd": "2a6168272ee91f2a",
+    "K4 edge d64 dq": "db8b7ab2f69ab913",
+    "K4 edge d64 dkv": "d8fab9424a7e66ec",
+}
+
+
+def kernel_digests():
+    """K1 (d 72 with the LSE, d 64 causal, GQA 28/4 d 128 causal), K2's dq
+    and dk/dv after each, and K4's forward (+ LSE), dq (+ delta) and dk/dv
+    (packed ids at 16/2 d 128 causal; pad, negative and non-ascending ids
+    at d 64) on inputs made on the CPU from seed 0, through the wrappers'
+    launch functions (no launch counter moves but K1's and K2's route
+    counters, which the caller resets). → {case: digest of its outputs}."""
+    import hashlib
+
+    import numpy as np
+
+    from visrag_tpu_torch.ops import attention as seg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).bfloat16().to(DEV)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    for label, lens, s, h, hk, d, causal in (
+            ("K1/K2 d72", [1152, 700, 0, 129], 1152, 16, 16, 72, False),
+            ("K1/K2 d64 causal", [704, 300, 1], 704, 8, 8, 64, True),
+            ("K1/K2 GQA d128 causal", [1024, 586], 1024, 28, 4, 128, True)):
+        b = len(lens)
+        q, do = rand(b, s, h, d), rand(b, s, h, d)
+        k, v = rand(b, s, hk, d), rand(b, s, hk, d)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=DEV)
+        al._fwd(q, k, v, o, lse, lens_t, causal, d ** -0.5)
+        o2 = al._fwd(q, k, v, torch.empty_like(q), None, lens_t, causal,
+                     d ** -0.5)
+        delta = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        for kind in ("dq", "dkv"):
+            al._bwd(kind, q, k, v, o, do, lse, delta, lens_t, causal,
+                    d ** -0.5, dq, dk, dv)
+        out[label + " fwd"] = digest(o, lse, o2)
+        out[label + " dq"] = digest(dq, delta)
+        out[label + " dkv"] = digest(dk, dv)
+    packed = np.zeros((2, 1280), np.int32)
+    packed[0, :300], packed[0, 300:500], packed[0, 500:1000] = 3, 1, 4
+    packed[1, :1000], packed[1, 1000:1280] = 5, 2
+    edge = np.zeros((2, 300), np.int32)
+    edge[0, :1], edge[0, 1:64], edge[0, 64:128] = 5, 3, 9
+    edge[0, 128:193], edge[0, 200:260] = 2, -4
+    for label, ids_np, h, hk, d, causal in (
+            ("K4 packed d128 causal", packed, 16, 2, 128, True),
+            ("K4 edge d64", edge, 4, 4, 64, False)):
+        b, s = ids_np.shape
+        ids = torch.as_tensor(ids_np, device=DEV)
+        q, do = rand(b, s, h, d), rand(b, s, h, d)
+        k, v = rand(b, s, hk, d), rand(b, s, hk, d)
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=DEV)
+        delta = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        args = (q, k, v, ids, ids, causal, d ** -0.5)
+        seg._launch_segment("fwd", *args, o=o, lse=lse)
+        seg._launch_segment("dq", *args, o=o, do=do, dq=dq, lse=lse,
+                            delta=delta)
+        seg._launch_segment("dkv", *args, do=do, dk=dk, dv=dv, lse=lse,
+                            delta=delta)
+        out[label + " fwd"] = digest(o, lse)
+        out[label + " dq"] = digest(dq, delta)
+        out[label + " dkv"] = digest(dk, dv)
+    torch.cuda.synchronize()
+    return out
 
 
 def phase8_segment_kernels(gen, prompts, cfg):
@@ -2805,16 +3066,44 @@ def phase8_segment_kernels(gen, prompts, cfg):
     kid = np.concatenate([np.full(150, 2), np.full(107, 1), np.zeros(20)])
     run("Sq != Sk", qid.astype(np.int32), kid[None].astype(np.int32), h, hk,
         d, True, timed=False)
-    # K3's backward: the tower's window and image ids of a 3-page prompt
-    # (SDPA with a block mask, forward and backward, as the library time)
+    # K3's backward: the tower's window and image ids of a 3-page prompt,
+    # K4's dq and dk/dv at d 80 on sorted ids (SDPA with a block mask,
+    # forward and backward, as the library time); then K4 at d 80 on the
+    # same ids as attn_impl="packed" runs it (the arbitrary-ids walk)
     vb = next(p["vision_batch"] for p in prompts if "vision_batch" in p)
     vc = cfg.vision
+    vision = {kind: [] for kind in SEG_REPLACES}
     for name in ("seg_window", "seg_full"):
         vid = np.asarray(vb[name], np.int32)[None]
-        run(f"vision tower {name}, K3 forward + K4 backward", vid, vid,
-            vc.num_heads, vc.num_heads, vc.head_dim, False, banded=True,
-            library=name == "seg_window", timed=name == "seg_window")
+        for kind, rec in _check_segment_kernels(
+                f"vision tower {name}, K3 forward + K4 backward", vid, vid,
+                vc.num_heads, vc.num_heads, vc.head_dim, False, gen,
+                banded=True).items():
+            vision[kind].append(rec)
+    vid = np.asarray(vb["seg_window"], np.int32)[None]
+    for kind, rec in _check_segment_kernels(
+            "vision tower seg_window, K4 (attn_impl packed)", vid, vid,
+            vc.num_heads, vc.num_heads, vc.head_dim, False, gen,
+            library=False, plain=False).items():
+        vision[kind].append(rec)
+    for kind in SEG_REPLACES:
+        results[kind] += vision[kind]
+    results["vision"] = vision
     results["k2"] = _k2_gqa_checks(gen, padded_lens, width, h, hk, d)
+    # K1, K2 and K4 bit for bit as the kernels before K3's redesign gave
+    # them (the Hopper bodies K3's band walk changed)
+    from visrag_tpu_torch.ops import attention_lengths as al
+    digests = kernel_digests()
+    al.reset_launch_counts()
+    same = {case: PARENT_DIGESTS.get(case) == got
+            for case, got in digests.items()}
+    log(f"[8] K1, K2 and K4 outputs at fixed inputs against the parent's "
+        f"kernels' (PARENT_DIGESTS): {sum(same.values())} of {len(same)} "
+        f"bit for bit equal {digests}")
+    if not all(same.values()) or len(same) != len(PARENT_DIGESTS):
+        differ = [c for c, ok in same.items() if not ok]
+        raise RuntimeError(f"K1 / K2 / K4 outputs differ from the parent "
+                           f"kernels': {differ}")
     return results
 
 
@@ -3074,6 +3363,7 @@ def phase9_rl(rows_path, cfg, tmp):
                 **seg.launch_counts()}
     _lengths_routes("[9]", launches)
     _segment_routes("[9]", launches)
+    _kvgrid_routes("[9]")
     if resumed_ok != [True]:
         raise RuntimeError(f"the second run did not resume at step 1 with "
                            f"the saved rng and data cursor: {resumed_ok}")
@@ -3444,6 +3734,7 @@ def phase11_gae(rows_path, tmp):
                 **norms.launch_counts()}
     k2_by_d = _lengths_routes("[11]", launches)
     _segment_routes("[11]", launches)
+    _kvgrid_routes("[11]")
     critic.update = update
     if [s for s, _ in history] != [1, 2] or len(seen) != 2:
         raise RuntimeError(f"GAE steps {[s for s, _ in history]}, critic "
@@ -3715,8 +4006,6 @@ def main(argv=None):
     for kind, name, source, replaces, count in (
             ("gqa", "flash_fwd_lengths (GQA 28/4, d=128)", al.SOURCE,
              REPLACES["fwd"], "stacked"),
-            ("kvgrid", "flash_attention_kvgrid", kg.SOURCE,
-             REPLACES["kvgrid"], "kvgrid"),
             ("paged", "paged_decode_attention", pk.SOURCE,
              REPLACES["paged"], "paged")):
         first = qwen_results[kind][0]
@@ -3730,6 +4019,24 @@ def main(argv=None):
                             "legacy_source": pk.LEGACY_SOURCE}
                            if kind == "paged" else {}),
                         "checks": qwen_results[kind]})
+    # K3 by layer kind: phase 7's launches (asserted: depth per vision-tower
+    # run) split as the tower's layers are, numbers at the first 3-page
+    # request's window and image ids
+    vc = qcfg.vision
+    n_full = len(vc.fullatt_block_indexes)
+    runs = qwen_launches["kvgrid"] // vc.depth
+    for at, name, layers in ((0, "flash_attention_kvgrid (window layers)",
+                              vc.depth - n_full),
+                             (1, "flash_attention_kvgrid (full layers)",
+                              n_full)):
+        first = qwen_results["kvgrid"][at]
+        kernels.append({"name": name, "route": "cuda", "source": kg.SOURCE,
+                        "replaces": REPLACES["kvgrid"],
+                        "launches": layers * runs,
+                        **{k: first[k] for k in keys},
+                        "pr3_ms": first["pr3_ms"],
+                        "legacy_source": kg.LEGACY_SOURCE,
+                        "checks": qwen_results["kvgrid"] if at == 0 else []})
     kernels.append({"name": "int8_matmul_fused", "route": "cuda",
                     "source": mi.SOURCE, "replaces": INT8_REPLACES,
                     "launches": int8_launches["int8_gemm"],

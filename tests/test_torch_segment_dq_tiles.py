@@ -92,7 +92,7 @@ def test_dq_walk_on_whole_segments_and_pad_blocks():
     assert cls[0, 1].tolist() == [seg.MASKED, seg.MASKED] + [seg.SKIP] * 3
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_dq_routes_to_the_hopper_entry(d):
     lib, entry, tiles = seg._route("dq", d)
     assert (lib, entry) == ("attention_segment_hopper",
@@ -104,9 +104,14 @@ def test_dq_routes_to_the_hopper_entry(d):
 
 
 def test_dq_at_80_stays_on_the_mma_sync_kernel():
-    assert seg._route("dq", 80) == ("attention_segment",
-                                    "visrag_segment_attention_bwd_dq",
-                                    seg.LEGACY_TILES)
+    """The mma.sync dq at d 80 stays reachable with `legacy=True` only;
+    the vision tower's dq (K3's backward) runs the Hopper dq."""
+    assert seg._route("dq", 80, legacy=True) == (
+        "attention_segment", "visrag_segment_attention_bwd_dq",
+        seg.LEGACY_TILES)
+    assert seg._route("dq", 80) == ("attention_segment_hopper",
+                                    "visrag_segment_hopper_dq",
+                                    seg.HOPPER_TILES["dq"])
 
 
 class _FakeLibrary:
@@ -151,14 +156,15 @@ def _bwd_inputs(b, sq, sk, h, hk, d):
 
 
 def _dims(args):
-    return list((ctypes.c_int * 7).from_address(args[1].value))
+    return list((ctypes.c_int * 8).from_address(args[1].value))
 
 
 @pytest.mark.parametrize("d", [64, 80, 128])
 def test_segment_backward_launches_by_head_dim(fake_card, d):
-    """segment_backward launches dq, then dk/dv: at d 64 / 128 both on the
-    Hopper entry points, at d 80 on the mma.sync ones, with the shapes in
-    their dims; each launch counts on its route."""
+    """segment_backward launches dq, then dk/dv, both on the Hopper entry
+    points at every head dim (d 80 since the vision tower's K4 moved there),
+    with the shapes in their dims and the sorted flag off; each launch
+    counts on its route."""
     calls, _ = fake_card
     q, k, v, o, do, lse, q_seg, kv_seg = _bwd_inputs(2, 200, 150, 4, 2, d)
     seg.segment_backward(q, k, v, o, do, lse, q_seg, kv_seg, True, 0.1)
@@ -170,7 +176,7 @@ def test_segment_backward_launches_by_head_dim(fake_card, d):
         (lib, "visrag_segment_hopper_dkv" if hopper
          else "visrag_segment_attention_bwd_dkv")]
     for _, _, args in calls:
-        assert _dims(args) == [2, 200, 150, 4, 2, d, 1]
+        assert _dims(args) == [2, 200, 150, 4, 2, d, 1, 0]
     route = "hopper" if hopper else "legacy"
     assert seg.route_counts() == {
         "fwd": {"hopper": 0, "legacy": 0},

@@ -105,8 +105,10 @@ def test_tile_classes_ranges():
     assert tiles == [[4, 6, 0], [6, 8, 0], [8, 8, 1], [big, 0, 0]]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_router_sends_64_and_128_to_the_wgmma_kernels(d):
+    """d 64 / 128 (the LMs) and, since the vision tower's K4 moved onto the
+    Hopper bodies, d 80: every kernel on the wgmma source."""
     for kind in ("fwd", "dq", "dkv"):
         lib, entry, tiles = seg._route(kind, d)
         assert lib == "attention_segment_hopper"
@@ -119,11 +121,16 @@ def test_router_sends_64_and_128_to_the_wgmma_kernels(d):
 
 
 def test_router_keeps_80_on_the_mma_sync_kernels():
+    """d 80 keeps the mma.sync kernels only behind `legacy=True` (the
+    timing path); by default it reaches the Hopper entry points."""
     for kind in ("fwd", "dq", "dkv"):
-        lib, entry, tiles = seg._route(kind, 80)
+        lib, entry, tiles = seg._route(kind, 80, legacy=True)
         assert lib == "attention_segment"
         assert entry.startswith("visrag_segment_attention_")
         assert tiles == seg.LEGACY_TILES
+        assert seg._route(kind, 80) == ("attention_segment_hopper",
+                                        f"visrag_segment_hopper_{kind}",
+                                        seg.HOPPER_TILES[kind])
 
 
 def test_tile_classes_wrapper_on_cpu_is_the_reference():

@@ -1,7 +1,7 @@
 """Hold K4's Hopper forward, dq and dk/dv kernels of this tree bit for bit
 against another tree's (an A/B of a refactor that must not change them).
 
-    python3 tools/torch_ab_segment.py --other DIR [--time]
+    python3 tools/torch_ab_segment.py --other DIR [--time] [--digests]
 
 DIR is a checkout of the other tree (for example `git archive` of the
 parent commit unpacked into `chip_checkout/parent`, which .gitignore
@@ -14,8 +14,12 @@ d 128, causal) and one 16,640-token row. The forward's output and LSE,
 dq's output and delta (when the other tree has the Hopper dq) and dk/dv's
 outputs must be equal bit for bit. With --time it also times both
 trees' kernels in turns (this, other, other, this), each the median of a
-burst of calls queued while the device spins (chip_smoke.cuda_ms). Needs
-one CUDA card; exits 1 if an output differs.
+burst of calls queued while the device spins (chip_smoke.cuda_ms). With
+--digests it also builds the other tree's K1 and K2 Hopper sources and
+prints `chip_smoke.kernel_digests()` (K1, K2 and K4 outputs at fixed
+inputs) through both trees' libraries as JSON lines, the other tree's
+first: chip_smoke.PARENT_DIGESTS holds those of the tree before K3's
+redesign. Needs one CUDA card; exits 1 if an output differs.
 """
 
 from __future__ import annotations
@@ -42,13 +46,13 @@ from visrag_tpu_torch.ops import attention as seg  # noqa: E402
 NAME = "attention_segment_hopper"
 
 
-def build_other(root):
-    """The other tree's K4 Hopper source, built with this tree's flags. →
-    the loaded library."""
-    src = os.path.join(root, "visrag_tpu_torch", "csrc", f"{NAME}.cu")
+def build_other(root, name=NAME):
+    """The other tree's source `name` (K4's Hopper source by default), built
+    with this tree's flags. → the loaded library."""
+    src = os.path.join(root, "visrag_tpu_torch", "csrc", f"{name}.cu")
     out_dir = os.path.join(root, "visrag_tpu_torch", "build")
     os.makedirs(out_dir, exist_ok=True)
-    out = os.path.join(out_dir, f"lib{NAME}-other.so")
+    out = os.path.join(out_dir, f"lib{name}-other.so")
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -148,11 +152,37 @@ def ab_case(label, ids_np, h, hk, d, other, do_time, gen):
     return all(same.values())
 
 
+DIGEST_SOURCES = ("attention_lengths_hopper", "attention_lengths_bwd_hopper",
+                  NAME)
+
+
+def digests(root, other_k4):
+    """chip_smoke.kernel_digests() through the other tree's libraries (its
+    K4 library already built: other_k4), then through this tree's. →
+    (other's, this tree's)."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    libs = {name: build_other(root, name) for name in DIGEST_SOURCES
+            if name != NAME}
+    libs[NAME] = other_k4
+    load = _build.load_library
+    _build.load_library = lambda name: libs.get(name) or load(name)
+    al._entry.cache_clear()
+    al._bwd_entry.cache_clear()
+    try:
+        other = cs.kernel_digests()
+    finally:
+        _build.load_library = load
+        al._entry.cache_clear()
+        al._bwd_entry.cache_clear()
+    return other, cs.kernel_digests()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True,
                     help="root of the other tree's checkout")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--digests", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device")
@@ -163,6 +193,12 @@ def main(argv=None):
     ok = ab_case("packed update", ids, h, hk, d, other, args.time, gen)
     ok &= ab_case("one 16640-token row", np.ones((1, 16640), np.int32), h,
                   hk, d, other, args.time, gen)
+    if args.digests:
+        theirs, ours = digests(os.path.abspath(args.other), other)
+        print(json.dumps(theirs))
+        print(json.dumps(ours))
+        print(f"[ab] K1, K2 and K4 digests equal: {theirs == ours}")
+        ok &= theirs == ours
     print(f"[{cs.smi()}] bit for bit: {ok}")
     return 0 if ok else 1
 

@@ -1,6 +1,6 @@
 """Build the segment-attention kernels (K4, both the wgmma and the mma.sync
-sources) and K3, print the compiler's report, and hold each kernel against
-its plain PyTorch version on the card.
+sources) and K3 (both sources), print the compiler's report, and hold each
+kernel against its plain PyTorch version on the card.
 
     python3 tools/torch_check_segment.py [--time]
 
@@ -11,10 +11,12 @@ heads, Sq != Sk, pad and negative ids, segments of 127/128/129 tokens, a
 segment filling whole 128-row tiles, d = 64 / 80 / 128), the mma.sync
 forward, dq and dk/dv at d 64 / 128 as well, and the delta hand-off: the
 Hopper dq's delta against the mma.sync dq's, and the dk/dv that follows
-each.
+each. K3 (the Hopper kernel and, to compare, the first one) on the vision
+block's fused-qkv views at window, image-sized and edge ids, its backward
+(K4 at d 80 on sorted ids) at window and image ids.
 With --time it also times the kernels with CUDA events (median of 10), the
-wgmma and the mma.sync forward, dq and dk/dv in turns. Needs one CUDA
-card; exits 1 on any disagreement.
+wgmma and the mma.sync forward, dq and dk/dv in turns, and K3 in turns
+with the first kernel. Needs one CUDA card; exits 1 on any disagreement.
 """
 
 from __future__ import annotations
@@ -188,6 +190,49 @@ def rel(a, b):
         torch.linalg.norm(a).item()
 
 
+def check_k3(name, ids_np, do_time, h=16, d=80):
+    """K3 on views of one fused (1, S, 3, H, D) qkv tensor, as the vision
+    block passes them: the Hopper kernel and the first one against the
+    plain version (2e-2 max abs on real rows), pad rows exactly 0; with
+    --time both kernels in turns."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    s = ids_np.shape[1]
+    qkv = torch.randn(1, s, 3, h, d, generator=g, device=dev).bfloat16()
+    q, k, v = qkv.unbind(2)
+    ids = torch.from_numpy(ids_np).to(dev)
+    want = kg.flash_attention_kvgrid_reference(q, k, v, ids)
+    real = ids[0] > 0
+    line, ok = f"K3 {name} (S {s}):", True
+    for tag, legacy in (("hopper", False), ("first", True)):
+        out = kg._launch(q, k, v, ids, d ** -0.5, legacy=legacy)
+        torch.cuda.synchronize()
+        err = (out[0][real].float() - want[0][real].float()).abs().max()
+        zeros = bool((out[0][~real] == 0).all())
+        ok &= err.item() <= 2e-2 and zeros
+        line += f" {tag} max_abs {err.item():.3g} pad_zeros {zeros};"
+    if do_time:
+        times = {"hopper": [], "first": []}
+        for tag in ("hopper", "first", "first", "hopper"):
+            times[tag].append(median_ms(lambda: kg._launch(
+                q, k, v, ids, d ** -0.5, legacy=tag == "first")))
+        line += " " + " ".join(f"{t} {sum(x) / 2:.4f}ms"
+                               for t, x in times.items())
+    print(line + (" ok" if ok else " FAIL"), flush=True)
+    return ok
+
+
+def vision_ids(longest, total, pad, seed=0):
+    """Sorted ids over runs of 1..longest tokens (window layers: 64; full
+    layers: an image's patches), then `pad` zeros; (1, total + pad)."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < total:
+        sizes.append(int(rng.integers(max(1, longest // 2), longest + 1)))
+    ids = np.repeat(np.arange(1, len(sizes) + 1), sizes)[:total]
+    return np.concatenate([ids, np.zeros(pad)])[None].astype(np.int32)
+
+
 def check_classes(rng):
     """The pre-pass on the card against segment_tile_classes_reference."""
     ok = True
@@ -210,13 +255,13 @@ def main(argv=None):
         return 1
     t0 = time.time()
     names = ("attention_segment", "attention_segment_hopper",
-             "attention_kvgrid")
+             "attention_kvgrid", "attention_kvgrid_hopper")
     _build.build_all(names)
     print(f"built in {time.time() - t0:.1f}s", flush=True)
     for name in names:
-        regs, spilled, _ = _build.ptxas_report(name)
-        print(f"{name}: registers {regs}, spills {spilled or 'none'}",
-              flush=True)
+        regs, spilled, stacked = _build.ptxas_report(name)
+        print(f"{name}: registers {regs}, spills {spilled or 'none'}, "
+              f"stack frames {stacked or 'none'}", flush=True)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip(), flush=True)
     rng = np.random.default_rng(0)
@@ -256,8 +301,22 @@ def main(argv=None):
     win = np.repeat(np.arange(1, 41), 64)[:2500]
     win = np.concatenate([win, np.zeros(60)])[None].astype(np.int32)
     ok &= check("vision d80 K4", win, win, 16, 16, 80, False, args.time)
+    ok &= check("vision d80 K4 causal", win, win, 16, 16, 80, True, False)
+    ok &= check("vision d80 K4, mma.sync", win, win, 16, 16, 80, False,
+                False, legacy=True)
     ok &= check("vision d80 K3 + K4 backward", win, win, 16, 16, 80, False,
                 args.time, banded=True)
+    img = vision_ids(1500, 3900, 37)
+    ok &= check("image ids d80 K3 + K4 backward", img, img, 16, 16, 80,
+                False, args.time, banded=True)
+    edge3 = np.asarray([[1] + [2] * 63 + [3] * 65 + [4] + [5] * 130
+                        + [6] * 700 + [7] * 127 + [8] * 129 + [0] * 165],
+                       np.int32)
+    for name, ids3 in (("window", vision_ids(64, 17631, 37)),
+                       ("image", vision_ids(5000, 17631, 37, seed=1)),
+                       ("edges", edge3), ("one segment",
+                                          np.ones((1, 1000), np.int32))):
+        ok &= check_k3(name, ids3, args.time)
     if args.time:
         ids = first_fit_ids(rng, 3, 4864, [4800, 4790, 4780, 60, 50, 40])
         ok &= check("packed update 3x4864", ids, ids, 16, 2, 128, True, True)

@@ -1,4 +1,7 @@
-// Banded segment attention forward for Hopper (sm_90a), K3.
+// Banded segment attention forward for Hopper (sm_90a), K3: the first
+// kernel, on the mma.sync core. Every K3 launch of the port runs
+// attention_kvgrid_hopper.cu; this one is reached only with `legacy=True`
+// (ops/attention_kvgrid.py), to time one against the other.
 //
 // Replaces the TPU kernel `_fwd_kernel_banded` in
 // visrag_tpu/ops/attention_kvgrid.py (its band bounds `_band_bounds`, and

@@ -80,6 +80,7 @@ struct LengthsMask {
         : len(min(max(mp.lengths[b], 0), sk)), k0(k0_), nq(nq_) {}
 
     __device__ __forceinline__ bool k_live() const { return k0 < len; }
+    __device__ __forceinline__ void locate(int) {}
     __device__ __forceinline__ int q_begin() const {
       return CAUSAL ? min(k0 / DKV_BQ, nq) : 0;
     }
@@ -141,6 +142,8 @@ struct LengthsMask {
       return CAUSAL && z < live ? live - 1 - z : z;
     }
     __device__ __forceinline__ bool q_live() const { return q0 < len; }
+    __device__ __forceinline__ void locate(int) {}
+    __device__ __forceinline__ int first() const { return 0; }
     // the key tiles below len (causal: up to the tile's last live row)
     __device__ __forceinline__ int ntiles() const {
       const int end = CAUSAL ? min(len, q0 + DQ_BQ) : len;

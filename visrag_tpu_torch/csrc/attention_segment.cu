@@ -1,12 +1,11 @@
 // Segment-id flash attention for Hopper (sm_90a), K4: forward with the
 // log-sum-exp, and its backward (dq, and dk/dv), on the mma.sync core.
 //
-// Which d goes where: the dq kernel here serves every head dim; the
-// forward and dk/dv kernels here serve d = 80 (K3's backward, the vision
-// tower). At d = 64 and 128 the forward and dk/dv are the wgmma + TMA
-// kernels of attention_segment_hopper.cu; the ones here stay compiled at
-// every d so that they can be timed against those (ops/attention.py
-// `_route`, its `legacy` switch), and the port's callers never select them.
+// Which d goes where: at every head dim the port runs (64, 80, 128) the
+// forward, dq and dk/dv are the wgmma + TMA kernels of
+// attention_segment_hopper.cu; the ones here stay compiled so that they can
+// be timed against those (ops/attention.py `_route`, its `legacy` switch),
+// and the port's callers never select them.
 //
 // Replaces the TPU kernels `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` in
 // visrag_tpu/ops/attention.py (launched by `_flash_fwd` / `_flash_bwd` under

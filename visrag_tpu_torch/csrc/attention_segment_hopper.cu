@@ -1,15 +1,17 @@
-// Segment-id flash attention for Hopper (sm_90a), K4 at head dims 64 and
-// 128: the forward with its log-sum-exp, the dq kernel (which also writes
-// delta) and the dk/dv kernel, built on wgmma, TMA and a warp-specialised
-// producer (hopper.cuh); all three bodies are shared with the valid-length
-// kernels (hopper_attention_fwd.cuh, hopper_attention_bwd.cuh).
+// Segment-id flash attention for Hopper (sm_90a), K4 at head dims 64, 80
+// and 128: the forward with its log-sum-exp, the dq kernel (which also
+// writes delta) and the dk/dv kernel, built on wgmma, TMA and a
+// warp-specialised producer (hopper.cuh); all three bodies are shared with
+// the valid-length kernels (hopper_attention_fwd.cuh,
+// hopper_attention_bwd.cuh).
 //
 // Replaces the TPU kernels `_fwd_kernel` (visrag_tpu/ops/attention.py:219),
 // `_dq_kernel` (:302) and `_dkv_kernel` (:338). The segment contract and
 // the formulas are those of attention_segment.cu, whose mma.sync kernels
-// stay compiled at every head dim: they serve d = 80 (K3's backward, the
-// vision tower). Routing is by head dim alone (ops/attention.py `_route`),
-// never by failure.
+// stay compiled, reached only with `legacy=True` (ops/attention.py `_route`)
+// to time one against the other. d 80 is the Qwen2.5-VL vision tower's: the
+// backward of K3 (attention_kvgrid_hopper.cu) and its `attn_impl="packed"`
+// forward.
 //
 // What bounds it on the H100: the operations. The products on the visible
 // pairs (2 forward, 4 for dk/dv) reach the 989 TFLOP/s bf16 peak only
@@ -33,12 +35,15 @@
 //     rows that see no key give exact zeros and LSE_PAD. Causal query tiles
 //     are launched heaviest first.
 //   * dk/dv: the body shared with K2, hopper_attention_bwd.cuh, with the
-//     segment mask's key-major view (SegmentMask::KeyBlock): a block owns 64
-//     keys of one kv head and walks the group's query heads and their
-//     64-row query tiles (no atomics, deterministic), 4 stages; warpgroup 0
-//     accumulates dV, warpgroup 1 dK, so that each fits the 168 registers
-//     ptxas gives a consumer thread (five products instead of four, see
-//     that header and PERF.md).
+//     segment mask's key-major view (SegmentMask::KeyBlock): at d 64 / 128
+//     a block owns 64 keys of one kv head and walks the group's query heads
+//     and their 64-row query tiles (no atomics, deterministic), 4 stages;
+//     warpgroup 0 accumulates dV, warpgroup 1 dK, so that each fits the 168
+//     registers ptxas gives a consumer thread (five products instead of
+//     four, see that header and PERF.md). At d 80 (64 + 16 columns, d 72's
+//     column plan) the split body cannot take the 16-column piece, and dK
+//     and dV fit one warpgroup: K2's d 72 body, a warpgroup a 64-key tile,
+//     128 keys a block, on the same KeyBlock.
 //   * dq: the dq body of hopper_attention_bwd.cuh with the segment mask's
 //     query-major view (SegmentMask::QueryBlock): a block owns a 128-row
 //     query tile of one query head (64 rows a consumer warpgroup, Q and dO
@@ -58,6 +63,13 @@
 //     pair masks per element by id equality (and key <= query). The plain
 //     version is `segment_tile_classes_reference` / `segment_pair_classes_
 //     reference` in ops/attention.py.
+//   * Sorted ids (the `sorted` flag, dims[7]; K3's backward, whose ids are
+//     ascending runs with pad after them): the pre-pass's [lo, hi] are then
+//     non-decreasing over the real tiles, so the tiles a block can meet form
+//     one run, and the dq producer and every dk/dv warp find its ends by a
+//     warp's 32-way search over the classes (`locate`: 2 rounds over 276
+//     tiles) instead of walking all S / 64 tiles. Without the flag every
+//     tile is walked, as before.
 //
 // Layout: (B, S, H, D) views with element strides (batch, row, head) and a
 // contiguous head dim, read through one 4-D tensor map each (D, S, H, B),
@@ -87,6 +99,7 @@ struct Params {
   const int4* q_cls;         // (B, nq): lo, hi, uniform
   const int4* k_cls;         // (B, nk)
   int sq, sk, heads, kv_group;
+  int sorted;                // dq / dk/dv: walk only the band of sorted ids
   long long o_sb, o_sr, o_sh;
   long long do_sb, do_sr, do_sh;
   long long dq_sb, dq_sr, dq_sh;
@@ -150,6 +163,7 @@ struct SegmentMask {
     const int* kv_seg;       // (B, Sk)
     const int4* q_cls;       // (B, nq): lo, hi, uniform
     const int4* k_cls;       // (B, nk)
+    int sorted;              // the ids are ascending runs, pad after them
   };
   struct Rows {
     int lo, hi;              // the ids of the thread's two query rows
@@ -222,7 +236,8 @@ struct SegmentMask {
     const int4* qcls;
     const int* qsegb;
     const int* ksegb;
-    int k0, nq, sq, sk;
+    int k0, nq, sq, sk, sorted;
+    int qb, qe;              // the query tiles to walk (locate)
 
     __device__ __forceinline__ KeyBlock(const Params& mp, int b, int kt,
                                         int k0_, int nq_, int nk, int sq_,
@@ -231,14 +246,34 @@ struct SegmentMask {
           qcls(mp.q_cls + static_cast<long long>(b) * nq_),
           qsegb(mp.q_seg + static_cast<long long>(b) * sq_),
           ksegb(mp.kv_seg + static_cast<long long>(b) * sk_),
-          k0(k0_), nq(nq_), sq(sq_), sk(sk_) {}
+          k0(k0_), nq(nq_), sq(sq_), sk(sk_), sorted(mp.sorted), qb(0),
+          qe(nq_) {}
 
     __device__ __forceinline__ bool k_live() const { return true; }
+    // Sorted ids: the query tiles whose ids can meet this key tile's are
+    // one run of tiles, found by the warp's search over the pre-pass's
+    // classes (real tiles first, their [lo, hi] non-decreasing; pad tiles
+    // (INT_MAX, 0) after them): from the first whose hi reaches the key
+    // tile's lo to the last whose lo is within its hi. A pad key tile walks
+    // nothing. Other ids walk every query tile.
+    __device__ __forceinline__ void locate(int lane) {
+      if (!sorted) return;
+      const int lo = kc.x, hi = kc.y;
+      const int2 r = warp_partitions(
+          make_int2(0, nq),
+          [&](int t) {
+            const int h = qcls[t].y;
+            return h > 0 && h < lo;
+          },
+          make_int2(0, nq), [&](int t) { return qcls[t].x <= hi; }, lane);
+      qb = r.x;
+      qe = r.y;
+    }
     // from the first query tile that can see this key tile
     __device__ __forceinline__ int q_begin() const {
-      return CAUSAL ? min(k0 / DKV_BQ, nq) : 0;
+      return CAUSAL ? max(qb, min(k0 / DKV_BQ, nq)) : qb;
     }
-    __device__ __forceinline__ int q_end() const { return nq; }
+    __device__ __forceinline__ int q_end() const { return qe; }
     __device__ __forceinline__ int pair(int qt) const {
       return pair_class(qcls[qt], qt * DKV_BQ, DKV_BQ, kc, k0, DKV_BK,
                         CAUSAL);
@@ -296,7 +331,8 @@ struct SegmentMask {
     const int4* kcls;
     const int* qsegb;
     const int* ksegb;
-    int q0, nk, sq, sk;
+    int q0, nk, sq, sk, sorted;
+    int tb, te;              // the key tiles to walk (locate)
 
     __device__ __forceinline__ QueryBlock(const Params& mp, int b, int qt,
                                           int q0_, int, int nk_, int sq_,
@@ -304,7 +340,8 @@ struct SegmentMask {
         : kcls(mp.k_cls + static_cast<long long>(b) * nk_),
           qsegb(mp.q_seg + static_cast<long long>(b) * sq_),
           ksegb(mp.kv_seg + static_cast<long long>(b) * sk_),
-          q0(q0_), nk(nk_), sq(sq_), sk(sk_) {
+          q0(q0_), nk(nk_), sq(sq_), sk(sk_), sorted(mp.sorted), tb(0),
+          te(nk_) {
       static_assert(DQ_BQ == 2 * DKV_BQ && DQ_BK == DKV_BK,
                     "dq classes a 128-row tile as two 64-row tiles");
       const int nq64 = (sq_ + DKV_BQ - 1) / DKV_BQ;
@@ -323,9 +360,26 @@ struct SegmentMask {
     __device__ __forceinline__ bool q_live() const {
       return qc0.y > 0 || qc1.y > 0;
     }
+    // Sorted ids: the key tiles whose ids can meet the block's rows are one
+    // run, found by the producer warp's search over the pre-pass's classes
+    // (as KeyBlock::locate); other ids walk every key tile.
+    __device__ __forceinline__ void locate(int lane) {
+      if (!sorted) return;
+      const int lo = min(qc0.x, qc1.x), hi = max(qc0.y, qc1.y);
+      const int2 r = warp_partitions(
+          make_int2(0, nk),
+          [&](int t) {
+            const int h = kcls[t].y;
+            return h > 0 && h < lo;
+          },
+          make_int2(0, nk), [&](int t) { return kcls[t].x <= hi; }, lane);
+      tb = r.x;
+      te = r.y;
+    }
+    __device__ __forceinline__ int first() const { return tb; }
     // causal: the key tiles up to the tile's last row
     __device__ __forceinline__ int ntiles() const {
-      return CAUSAL ? min(nk, (min(q0 + DQ_BQ, sq) + DQ_BK - 1) / DQ_BK) : nk;
+      return min(te, CAUSAL ? (min(q0 + DQ_BQ, sq) + DQ_BK - 1) / DQ_BK : nk);
     }
     __device__ __forceinline__ int pair(int t, int cw) const {
       return pair_class(cw ? qc1 : qc0, q0 + DKV_BQ * cw, DKV_BQ, kcls[t],
@@ -387,7 +441,7 @@ int dispatch(int which, const Params& p, int batch, const View& q,
     fp.sq = p.sq, fp.sk = p.sk, fp.heads = p.heads, fp.kv_group = p.kv_group;
     fp.sl2 = p.scale * LOG2E;
     const typename SegmentMask<CAUSAL>::Params mp{p.q_seg, p.kv_seg, p.q_cls,
-                                                  p.k_cls};
+                                                  p.k_cls, 0};
     return p.lse ? launch_fwd<D, true, SegmentMask<CAUSAL>>(maps, fp, mp,
                                                             batch, stream)
                  : launch_fwd<D, false, SegmentMask<CAUSAL>>(maps, fp, mp,
@@ -409,12 +463,18 @@ int dispatch(int which, const Params& p, int batch, const View& q,
   bp.sq = p.sq, bp.sk = p.sk, bp.heads = p.heads, bp.kv_group = p.kv_group;
   bp.scale = p.scale;
   const typename SegmentMask<CAUSAL>::Params mp{p.q_seg, p.kv_seg, p.q_cls,
-                                                p.k_cls};
+                                                p.k_cls, p.sorted};
   if (which == DQ)
     return launch_dq<D, SegmentMask<CAUSAL>>(bp, mp, batch, q, k, v, dO,
                                              stream);
-  return launch_dkv<D, SegmentMask<CAUSAL>>(bp, mp, batch, q, k, v, dO,
-                                            stream);
+  // d 80 (64 + 16 columns): a warpgroup a 64-key tile, dK and dV in one
+  // warpgroup; d 64 / 128: the split body
+  if constexpr (ColumnPlan<D>::TAIL > 0)
+    return launch_dkv_pair<D, SegmentMask<CAUSAL>>(bp, mp, batch, q, k, v,
+                                                   dO, stream);
+  else
+    return launch_dkv<D, SegmentMask<CAUSAL>>(bp, mp, batch, q, k, v, dO,
+                                              stream);
 }
 
 void tile_classes(const int* seg, int batch, int seq, int tile, int4* out,
@@ -425,13 +485,16 @@ void tile_classes(const int* seg, int batch, int seq, int tile, int4* out,
 }
 
 // ptrs, dims and strides as attention_segment.cu's entry points (q, k, v,
-// o, do, dq, dk, dv, lse, delta, q_seg, kv_seg, classes); classes: scratch
-// of 4 * batch * (ceil(sq / BQ) + ceil(sk / BK)) ints at the kernel's tile
-// rows (forward 128 / 128, dq and dk/dv 64 / 64), filled here.
+// o, do, dq, dk, dv, lse, delta, q_seg, kv_seg, classes), and dims[7] the
+// sorted flag (dq and dk/dv walk only the band of sorted ids). classes:
+// scratch of 4 * batch * (ceil(sq / BQ) + ceil(sk / BK)) ints at the
+// kernel's tile rows (forward 128 / 128, dq and dk/dv 64 / 64), filled
+// here.
 int run(int which, void* const* ptrs, const int* dims, const long long* st,
         float scale, void* stream) {
   const int batch = dims[0], sq = dims[1], sk = dims[2], heads = dims[3],
-            kv_heads = dims[4], head_dim = dims[5], causal = dims[6];
+            kv_heads = dims[4], head_dim = dims[5], causal = dims[6],
+            sorted = dims[7];
   if (kv_heads <= 0 || heads % kv_heads) return int(cudaErrorInvalidValue);
   if (batch <= 0 || sq <= 0 || sk <= 0) return int(cudaSuccess);
   Params p;
@@ -455,6 +518,7 @@ int run(int which, void* const* ptrs, const int* dims, const long long* st,
   p.sk = sk;
   p.heads = heads;
   p.kv_group = heads / kv_heads;
+  p.sorted = sorted;
   p.o_sb = st[9], p.o_sr = st[10], p.o_sh = st[11];
   p.do_sb = st[12], p.do_sr = st[13], p.do_sh = st[14];
   p.dq_sb = st[15], p.dq_sr = st[16], p.dq_sh = st[17];
@@ -472,6 +536,9 @@ int run(int which, void* const* ptrs, const int* dims, const long long* st,
     case 64:
       return causal ? dispatch<64, true>(which, p, batch, q, k, v, dO, s)
                     : dispatch<64, false>(which, p, batch, q, k, v, dO, s);
+    case 80:
+      return causal ? dispatch<80, true>(which, p, batch, q, k, v, dO, s)
+                    : dispatch<80, false>(which, p, batch, q, k, v, dO, s);
     case 128:
       return causal ? dispatch<128, true>(which, p, batch, q, k, v, dO, s)
                     : dispatch<128, false>(which, p, batch, q, k, v, dO, s);

@@ -64,15 +64,20 @@
 // built once per block from its Params:
 //   KeyBlock (dk/dv; 64 keys from k0; the pair kernel builds one a
 //   warpgroup): k_live() (false: zero dk and dv rows, and a block with no
-//   live key exits before the pipeline), q_begin() / q_end()
+//   live key exits before the pipeline), locate(lane) (run by warp 0, all
+//   32 lanes, before the walk, which the block then shares: a policy that
+//   finds its walk in device memory does it here; the others do nothing),
+//   q_begin() / q_end()
 //   (the query tiles to walk), pair(qt) (SKIP / MASKED / UNMASKED), stage()
 //   (the producer warp's staging of a query tile's rows: lse log2(e),
 //   delta, ids), keys() (per-thread state of its two keys), apply() (the
 //   per-element mask of a MASKED pair on four probabilities) and key_live()
 //   (a dead key row is stored as zeros).
 //   QueryBlock (dq; 128 rows from q0): qtile() (the query tile a block's
-//   tile index names), q_live() (false: zeros and delta 0 and exit), ntiles()
-//   (key tiles to walk), pair(t, cw) (the class of key tile t for
+//   tile index names), q_live() (false: zeros and delta 0 and exit),
+//   locate(lane) (run by warp 0, all 32 lanes, before the walk, which the
+//   block then shares), first() and ntiles() (the key tiles [first,
+//   ntiles) to walk), pair(t, cw) (the class of key tile t for
 //   warpgroup cw's 64 rows; a tile that both warpgroups skip is not
 //   loaded), IDS and stage(ids, t, lane) (the producer warp's staging of
 //   IDS ints beside each K / V stage; IDS = 0 stages nothing), rows()
@@ -202,11 +207,12 @@ __device__ __forceinline__ void dkv_produce(const DkvTiles<D, KEYS>& t,
                                             const BwdParams& p,
                                             const KB& stager, Skip skip,
                                             int hk, int b, int k0,
-                                            int q_begin, int q_end) {
+                                            const int2* walk) {
   using T = DkvTiles<D, KEYS>;
   static_assert(T::STAGES * 32 == WS_THREADS - PRODUCER,
                 "one producer warp a stage");
   setmaxnreg_dec<PRODUCER_REGS>();
+  const int q_begin = walk->x, q_end = walk->y;
   const int pw = (threadIdx.x - PRODUCER) / 32;
   const int lane = threadIdx.x % 32;
   if (pw == 0 && lane == 0) {
@@ -270,7 +276,7 @@ attention_dkv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
   const int k0 = kt * DKV_BK;
   const int sq = p.sq, sk = p.sk;
   const int nq = (sq + DKV_BQ - 1) / DKV_BQ, nk = (sk + DKV_BK - 1) / DKV_BK;
-  const KB mask(mp, b, kt, k0, nq, nk, sq, sk);
+  KB mask(mp, b, kt, k0, nq, nk, sq, sk);
   if (!mask.k_live()) {
     const int rows = min(DKV_BK, sk - k0);
     zero_rows<D>(p.dk + b * p.dk_sb + hk * p.dk_sh + k0 * p.dk_sr, p.dk_sr,
@@ -280,19 +286,25 @@ attention_dkv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
     return;
   }
   // the work: the group's query heads (outer) x the query tiles the policy
-  // names (inner), active pairs only
-  const int q_begin = mask.q_begin(), q_end = mask.q_end();
+  // names (inner), active pairs only; the walk found once, by warp 0, and
+  // shared through the block barrier
+  __shared__ int2 walk;
+  if (threadIdx.x < 32) {
+    mask.locate(threadIdx.x);
+    if (threadIdx.x == 0) walk = make_int2(mask.q_begin(), mask.q_end());
+  }
   tiles.init_barriers();
   if (threadIdx.x >= PRODUCER) {
     dkv_produce(tiles, maps, p, mask,
                 [&](int qt) { return mask.pair(qt) == SKIP; }, hk, b, k0,
-                q_begin, q_end);
+                &walk);
     return;
   }
 
   // ---- consumers: both warpgroups walk the block's 64 keys; warpgroup 0
   // accumulates dV, warpgroup 1 dK
   setmaxnreg_inc<CONSUMER_REGS>();
+  const int q_begin = walk.x, q_end = walk.y;
   const int cw = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
@@ -514,9 +526,8 @@ attention_dkv_pair_kernel(const __grid_constant__ BwdMaps maps,
   const int sq = p.sq, sk = p.sk;
   const int nq = (sq + DKV_BQ - 1) / DKV_BQ, nk = (sk + DKV_BK - 1) / DKV_BK;
   // the two warpgroups' 64-key tiles (the second may lie past sk)
-  const KB kb0(mp, b, 2 * blk.tile, k0, nq, nk, sq, sk);
-  const KB kb1(mp, b, min(2 * blk.tile + 1, nk - 1), k0 + DKV_BK, nq, nk, sq,
-               sk);
+  KB kb0(mp, b, 2 * blk.tile, k0, nq, nk, sq, sk);
+  KB kb1(mp, b, min(2 * blk.tile + 1, nk - 1), k0 + DKV_BK, nq, nk, sq, sk);
   const bool live1 = k0 + DKV_BK < sk && kb1.k_live();
   if (!kb0.k_live()) {
     const int rows = min(BK2, sk - k0);
@@ -526,9 +537,17 @@ attention_dkv_pair_kernel(const __grid_constant__ BwdMaps maps,
                  rows);
     return;
   }
-  const int q_begin = live1 ? min(kb0.q_begin(), kb1.q_begin())
-                            : kb0.q_begin();
-  const int q_end = live1 ? max(kb0.q_end(), kb1.q_end()) : kb0.q_end();
+  // the walk over both warpgroups' key tiles, found once, by warp 0, and
+  // shared through the block barrier
+  __shared__ int2 walk;
+  if (threadIdx.x < 32) {
+    kb0.locate(threadIdx.x);
+    if (live1) kb1.locate(threadIdx.x);
+    if (threadIdx.x == 0)
+      walk = live1 ? make_int2(min(kb0.q_begin(), kb1.q_begin()),
+                               max(kb0.q_end(), kb1.q_end()))
+                   : make_int2(kb0.q_begin(), kb0.q_end());
+  }
   auto pair_of = [&](int w, int qt) {
     return w == 0 ? kb0.pair(qt) : (live1 ? kb1.pair(qt) : int(SKIP));
   };
@@ -538,12 +557,13 @@ attention_dkv_pair_kernel(const __grid_constant__ BwdMaps maps,
                 [&](int qt) {
                   return pair_of(0, qt) == SKIP && pair_of(1, qt) == SKIP;
                 },
-                hk, b, k0, q_begin, q_end);
+                hk, b, k0, &walk);
     return;
   }
 
   // ---- consumers: warpgroup cw owns keys [k0 + 64 cw, k0 + 64 cw + 64)
   setmaxnreg_inc<CONSUMER_REGS>();
+  const int q_begin = walk.x, q_end = walk.y;
   const int cw = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
@@ -782,7 +802,7 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
   const int q0 = qt * DQ_BQ;
   const int hk = h / p.kv_group;
   const long long at = (static_cast<long long>(b) * p.heads + h) * sq;
-  const QB mask(mp, b, qt, q0, nq, nk, sq, sk);
+  QB mask(mp, b, qt, q0, nq, nk, sq, sk);
   if (!mask.q_live()) {
     // a dead tile: dq 0 and delta 0 in its rows
     const int rows = min(DQ_BQ, sq - q0);
@@ -792,13 +812,20 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       p.delta[at + q0 + r] = 0.f;
     return;
   }
-  const int ntiles = mask.ntiles();
+  // the walk, found once, by warp 0 before the register split, and shared
+  // through the block barrier: the producer's code after setmaxnreg.dec
+  // stays within its registers
+  __shared__ int2 walk;
+  if (threadIdx.x < 32) {
+    mask.locate(threadIdx.x);
+    if (threadIdx.x == 0) walk = make_int2(mask.first(), mask.ntiles());
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
     fence_barrier_init();
   }
@@ -823,7 +850,7 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
     }
     if (QB::IDS == 0 && lane != 0) return;
     Ring<STAGES> ring;
-    for (int t = 0; t < ntiles; ++t) {
+    for (int t = walk.x, end = walk.y; t < end; ++t) {
       const int c0 = mask.pair(t, 0), c1 = mask.pair(t, 1);
       if (c0 == SKIP && c1 == SKIP) continue;
       mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
@@ -986,7 +1013,11 @@ attention_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
       if constexpr (C::TAIL > 0) fence_regs(dqt);
       fence_regs(da);
     }
-    if (tid == 0) mbar_arrive(&empty[ring.stage]);
+    // every warp releases the stage: a warpgroup that skips the tile runs
+    // no collective wgmma, and one warp's arrival could let the producer
+    // rewrite the stage's entry before a slower warp of the warpgroup has
+    // read it
+    if (lane == 0) mbar_arrive(&empty[ring.stage]);
     ring.advance();
   }
 

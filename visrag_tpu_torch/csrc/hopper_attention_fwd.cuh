@@ -56,6 +56,7 @@ namespace visrag {
 namespace hopper {
 
 constexpr int CONSUMERS = 2;                  // consumer warpgroups
+constexpr int CONSUMER_WARPS = 4 * CONSUMERS;
 constexpr int PRODUCER = 128 * CONSUMERS;    // first thread of the producer
 constexpr int WS_THREADS = PRODUCER + 128;   // its warpgroup
 // registers a thread, 56 x 128 + 2 x 224 x 128 = the 64,512 of the launch
@@ -76,6 +77,40 @@ struct ColumnPlan {
   static_assert(HALVES >= 1 && D % 8 == 0 && D - MAIN <= 16,
                 "ColumnPlan: d = 64 k, or 64 k + 8 or + 16");
 };
+
+// One round of a warp's search for the first index p of [r.x, r.y] at
+// which `holds` fails, for a predicate that holds on a prefix of the range
+// and fails on the rest (p = r.y when it holds throughout): the 32 lanes
+// test 32 evenly spaced indices and the range shrinks to the gap between
+// the last that holds and the first that fails. Every lane of the warp
+// takes part; an empty range (r.x == r.y, the answer) is left as it is.
+template <class Holds>
+__device__ __forceinline__ void warp_narrow(int2& r, Holds holds, int lane) {
+  if (r.x >= r.y) return;
+  const int step = (r.y - r.x + 31) >> 5;
+  const int at = r.x + lane * step;
+  const int n = __popc(__ballot_sync(0xffffffffu, at < r.y && holds(at)));
+  if (n == 0) {
+    r.y = r.x;
+    return;
+  }
+  r.y = min(r.y, r.x + n * step);
+  r.x += (n - 1) * step + 1;
+}
+
+// Two such searches side by side, their loads in flight together: about
+// log32 of the longer range rounds (3 over 17,668 keys, 2 over 276 tiles).
+// → (p of a, p of b), the same in every lane.
+template <class HoldsA, class HoldsB>
+__device__ __forceinline__ int2 warp_partitions(int2 a, HoldsA holds_a,
+                                                int2 b, HoldsB holds_b,
+                                                int lane) {
+  while (a.x < a.y || b.x < b.y) {
+    warp_narrow(a, holds_a, lane);
+    warp_narrow(b, holds_b, lane);
+  }
+  return make_int2(a.x, b.x);
+}
 
 template <int N>
 __device__ __forceinline__ void zero(float (&r)[N]) {
@@ -142,6 +177,252 @@ __device__ __forceinline__ void write_dead_tile(const FwdParams& p, int b,
   }
 }
 
+// A consumer warpgroup's running state over one query tile: O's
+// fragments (the 64-column pieces, and the 16-column piece), and the
+// running max and sum of the thread's two rows.
+template <int D>
+struct FwdAcc {
+  float o[ColumnPlan<D>::MAIN / 2];
+  float ot[ColumnPlan<D>::TAIL > 0 ? ColumnPlan<D>::TAIL / 2 : 1];
+  float m_lo, m_hi, l_lo, l_hi;
+  __device__ __forceinline__ void reset() {
+    zero(o);
+    zero(ot);
+    m_lo = m_hi = -INFINITY;
+    l_lo = l_hi = 0.f;
+  }
+};
+
+// One key tile for consumer warpgroup cw, or NK = 64 of its keys from
+// koff (0 or 64): S = Q K^T over the Q tile at q_tile and the keys of the
+// K tile at k_tile, the policy's per-element mask on a MASKED pair (ids: the
+// slice's key ids, staged beside the tile; k0: its first key), the online
+// softmax, and O += P V with the V tile at v_tile. The 64-column pieces of
+// a K or V tile hold its FWD_BK rows, then the 16-column piece its rows.
+template <int D, int NK = FWD_BK, class Mask>
+__device__ __forceinline__ void fwd_tile(FwdAcc<D>& a, const Mask& mask,
+                                         const typename Mask::Rows& rows,
+                                         uint32_t q_tile, uint32_t k_tile,
+                                         uint32_t v_tile, int koff,
+                                         const int* ids, int cls, int k0,
+                                         int cw, int row_lo, int row_hi,
+                                         int t4, float sl2) {
+  using C = ColumnPlan<D>;
+  static_assert(NK == FWD_BK || NK == FWD_BK / 2, "a tile or half of one");
+  // S = Q K^T: 64 rows x NK keys; Q rows of this warpgroup as the
+  // K-major A operand, K as the K-major B operand
+  float s[NK / 2];
+  const uint64_t q_desc =
+      make_desc(opaque(q_tile + 64 * cw * HALF_ROW), 16, 1024);
+  const uint64_t k_desc = make_desc(k_tile + koff * HALF_ROW, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < C::MAIN / 16; ++kk) {
+    const uint32_t off_q = (kk / 4) * FWD_BQ * HALF_ROW + (kk % 4) * 32;
+    const uint32_t off_k = (kk / 4) * FWD_BK * HALF_ROW + (kk % 4) * 32;
+    wgmma_ss<NK, 0>(s, desc_add(q_desc, off_q), desc_add(k_desc, off_k),
+                    kk > 0);
+  }
+  if constexpr (C::TAIL > 0) {
+    // the 16-column piece: one k16 step, 32-byte swizzle
+    const uint64_t qt_desc = make_desc<32>(
+        opaque(q_tile + C::HALVES * FWD_BQ * HALF_ROW +
+               64 * cw * TAIL_ROW),
+        16, 256);
+    const uint64_t kt_desc = make_desc<32>(
+        k_tile + C::HALVES * FWD_BK * HALF_ROW + koff * TAIL_ROW, 16, 256);
+    wgmma_ss<NK, 0>(s, qt_desc, kt_desc, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+
+  if (cls == MASKED) mask.apply(s, rows, ids, k0, row_lo, row_hi, t4);
+
+  // online softmax in base 2 on raw scores; a row with no key yet keeps
+  // max -inf and takes 0 as its reference, so every exp2 is 0 or finite
+  float mx_lo = a.m_lo, mx_hi = a.m_hi;
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+  const float ref_lo = mx_lo == -INFINITY ? 0.f : mx_lo * sl2;
+  const float ref_hi = mx_hi == -INFINITY ? 0.f : mx_hi * sl2;
+  const float corr_lo = exp2f(a.m_lo * sl2 - ref_lo);
+  const float corr_hi = exp2f(a.m_hi * sl2 - ref_hi);
+  a.m_lo = mx_lo;
+  a.m_hi = mx_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+  uint32_t pa[NK / 16][4];
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) {
+    const float p0 = exp2f(fmaf(s[4 * j], sl2, -ref_lo));
+    const float p1 = exp2f(fmaf(s[4 * j + 1], sl2, -ref_lo));
+    const float p2 = exp2f(fmaf(s[4 * j + 2], sl2, -ref_hi));
+    const float p3 = exp2f(fmaf(s[4 * j + 3], sl2, -ref_hi));
+    sum_lo += p0 + p1;
+    sum_hi += p2 + p3;
+    pa[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
+  }
+  a.l_lo = a.l_lo * corr_lo + sum_lo;
+  a.l_hi = a.l_hi * corr_hi + sum_hi;
+#pragma unroll
+  for (int j = 0; j < C::MAIN / 8; ++j) {
+    a.o[4 * j] *= corr_lo;
+    a.o[4 * j + 1] *= corr_lo;
+    a.o[4 * j + 2] *= corr_hi;
+    a.o[4 * j + 3] *= corr_hi;
+  }
+  if constexpr (C::TAIL > 0) {
+#pragma unroll
+    for (int j = 0; j < C::TAIL / 8; ++j) {
+      a.ot[4 * j] *= corr_lo;
+      a.ot[4 * j + 1] *= corr_lo;
+      a.ot[4 * j + 2] *= corr_hi;
+      a.ot[4 * j + 3] *= corr_hi;
+    }
+  }
+
+  // O += P V: P from registers, V MN-major (k16 = 16 keys = 2048 bytes of
+  // a 64-column piece, 512 of the 16-column one)
+  const uint64_t v_desc =
+      make_desc(v_tile + koff * HALF_ROW, FWD_BK * HALF_ROW, 1024);
+  const uint64_t vt_desc = make_desc<32>(
+      v_tile + C::HALVES * FWD_BK * HALF_ROW + koff * TAIL_ROW, 256, 256);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    wgmma_rs<C::MAIN, 1>(a.o, pa[kk], desc_add(v_desc, kk * 16 * HALF_ROW),
+                         1);
+    if constexpr (C::TAIL > 0)
+      wgmma_rs<16, 1>(a.ot, pa[kk], desc_add(vt_desc, kk * 16 * TAIL_ROW),
+                      1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(a.o);
+  if constexpr (C::TAIL > 0) fence_regs(a.ot);
+}
+
+// Four bf16 pairs a thread of a quad holds (v0..v3: column pairs 2 t4 of
+// four 8-column groups) → the four pairs of group t4 (its 8 consecutive
+// columns), gathered from the quad by three shuffles.
+__device__ __forceinline__ uint4 quad_gather(uint32_t v0, uint32_t v1,
+                                             uint32_t v2, uint32_t v3,
+                                             int t4) {
+  uint32_t w0 = v0, w1 = v1, w2 = v2, w3 = v3;
+#pragma unroll
+  for (int r = 1; r < 4; ++r) {
+    // lane t4 ^ r gives the pair of group t4 and takes that of its own
+    const int peer = t4 ^ r;
+    const uint32_t give =
+        peer == 0 ? v0 : peer == 1 ? v1 : peer == 2 ? v2 : v3;
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, give, r);
+    w0 = peer == 0 ? got : w0;
+    w1 = peer == 1 ? got : w1;
+    w2 = peer == 2 ? got : w2;
+    w3 = peer == 3 ? got : w3;
+  }
+  // own pair: group t4's column pair 2 t4
+  const uint32_t own = t4 == 0 ? v0 : t4 == 1 ? v1 : t4 == 2 ? v2 : v3;
+  w0 = t4 == 0 ? own : w0;
+  w1 = t4 == 1 ? own : w1;
+  w2 = t4 == 2 ? own : w2;
+  w3 = t4 == 3 ? own : w3;
+  return make_uint4(w0, w1, w2, w3);
+}
+
+// The epilogue of a consumer thread's two rows: o / l and (template flag)
+// the LSE. WIDE: each quad gathers its rows' 8-column groups with shuffles
+// and stores 16 bytes a thread, a quarter of the store instructions and
+// whole 32-byte sectors (K3's persistent kernel, whose stores of one item
+// otherwise hold up the next).
+template <int D, bool LSE, bool WIDE = false, class Mask>
+__device__ __forceinline__ void fwd_store(FwdAcc<D>& a, const Mask& mask,
+                                          const FwdParams& p, int b, int h,
+                                          int row_lo, int row_hi, int t4) {
+  using C = ColumnPlan<D>;
+  const float sl2 = p.sl2;
+  // epilogue: o / l over the quad's summed l (l == 0, or a dead row, gives
+  // exact zeros); only columns < D are stored
+  a.l_lo += __shfl_xor_sync(0xffffffffu, a.l_lo, 1);
+  a.l_lo += __shfl_xor_sync(0xffffffffu, a.l_lo, 2);
+  a.l_hi += __shfl_xor_sync(0xffffffffu, a.l_hi, 1);
+  a.l_hi += __shfl_xor_sync(0xffffffffu, a.l_hi, 2);
+  const bool sees_lo = a.l_lo > 0.f && mask.row_live(row_lo);
+  const bool sees_hi = a.l_hi > 0.f && mask.row_live(row_hi);
+  const float inv_lo = sees_lo ? 1.f / a.l_lo : 0.f;
+  const float inv_hi = sees_hi ? 1.f / a.l_hi : 0.f;
+  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  if constexpr (WIDE) {
+    static_assert(C::MAIN % 32 == 0 && (D - C::MAIN) / 8 <= 4,
+                  "groups of four 8-column pieces");
+    auto pairs = [&](const auto& acc, int j, float inv, int e) {
+      return pack_bf16(acc[4 * j + e] * inv, acc[4 * j + e + 1] * inv);
+    };
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = hi ? row_hi : row_lo;
+      const float inv = hi ? inv_hi : inv_lo;
+#pragma unroll
+      for (int j0 = 0; j0 < C::MAIN / 8; j0 += 4) {
+        const uint4 w = quad_gather(
+            pairs(a.o, j0, inv, 2 * hi), pairs(a.o, j0 + 1, inv, 2 * hi),
+            pairs(a.o, j0 + 2, inv, 2 * hi), pairs(a.o, j0 + 3, inv, 2 * hi),
+            t4);
+        if (row < p.sq)
+          *reinterpret_cast<uint4*>(ob + row * p.o_sr + 8 * (j0 + t4)) = w;
+      }
+      if constexpr (C::TAIL > 0) {
+        constexpr int TJ = (D - C::MAIN) / 8;
+        const uint4 w = quad_gather(
+            pairs(a.ot, 0, inv, 2 * hi),
+            TJ > 1 ? pairs(a.ot, TJ > 1 ? 1 : 0, inv, 2 * hi) : 0u, 0u, 0u,
+            t4);
+        if (row < p.sq && t4 < TJ)
+          *reinterpret_cast<uint4*>(ob + row * p.o_sr + C::MAIN + 8 * t4) =
+              w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < C::MAIN / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (row_lo < p.sq)
+        *reinterpret_cast<uint32_t*>(ob + row_lo * p.o_sr + col) =
+            pack_bf16(a.o[4 * j] * inv_lo, a.o[4 * j + 1] * inv_lo);
+      if (row_hi < p.sq)
+        *reinterpret_cast<uint32_t*>(ob + row_hi * p.o_sr + col) =
+            pack_bf16(a.o[4 * j + 2] * inv_hi, a.o[4 * j + 3] * inv_hi);
+    }
+    if constexpr (C::TAIL > 0) {
+#pragma unroll
+      for (int j = 0; j < (D - C::MAIN) / 8; ++j) {
+        const int col = C::MAIN + 8 * j + 2 * t4;
+        if (row_lo < p.sq)
+          *reinterpret_cast<uint32_t*>(ob + row_lo * p.o_sr + col) =
+              pack_bf16(a.ot[4 * j] * inv_lo, a.ot[4 * j + 1] * inv_lo);
+        if (row_hi < p.sq)
+          *reinterpret_cast<uint32_t*>(ob + row_hi * p.o_sr + col) =
+              pack_bf16(a.ot[4 * j + 2] * inv_hi, a.ot[4 * j + 3] * inv_hi);
+      }
+    }
+  }
+  if (LSE && t4 == 0) {
+    float* lb = p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
+    if (row_lo < p.sq)
+      lb[row_lo] = sees_lo ? (a.m_lo * sl2 + log2f(a.l_lo)) * LN2 : LSE_PAD;
+    if (row_hi < p.sq)
+      lb[row_hi] = sees_hi ? (a.m_hi * sl2 + log2f(a.l_hi)) * LN2 : LSE_PAD;
+  }
+}
+
 template <int D, bool LSE, class Mask>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 attention_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps,
@@ -169,8 +450,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps,
   const int q0 = qt * FWD_BQ;
   const int hk = h / p.kv_group;
   const Mask mask(mp, b, qt, q0, nq, nk, sq, sk);
-  const bool q_live = mask.q_live();
-  if (!q_live) {
+  if (!mask.q_live()) {
     write_dead_tile<D, LSE>(p, b, h, q0);
     return;
   }
@@ -232,11 +512,8 @@ attention_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps,
   const typename Mask::Rows rows = mask.rows(row_lo, row_hi);
   const float sl2 = p.sl2;
 
-  float o[C::MAIN / 2];
-  zero(o);
-  float ot[C::TAIL > 0 ? C::TAIL / 2 : 1];   // O's 16-column piece (d 72)
-  zero(ot);
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  FwdAcc<D> acc;
+  acc.reset();
   mbar_wait(q_full, 0);
 
   Ring<STAGES> ring;
@@ -244,153 +521,15 @@ attention_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps,
     const int cls = mask.pair(t);
     if (cls == SKIP) continue;
     mbar_wait(&full[ring.stage], ring.phase);
-    const uint32_t k_src = smem_u32(sK) + ring.stage * S::KV;
-    const uint32_t v_src = smem_u32(sV) + ring.stage * S::KV;
-
-    // S = Q K^T: 64 rows x 128 keys; Q rows of this warpgroup as the
-    // K-major A operand, K as the K-major B operand
-    float s[64];
-    const uint64_t q_desc =
-        make_desc(opaque(smem_u32(sQ) + 64 * cw * HALF_ROW), 16, 1024);
-    const uint64_t k_desc = make_desc(k_src, 16, 1024);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C::MAIN / 16; ++kk) {
-      const uint32_t off_q = (kk / 4) * FWD_BQ * HALF_ROW + (kk % 4) * 32;
-      const uint32_t off_k = (kk / 4) * FWD_BK * HALF_ROW + (kk % 4) * 32;
-      wgmma_ss<128, 0>(s, desc_add(q_desc, off_q), desc_add(k_desc, off_k),
-                       kk > 0);
-    }
-    if constexpr (C::TAIL > 0) {
-      // the 16-column piece: one k16 step, 32-byte swizzle
-      const uint64_t qt_desc = make_desc<32>(
-          opaque(smem_u32(sQ) + C::HALVES * FWD_BQ * HALF_ROW +
-                 64 * cw * TAIL_ROW),
-          16, 256);
-      const uint64_t kt_desc =
-          make_desc<32>(k_src + C::HALVES * FWD_BK * HALF_ROW, 16, 256);
-      wgmma_ss<128, 0>(s, qt_desc, kt_desc, 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    if (cls == MASKED)
-      mask.apply(s, rows, sIds + ring.stage * Mask::IDS, t * FWD_BK, row_lo,
-                 row_hi, t4);
-
-    // online softmax in base 2 on raw scores; a row with no key yet keeps
-    // max -inf and takes 0 as its reference, so every exp2 is 0 or finite
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    const float ref_lo = mx_lo == -INFINITY ? 0.f : mx_lo * sl2;
-    const float ref_hi = mx_hi == -INFINITY ? 0.f : mx_hi * sl2;
-    const float corr_lo = exp2f(m_lo * sl2 - ref_lo);
-    const float corr_hi = exp2f(m_hi * sl2 - ref_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-    uint32_t pa[8][4];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p0 = exp2f(fmaf(s[4 * j], sl2, -ref_lo));
-      const float p1 = exp2f(fmaf(s[4 * j + 1], sl2, -ref_lo));
-      const float p2 = exp2f(fmaf(s[4 * j + 2], sl2, -ref_hi));
-      const float p3 = exp2f(fmaf(s[4 * j + 3], sl2, -ref_hi));
-      sum_lo += p0 + p1;
-      sum_hi += p2 + p3;
-      pa[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
-      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
-    }
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
-#pragma unroll
-    for (int j = 0; j < C::MAIN / 8; ++j) {
-      o[4 * j] *= corr_lo;
-      o[4 * j + 1] *= corr_lo;
-      o[4 * j + 2] *= corr_hi;
-      o[4 * j + 3] *= corr_hi;
-    }
-    if constexpr (C::TAIL > 0) {
-#pragma unroll
-      for (int j = 0; j < C::TAIL / 8; ++j) {
-        ot[4 * j] *= corr_lo;
-        ot[4 * j + 1] *= corr_lo;
-        ot[4 * j + 2] *= corr_hi;
-        ot[4 * j + 3] *= corr_hi;
-      }
-    }
-
-    // O += P V: P from registers, V MN-major (k16 = 16 keys = 2048 bytes of
-    // a 64-column piece, 512 of the 16-column one)
-    const uint64_t v_desc = make_desc(v_src, FWD_BK * HALF_ROW, 1024);
-    const uint64_t vt_desc =
-        make_desc<32>(v_src + C::HALVES * FWD_BK * HALF_ROW, 256, 256);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < FWD_BK / 16; ++kk) {
-      wgmma_rs<C::MAIN, 1>(o, pa[kk], desc_add(v_desc, kk * 16 * HALF_ROW),
-                           1);
-      if constexpr (C::TAIL > 0)
-        wgmma_rs<16, 1>(ot, pa[kk], desc_add(vt_desc, kk * 16 * TAIL_ROW),
-                        1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    if constexpr (C::TAIL > 0) fence_regs(ot);
+    fwd_tile<D>(acc, mask, rows, smem_u32(sQ),
+                smem_u32(sK) + ring.stage * S::KV,
+                smem_u32(sV) + ring.stage * S::KV, 0,
+                sIds + ring.stage * Mask::IDS, cls, t * FWD_BK, cw, row_lo,
+                row_hi, t4, sl2);
     if (tid == 0) mbar_arrive(&empty[ring.stage]);
     ring.advance();
   }
-
-  // epilogue: o / l over the quad's summed l (l == 0, or a dead row, gives
-  // exact zeros); only columns < D are stored
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  const bool sees_lo = l_lo > 0.f && mask.row_live(row_lo);
-  const bool sees_hi = l_hi > 0.f && mask.row_live(row_hi);
-  const float inv_lo = sees_lo ? 1.f / l_lo : 0.f;
-  const float inv_hi = sees_hi ? 1.f / l_hi : 0.f;
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int j = 0; j < C::MAIN / 8; ++j) {
-    const int col = 8 * j + 2 * t4;
-    if (row_lo < sq)
-      *reinterpret_cast<uint32_t*>(ob + row_lo * p.o_sr + col) =
-          pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
-    if (row_hi < sq)
-      *reinterpret_cast<uint32_t*>(ob + row_hi * p.o_sr + col) =
-          pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
-  }
-  if constexpr (C::TAIL > 0) {
-#pragma unroll
-    for (int j = 0; j < (D - C::MAIN) / 8; ++j) {
-      const int col = C::MAIN + 8 * j + 2 * t4;
-      if (row_lo < sq)
-        *reinterpret_cast<uint32_t*>(ob + row_lo * p.o_sr + col) =
-            pack_bf16(ot[4 * j] * inv_lo, ot[4 * j + 1] * inv_lo);
-      if (row_hi < sq)
-        *reinterpret_cast<uint32_t*>(ob + row_hi * p.o_sr + col) =
-            pack_bf16(ot[4 * j + 2] * inv_hi, ot[4 * j + 3] * inv_hi);
-    }
-  }
-  if (LSE && t4 == 0) {
-    float* lb = p.lse + (static_cast<long long>(b) * p.heads + h) * sq;
-    if (row_lo < sq)
-      lb[row_lo] = sees_lo ? (m_lo * sl2 + log2f(l_lo)) * LN2 : LSE_PAD;
-    if (row_hi < sq)
-      lb[row_hi] = sees_hi ? (m_hi * sl2 + log2f(l_hi)) * LN2 : LSE_PAD;
-  }
+  fwd_store<D, LSE>(acc, mask, p, b, h, row_lo, row_hi, t4);
 }
 
 // ---- host ---------------------------------------------------------------------

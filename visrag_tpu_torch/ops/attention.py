@@ -7,16 +7,19 @@ Counterpart of visrag_tpu/ops/attention.py.
     `_dkv_kernel` (`_flash_core` and its custom VJP) and the library detour
     `_flash_library_segment`: one forward kernel that also writes the
     log-sum-exp, one dq kernel (it also stores delta = rowsum(o*do)) and one
-    dk/dv kernel, launched in that order. At head dims 64 and 128 all
-    three are csrc/attention_segment_hopper.cu (wgmma from shared memory
-    that TMA fills, one producer warp and two consumer warpgroups; 128-row
-    forward and dq tiles, 64-key dk/dv blocks whose warpgroups split dV and
-    dK; tile pairs classed skipped / unmasked / masked by a pre-pass); at d
-    = 80 (K3's backward, the vision tower) they are
-    csrc/attention_segment.cu (mma.sync, 64-row tiles, cp.async), the first
-    kernels, which `legacy=True` also reaches at d 64 and 128 to time one
-    against the other. Both are CUDA C++ for sm_90a bound with ctypes;
-    `_route` picks by head dim alone. Scores and accumulators
+    dk/dv kernel, launched in that order. At every head dim the port runs
+    (64, 80, 128) all three are csrc/attention_segment_hopper.cu (wgmma
+    from shared memory that TMA fills, one producer warp and two consumer
+    warpgroups; 128-row forward and dq tiles; dk/dv in 64-key blocks whose
+    warpgroups split dV and dK at d 64 / 128, in 128-key blocks of a
+    warpgroup a 64-key tile at d 80; tile pairs classed skipped / unmasked
+    / masked by a pre-pass). csrc/attention_segment.cu (mma.sync, 64-row
+    tiles, cp.async), the first kernels, is reached only with
+    `legacy=True`, to time one against the other. Both are CUDA C++ for
+    sm_90a bound with ctypes. With `sorted_ids` (K3's backward: ascending
+    runs, pad after them) dq and dk/dv find the band of tiles a block can
+    meet by a search over the pre-pass's classes instead of walking every
+    tile. Scores and accumulators
     stay in registers; K/V (or Q/dO) stream through shared memory, so any
     length runs and the JAX package's `_pick_blocks` and 4096-key bound
     have no counterpart here. Grouped kv heads are read through strides,
@@ -57,7 +60,7 @@ from .attention_lengths import KERNEL_HEAD_DIMS, LSE_PAD, _check_cuda, \
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SEG_HEAD_DIMS = (64, 80, 128)   # MiniCPM LM, Qwen vision tower, Qwen text
-HOPPER_HEAD_DIMS = (64, 128)    # forward, dq and dk/dv on wgmma + TMA
+HOPPER_HEAD_DIMS = (64, 80, 128)   # forward, dq and dk/dv on wgmma + TMA
 SOURCE = "visrag_tpu_torch/csrc/attention_segment.cu"
 HOPPER_SOURCE = "visrag_tpu_torch/csrc/attention_segment_hopper.cu"
 # (query rows, keys) per tile of each kernel's classes; the pre-pass classes
@@ -91,7 +94,8 @@ def launch_counts() -> dict:
 def route_counts() -> dict:
     """The wrappers' launches of each K4 kernel ("fwd", "dq", "dkv") by
     source: "hopper" (csrc/attention_segment_hopper.cu) or "legacy" (the
-    mma.sync csrc/attention_segment.cu, which d = 80 takes)."""
+    mma.sync csrc/attention_segment.cu, which no caller of the port
+    reaches)."""
     return {kind: dict(counts) for kind, counts in _routes.items()}
 
 
@@ -145,32 +149,51 @@ def segment_attention_reference(q, k, v, q_seg=None, kv_seg=None, *,
 
 
 def segment_backward_reference(q, k, v, do, q_seg, kv_seg, causal: bool,
-                               sm_scale: float, rows: int = 1024):
+                               sm_scale: float, rows: int = 1024,
+                               sorted_ids: bool = False):
     """Plain PyTorch version of K4's backward, written out (the formulas of
     the kernels' header, fp32, `rows` queries at a time) so that a long row
     never holds a (Sq, Sk) plane per head: → (dq, dk, dv) fp32. Equal to
-    autograd through `segment_attention_reference`."""
+    autograd through `segment_attention_reference`. `sorted_ids` (ascending
+    runs, pad after them) takes each chunk's keys from the kernels' sorted
+    walk (`sorted_walk_reference` over 64-row tiles) instead of all Sk:
+    the same result, since the keys it leaves out are invisible."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     kf, vf = k.float(), v.float()
     dq = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    if sorted_ids:
+        tile = HOPPER_TILES["dq"][1]
+        first, end = sorted_walk_reference(
+            segment_tile_classes_reference(q_seg, tile),
+            segment_tile_classes_reference(kv_seg, tile))
+        rows = -(-rows // tile) * tile
     for r0 in range(0, sq, rows):
         r1 = min(r0 + rows, sq)
-        allow = _visible(q_seg, kv_seg, causal, r0, r1)[:, None, None]
+        k0, k1 = 0, sk
+        if sorted_ids:
+            walk = end[:, r0 // tile:-(-r1 // tile)] > 0
+            if not bool(walk.any()):
+                continue
+            k0 = int(first[:, r0 // tile:-(-r1 // tile)][walk].min()) * tile
+            k1 = min(sk, int(end[:, r0 // tile:-(-r1 // tile)].max()) * tile)
+        allow = _visible(q_seg, kv_seg, causal, r0, r1)[:, None, None, :,
+                                                          k0:k1]
+        kb, vb = kf[:, k0:k1], vf[:, k0:k1]
         qg = _group(q[:, r0:r1].float(), kvh)               # (B,q,g,r,D)
         dog = _group(do[:, r0:r1].float(), kvh)
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * sm_scale
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb) * sm_scale
         s = s.masked_fill(~allow, float("-inf"))
         p = torch.softmax(s, dim=-1).nan_to_num(0.0)        # no key: zeros
-        o = torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, vb)
         delta = (o * dog).sum(-1).permute(0, 2, 3, 1)       # (B,g,r,q)
-        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vb)
         ds = p * (dp - delta[..., None])
-        dq[:, r0:r1] = (torch.einsum("bgrqk,bkgd->bqgrd", ds, kf)
+        dq[:, r0:r1] = (torch.einsum("bgrqk,bkgd->bqgrd", ds, kb)
                         * sm_scale).reshape(b, r1 - r0, h, d)
-        dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * sm_scale
-        dv += torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+        dk[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) * sm_scale
+        dv[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
     return dq, dk, dv
 
 
@@ -308,6 +331,23 @@ def segment_dq_pair_classes_reference(q_seg, kv_seg, causal: bool):
     return out
 
 
+def sorted_walk_reference(q_cls, k_cls):
+    """Plain version of the Hopper dq's and dk/dv's walk on sorted ids
+    (`locate` in csrc/attention_segment_hopper.cu): from the pre-pass's
+    classes of the walking side's tiles (q_cls (B, n, 3): lo, hi, uniform)
+    and of the walked side's (k_cls (B, m, 3)), → two (B, n) int64 tensors,
+    each walking tile's first walked tile (those whose hi is positive and
+    below its lo come before it) and the tile after its last (those whose
+    lo is within its hi). On ascending runs with pad after them both are
+    prefix counts, which the kernels find by a 32-way search. A pad tile
+    ((2**31 - 1, 0)) walks nothing: (m_real, 0)."""
+    lo, hi = q_cls[..., 0].long(), q_cls[..., 1].long()
+    klo, khi = k_cls[..., 0].long(), k_cls[..., 1].long()
+    first = ((khi[:, None, :] > 0) & (khi[:, None, :] < lo[:, :, None])).sum(2)
+    end = (klo[:, None, :] <= hi[:, :, None]).sum(2)
+    return first, end
+
+
 def segment_tile_classes(seg, tile: int):
     """The kernels' pre-pass on its own: seg (B, S) int32 → (B, ceil(S /
     tile), 3) int32 as segment_tile_classes_reference, which a CPU tensor
@@ -349,12 +389,15 @@ def _check_segment(q, k, v, q_seg, kv_seg):
 
 def _launch_segment(kind, q, k, v, q_seg, kv_seg, causal, sm_scale, *,
                     o=None, do=None, dq=None, dk=None, dv=None, lse=None,
-                    delta=None, legacy=False):
+                    delta=None, legacy=False, sorted_ids=False):
     """One K4 kernel, `kind` "fwd", "dq" or "dkv", routed by `_route`. The
     tensors a kernel does not use stay None; the strides of the ones it
     does are (batch, row, head) in elements. The wgmma kernels read q, k,
     v and do through TMA, which needs 16-byte-aligned bases and strides
-    (`_check_cuda` raises otherwise). Raises unless the kernel launched."""
+    (`_check_cuda` raises otherwise). `sorted_ids`: the ids are ascending
+    runs with pad after them (K3's), and the Hopper dq and dk/dv walk only
+    the band; the forward and the mma.sync kernels ignore it. Raises unless
+    the kernel launched."""
     from ._build import load_library
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -391,7 +434,8 @@ def _launch_segment(kind, q, k, v, q_seg, kv_seg, causal, sm_scale, *,
     strides = (ctypes.c_longlong * 24)(*(
         x for t in order
         for x in ((0, 0, 0) if t is None else _strides(t))))
-    dims = (ctypes.c_int * 7)(b, sq, sk, h, kvh, d, int(causal))
+    dims = (ctypes.c_int * 8)(b, sq, sk, h, kvh, d, int(causal),
+                              int(sorted_ids))
     fn = getattr(load_library(library), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -431,34 +475,39 @@ def segment_fwd(q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float, o,
 
 
 def segment_bwd_dq(q, k, v, o, do, lse, delta, q_seg, kv_seg, causal: bool,
-                   sm_scale: float, dq):
+                   sm_scale: float, dq, sorted_ids=False):
     """K4's dq kernel: writes dq and delta (B, H, Sq) fp32 = rowsum(o*do)
     (0 on pad rows), which segment_bwd_dkv reads. CUDA only."""
     global seg_dq_launches
     _launch_segment("dq", q, k, v, q_seg, kv_seg, causal, sm_scale, o=o,
-                    do=do, dq=dq, lse=lse, delta=delta)
+                    do=do, dq=dq, lse=lse, delta=delta,
+                    sorted_ids=sorted_ids)
     seg_dq_launches += 1
     _count("dq", q.shape[3])
     return dq
 
 
 def segment_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal: bool,
-                    sm_scale: float, dk, dv):
+                    sm_scale: float, dk, dv, sorted_ids=False):
     """K4's dk/dv kernel (dk, dv shaped like k: one block sums each kv head's
     group of query heads); run after segment_bwd_dq on the same stream (it
     reads the delta that one writes). CUDA only."""
     global seg_dkv_launches
     _launch_segment("dkv", q, k, v, q_seg, kv_seg, causal, sm_scale, do=do,
-                    dk=dk, dv=dv, lse=lse, delta=delta)
+                    dk=dk, dv=dv, lse=lse, delta=delta,
+                    sorted_ids=sorted_ids)
     seg_dkv_launches += 1
     _count("dkv", q.shape[3])
     return dk, dv
 
 
-def segment_backward(q, k, v, o, do, lse, q_seg, kv_seg, causal, sm_scale):
+def segment_backward(q, k, v, o, do, lse, q_seg, kv_seg, causal, sm_scale,
+                     sorted_ids=False):
     """dq, dk, dv of segment attention from the forward's o and LSE, through
     K4's two backward kernels. Also the backward of the banded kernel K3
-    (ops/attention_kvgrid.py), which is the same function on sorted ids."""
+    (ops/attention_kvgrid.py), which is the same function on sorted ids:
+    `sorted_ids` (q_seg and kv_seg ascending runs, pad after them) lets the
+    kernels walk only the band. The result does not depend on it."""
     b, sq, h, d = q.shape
     do = do.contiguous()
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -466,9 +515,9 @@ def segment_backward(q, k, v, o, do, lse, q_seg, kv_seg, causal, sm_scale):
         torch.empty_like(v, memory_format=torch.contiguous_format)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     segment_bwd_dq(q, k, v, o, do, lse, delta, q_seg, kv_seg, causal,
-                   sm_scale, dq)
+                   sm_scale, dq, sorted_ids)
     segment_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, sm_scale,
-                    dk, dv)
+                    dk, dv, sorted_ids)
     return dq, dk, dv
 
 

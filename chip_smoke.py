@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU: VisRAG-Ret page
 embedding → retrieval (bf16 and int8), retriever training, EVisRAG serving
-(bf16 and int8 KV pools), RS-GRPO training steps, EVisRAG SFT and a GAE
-RS-GRPO run with the critic.
+(bf16 and int8 KV pools), RS-GRPO training steps, EVisRAG SFT, a GAE
+RS-GRPO run with the critic, and VisRAG-Gen (MiniCPM-V 2.0 / 2.6,
+MiniCPM-2B) with the demo.
 
     python3 chip_smoke.py
 
@@ -236,16 +237,47 @@ is non-zero; no phase catches an error and carries on):
      critic_warmup 1. Checks finite values, advantages, returns and value
      loss, the critic's weights moving in both steps and the actor's only
      in step 2, and a resume (the critic's weights and moments zeroed)
-     that restores the critic's state from the step-2 checkpoint.
+     that restores the critic's state from the step-2 checkpoint;
+ 12. MiniCPM-V 2.0 at full width (MiniCPMVGenConfig(), random bf16 weights
+     from seed 0) through driver/generate_eval's builder and
+     run_generate_eval with the MockTokenizer, 3 pages (bench.py's size
+     mix) x 2 queries: page_concatenation (greedy, 20 new tokens) and
+     weighted_selection (beam k 3, repetition penalty 1.2, a query's pages
+     in one score_fn.batched call), then MiniCPM-2B's text backend on the
+     same LM (task text, the prompts filling the 4096 bucket). Checks the
+     launch counts against the model's calls (K1 26 flat per vision run
+     and 40 stacked per prefill, K5 40 per engine decode step, K7 at every
+     norm; every K1 on the Hopper kernel, none on K5's first kernel), each
+     greedy step's logits over the paged pool against one full forward
+     (2e-2 relative, vision and text), and the batched beam against the
+     sequential one (the same ids, scores within 1e-3) in fp32 at one ViT
+     block and 4 LM layers on the CPU (the bf16 pair on the card is
+     printed: its 9-row decode rounds otherwise than the 3-row one and
+     flips near-ties of the random model); K1 at both prefill buckets and
+     K5 at 36/36 d 64 against their plain versions, timed beside SDPA /
+     gather + SDPA and the bound; prints TTFT, decode ms per step and peak
+     memory;
+ 13. MiniCPM-V 2.6 at full width (MiniCPMV26Config(), 8.1B params) through
+     the builder and run_generate_eval: multi_image, each query's 3 pages
+     in one prompt (max_slice_nums 9, uint8 device-mode pixels), greedy,
+     20 new tokens. Checks the launch counts (K1 27 flat and 28 GQA per
+     prefill, K5 28 per decode step) and each greedy step's logits against
+     one full forward; K1 GQA 28/4 d 128 at the prefill bucket; TTFT,
+     decode ms per step and peak memory;
+ 14. the demo's build-index and answer as subprocesses on the card, with
+     VisRAG-Ret at full width on random weights (the tiny configs' head
+     dims are not ones the kernels take).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq and
 K2 dk/dv for the ViT (d 72) and for the LM (d 64), K1 stacked GQA, K5, K3
 in the window and in the full-attention layers,
 K6, K5 int8, K4 forward, K4 dq, K4 dk/dv, K1 + LSE, K2 dq and K2 dk/dv at
-d = 128 with grouped kv heads, and K7 as
+d = 128 with grouped kv heads, K7 as
 `rmsnorm` (launches from phase 10's SFT run, numbers at its batch) and
-`layernorm` (launches from phase 3's encode, numbers at the ViT's rows):
+`layernorm` (launches from phase 3's encode, numbers at the ViT's rows),
+and K1 at MiniCPM-2B's generation prefill and at MiniCPM-V 2.6's, and K5
+at MiniCPM-2B's 36/36 d 64 decode (launches from phases 12 and 13):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
 max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
 forward, dq and dk/dv (the mma.sync kernels), pr5_ms for K6 (the
@@ -255,8 +287,9 @@ attention_lengths_bwd.cu), pr6_ms for RMSNorm (the block-per-row kernel),
 legacy_ms for K5 and K5 int8 (the first kernel, csrc/paged_decode.cu),
 pr3_ms for K3 (the first kernel, csrc/attention_kvgrid.cu);
 every checked shape under "checks"), and
-{"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11;
-it ends without the ok line and exits 1.
+{"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11,
+`--gen-only` phases 0, 1, 1b and 12-14; each ends without the ok line and
+exits 1.
 """
 
 from __future__ import annotations
@@ -268,6 +301,7 @@ import gc
 import io
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -1709,7 +1743,8 @@ def _vision_tensors(req):
             for k, v in req["vision_batch"].items()}
 
 
-def _timed_check(tag, label, kern, plain, lib, out, ref, rows, bound):
+def _timed_check(tag, label, kern, plain, lib, out, ref, rows, bound,
+                 phase="[6]"):
     """A kernel's output against its plain version's on `rows`: finite, and
     within RTOL_BLOCK relative (Frobenius) error; then kernel, plain and
     library times (lib None: no single call computes the function; plain
@@ -1721,7 +1756,7 @@ def _timed_check(tag, label, kern, plain, lib, out, ref, rows, bound):
     ms = cuda_ms(kern)
     plain_ms = cuda_ms(plain) if plain is not None else None
     lib_ms = cuda_ms(lib) if lib is not None else None
-    log(f"[6] {tag} {label}: rel_err {rel:.4g} (bound {RTOL_BLOCK}), "
+    log(f"{phase} {tag} {label}: rel_err {rel:.4g} (bound {RTOL_BLOCK}), "
         f"max_abs_err {max_abs:.4g}, finite {finite} | kernel {ms:.4f} ms, "
         f"plain {'n/a' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
         f"library "
@@ -3853,6 +3888,592 @@ def rl_phases(gen):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --- VisRAG-Gen (phases 12-14) ------------------------------------------------
+
+GEN_NEW_TOKENS = 20       # generate_eval's --max-new-tokens default
+GEN_TOPK = 3              # pages per query
+GEN_QUERIES = 2
+
+
+def _gen_corpus(seed):
+    """3 synthetic pages at bench.py's size mix, 2 queries whose TREC run
+    ranks all three, and a text doc per page for the text backend."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    pages = {f"page{i}": Image.fromarray(rng.integers(
+        0, 255, (h, w, 3), dtype=np.uint8))
+        for i, (w, h) in enumerate(PAGE_SIZES[:GEN_TOPK])}
+    examples = [dict(qid=f"q{i}-0", answer="42",
+                     query=f"what was the total revenue reported for "
+                           f"quarter {i + 1}?")
+                for i in range(GEN_QUERIES)]
+    run = {ex["qid"]: {d: 1.0 - 0.1 * j - 0.01 * i
+                       for j, d in enumerate(pages)}
+           for i, ex in enumerate(examples)}
+    texts = {d: " ".join(f"line {k} of {d}: revenue grew {k} percent"
+                         for k in range(60)) for d in pages}
+    return pages, examples, run, texts
+
+
+class _CallCounter:
+    """Counts a model's vision, prefill and decode calls (paged: with a
+    block table, the engine's; dense: without, the beam search's), by
+    wrapping them on the instance."""
+
+    def __init__(self, model, vision_owner=None):
+        self.counts = {"vision": 0, "prefill": 0, "paged": 0, "dense": 0}
+        prefill, decode = model.prefill, model.decode
+
+        def counted_prefill(*a, **kw):
+            self.counts["prefill"] += 1
+            return prefill(*a, **kw)
+
+        def counted_decode(*a, **kw):
+            table = a[5] if len(a) > 5 else kw.get("block_table")
+            self.counts["dense" if table is None else "paged"] += 1
+            return decode(*a, **kw)
+
+        model.prefill, model.decode = counted_prefill, counted_decode
+        if vision_owner is None:
+            return
+        vision = vision_owner.get_vision_embedding
+
+        def counted_vision(*a, **kw):
+            self.counts["vision"] += 1
+            return vision(*a, **kw)
+        vision_owner.get_vision_embedding = counted_vision
+
+
+def _gen_counts(tag, calls, vit_depth, layers):
+    """The launches of a VisRAG-Gen run against its calls: K1 flat
+    vit_depth per vision run, K1 stacked `layers` per prefill, K5 `layers`
+    per engine decode step (the beam's dense steps launch none), K7
+    2 * layers + 1 RMSNorms per prefill or decode step and 2 * vit_depth +
+    1 + 3 LayerNorms per vision run (the ViT and the resampler); every
+    K1 launch on the Hopper kernel, no K5 launch on the first one. →
+    the launch counts."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.serving import paged_kv as pk
+    c = calls.counts
+    got = {"flat": al.flat_launches, "stacked": al.stacked_launches,
+           "fwd_lse": al.fwd_lse_launches, "paged": pk.launches,
+           "paged_legacy": pk.legacy_launches, **norms.launch_counts()}
+    want = {"flat": vit_depth * c["vision"], "stacked": layers * c["prefill"],
+            "fwd_lse": 0, "paged": layers * c["paged"], "paged_legacy": 0,
+            "rmsnorm": (2 * layers + 1) * (c["prefill"] + c["paged"]
+                                           + c["dense"]),
+            "layernorm": (2 * vit_depth + 4) * c["vision"]}
+    if got != want:
+        raise RuntimeError(f"{tag} launches {got} != {want} (calls {c})")
+    _lengths_routes(tag, got)
+    log(f"{tag} launches {got} (= reckoned from calls {c}: K1 "
+        f"{vit_depth} flat per vision run and {layers} stacked per "
+        f"prefill, K5 {layers} per engine decode step, K7 at every norm)")
+    return got
+
+
+class _NormShapes:
+    """Records each shape a run gives K7, (kind, rows, D, x dtype, w
+    dtype), by wrapping norms._launch until close(); launches and counts
+    are the wrapped function's."""
+
+    def __init__(self):
+        from visrag_tpu_torch.ops import norms
+        self.shapes, self._norms, launch = set(), norms, norms._launch
+        self._launch = launch
+
+        def recorded(x, w, b, eps, legacy=False):
+            d = x.shape[-1]
+            self.shapes.add(("rms" if b is None else "ln", x.numel() // d,
+                             d, x.dtype, w.dtype))
+            return launch(x, w, b, eps, legacy)
+        norms._launch = recorded
+
+    def close(self):
+        self._norms._launch = self._launch
+
+
+def _gen_norm_checks(tag, gen, label, shapes):
+    """K7 against its plain version (_check_norm) at every shape a
+    generation run gave it. → the check records, RMSNorm and LayerNorm."""
+    out = {"rms": [], "ln": []}
+    for kind, rows, d, xdt, wdt in sorted(shapes, key=str):
+        out[kind].append(_check_norm(gen, f"{tag} {label}", kind, rows, d,
+                                     xdt, wdt))
+    torch.cuda.empty_cache()
+    log(f"{tag} K7 held against its plain version at the {len(shapes)} "
+        f"shapes of the run: "
+        f"{sorted((k, r, d) for k, r, d, _, _ in shapes)}")
+    return out
+
+
+def _gen_decode_vs_full(model, req, tokens, bs=128):
+    """Prefill one request (K1) into a fresh paged pool, decode the
+    generated `tokens` through it (K5), and compare the logits behind each
+    generated token with one full forward over prompt + tokens (K1) at the
+    same positions. → relative errors per generated position."""
+    import numpy as np
+
+    from visrag_tpu_torch.serving.paged_kv import write_prefill
+    tc = model.cfg.text
+    ids = np.asarray(req["input_ids"])
+    s, steps = len(ids), len(tokens)
+    vb = None if req.get("vision_batch") is None else {
+        k: torch.as_tensor(np.asarray(v), device=DEV)
+        for k, v in req["vision_batch"].items()}
+    grid = -(-s // bs) * bs
+    n_blocks = -(-(s + steps) // bs) + 1
+    shape = (tc.num_hidden_layers, n_blocks, tc.num_key_value_heads, bs,
+             tc.head_dim)
+    kc = torch.zeros(shape, dtype=torch.bfloat16, device=DEV)
+    vc = torch.zeros_like(kc)
+    table = torch.arange(n_blocks - 1, dtype=torch.int32,
+                         device=DEV)[None].contiguous()
+
+    def slot_map(n):
+        if vb is None:
+            return None
+        sm = np.full((1, n), -1, np.int64)
+        sm[0, :s] = req["slot_map"]
+        return torch.as_tensor(sm, device=DEV)
+    ids_p = np.zeros((1, grid), np.int64)
+    ids_p[0, :s] = ids
+    with torch.inference_mode():
+        logits, k, v = model.prefill(
+            torch.as_tensor(ids_p, device=DEV),
+            attention_mask=torch.as_tensor((np.arange(grid) < s)[None],
+                                           device=DEV),
+            vision_batch=vb, slot_map=slot_map(grid),
+            last_pos=torch.tensor([s - 1], device=DEV))
+        write_prefill(kc, vc, k, v, list(range(grid // bs)), grid)
+        del k, v
+        dec = [logits[0].float()]
+        for t in range(steps - 1):
+            dec.append(model.decode(
+                torch.tensor([[tokens[t]]], device=DEV),
+                torch.full((3, 1, 1), s + t, device=DEV), kc, vc,
+                torch.tensor([s + t + 1], dtype=torch.int32, device=DEV),
+                table)[0].float())
+        full_ids = np.concatenate([ids, tokens[:-1]]).astype(np.int64)[None]
+        full, _ = model(torch.as_tensor(full_ids, device=DEV),
+                        vision_batch=vb,
+                        slot_map=slot_map(full_ids.shape[1]))
+        full = full[0, s - 1:].float()
+    errs = [(torch.linalg.norm(dec[i] - full[i])
+             / torch.linalg.norm(full[i])).item() for i in range(steps)]
+    del kc, vc, full
+    torch.cuda.empty_cache()
+    return errs
+
+
+class _Recorder:
+    """Keeps every request an engine's generate_detailed served."""
+
+    def __init__(self, engine):
+        self.served = []
+        fn = engine.generate_detailed
+
+        def recorded(prompts, **kw):
+            out = fn(prompts, **kw)
+            self.served.extend(zip(prompts, out))
+            return out
+        engine.generate_detailed = recorded
+
+
+def _gen_serve_stats(tag, recorder, timer, engine):
+    """TTFT per request and decode ms per step of one backend's run."""
+    ttft = [round((r.t_first - r.t_enqueue) * 1e3, 2)
+            for _, r in recorder.served]
+    steps = timer.calls * engine.chunk
+    ms_step = timer.seconds / max(steps, 1) * 1e3
+    log(f"{tag} TTFT ms per request {ttft} | decode {timer.calls} chunks x "
+        f"{engine.chunk} steps, {ms_step:.3f} ms per step (one live slot of "
+        f"{engine.num_slots}) | {smi()}")
+    return {"ttft_ms": ttft, "decode_ms_per_step": ms_step}
+
+
+def _gen_k1_check(phase, tag, gen, lens, s, h, kvh, d):
+    """K1 stacked causal at a generation prefill's shape against its plain
+    version (2e-2 relative, pad rows exactly 0), timed beside SDPA with a
+    causal length mask and the bound."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    b = len(lens)
+    q = torch.randn(b, s, h, d, generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn(b, s, kvh, d, generator=gen, device=DEV).bfloat16()
+            for _ in range(2))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    kern = lambda: al.flash_fwd_lengths(q, k, v, lens_t, True, d ** -0.5)
+    plain = lambda: al.lengths_attention_reference(q, k, v, lens_t, True,
+                                                   d ** -0.5)
+    out, ref = kern(), plain()
+    valid = torch.arange(s, device=DEV)[None] < lens_t[:, None]
+    if not bool((out[~valid] == 0).all()):
+        raise RuntimeError(f"{tag} K1: pad rows are not exactly 0")
+    mask = _sdpa_mask(lens_t, s, True, DEV)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=d ** -0.5, enable_gqa=kvh != h)
+    rec = _timed_check(tag, f"B={b} S={s} H={h}/{kvh} d={d} lengths {lens}; "
+                       f"pad rows exactly 0", kern, plain, lib, out, ref,
+                       valid, attention_bound("fwd", lens, s, h, d, True,
+                                              kv_heads=kvh), phase)
+    del q, k, v, out, ref, mask
+    torch.cuda.empty_cache()
+    return rec
+
+
+BEAM_KW = dict(num_beams=3, max_new_tokens=GEN_NEW_TOKENS,
+               repetition_penalty=1.2)
+BEAM_FP32_VIT_DEPTH, BEAM_FP32_LAYERS = 1, 4
+# the bf16 beams' summed log-probs, batched vs sequential, at each step up
+# to the first whose selection differs: rounding moves them by far less,
+# a wrong reorder or length by a log-prob's spread across the vocabulary
+TOL_BEAM_BF16 = 2e-2
+
+
+def _beam_traced(run):
+    """run() with each _BeamState's selections recorded. → (run's result,
+    per state in the order made: [(parents, tokens, survivors' summed
+    log-probs, finished count) per step])."""
+    from visrag_tpu_torch.serving import beam
+    traces, select = [], beam._BeamState.select
+
+    def traced(self, *a):
+        select(self, *a)
+        if not hasattr(self, "trace"):
+            self.trace = []
+            traces.append(self.trace)
+        self.trace.append((self.parents.tolist(), list(self.next_tokens),
+                           self.scores.copy(), len(self.finished)))
+    beam._BeamState.select = traced
+    try:
+        return run(), traces
+    finally:
+        beam._BeamState.select = select
+
+
+def _beam_pair_bf16(engine, reqs):
+    """The batched beam against the sequential one in bf16 on the card,
+    held on what the two decodes' rounding cannot move (their 9-row and
+    3-row GEMMs round otherwise, and the random model's near-uniform
+    log-probs make near-ties): at each step up to and including the first
+    whose selection (parents, tokens, finished) differs, the survivors'
+    summed log-probs, rank for rank, within TOL_BEAM_BF16, so a divergence
+    is a near-tie (a run that stops stepping first diverges there); and
+    the final scores within 1e-3."""
+    import numpy as np
+    with torch.inference_mode():
+        got, tb = _beam_traced(
+            lambda: engine.beam_search_batched(reqs, **BEAM_KW))
+        want, ts = [], []
+        for r in reqs:
+            out, t = _beam_traced(lambda: engine.beam_search(r, **BEAM_KW))
+            want.append(out)
+            ts += t
+    report = []
+    for g, w, b, q in zip(got, want, tb, ts):
+        first, worst = None, 0.0
+        for t, (sb, sq) in enumerate(zip(b, q)):
+            live = (sb[2] > -1e8) & (sq[2] > -1e8)
+            worst = max(worst, float(np.abs(sb[2] - sq[2])[live].max()))
+            if (sb[0], sb[1], sb[3]) != (sq[0], sq[1], sq[3]):
+                first = t
+                break
+        if first is None and len(b) != len(q):
+            first = min(len(b), len(q))
+        report.append({"same_ids": g[0] == w[0], "tokens": len(g[0]),
+                       "score_diff": abs(g[1] - w[1]), "steps": len(q),
+                       "first_divergent_step": first,
+                       "max_step_diff": worst})
+    log(f"[12] weighted_selection beam in bf16 on the card, batched "
+        f"({len(reqs)} pages x 3 beams in one decode loop) vs sequential, "
+        f"per page: {report} (summed log-probs within {TOL_BEAM_BF16} at "
+        f"every step up to the first divergent one; scores within 1e-3)")
+    bad = [r for r in report if r["max_step_diff"] > TOL_BEAM_BF16
+           or r["score_diff"] > 1e-3]
+    if bad or len(tb) != len(reqs) or len(ts) != len(reqs):
+        raise RuntimeError(f"bf16 batched beam departs from the sequential "
+                           f"one beyond rounding: {report}")
+
+
+def _beam_pair_fp32(cfg, reqs):
+    """The batched beam against the sequential one (the same ids, scores
+    within 1e-3), held in fp32 at reduced depth on the CPU (plain
+    versions): MiniCPM-V 2.0's widths with BEAM_FP32_VIT_DEPTH ViT blocks
+    and BEAM_FP32_LAYERS LM layers, random weights from seed 0, on phase
+    12's first query's page requests. In bf16 on the card the batched
+    decode (9 rows) rounds its GEMMs otherwise than the sequential one (3
+    rows), and a random model's near-uniform scores (a mean log-prob near
+    -log(vocab)) let that flip near-ties, so there the pair is held only
+    up to the first near-tie (_beam_pair_bf16)."""
+    from visrag_tpu_torch.driver.common import init_weights_
+    from visrag_tpu_torch.models.minicpmv import (MiniCPMVForGeneration,
+                                                  MiniCPMVGenConfig)
+    from visrag_tpu_torch.serving.beam import beam_search_batched
+    f32 = torch.float32
+    small = MiniCPMVGenConfig(backbone=dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, dtype=f32,
+                                     num_hidden_layers=BEAM_FP32_LAYERS),
+        vit=dataclasses.replace(cfg.vit, dtype=f32,
+                                depth=BEAM_FP32_VIT_DEPTH),
+        resampler=dataclasses.replace(cfg.resampler, dtype=f32)))
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        m32 = MiniCPMVForGeneration(small)
+    m32 = m32.to_empty(device="cpu")
+    init_weights_(m32, torch.Generator().manual_seed(0))
+    m32.eval()
+    with torch.inference_mode():
+        got = beam_search_batched(m32, reqs, **BEAM_KW)
+        want = [beam_search_batched(m32, [r], **BEAM_KW)[0] for r in reqs]
+    diffs = [abs(g[1] - w[1]) for g, w in zip(got, want)]
+    same = [g[0] == w[0] for g, w in zip(got, want)]
+    log(f"[12] weighted_selection beam in fp32 at {BEAM_FP32_VIT_DEPTH} ViT "
+        f"block / {BEAM_FP32_LAYERS} LM layers on the CPU, batched "
+        f"({len(reqs)} pages x 3 beams) vs sequential: the same ids {same} "
+        f"({[len(g[0]) for g in got]} tokens), score diffs {diffs} (bound "
+        f"1e-3), {time.perf_counter() - t0:.1f} s")
+    if not all(same) or max(diffs) > 1e-3:
+        raise RuntimeError(f"batched beam {got} != sequential {want}")
+
+
+def phase12_minicpmv(gen):
+    """MiniCPM-V 2.0 at full width (MiniCPMVGenConfig(), random bf16 weights
+    from seed 0) through run_generate_eval and generate_eval's builder with
+    the MockTokenizer: page_concatenation (greedy, 20 new tokens) and
+    weighted_selection (beam k = 3, repetition penalty 1.2, all of a
+    query's pages in one score_fn.batched call) over 3 pages x 2 queries;
+    then the MiniCPM-2B text backend on the same LM weights (task text).
+    Checks the launch counts against the calls (_gen_counts), each greedy
+    step's logits over the paged pool against one full forward (2e-2
+    relative at every generated position), K7 at every shape the run gave
+    it, and the batched beam against the sequential one: in bf16 on the
+    card up to near-ties (_beam_pair_bf16: the batch shapes round
+    otherwise and flip near-ties of the random model), and equal (the same
+    ids, scores within 1e-3) in fp32 at reduced depth (_beam_pair_fp32). →
+    (launches, the K1, K5 and K7 check records, stats)."""
+    from visrag_tpu_torch.driver import generate_eval as ge
+    from visrag_tpu_torch.models.minicpm import (MiniCPMForGeneration,
+                                                 MiniCPMGenConfig)
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.preprocess import MockTokenizer
+    from visrag_tpu_torch.serving import paged_kv as pk
+    pages, examples, run, texts = _gen_corpus(12)
+    t0 = time.perf_counter()
+    model = ge.random_generation_model("minicpmv", device=DEV, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[12] MiniCPM-V 2.0 full width bf16, {n_params / 1e9:.3f}B params "
+        f"(init {time.perf_counter() - t0:.1f} s)")
+    tok = MockTokenizer()
+    fn = ge.build_minicpmv(model, tok, max_new_tokens=GEN_NEW_TOKENS)
+    cfg = model.cfg.backbone
+    with torch.device("meta"):
+        lm = MiniCPMForGeneration(MiniCPMGenConfig(llm=cfg.llm))
+    lm.model, lm.lm_head = model.backbone.llm, model.lm_head
+    text_fn = ge.build_minicpm(lm, tok, max_new_tokens=GEN_NEW_TOKENS)
+    calls = _CallCounter(model, model.backbone)
+    lm_calls = _CallCounter(lm)
+    rec_v, rec_t = _Recorder(fn.engine), _Recorder(text_fn.engine)
+    tim_v = _SyncTimer(fn.engine, "_decode_chunk")
+    tim_t = _SyncTimer(text_fn.engine, "_decode_chunk")
+    beam_items = []
+    batched = fn.score_fn.batched
+
+    def recorded_batched(items):
+        beam_items.append(items)
+        return batched(items)
+    fn.score_fn.batched = recorded_batched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    al.reset_launch_counts()
+    pk.reset_launch_counts()
+    norms.reset_launch_counts()
+    acc, secs = {}, {}
+    shapes = _NormShapes()
+    try:
+        with torch.inference_mode():
+            for task, f, corpus in (("page_concatenation", fn, pages),
+                                    ("weighted_selection", fn, pages),
+                                    ("text", text_fn, texts)):
+                t0 = time.perf_counter()
+                acc[task], recs = ge.run_generate_eval(
+                    "InfoVQA", examples, f, task_type=task, topk=GEN_TOPK,
+                    run=run, corpus=corpus)
+                torch.cuda.synchronize()
+                secs[task] = round(time.perf_counter() - t0, 3)
+                log(f"[12] {task}: {len(recs)} queries in {secs[task]} s, "
+                    f"predictions {[r['pred'] for r in recs]}")
+    finally:
+        shapes.close()
+    for k2, v2 in lm_calls.counts.items():
+        calls.counts[k2] += v2
+    launches = _gen_counts("[12]", calls, cfg.vit.depth,
+                           cfg.llm.num_hidden_layers)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = {"seconds": secs, "peak_gb": peak_gb,
+             "vision": _gen_serve_stats("[12] page_concatenation", rec_v,
+                                        tim_v, fn.engine),
+             "text": _gen_serve_stats("[12] text (MiniCPM-2B)", rec_t, tim_t,
+                                      text_fn.engine)}
+    log(f"[12] peak memory {peak_gb:.2f} GB")
+
+    # each greedy step against one full forward, vision and text
+    import numpy as np
+    errs = {}
+    for name, rec, m in (("vision", rec_v, model), ("text", rec_t, lm)):
+        req, out = rec.served[0]
+        errs[name] = _gen_decode_vs_full(m, req, list(out.output_ids))
+    log(f"[12] decode logits over the paged pool (K5) vs one full forward "
+        f"(K1), relative error per generated position: "
+        f"{ {k: [round(e, 5) for e in v] for k, v in errs.items()} } (bound "
+        f"{RTOL_BLOCK})")
+    if max(max(v) for v in errs.values()) > RTOL_BLOCK:
+        raise RuntimeError(f"decode logits disagree with the full forward: "
+                           f"{errs}")
+    # the batched beam against the sequential one on the first query's
+    # pages, as the backend calls them (num_beams 3, repetition penalty 1.2)
+    reqs = [fn.request(p, imgs) for p, imgs in beam_items[0]]
+    _beam_pair_bf16(fn.engine, reqs)
+    _beam_pair_fp32(cfg, reqs)
+
+    # K1 at the generation prefill shapes and K5 at MiniCPM-2B's decode
+    h, d = cfg.llm.num_attention_heads, cfg.llm.head_dim
+    checks = {"k1": [], "k5": []}
+    for name, rec, engine in (("vision", rec_v, fn.engine),
+                              ("text", rec_t, text_fn.engine)):
+        s = len(rec.served[0][0]["input_ids"])
+        bucket = next(b for b in engine.prompt_buckets if b >= s)
+        checks["k1"].append(_gen_k1_check("[12]", f"K1 {name} prefill", gen,
+                                          [s], bucket, h, h, d))
+        lens = [s + GEN_NEW_TOKENS] + [1] * (engine.num_slots - 1)
+        checks["k5"].append(_k5_check(
+            "[12]", gen, f"MiniCPM-2B {name} decode", lens, h, h, d,
+            engine.block_size, False, True))
+    checks["k7"] = _gen_norm_checks("[12]", gen, "MiniCPM-V 2.0 / "
+                                    "MiniCPM-2B generation", shapes.shapes)
+    del fn, text_fn, lm, model, beam_items, reqs, calls, lm_calls
+    del rec_v, rec_t, tim_v, tim_t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, checks, stats
+
+
+def phase13_minicpmv26(gen):
+    """MiniCPM-V 2.6 at full width (MiniCPMV26Config(), random bf16 weights
+    from seed 0) through run_generate_eval and generate_eval's builder with
+    the MockTokenizer: multi_image over each query's top 3 pages in one
+    prompt (max_slice_nums 9, uint8 device-mode pixels), greedy, 20 new
+    tokens, 2 queries. Checks the launch counts (K1 flat 27 per vision
+    run, K1 GQA 28 per prefill, K5 28 per decode step) and each greedy
+    step's logits against one full forward (2e-2), and K7 at every shape
+    the run gave it. → (launches, the K1 and K7 check records, stats)."""
+    from visrag_tpu_torch.driver import generate_eval as ge
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.preprocess import MockTokenizer
+    from visrag_tpu_torch.serving import paged_kv as pk
+    pages, examples, run, _ = _gen_corpus(13)
+    t0 = time.perf_counter()
+    model = ge.random_generation_model("minicpmv26", device=DEV, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[13] MiniCPM-V 2.6 full width bf16, {n_params / 1e9:.3f}B params "
+        f"(init {time.perf_counter() - t0:.1f} s)")
+    fn = ge.build_minicpmv26(model, MockTokenizer(),
+                             max_new_tokens=GEN_NEW_TOKENS,
+                             pcfg=ge.pipeline_config(model, max_slice_nums=9))
+    calls = _CallCounter(model, model)
+    rec = _Recorder(fn.engine)
+    tim = _SyncTimer(fn.engine, "_decode_chunk")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    al.reset_launch_counts()
+    pk.reset_launch_counts()
+    norms.reset_launch_counts()
+    t0 = time.perf_counter()
+    shapes = _NormShapes()
+    try:
+        with torch.inference_mode():
+            acc, recs = ge.run_generate_eval(
+                "InfoVQA", examples, fn, task_type="multi_image",
+                topk=GEN_TOPK, run=run, corpus=pages)
+        torch.cuda.synchronize()
+    finally:
+        shapes.close()
+    secs = round(time.perf_counter() - t0, 3)
+    tc = model.cfg.llm
+    launches = _gen_counts("[13]", calls, model.cfg.vit.depth,
+                           tc.num_hidden_layers)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prompt_tokens = [len(p["input_ids"]) for p, _ in rec.served]
+    stats = {"seconds": secs, "peak_gb": peak_gb,
+             "prompt_tokens": prompt_tokens,
+             "multi_image": _gen_serve_stats("[13] multi_image", rec, tim,
+                                             fn.engine)}
+    log(f"[13] multi_image: {len(recs)} queries (prompt tokens "
+        f"{prompt_tokens}) in {secs} s, predictions "
+        f"{[r['pred'] for r in recs]} | peak memory {peak_gb:.2f} GB")
+    req, out = rec.served[0]
+    errs = _gen_decode_vs_full(model, req, list(out.output_ids))
+    log(f"[13] decode logits over the paged pool (K5) vs one full forward "
+        f"(K1), relative error per generated position: "
+        f"{[round(e, 5) for e in errs]} (bound {RTOL_BLOCK})")
+    if max(errs) > RTOL_BLOCK:
+        raise RuntimeError(f"decode logits disagree with the full forward: "
+                           f"{errs}")
+    s = prompt_tokens[0]
+    bucket = next(b for b in fn.engine.prompt_buckets if b >= s)
+    checks = {"k1": [_gen_k1_check(
+        "[13]", "K1 GQA prefill", gen, [s], bucket, tc.num_attention_heads,
+        tc.num_key_value_heads, tc.head_dim)]}
+    del fn, model, rec, req, calls, tim
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks["k7"] = _gen_norm_checks("[13]", gen, "MiniCPM-V 2.6 generation",
+                                    shapes.shapes)
+    return launches, checks, stats
+
+
+def phase14_demo(work):
+    """The demo's build-index and answer on the card, as subprocesses (the
+    demo's default device), at full width on random weights: the tiny
+    configs' head dims (16) are not ones the kernels take, so --tiny runs
+    only on the CPU (tests/test_torch_gen_eval.py)."""
+    import numpy as np
+    from PIL import Image
+    docs = os.path.join(work, "docs")
+    os.makedirs(docs)
+    with open(os.path.join(docs, "note.txt"), "w") as f:
+        f.write("the revenue in 2020 was 42 million\n" * 30)
+    Image.fromarray(np.random.default_rng(14).integers(
+        0, 255, (60, 40, 3), dtype=np.uint8)).save(os.path.join(docs,
+                                                                "page.png"))
+    idx = os.path.join(work, "idx")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    for argv in (["build-index", "--input", docs, "--output", idx],
+                 ["answer", "--index", idx, "--query",
+                  "what was the 2020 revenue", "--topk", "2"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "visrag_tpu_torch.driver.demo", *argv],
+            env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise RuntimeError(f"demo {argv[0]} exited {proc.returncode}: "
+                               f"{proc.stderr[-3000:]}")
+    with open(os.path.join(idx, "answer.json")) as f:
+        ans = json.load(f)
+    if len(ans["retrieved"]) != 2:
+        raise RuntimeError(f"demo answer retrieved {ans['retrieved']}")
+    log(f"[14] demo build-index (2 pages) and answer (VisRAG-Ret at full "
+        f"width, on the card) in {time.perf_counter() - t0:.1f} s: "
+        f"{ans['retrieved']}")
+
+
 KEYS = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
         "bound_by")
 
@@ -3910,6 +4531,47 @@ def norm_kernel_rows(norm_results, sft_launches, encode_launches):
     return out
 
 
+def gen_phases(gen):
+    """Phases 12, 13 and 14. → {"12": phase 12's (launches, checks,
+    stats), "13": phase 13's (launches, checks, stats)}."""
+    out = {"12": phase12_minicpmv(gen)}
+    gc.collect()            # the phase's wrapped methods hold reference
+    torch.cuda.empty_cache()  # cycles to its model and engines
+    out["13"] = phase13_minicpmv26(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="visrag_demo_")
+    try:
+        phase14_demo(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def gen_kernel_rows(gen_results):
+    """The VisRAG-Gen rows: K1 stacked at MiniCPM-2B's generation prefill
+    and at MiniCPM-V 2.6's (GQA), launches from phases 12 and 13; K5 at
+    MiniCPM-2B's 36/36 d 64 decode, launches from phase 12's engine."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.serving import paged_kv as pk
+    l12, c12, _ = gen_results["12"]
+    l13, c13, _ = gen_results["13"]
+    k5 = c12["k5"][0]
+    return [
+        {"name": "flash_fwd_lengths (MiniCPM-2B generation prefill, 36/36, "
+                 "d=64)", "route": "cuda", "source": al.SOURCE,
+         "replaces": REPLACES["fwd"], "launches": l12["stacked"],
+         **{k: c12["k1"][0][k] for k in KEYS}, "checks": c12["k1"]},
+        {"name": "flash_fwd_lengths (MiniCPM-V 2.6 prefill, GQA 28/4, "
+                 "d=128)", "route": "cuda", "source": al.SOURCE,
+         "replaces": REPLACES["fwd"], "launches": l13["stacked"],
+         **{k: c13["k1"][0][k] for k in KEYS}, "checks": c13["k1"]},
+        {"name": "paged_decode_attention (MiniCPM-2B 36/36, d 64)",
+         "route": "cuda", "source": pk.SOURCE, "replaces": REPLACES["paged"],
+         "launches": l12["paged"], **{k: k5[k] for k in KEYS},
+         "gather_sdpa_ms": k5["gather_sdpa_ms"], "checks": c12["k5"]}]
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser()
@@ -3917,6 +4579,9 @@ def main(argv=None):
                     help="phases 0, 1, 1b and 8-11 only, for work on the "
                          "training slices; the run then ends without the "
                          "ok line")
+    ap.add_argument("--gen-only", action="store_true",
+                    help="phases 0, 1, 1b and 12-14 only, for work on "
+                         "VisRAG-Gen; the run then ends without the ok line")
     args = ap.parse_args(argv)
     # full fp32 wherever fp32 is asked for (pos embed, the fp32 references)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3932,6 +4597,12 @@ def main(argv=None):
             seg_results, rl_launches) + norm_kernel_rows(
                 norm_results, sft_launches, None)}))
         print(json.dumps({"ok": False, "partial": "--rl-only"}))
+        return 1
+    if args.gen_only:
+        rows = gen_kernel_rows(gen_phases(gen))
+        print(smi())
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": False, "partial": "--gen-only"}))
         return 1
     setup = phase3_setup()
     results = phase2_kernel(gen, setup)
@@ -3957,6 +4628,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     seg_results, rl_launches, sft_launches, gae_launches = rl_phases(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen_results = gen_phases(gen)
     log(f"[K2] Hopper launches by kernel and head dim (route counters): "
         f"phase 5 {train_launches['k2_by_head_dim']}, phase 9 (padded "
         f"update) {rl_launches['padded_update']['k2_by_head_dim']}, phase 10 "
@@ -4053,7 +4727,12 @@ def main(argv=None):
                     "legacy_source": pk.LEGACY_SOURCE,
                     "checks": k5q_checks})
     kernels += segment_kernel_rows(seg_results, rl_launches)
+    for phase in ("12", "13"):      # K7 at the generation runs' shapes
+        k7 = gen_results[phase][1]["k7"]
+        norm_results["rmsnorm"] += k7["rms"]
+        norm_results["layernorm"] += k7["ln"]
     kernels += norm_kernel_rows(norm_results, sft_launches, serve_launches)
+    kernels += gen_kernel_rows(gen_results)
     for k in kernels:
         if not k["launches"] > 0:
             raise RuntimeError(f"{k['name']} was not launched on its path")

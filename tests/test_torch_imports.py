@@ -109,6 +109,25 @@ _, step = build_sft(qwen, sft.SFTConfig(lr=1e-4))
 m = step(make_sft_batch([(np.arange(2, 12, dtype=np.int32),
                           np.r_[np.zeros(5), np.ones(5)].astype(np.int32))]))
 assert np.isfinite(float(m["loss"]))
+# VisRAG-Gen: the three backends' builders on tiny random weights, the
+# generation layer, the beam search and the demo's modules
+import visrag_tpu_torch.driver.demo
+from visrag_tpu_torch.driver import generate_eval as ge
+from visrag_tpu_torch.generation import gen_eval, strategies
+from visrag_tpu_torch.preprocess import rasterize
+from visrag_tpu_torch.serving import beam
+page = items[0][1]
+for backend in ("minicpmv", "minicpmv26", "minicpm"):
+    gm = ge.random_generation_model(backend, tiny=True, device="cpu")
+    fn = ge.build_backend(backend, gm, MockTokenizer(), max_new_tokens=3,
+                          tiny=True)
+    task = {"minicpmv": "weighted_selection", "minicpmv26": "multi_image",
+            "minicpm": "text"}[backend]
+    out = strategies.generate_with_strategy(
+        task, "what?", [page, page], [1.0, 0.5], fn,
+        lambda q, n: gen_eval.build_image_prompt("InfoVQA", q),
+        score_fn=getattr(fn, "score_fn", None))
+    assert isinstance(out, str)
 added = sorted(m for m in set(sys.modules) - before
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "visrag_tpu"))
 print("ADDED", added)
@@ -123,7 +142,9 @@ def test_port_runs_without_jax():
     """Importing the drivers, the training, serving, RL, int8 and norm
     modules, encoding a batch (bf16 and int8), generating with the serving
     engine (bf16 and int8 pools), taking one RLTrainer.fit step, one GAE
-    step with the critic and one SFT step load no module of jax, flax or
+    step with the critic and one SFT step, and answering through the three
+    VisRAG-Gen backends (beam-scored weighted selection on MiniCPM-V 2.0,
+    two pages on 2.6, text on MiniCPM-2B) load no module of jax, flax or
     visrag_tpu."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,

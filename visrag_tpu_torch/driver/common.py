@@ -1,10 +1,13 @@
 """Shared driver plumbing: model, tokenizer and pipeline construction.
 
 Counterpart of visrag_tpu/driver/common.py (build_visrag_ret,
-build_tokenizer). Without weights in the repository the model is
-initialised at random from a seed, with the JAX package's initialiser
-families so that activations stay finite through the 40 MUP-scaled LM
-layers:
+build_tokenizer, get_tokenizer). With a checkpoint directory, the
+tokenizer is its HF tokenizer (the MockTokenizer without one), the LM's
+rope scaling comes from its config.json (linear or dynamic; any other type
+raises), and the weights load by their HF names (models/hf_loader). Without
+one, the model is initialised at random from a seed, with the JAX
+package's initialiser families so that activations stay finite through the
+40 MUP-scaled LM layers:
 
   * linear and patch-embed weights: truncated normal with std
     1/sqrt(out_features) (flax lecun_normal reads fan-in from the first
@@ -22,29 +25,49 @@ whole-block recomputation in the ViT and the LM when gradients are on.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import torch
 from torch import nn
 
 from ..config import ModelConfig
 from ..models.common import LayerNorm, RMSNorm, get_2d_sincos_pos_embed
+from ..models.hf_loader import (load_safetensors_dir, load_visrag_ret_state,
+                                minicpmv_hf_to_port)
 from ..models.resampler import Resampler
 from ..models.siglip_vit import SiglipViT
 from ..models.visrag_ret import VisRAGRet, VisRAGRetConfig
 from ..preprocess import MockTokenizer, PipelineConfig
-
-
-_NO_CHECKPOINTS = ("loading a checkpoint into visrag_tpu_torch is not ported "
-                   "yet (the weights and tokenizer files are not in the "
-                   "repository); run without --checkpoint for random weights")
+from ..preprocess.tokenize import HFTokenizerAdapter
 
 
 def build_tokenizer(checkpoint: str):
-    """The deterministic MockTokenizer; a checkpoint's own tokenizer comes
-    with checkpoint loading."""
-    if checkpoint:
-        raise NotImplementedError(_NO_CHECKPOINTS)
+    """The checkpoint's HF tokenizer behind the pipeline's tokenizer
+    surface when the directory has a tokenizer_config.json, else the
+    deterministic MockTokenizer (runs on random weights)."""
+    if checkpoint and os.path.exists(os.path.join(checkpoint,
+                                                  "tokenizer_config.json")):
+        return HFTokenizerAdapter(get_tokenizer(checkpoint, use_fast=True))
     return MockTokenizer()
+
+
+def rope_scaled(llm_cfg, checkpoint: str):
+    """A MiniCPM LM config with the rope scaling of the checkpoint's
+    config.json (none: unchanged). A scaled checkpoint loaded without it
+    would give wrong outputs silently."""
+    path = os.path.join(checkpoint, "config.json") if checkpoint else ""
+    if not path or not os.path.exists(path):
+        return llm_cfg
+    with open(path) as f:
+        rs = json.load(f).get("rope_scaling")
+    if not rs:
+        return llm_cfg
+    kind = rs.get("type", rs.get("rope_type"))
+    if kind not in ("linear", "dynamic"):
+        raise ValueError(f"unsupported rope_scaling type {kind!r}")
+    return dataclasses.replace(llm_cfg, rope_scaling_type=kind,
+                               rope_scaling_factor=float(rs["factor"]))
 
 
 def _trunc_normal_(t, std, gen):
@@ -76,9 +99,10 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> None:
         elif isinstance(module, Resampler):
             c = module.cfg
             _trunc_normal_(module.query, 0.02, gen)
-            grid = int(round(c.num_queries ** 0.5))
-            module.pos_embed.copy_(torch.from_numpy(
-                get_2d_sincos_pos_embed(c.embed_dim, grid, grid)))
+            if module.pos_embed is not None:
+                grid = int(round(c.num_queries ** 0.5))
+                module.pos_embed.copy_(torch.from_numpy(
+                    get_2d_sincos_pos_embed(c.embed_dim, grid, grid)))
             nn.init.xavier_uniform_(module.attn.in_proj_weight, generator=gen)
             module.attn.in_proj_bias.zero_()
             module.proj.normal_(0.0, c.embed_dim ** -0.5, generator=gen)
@@ -86,21 +110,28 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> None:
 
 def build_visrag_ret(model_cfg: ModelConfig, *, tiny: bool = False,
                      device="cuda", seed: int = 0):
-    """→ (model in eval mode on `device`, PipelineConfig)."""
-    if model_cfg.checkpoint:
-        raise NotImplementedError(_NO_CHECKPOINTS)
+    """→ (model in eval mode on `device`, PipelineConfig). With
+    model_cfg.checkpoint: the released MiniCPM-V 2.0 / VisRAG-Ret names
+    from its safetensors (the LM head and the 27th ViT block dropped), rope
+    scaling from its config.json; else random weights from `seed`."""
+    ckpt = model_cfg.checkpoint
     cfg = VisRAGRetConfig.tiny() if tiny else VisRAGRetConfig(
         pooling=model_cfg.pooling, normalize=model_cfg.normalize)
     bb = cfg.backbone
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
         bb, vit=dataclasses.replace(bb.vit, remat=model_cfg.remat),
-        llm=dataclasses.replace(bb.llm, remat=model_cfg.remat)))
+        llm=dataclasses.replace(rope_scaled(bb.llm, ckpt),
+                                remat=model_cfg.remat)))
     device = torch.device(device)
     with torch.device("meta"):
         model = VisRAGRet(cfg)
     model = model.to_empty(device=device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    init_weights_(model, gen)
+    if ckpt:
+        load_visrag_ret_state(model, minicpmv_hf_to_port(
+            load_safetensors_dir(ckpt), cfg.backbone.vit.depth))
+    else:
+        init_weights_(model, torch.Generator(device=device)
+                      .manual_seed(seed))
     model.eval()
     bb = cfg.backbone
     pcfg = PipelineConfig(
@@ -142,25 +173,6 @@ def get_processor(model_path: str, **kwargs):
     if "Processor" not in type(processor).__name__:
         return None
     return processor
-
-
-def load_safetensors_dir(path: str) -> dict:
-    """Every *.safetensors file of an HF checkpoint dir → one flat dict of
-    numpy arrays."""
-    import glob
-    import os
-
-    from safetensors import safe_open
-    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
-    if not files:
-        raise FileNotFoundError(f"no safetensors under {path}")
-    state = {}
-    for f in files:
-        with safe_open(f, framework="np") as sf:
-            for k in sf.keys():
-                state[k] = sf.get_tensor(k)
-    return state
-
 
 
 def encode_qwen_prompt_row(row, processor, tok, mcfg, rollout_cfg):

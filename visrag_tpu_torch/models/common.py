@@ -72,6 +72,29 @@ class LayerNorm(nn.Module):
         return norms.layernorm(x, self.weight, self.bias, self.eps)
 
 
+def scatter_vision(embeds, slot_map, vision_embeds):
+    """Token embeddings (B, S, E) with the rows of a table of tower outputs
+    (N, E) put where slot_map (B, S) >= 0 picks one."""
+    slot_map = slot_map.to(embeds.device)
+    safe = slot_map.clamp(min=0).reshape(-1)
+    gathered = vision_embeds[safe].reshape(*slot_map.shape, -1)
+    return torch.where((slot_map >= 0)[..., None],
+                       gathered.to(embeds.dtype), embeds)
+
+
+def prefill_outputs(model, hidden, kvs, last_pos):
+    """A generation model's prefill result from its stack's hidden states
+    and per-layer K/V: (logits at last_pos (B,) → (B, V), or all (B, S, V)
+    when last_pos is None; k, v stacked (layers, B, S, kvh, d))."""
+    k = torch.stack([kv[0] for kv in kvs])
+    v = torch.stack([kv[1] for kv in kvs])
+    if last_pos is not None:
+        idx = last_pos.to(hidden.device).long()
+        hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                        idx]
+    return model.compute_logits(hidden), k, v
+
+
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
                      scaling: Optional[dict] = None,
                      max_positions: int = 4096,

@@ -50,7 +50,7 @@ from ..ops.attention import chunk_attention, flash_attention
 from ..ops.attention_kvgrid import flash_attention_kvgrid
 from ..ops.attention_lengths import flash_fwd_lengths
 from ..preprocess.qwen_vision import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
-from .common import RMSNorm
+from .common import RMSNorm, prefill_outputs, scatter_vision
 from .mrope import apply_rope_cos_sin, mrope_cos_sin
 
 
@@ -473,16 +473,6 @@ class QwenTextModel(nn.Module):
         return self.norm(x)
 
 
-def scatter_vision(embeds, slot_map, vision_embeds):
-    """Token embeddings (B, S, E) with the rows of a table of tower outputs
-    (N, E) put where slot_map (B, S) >= 0 picks one."""
-    slot_map = slot_map.to(embeds.device)
-    safe = slot_map.clamp(min=0).reshape(-1)
-    gathered = vision_embeds[safe].reshape(*slot_map.shape, -1)
-    return torch.where((slot_map >= 0)[..., None],
-                       gathered.to(embeds.dtype), embeds)
-
-
 class QwenForValue(nn.Module):
     """Token-level value head over the Qwen text stack: the critic (the
     reference loads AutoModelForTokenClassification with one label).
@@ -580,13 +570,7 @@ class Qwen25VL(nn.Module):
             inputs_embeds=self._embed(input_ids, vision_batch, slot_map),
             positions=positions, attention_mask=attention_mask,
             return_kv=True)
-        k = torch.stack([kv[0] for kv in kvs])
-        v = torch.stack([kv[1] for kv in kvs])
-        if last_pos is not None:
-            idx = last_pos.to(hidden.device).long()
-            hidden = hidden[torch.arange(hidden.shape[0],
-                                         device=hidden.device), idx]
-        return self.compute_logits(hidden), k, v
+        return prefill_outputs(self, hidden, kvs, last_pos)
 
     def decode(self, token_ids, positions, k_cache, v_cache, lengths_incl,
                block_table=None):

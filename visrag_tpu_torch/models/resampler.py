@@ -1,7 +1,8 @@
 """Perceiver resampler: learnable queries cross-attend to ViT patch tokens.
 
 Counterpart of visrag_tpu/models/resampler.py: 64 queries plus the fixed
-8×8 2-D sin-cos query pos embed; keys get the adaptive sin-cos embed of each
+8×8 2-D sin-cos query pos embed (MiniCPM-V 2.0; the 2.6 resampler has none:
+`query_pos=False`); keys get the adaptive sin-cos embed of each
 slice's (h, w) patch grid, built on the device; kv_proj 1152→2304 (no
 bias), ln_kv/ln_q/ln_post, the nn.MultiheadAttention parameter layout
 (joint in_proj, out_proj) and a final projection. The attention is a
@@ -28,6 +29,7 @@ class ResamplerConfig:
     num_heads: int = 18
     ln_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    query_pos: bool = True      # the fixed query-side table (2.0 only)
 
     @classmethod
     def tiny(cls, **kw):
@@ -55,7 +57,8 @@ class Resampler(nn.Module):
         e = c.embed_dim
         self.query = nn.Parameter(torch.empty(c.num_queries, e, dtype=c.dtype))
         self.pos_embed = nn.Parameter(          # fixed sin-cos table
-            torch.empty(c.num_queries, e, dtype=c.dtype), requires_grad=False)
+            torch.empty(c.num_queries, e, dtype=c.dtype),
+            requires_grad=False) if c.query_pos else None
         self.kv_proj = (nn.Linear(c.kv_dim, e, bias=False, dtype=c.dtype)
                         if c.kv_dim != e else None)
         self.attn = MultiheadAttentionParams(e, c.dtype)
@@ -75,7 +78,9 @@ class Resampler(nn.Module):
         kv = self.ln_kv(kv)
         k_pos = sincos_2d_device(e, grid_h, grid_w, max_p)
 
-        q = self.ln_q(self.query) + self.pos_embed
+        q = self.ln_q(self.query)
+        if self.pos_embed is not None:
+            q = q + self.pos_embed
         k = kv + k_pos.to(kv.dtype)
         wq, wk, wv = self.attn.in_proj_weight.chunk(3, dim=0)
         bq, bk, bv = self.attn.in_proj_bias.chunk(3, dim=0)

@@ -6,7 +6,9 @@ validity mask, and the bicubic pos-embed resample is a per-slice operator,
 pos = pos_matrix @ pos_embed, so slices of any grid batch together.
 
 Arch: patch 14, width 1152, 26 blocks (the 27th is dropped), 16 heads of
-d=72, MLP 4304, LayerNorm eps 1e-6, exact (erf) GELU, qkv bias. Attention
+d=72, MLP 4304, LayerNorm eps 1e-6, exact (erf) GELU, qkv bias. MiniCPM-V
+2.6 runs the same tower at 27 blocks and a 70x70 pos grid with the tanh
+GELU (`act="tanh"`, HF SigLIP's gelu_pytorch_tanh). Attention
 is the fused qkv GEMM → flat lengths kernel (ops/attention_lengths.py) →
 projection GEMM, all in the (N*P, ...) layout; d=72 goes to the kernel
 unpadded, and its gradient (K2) comes back in the same flat layout.
@@ -47,12 +49,15 @@ class SiglipViTConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: Any = False          # False | True (whole blocks) | "mlp"
     quant: str = "none"         # "none" | "int8" (qkv and fc1, inference)
+    act: str = "erf"            # MLP GELU: "erf" (2.0) | "tanh" (2.6)
 
     def __post_init__(self):
         if self.quant != "none" and self.remat:
             raise ValueError(
                 "quant='int8' is inference-only (no VJP); remat=True marks a "
                 "training config — use quant='none' for training")
+        if self.act not in ("erf", "tanh"):
+            raise ValueError(f"act {self.act!r}: expected 'erf' or 'tanh'")
 
     @property
     def patch_dim(self) -> int:
@@ -94,9 +99,10 @@ class Mlp(nn.Module):
         linear = QuantLinear if c.quant == "int8" else nn.Linear
         self.fc1 = linear(c.embed_dim, c.mlp_dim, dtype=c.dtype)
         self.fc2 = nn.Linear(c.mlp_dim, c.embed_dim, dtype=c.dtype)
+        self.approximate = "tanh" if c.act == "tanh" else "none"
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
 class ViTBlock(nn.Module):

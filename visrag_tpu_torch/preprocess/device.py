@@ -9,6 +9,10 @@ this module uploads them and, on the device,
   * builds each slice's bicubic pos-resample operator from the
     `transform.bicubic_table` constant: A[p] = T[gh, p // gw],
     B[p] = T[gw, p % gw], operator = A ⊗ B, shape (N, P, G²).
+
+`finish_vision_batch` does the same for the vision part alone, for the
+generation composites: MiniCPM-V 2.6's prompts ship uint8 pixels, since at
+its 70² pos grid a host-built dense operator is about 23 MB fp32 a slice.
 """
 
 from __future__ import annotations
@@ -20,10 +24,27 @@ from ..models.visrag_ret import EncodeBatch
 from .transform import bicubic_table
 
 
+_TABLE_CACHE = {}
+
+
+def cached_bicubic_table(src_grid: int) -> np.ndarray:
+    """Per-process cache of the bicubic operator stack (18 MB at grid 70);
+    treat the returned array as immutable."""
+    if src_grid not in _TABLE_CACHE:
+        _TABLE_CACHE[src_grid] = bicubic_table(src_grid)
+    return _TABLE_CACHE[src_grid]
+
+
 def pos_table_tensor(src_grid: int, device) -> torch.Tensor:
     """The bicubic table as a device tensor; upload it once per run and pass
-    it to every finish_encode_batch call."""
-    return torch.from_numpy(bicubic_table(src_grid)).to(device)
+    it to every finish_encode_batch / finish_vision_batch call."""
+    return torch.from_numpy(cached_bicubic_table(src_grid)).to(device)
+
+
+def _put(x, device):
+    x = torch.from_numpy(np.ascontiguousarray(x)) \
+        if isinstance(x, np.ndarray) else x
+    return x.to(device, non_blocking=True)
 
 
 def finish_encode_batch(raw: dict, pos_table: torch.Tensor) -> EncodeBatch:
@@ -33,10 +54,7 @@ def finish_encode_batch(raw: dict, pos_table: torch.Tensor) -> EncodeBatch:
     device = pos_table.device
 
     def put(name):
-        x = raw[name]
-        x = torch.from_numpy(np.ascontiguousarray(x)) \
-            if isinstance(x, np.ndarray) else x
-        return x.to(device, non_blocking=True)
+        return _put(raw[name], device)
 
     pixels = put("pixels")
     grid_h, grid_w = put("grid_h"), put("grid_w")
@@ -63,3 +81,17 @@ def _pos_operators(table, gh, gw, p: int):
     pos_b = table[gw[:, None], iw]
     return torch.einsum("npa,npb->npab", pos_a, pos_b).reshape(
         pos_a.shape[0], p, g * g)
+
+
+def finish_vision_batch(raw: dict, pos_table: torch.Tensor) -> dict:
+    """Vision-only finish: raw {pixels uint8, patch_mask, grid_h, grid_w}
+    (numpy or tensors) → {patches fp32, patch_mask, pos_matrix, grid_h,
+    grid_w} on the table's device; the same math as finish_encode_batch."""
+    device = pos_table.device
+    pixels = _put(raw["pixels"], device)
+    grid_h, grid_w = _put(raw["grid_h"], device), _put(raw["grid_w"], device)
+    return {"patches": (pixels.float() / 255.0 - 0.5) / 0.5,
+            "patch_mask": _put(raw["patch_mask"], device),
+            "pos_matrix": _pos_operators(pos_table, grid_h, grid_w,
+                                         pixels.shape[1]),
+            "grid_h": grid_h, "grid_w": grid_w}

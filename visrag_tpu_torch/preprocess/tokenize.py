@@ -13,7 +13,7 @@ The device-side contract replaces per-sample image_bound lists with a static
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Protocol, Sequence
+from typing import List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 
@@ -48,6 +48,7 @@ class MockTokenizer:
     im_end_id: int = 102
     slice_start_id: int = 103
     slice_end_id: int = 104
+    eos_ids: Tuple[int, ...] = ()     # generation runs its whole budget
 
     def encode(self, text: str) -> List[int]:
         specials = {self.unk_token: self.unk_id, self.im_start: self.im_start_id,
@@ -67,10 +68,18 @@ class MockTokenizer:
                 i += 1
         return out
 
+    def decode(self, ids) -> str:
+        """A readable stand-in for generated ids (encode is not
+        invertible): ids 200-249 become the characters '0'-'a' in order,
+        every other id is dropped."""
+        return "".join(chr(48 + i - 200) for i in ids if 200 <= i < 250)
+
 
 class HFTokenizerAdapter:
-    """Wrap a HuggingFace (fast) tokenizer into the TokenizerLike surface.
-    Expects the MiniCPM-V special tokens to be present in the vocab."""
+    """Wrap a HuggingFace (fast) tokenizer into the TokenizerLike surface,
+    with `decode` (special tokens skipped) and `eos_ids` (EOS, and ChatML's
+    <|im_end|> where the vocab has it) for generation. Expects the
+    MiniCPM-V special tokens to be present in the vocab."""
 
     def __init__(self, tok):
         self.tok = tok
@@ -82,9 +91,16 @@ class HFTokenizerAdapter:
         self.im_end_id = tok.convert_tokens_to_ids(self.im_end)
         self.slice_start_id = tok.convert_tokens_to_ids(self.slice_start)
         self.slice_end_id = tok.convert_tokens_to_ids(self.slice_end)
+        self.eos_ids = [i for i in (tok.eos_token_id,
+                                    tok.convert_tokens_to_ids("<|im_end|>"))
+                        if isinstance(i, int) and i >= 0
+                        and i != tok.unk_token_id]
 
     def encode(self, text: str) -> List[int]:
         return self.tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids) -> str:
+        return self.tok.decode(ids, skip_special_tokens=True)
 
 
 def image_placeholder(tok: TokenizerLike, query_num: int) -> str:

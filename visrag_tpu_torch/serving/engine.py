@@ -25,7 +25,15 @@ Differences from the JAX engine:
     the prefix cache (the JAX engine inserts the whole ids);
   * `set_params` takes the module (updated in place by the optimizer) and
     clears the prefix cache; there is no resharding at one card;
-  * not ported: tensor parallelism (`mesh`), beam search.
+  * not ported: tensor parallelism (`mesh`).
+
+The engine calls only the model's `prefill` / `decode` and reads
+`cfg.text` for the pool's shape, plus `prefill_chunk` and `embed_prompt`
+where the model has them (Qwen25VL): it serves Qwen2.5-VL and the three
+VisRAG-Gen models (MiniCPM-2B, MiniCPM-V 2.0, MiniCPM-V 2.6), whose
+prompts prefill whole. `beam_search` / `beam_search_batched` run the
+weighted-selection strategy's HF-parity beam search outside the slots
+(serving/beam.py).
 """
 
 from __future__ import annotations
@@ -889,6 +897,47 @@ class Engine:
         ids = self._add_all(prompts, sampling, n)
         results = self.run()
         return [results[i] for i in ids]
+
+    def beam_search(self, prompt: dict, *, num_beams: int = 3,
+                    max_new_tokens: int = 64,
+                    repetition_penalty: float = 1.2,
+                    length_penalty: float = 1.0):
+        """Beam-scored generation for ONE prompt → (output ids,
+        sequences_score): the reference's weighted-selection scoring (HF
+        generate num_beams=3, repetition_penalty=1.2). Runs outside the
+        slots on dense per-beam caches (serving/beam.py)."""
+        from .beam import beam_search
+        return beam_search(
+            self.model, prompt["input_ids"], prompt.get("positions"),
+            vision_batch=prompt.get("vision_batch"),
+            slot_map=prompt.get("slot_map"), num_beams=num_beams,
+            max_new_tokens=max_new_tokens, eos_token_ids=sorted(self.eos),
+            repetition_penalty=repetition_penalty,
+            length_penalty=length_penalty)
+
+    def beam_search_batched(self, prompts: Sequence[dict], *,
+                            num_beams: int = 3, max_new_tokens: int = 64,
+                            repetition_penalty: float = 1.2,
+                            length_penalty: float = 1.0,
+                            max_batch: int = 8):
+        """`beam_search` over many prompts with each token's decode steps
+        batched (P*k,): ids and scores equal the sequential path's.
+        `max_batch` chunks the prompt list to bound the dense caches."""
+        from .beam import beam_search_batched
+        out = []
+        for i in range(0, len(prompts), max_batch):
+            out.extend(beam_search_batched(
+                self.model,
+                [dict(input_ids=p["input_ids"],
+                      positions=p.get("positions"),
+                      vision_batch=p.get("vision_batch"),
+                      slot_map=p.get("slot_map"))
+                 for p in prompts[i:i + max_batch]],
+                num_beams=num_beams, max_new_tokens=max_new_tokens,
+                eos_token_ids=sorted(self.eos),
+                repetition_penalty=repetition_penalty,
+                length_penalty=length_penalty))
+        return out
 
     def generate_detailed(self, prompts: Sequence[dict],
                           sampling: Optional[SamplingParams] = None,

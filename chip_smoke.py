@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU: VisRAG-Ret page
 embedding → retrieval (bf16 and int8), retriever training, EVisRAG serving
 (bf16 and int8 KV pools), RS-GRPO training steps, EVisRAG SFT, a GAE
-RS-GRPO run with the critic, and VisRAG-Gen (MiniCPM-V 2.0 / 2.6,
-MiniCPM-2B) with the demo.
+RS-GRPO run with the critic, VisRAG-Gen (MiniCPM-V 2.0 / 2.6,
+MiniCPM-2B) with the demo, and the SigLIP-only retriever baseline with the
+int8 corpus scan.
 
     python3 chip_smoke.py
 
@@ -267,6 +268,40 @@ is non-zero; no phase catches an error and carries on):
  14. the demo's build-index and answer as subprocesses on the card, with
      VisRAG-Ret at full width on random weights (the tiny configs' head
      dims are not ones the kernels take).
+ 15. the SigLIP-only retriever baseline and the retrieval remainder:
+     SiglipModel at full width (SiglipConfig(): 27 + 27 layers, width
+     1152, 16 heads of d 72, MLP 4304, 1.13B params, random bf16 weights
+     from seed 0); 16 pages of bench.py's mix resized to 384 x 384, scaled
+     to [-1, 1] and patchified to (16, 729, 588), and 8 queries of 64
+     full-length MockTokenizer ids through encode_image / encode_text,
+     each tower run launching K1 stacked (d 72, not causal) exactly 27
+     times, all on the Hopper kernel, and K7 LayerNorm 56 (vision) / 55
+     (text) times; finite embeddings, L2-normalised, searched top-5 by
+     StreamingSearcher with quant "none" and "int8"; a resident 1,000,000
+     x 2304 corpus of unit rows with 64 planted queries (a corpus row plus
+     small noise): topk_single (fp32) and topk_single_int8 (K6, fp32
+     scores) at k 10, every planted row at rank 1 in both, their top-10
+     overlap; StreamingSearcher over 131,072 rows in 4 chunks against one
+     call (the same ids both quants, int8 scores bit for bit, a row
+     duplicated across chunks tying to the lower index); self_retrieve
+     with a duplicated query (the tie to the lower index); the counted
+     launches (K1 54, LayerNorm 111, K6 7). Then K1 at the vision (16 x
+     729), text (8 x 64) and masked text (lengths 1, 5, 63, 64) shapes
+     against the plain version (2e-2 max abs on valid rows, pad rows
+     exactly 0), one full-width encoder layer bf16 on the card against
+     fp32 on the CPU (2e-2), K7 at 11,664 and 512 rows (phase 1b's bound),
+     device quantize_rows bit-equal to quantize_rows_np on 65,536 rows,
+     K6's scan scores bit-equal to int8_matmul_reference, each timed beside
+     its plain version, its library call (SDPA with a length mask;
+     F.layer_norm; torch._int_mm + scaling) and the bound; both scans
+     timed by utils/timing.measure, the host upload of the int8 and fp32
+     corpora, one utils/profiling.trace of the int8 scan holding K6's
+     symbol; the GELU sweep (ops/gelu.fast_gelu on the card equal to
+     float64 erf-GELU on every finite bf16 pattern; F.gelu's mismatches
+     counted, and the ViT's erf MLP on fast_gelu); and the synthesize
+     twin (driver/synthesize_queries' generator at Qwen2.5-VL-3B's width
+     on random weights, one page, 16 new tokens, K3, K1 and K5 launches
+     reckoned from the model's calls).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq and
@@ -277,7 +312,9 @@ d = 128 with grouped kv heads, K7 as
 `rmsnorm` (launches from phase 10's SFT run, numbers at its batch) and
 `layernorm` (launches from phase 3's encode, numbers at the ViT's rows),
 and K1 at MiniCPM-2B's generation prefill and at MiniCPM-V 2.6's, and K5
-at MiniCPM-2B's 36/36 d 64 decode (launches from phases 12 and 13):
+at MiniCPM-2B's 36/36 d 64 decode (launches from phases 12 and 13),
+and K1 at SigLIP's vision and text shapes, K7 LayerNorm at SigLIP's rows
+and K6 at the int8 scan's shape (launches from phase 15):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
 max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
 forward, dq and dk/dv (the mma.sync kernels), pr5_ms for K6 (the
@@ -288,8 +325,8 @@ legacy_ms for K5 and K5 int8 (the first kernel, csrc/paged_decode.cu),
 pr3_ms for K3 (the first kernel, csrc/attention_kvgrid.cu);
 every checked shape under "checks"), and
 {"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11,
-`--gen-only` phases 0, 1, 1b and 12-14; each ends without the ok line and
-exits 1.
+`--gen-only` phases 0, 1, 1b and 12-14, `--ret-only` phases 0, 1, 1b and
+15; each ends without the ok line and exits 1.
 """
 
 from __future__ import annotations
@@ -559,7 +596,7 @@ def _host_us(fn, n=200):
     return dt / n * 1e6
 
 
-def _check_norm(gen, label, kind, rows, d, xdt, wdt):
+def _check_norm(gen, label, kind, rows, d, xdt, wdt, phase="[1b]"):
     """K7 against the plain version on one shape: bf16 output within one
     bf16 ulp of the plain version's (of the larger of the two) plus 2^-16
     of the fp32 computation's scale s = (|x| + |μ|)·rstd·|w| + |b| (the
@@ -658,7 +695,7 @@ def _check_norm(gen, label, kind, rows, d, xdt, wdt):
            "plain_ms": cuda_ms(plain),
            "library_ms": cuda_ms(lib) if lib is not None else None,
            "bound_ms": bound_ms, "bound_by": bound_by, **host}
-    log(f"[1b] K7 {kind} {label} {rows} x {d} {rec['dtype']} (w "
+    log(f"{phase} K7 {kind} {label} {rows} x {d} {rec['dtype']} (w "
         f"{rec['weight_dtype']}, {rec['route']}): max_abs_err {max_err:.3g}, "
         f"worst err/bound {worst:.3g}"
         + (f" (the warp-per-row kernel launched directly: max_abs_err "
@@ -4474,6 +4511,507 @@ def phase14_demo(work):
         f"{ans['retrieved']}")
 
 
+# ---- phase 15: the SigLIP baseline, the int8 corpus scan and the single-GPU
+# remainder -------------------------------------------------------------------
+
+SCAN_ROWS = 1_000_000       # the resident corpus of the scan
+SCAN_DIM = 2304             # VisRAG-Ret's embedding width
+SCAN_QUERIES = 64
+SCAN_K = 10
+STREAM_ROWS = 131_072       # StreamingSearcher's run, in 4 chunks
+QUANT_CHECK_ROWS = 65_536   # device quantize_rows against quantize_rows_np
+PEAK_FP32 = 67e12           # H100 SXM fp32 outside the tensor cores
+SIGLIP_TEXT_LEN = 64        # the reference's padding="max_length"
+SYNTH_NEW_TOKENS = 16
+
+
+def _siglip_model(cfg, seed=0):
+    """The SigLIP bi-tower on the card with random weights from an
+    explicit generator (driver/common.init_weights_; logit scale 1,
+    bias 0 as the JAX init)."""
+    from visrag_tpu_torch.driver.common import init_weights_
+    from visrag_tpu_torch.models.siglip import SiglipModel
+    with torch.device("meta"):
+        model = SiglipModel(cfg)
+    model = model.to_empty(device=DEV)
+    init_weights_(model, torch.Generator(device=DEV).manual_seed(seed))
+    with torch.no_grad():
+        model.logit_scale.fill_(1.0)
+        model.logit_bias.zero_()
+    return model.eval()
+
+
+def _siglip_patches(cfg):
+    """The 16 pages of bench.py's size mix, resized to the tower's image
+    size (bicubic), scaled to [-1, 1] (SigLIP's mean and std 0.5) and cut
+    into (c, ph, pw) row-major patches of the top-left 27 x 14 pixels a
+    side, which is what HF's stride-14 conv reads of a 384 image. → (16,
+    729, 588) fp32 on the card."""
+    import numpy as np
+    from PIL import Image
+    size, ps = cfg.image_size, cfg.patch_size
+    g = size // ps
+    px = np.stack([np.asarray(img.resize((size, size), Image.BICUBIC))
+                   for _, img in _pages(0)])
+    x = torch.from_numpy(px).to(DEV).float().div_(127.5).sub_(1.0)
+    x = x.permute(0, 3, 1, 2)[:, :, :g * ps, :g * ps]
+    n = x.shape[0]
+    return x.reshape(n, 3, g, ps, g, ps).permute(0, 2, 4, 1, 3, 5) \
+        .reshape(n, g * g, 3 * ps * ps).contiguous()
+
+
+def _siglip_query_ids(n, s):
+    """n query texts (without the retriever's instruction) as MockTokenizer
+    ids, each repeated to s full-length ids (no mask, as the reference
+    feeds SigLIP)."""
+    from visrag_tpu_torch.preprocess import MockTokenizer
+    tok = MockTokenizer()
+    rows = []
+    for text, _ in _queries(n):
+        ids = tok.encode(text.split(": ", 1)[1])
+        rows.append((ids * (s // len(ids) + 1))[:s])
+    return torch.tensor(rows, dtype=torch.long, device=DEV)
+
+
+def _siglip_k1_check(gen, label, lens, s, h, d):
+    """K1 stacked, not causal, at one of SigLIP's shapes against its plain
+    version: 2e-2 max abs on valid rows, pad rows exactly 0; timed beside
+    the plain version, SDPA with a length mask and the bound."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    b = len(lens)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=DEV).bfloat16()
+               for _ in range(3))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    kern = lambda: al.flash_fwd_lengths(q, k, v, lens_t, False, d ** -0.5)
+    plain = lambda: al.lengths_attention_reference(q, k, v, lens_t, False,
+                                                   d ** -0.5)
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    valid = torch.arange(s, device=DEV)[None] < lens_t[:, None]
+    err = (out.float() - ref.float()).abs()[valid].max().item()
+    pad_zero = bool((out[~valid] == 0).all())
+    finite = bool(torch.isfinite(out.float()).all())
+    mask = _sdpa_mask(lens_t, s, False, DEV)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 scale=d ** -0.5)
+    ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
+    bound = attention_bound("fwd", lens, s, h, d, False)
+    shape = f"{label}: B={b} S={s} H={h} d={d} lengths {sorted(set(lens))}"
+    log(f"[15] K1 {shape}: max_abs_err {err:.4g} (bound {ATOL_KERNEL}), pad "
+        f"rows exactly 0 {pad_zero}, finite {finite} | kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}) | {smi()}")
+    if err > ATOL_KERNEL or not pad_zero or not finite:
+        raise RuntimeError(f"K1 {shape}: disagrees with its plain version "
+                           f"({err}, pad rows 0 {pad_zero}, finite {finite})")
+    return {"shape": shape, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
+def _siglip_layer_check(gen, vcfg, s):
+    """One full-width encoder layer, bf16 on the card (K1, K7) against the
+    same layer in fp32 on the CPU (plain versions), 2 rows of s tokens."""
+    from visrag_tpu_torch.driver.common import init_weights_
+    from visrag_tpu_torch.models.siglip import SiglipEncoderLayer
+    with torch.device(DEV):
+        layer = SiglipEncoderLayer(vcfg)
+    init_weights_(layer, gen)
+    x = torch.randn(2, s, vcfg.hidden_size, generator=gen, device=DEV)
+    with torch.inference_mode():
+        out = layer(x.bfloat16())
+        ref = copy.deepcopy(layer).float().cpu()(x.cpu())
+    rel = _rel_err(out, ref, torch.ones(2, s, dtype=torch.bool))
+    log(f"[15] full-width SigLIP encoder layer (2 x {s} tokens), bf16 on the "
+        f"card vs fp32 on the CPU: rel_err {rel:.4g} (bound {RTOL_BLOCK})")
+    if not rel <= RTOL_BLOCK:
+        raise RuntimeError(f"SigLIP encoder layer disagrees: {rel}")
+    return rel
+
+
+def _scan_bound(m, k, n, in_bytes, peak_ops):
+    """Least time of one scan's product: 2MKN operations at peak_ops, or
+    the queries and corpus (in_bytes an element, the int8 scan's fp32
+    scales besides) read once and the fp32 scores written once."""
+    nbytes = in_bytes * (m + n) * k + 4 * m * n \
+        + (4 * (m + n) if in_bytes == 1 else 0)
+    t_ops, t_bytes = 2 * m * k * n / peak_ops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _gelu_sweep():
+    """ops/gelu.fast_gelu on the card on every bf16 pattern against float64
+    erfc-GELU rounded to bf16 (computed on the CPU in the form without
+    cancellation on either side), and how many F.gelu in bf16 gets wrong;
+    then both timed at the ViT's fc1 activation (126,208 x 4304 bf16)."""
+    from visrag_tpu_torch.models.siglip_vit import Mlp, SiglipViTConfig
+    from visrag_tpu_torch.ops import gelu
+    bits = torch.arange(65536, dtype=torch.int32).to(torch.int16)
+    x64 = bits.view(torch.bfloat16).double()
+    with torch.no_grad():
+        tail = 0.5 * x64 * torch.special.erfc(x64.abs() / math.sqrt(2))
+        truth = torch.where(x64 > 0, x64 - tail, tail).float().bfloat16()
+    finite = torch.isfinite(x64)
+    x = bits.view(torch.bfloat16).to(DEV)
+    out = gelu.fast_gelu(x).cpu().view(torch.int16)
+    lib = F.gelu(x).cpu().view(torch.int16)
+    want = truth.view(torch.int16)
+    wrong = int(((out != want) & finite).sum())
+    lib_wrong = int(((lib != want) & finite).sum())
+    vit_act = Mlp(SiglipViTConfig.tiny()).act
+    big = torch.randn(126208, 4304, device=DEV).bfloat16()
+    ms, lib_ms = cuda_ms(lambda: gelu.fast_gelu(big)), cuda_ms(
+        lambda: F.gelu(big))
+    del big
+    log(f"[15] GELU sweep on the card, {int(finite.sum())} finite bf16 "
+        f"patterns: fast_gelu differs from float64 erf-GELU on {wrong}, "
+        f"F.gelu in bf16 on {lib_wrong}; the ViT's erf MLP runs "
+        f"{getattr(vit_act, '__name__', vit_act)} | at 126,208 x 4304 bf16: "
+        f"fast_gelu {ms:.4f} ms, F.gelu {lib_ms:.4f} ms")
+    if wrong or (lib_wrong and vit_act is not gelu.fast_gelu):
+        raise RuntimeError(f"GELU: fast_gelu wrong on {wrong} patterns, "
+                           f"F.gelu on {lib_wrong}, ViT act {vit_act}")
+    return {"fast_gelu_wrong": wrong, "f_gelu_wrong": lib_wrong,
+            "fast_gelu_ms": ms, "f_gelu_ms": lib_ms}
+
+
+def _synthesize_twin(gen):
+    """driver/synthesize_queries' generator at Qwen2.5-VL-3B's width on
+    random weights: one page, SYNTH_NEW_TOKENS new tokens, the launches of
+    K3, K1 and K5 reckoned from the model's calls."""
+    from visrag_tpu_torch.driver import synthesize_queries as sq
+    from visrag_tpu_torch.driver.common import build_qwen25_vl
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.serving import paged_kv as pk
+    cfg = Qwen25VLConfig.b3()
+    model = build_qwen25_vl(cfg, device=DEV, seed=0)
+    tok = RLStandInTokenizer()
+    generate = sq.make_local_generator(tok, tok, model, SYNTH_NEW_TOKENS)
+    calls = _CallCounter(model)
+    encode = model.encode_images
+    vision_runs = []
+
+    def counted_encode(*a, **kw):
+        vision_runs.append(1)
+        return encode(*a, **kw)
+    model.encode_images = counted_encode
+    page = _pages(1)[0][1]
+    al.reset_launch_counts()
+    kg.reset_launch_counts()
+    pk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = generate(page)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = {"kvgrid": kg.launches, "stacked": al.stacked_launches,
+           "paged": pk.launches, "flat": al.flat_launches,
+           "fwd_lse": al.fwd_lse_launches, "paged_legacy": pk.legacy_launches}
+    layers, c = cfg.text.num_hidden_layers, calls.counts
+    want = {"kvgrid": cfg.vision.depth * len(vision_runs),
+            "stacked": layers * c["prefill"], "paged": layers * c["paged"],
+            "flat": 0, "fwd_lse": 0, "paged_legacy": 0}
+    n_out = len(text.split())
+    log(f"[15] synthesize twin (Qwen2.5-VL-3B, random weights, one "
+        f"{page.size[0]} x {page.size[1]} page at max_pixels "
+        f"{sq.MAX_PIXELS}): {n_out} new tokens in {run_s:.2f} s; launches "
+        f"{got} (calls {c}, vision runs {len(vision_runs)}); parsed pairs "
+        f"{sq.parse_pairs(text)}")
+    if got != want or not 1 <= n_out <= SYNTH_NEW_TOKENS or not vision_runs:
+        raise RuntimeError(f"synthesize twin: launches {got} != {want} or "
+                           f"{n_out} tokens")
+    _lengths_routes("[15] synthesize twin", got)
+    _kvgrid_routes("[15] synthesize twin")
+    del model, generate, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got, "calls": dict(c), "s": run_s}
+
+
+def phase15_retrieval(gen):
+    """The SigLIP-only retriever baseline at full width, the int8 corpus
+    scan over a resident 1M x 2304 corpus, self_retrieve, the GELU sweep,
+    the synthesize twin and a trace. → {"launches", "checks", "stats"}."""
+    import numpy as np
+
+    from visrag_tpu_torch.models.siglip import SiglipConfig
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import matmul_int8 as mi
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.retrieval import search
+    from visrag_tpu_torch.utils import profiling, timing
+    t_phase = time.perf_counter()
+    cfg = SiglipConfig()
+    t0 = time.perf_counter()
+    model = _siglip_model(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    patches = _siglip_patches(cfg)
+    ids = _siglip_query_ids(N_QUERIES, SIGLIP_TEXT_LEN)
+    vc, tc = cfg.vision, cfg.text
+
+    # the main path, its launches counted from 0: both towers, the search
+    # over the pages, the 1M-row scans, the chunked searcher, self_retrieve
+    for counters in (al, norms, mi):
+        counters.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        pages = model.encode_image(patches)
+        torch.cuda.synchronize()
+        vision = {"stacked": al.stacked_launches,
+                  "layernorm": norms.launch_counts()["layernorm"]}
+        queries = model.encode_text(ids)
+        torch.cuda.synchronize()
+    text = {"stacked": al.stacked_launches - vision["stacked"],
+            "layernorm": norms.launch_counts()["layernorm"]
+            - vision["layernorm"]}
+    tower_want = ({"stacked": vc.num_hidden_layers,
+                   "layernorm": 2 * vc.num_hidden_layers + 2},
+                  {"stacked": tc.num_hidden_layers,
+                   "layernorm": 2 * tc.num_hidden_layers + 1})
+    if (vision, text) != tower_want:
+        raise RuntimeError(f"SigLIP launches vision {vision}, text {text} != "
+                           f"{tower_want}")
+    if not (torch.isfinite(pages.float()).all()
+            and torch.isfinite(queries.float()).all()):
+        raise RuntimeError("SigLIP embeddings not finite")
+    p_emb = F.normalize(pages.float(), dim=-1).cpu().numpy()
+    q_emb = F.normalize(queries.float(), dim=-1).cpu().numpy()
+    top5 = {quant: search.StreamingSearcher(5, device=DEV, quant=quant)
+            .search(q_emb, [(p_emb, 0)])[1] for quant in search.QUANTS}
+
+    # the scan: a resident corpus of unit rows, 64 queries planted on rows
+    corpus = torch.randn(SCAN_ROWS, SCAN_DIM, generator=gen, device=DEV)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    planted = torch.randperm(SCAN_ROWS, generator=gen,
+                             device=DEV)[:SCAN_QUERIES]
+    q = corpus[planted] + 0.1 * torch.randn(
+        SCAN_QUERIES, SCAN_DIM, generator=gen, device=DEV) / SCAN_DIM ** 0.5
+    q /= q.norm(dim=1, keepdim=True)
+    cq = torch.empty(SCAN_ROWS, SCAN_DIM, dtype=torch.int8, device=DEV)
+    cs = torch.empty(SCAN_ROWS, device=DEV)
+    for a in range(0, SCAN_ROWS, STREAM_ROWS):
+        cq[a:a + STREAM_ROWS], cs[a:a + STREAM_ROWS] = \
+            search.quantize_rows(corpus[a:a + STREAM_ROWS])
+    s32, i32 = search.topk_single(q, corpus, SCAN_K)
+    s8, i8 = search.topk_single_int8(q, cq, cs, SCAN_K)
+    rank1 = {"fp32": int((i32[:, 0] == planted).sum()),
+             "int8": int((i8[:, 0] == planted).sum())}
+    overlap = float(np.mean([len(set(a) & set(b)) / SCAN_K for a, b in zip(
+        i32.tolist(), i8.tolist())]))
+    # the chunked searcher on the first 131,072 rows, a row duplicated
+    # across chunks and queried: a tie that goes to the lower index
+    sub = corpus[:STREAM_ROWS].cpu().numpy()
+    tie = (STREAM_ROWS * 3 // 10, STREAM_ROWS * 3 // 4 + 5)  # chunks 1, 3
+    sub[tie[1]] = sub[tie[0]]
+    qh = q.cpu().numpy()
+    qh[0] = sub[tie[0]]
+    quarter = STREAM_ROWS // 4
+    chunks = [(sub[a:a + quarter], a) for a in range(0, STREAM_ROWS, quarter)]
+    stream = {}
+    for quant in search.QUANTS:
+        searcher = search.StreamingSearcher(SCAN_K, device=DEV, quant=quant)
+        stream[quant] = (searcher.search(qh, chunks),
+                         searcher.search(qh, [(sub, 0)]))
+    dup = q_emb[3:4]
+    self_run = search.self_retrieve(np.concatenate([q_emb, dup]),
+                                    [f"q{i}" for i in range(N_QUERIES + 1)],
+                                    3, device=DEV)
+    torch.cuda.synchronize()
+    scan_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"stacked": al.stacked_launches,
+                "layernorm": norms.launch_counts()["layernorm"],
+                "int8_gemm": mi.launches}
+    want = {key: tower_want[0][key] + tower_want[1][key]
+            for key in ("stacked", "layernorm")}
+    want["int8_gemm"] = 1 + 1 + len(chunks) + 1   # pages, scan, chunks, one
+    if launches != want or mi.route_counts() != {
+            "hopper": want["int8_gemm"], "legacy": 0}:
+        raise RuntimeError(f"[15] launches {launches}, K6 routes "
+                           f"{mi.route_counts()}: want {want}, K6 on the "
+                           f"Hopper kernel")
+    _lengths_routes("[15]", {"flat": 0, "stacked": launches["stacked"],
+                             "fwd_lse": 0})
+    log(f"[15] SigLIP bi-tower (SiglipConfig(), {n_params / 1e9:.3f}B params, "
+        f"random bf16 weights, built in {init_s:.2f} s): 16 pages -> "
+        f"{tuple(pages.shape)}, 8 queries x {SIGLIP_TEXT_LEN} ids -> "
+        f"{tuple(queries.shape)}, finite; launches per tower run: vision "
+        f"{vision}, text {text} (K1 on the Hopper kernel); top-5 queries -> "
+        f"pages fp32 {top5['none'].tolist()}, int8 {top5['int8'].tolist()}")
+    log(f"[15] scan of {SCAN_ROWS} x {SCAN_DIM} unit rows, {SCAN_QUERIES} "
+        f"planted queries, k {SCAN_K}: rank 1 fp32 {rank1['fp32']}, int8 "
+        f"{rank1['int8']} of {SCAN_QUERIES}; top-{SCAN_K} overlap "
+        f"{overlap:.4f}; peak {scan_peak_gb:.2f} GB; launches {launches}")
+    if rank1 != {"fp32": SCAN_QUERIES, "int8": SCAN_QUERIES}:
+        raise RuntimeError(f"planted queries not at rank 1: {rank1}")
+    for quant, ((cs_, ci_), (ws_, wi_)) in stream.items():
+        ok = np.array_equal(ci_, wi_) and tuple(ci_[0, :2]) == tie
+        if quant == "int8":
+            ok = ok and np.array_equal(cs_.view(np.uint32),
+                                       ws_.view(np.uint32))
+        log(f"[15] StreamingSearcher({quant}) over {STREAM_ROWS} rows in "
+            f"{len(chunks)} chunks against one call: same ids "
+            f"{np.array_equal(ci_, wi_)}, the duplicated row's tie "
+            f"{ci_[0, :2].tolist()}")
+        if not ok:
+            raise RuntimeError(f"StreamingSearcher({quant}) chunked != whole")
+    log(f"[15] self_retrieve over the 8 query embeddings and a copy of q3 "
+        f"(q8): q8 -> {list(self_run['q8'])}, q3 -> {list(self_run['q3'])}")
+    for qid in ("q3", "q8"):
+        hits = list(self_run[qid])
+        if "q3" not in hits or "q8" not in hits \
+                or hits.index("q3") + 1 != hits.index("q8") \
+                or self_run[qid]["q3"] != self_run[qid]["q8"]:
+            raise RuntimeError(f"self_retrieve: the duplicate's tie is not "
+                               f"at the lower index ({qid}: {hits})")
+    with torch.inference_mode():
+        tower_ms = {"pages": timing.measure(model.encode_image, patches,
+                                            iters=5) * 1e3,
+                    "queries": timing.measure(model.encode_text, ids,
+                                              iters=5) * 1e3}
+    log(f"[15] SigLIP encode (utils/timing.measure): 16 pages "
+        f"{tower_ms['pages']:.3f} ms, 8 queries {tower_ms['queries']:.3f} "
+        f"ms | {smi()}")
+    del model, pages, queries, sub, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kernels' forms against their plain versions, timed
+    checks = {"k1_vision": [_siglip_k1_check(
+        gen, "SigLIP vision", [cfg.num_patches] * 16, cfg.num_patches,
+        vc.num_attention_heads, vc.head_dim)]}
+    checks["k1_text"] = [_siglip_k1_check(
+        gen, "SigLIP text", [SIGLIP_TEXT_LEN] * N_QUERIES, SIGLIP_TEXT_LEN,
+        tc.num_attention_heads, tc.head_dim), _siglip_k1_check(
+        gen, "SigLIP text, masked", [1, 5, 63, 64], SIGLIP_TEXT_LEN,
+        tc.num_attention_heads, tc.head_dim)]
+    layer_rel = _siglip_layer_check(gen, vc, cfg.num_patches)
+    checks["ln"] = [_check_norm(gen, f"SigLIP {label}", "ln", rows,
+                                vc.hidden_size, torch.bfloat16,
+                                torch.bfloat16, phase="[15]")
+                    for label, rows in (("vision rows", 16 * cfg.num_patches),
+                                        ("text rows",
+                                         N_QUERIES * SIGLIP_TEXT_LEN))]
+    sl = corpus[:QUANT_CHECK_ROWS]
+    dq, ds = search.quantize_rows(sl)
+    nq, ns = search.quantize_rows_np(sl.cpu().numpy())
+    codes_equal = np.array_equal(dq.cpu().numpy(), nq)
+    scales_equal = np.array_equal(ds.cpu().numpy().view(np.uint32),
+                                  ns.view(np.uint32))
+    quant_equal = codes_equal and scales_equal
+    qq, qs = search.quantize_rows(q)
+    kern = lambda: mi.int8_matmul_fused(qq, qs, cq, cs, None, torch.float32)
+    plain = lambda: mi.int8_matmul_reference(qq, qs, cq, cs, None,
+                                             torch.float32)
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    k6_equal = torch.equal(out, ref)
+    k6_err = (out - ref).abs().max().item()
+    slice_equal = torch.equal(out[:, :QUANT_CHECK_ROWS],
+                              ref[:, :QUANT_CHECK_ROWS])
+    del out, ref
+    k6 = {"shape": f"int8 scan {SCAN_QUERIES} x {SCAN_DIM} -> {SCAN_ROWS}, "
+                   f"fp32 output", "max_abs_err": k6_err, "ms": cuda_ms(kern),
+          "plain_ms": cuda_ms(plain, reps=3),
+          "int_mm_ms": cuda_ms(lambda: torch._int_mm(qq, cq.t())),
+          "library_ms": cuda_ms(lambda: torch._int_mm(qq, cq.t()).float()
+                                * qs[:, None] * cs[None, :])}
+    k6["bound_ms"], k6["bound_by"] = _scan_bound(
+        SCAN_QUERIES, SCAN_DIM, SCAN_ROWS, 1, PEAK_INT8_OPS)
+    checks["k6"] = [k6]
+    log(f"[15] device quantize_rows on {QUANT_CHECK_ROWS} rows bit-equal to "
+        f"quantize_rows_np: codes {codes_equal}, scales {scales_equal}; K6 {k6['shape']}: bit-equal to "
+        f"int8_matmul_reference {k6_equal} (on the first {QUANT_CHECK_ROWS} "
+        f"rows {slice_equal}) | kernel {k6['ms']:.4f} ms, plain "
+        f"{k6['plain_ms']:.4f} ms, torch._int_mm alone {k6['int_mm_ms']:.4f} "
+        f"ms, + scaling {k6['library_ms']:.4f} ms, bound "
+        f"{k6['bound_ms']:.4f} ms ({k6['bound_by']}) | {smi()}")
+    if not (quant_equal and k6_equal and slice_equal):
+        raise RuntimeError("int8 scan: codes or K6 scores not bit-equal")
+    scan = {"fp32_ms": timing.measure(search.topk_single, q, corpus, SCAN_K,
+                                      iters=10) * 1e3,
+            "int8_ms": timing.measure(search.topk_single_int8, q, cq, cs,
+                                      SCAN_K, iters=10) * 1e3,
+            "fp32_bound": _scan_bound(SCAN_QUERIES, SCAN_DIM, SCAN_ROWS, 4,
+                                      PEAK_FP32),
+            "int8_bound": _scan_bound(SCAN_QUERIES, SCAN_DIM, SCAN_ROWS, 1,
+                                      PEAK_INT8_OPS)}
+    host8, host32 = cq.cpu(), corpus.cpu()
+    for name, host in (("int8", host8), ("fp32", host32)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = host.to(DEV)
+        torch.cuda.synchronize()
+        scan[f"upload_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        del dev
+    del host8, host32
+    log(f"[15] scans of {SCAN_ROWS} x {SCAN_DIM} (utils/timing.measure, "
+        f"topk included): fp32 {scan['fp32_ms']:.4f} ms (bound "
+        f"{scan['fp32_bound'][0]:.4f}, {scan['fp32_bound'][1]}), int8 "
+        f"{scan['int8_ms']:.4f} ms (bound {scan['int8_bound'][0]:.4f}, "
+        f"{scan['int8_bound'][1]}); host upload (pageable) int8 "
+        f"{scan['upload_int8_ms']:.1f} ms ({SCAN_ROWS * SCAN_DIM / 1e9:.2f} "
+        f"GB), fp32 {scan['upload_fp32_ms']:.1f} ms "
+        f"({4 * SCAN_ROWS * SCAN_DIM / 1e9:.2f} GB) | {smi()}")
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profiling.trace(trace_dir) as prof:
+            search.topk_single_int8(q, cq, cs, SCAN_K)
+            torch.cuda.synchronize()
+        path = os.path.join(trace_dir, profiling.TRACE_FILE)
+        with open(path) as f:
+            in_trace = "int8_gemm_wgmma_kernel" in f.read()
+        trace_kb = os.path.getsize(path) / 1e3
+    k6_names = [e.key for e in prof.key_averages()
+                if "int8_gemm_wgmma_kernel" in e.key]
+    log(f"[15] utils/profiling.trace of the int8 scan: {trace_kb:.1f} kB, "
+        f"K6's symbol in the trace {in_trace} ({k6_names[:1]})")
+    if not (in_trace and k6_names):
+        raise RuntimeError("K6's kernel is not in the profiler trace")
+    del corpus, cq, cs, q, qq, qs, sl, dq, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    gelu_stats = _gelu_sweep()
+    twin = _synthesize_twin(gen)
+    log(f"[15] phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"vision": vision, "text": text, **launches},
+            "checks": checks,
+            "stats": {"layer_rel_err": layer_rel, "scan": scan,
+                      "tower_ms": tower_ms, "init_s": init_s,
+                      "scan_peak_gb": scan_peak_gb, "overlap": overlap,
+                      "gelu": gelu_stats, "twin": twin}}
+
+
+def ret_kernel_rows(ret):
+    """The phase's rows: K1 stacked at SigLIP's vision and text shapes, K7
+    LayerNorm at its rows, K6 at the scan's shape; launches from the
+    phase's counted main path."""
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import matmul_int8 as mi
+    from visrag_tpu_torch.ops import norms
+    lc, c = ret["launches"], ret["checks"]
+    rows = []
+    for key, name, source, replaces, launches in (
+            ("k1_vision", "flash_fwd_lengths (SigLIP vision, 16/16, d=72, "
+             "not causal)", al.SOURCE, REPLACES["fwd"],
+             lc["vision"]["stacked"]),
+            ("k1_text", "flash_fwd_lengths (SigLIP text, 16/16, d=72, not "
+             "causal)", al.SOURCE, REPLACES["fwd"], lc["text"]["stacked"]),
+            ("ln", "layernorm (SigLIP rows x 1152)", norms.SOURCE,
+             norms.REPLACES["layernorm"], lc["layernorm"]),
+            ("k6", "int8_matmul_fused (int8 corpus scan, fp32 scores)",
+             mi.SOURCE, INT8_REPLACES, lc["int8_gemm"])):
+        first = c[key][0]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches,
+                     **{k: first[k] for k in KEYS}, "checks": c[key]})
+    return rows
+
+
 KEYS = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
         "bound_by")
 
@@ -4582,6 +5120,10 @@ def main(argv=None):
     ap.add_argument("--gen-only", action="store_true",
                     help="phases 0, 1, 1b and 12-14 only, for work on "
                          "VisRAG-Gen; the run then ends without the ok line")
+    ap.add_argument("--ret-only", action="store_true",
+                    help="phases 0, 1, 1b and 15 only, for work on the "
+                         "SigLIP baseline and the int8 scan; the run then "
+                         "ends without the ok line")
     args = ap.parse_args(argv)
     # full fp32 wherever fp32 is asked for (pos embed, the fp32 references)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4603,6 +5145,12 @@ def main(argv=None):
         print(smi())
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": False, "partial": "--gen-only"}))
+        return 1
+    if args.ret_only:
+        rows = ret_kernel_rows(phase15_retrieval(gen))
+        print(smi())
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": False, "partial": "--ret-only"}))
         return 1
     setup = phase3_setup()
     results = phase2_kernel(gen, setup)
@@ -4631,6 +5179,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     gen_results = gen_phases(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ret_results = phase15_retrieval(gen)
     log(f"[K2] Hopper launches by kernel and head dim (route counters): "
         f"phase 5 {train_launches['k2_by_head_dim']}, phase 9 (padded "
         f"update) {rl_launches['padded_update']['k2_by_head_dim']}, phase 10 "
@@ -4733,6 +5284,7 @@ def main(argv=None):
         norm_results["layernorm"] += k7["ln"]
     kernels += norm_kernel_rows(norm_results, sft_launches, serve_launches)
     kernels += gen_kernel_rows(gen_results)
+    kernels += ret_kernel_rows(ret_results)
     for k in kernels:
         if not k["launches"] > 0:
             raise RuntimeError(f"{k['name']} was not launched on its path")

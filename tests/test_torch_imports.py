@@ -128,6 +128,32 @@ for backend in ("minicpmv", "minicpmv26", "minicpm"):
         lambda q, n: gen_eval.build_image_prompt("InfoVQA", q),
         score_fn=getattr(fn, "score_fn", None))
     assert isinstance(out, str)
+# the SigLIP baseline, the int8 scan, self_retrieve and the single-GPU
+# remainder (gelu, hf_export, ocr, utils, the synthesize twin)
+import visrag_tpu_torch.driver.synthesize_queries
+from visrag_tpu_torch.models import hf_export
+from visrag_tpu_torch.models.hf_loader import load_siglip_hf_state
+from visrag_tpu_torch.models.siglip import SiglipConfig, SiglipModel
+from visrag_tpu_torch.ops.gelu import fast_gelu
+from visrag_tpu_torch.preprocess import ocr
+from visrag_tpu_torch.retrieval.search import (StreamingSearcher,
+                                               self_retrieve)
+from visrag_tpu_torch.utils import flops, profiling, timing
+sig = SiglipModel(SiglipConfig.tiny()).eval()
+load_siglip_hf_state(sig, sig.state_dict())
+with torch.inference_mode():
+    t, v = sig(torch.zeros(2, 16, dtype=torch.long), torch.zeros(2, 16, 48))
+reps = torch.nn.functional.normalize(torch.cat([t, v]), dim=-1).numpy()
+s8, i8 = StreamingSearcher(2, device="cpu", quant="int8").search(
+    reps, [(reps, 0)])
+assert np.isfinite(s8).all() and i8.shape == (4, 2)
+assert len(self_retrieve(reps, list("abcd"), 2, device="cpu")) == 4
+assert fast_gelu(torch.ones(3, dtype=torch.bfloat16)).dtype == torch.bfloat16
+assert ocr.merge_adjacent([(0, 0, 5, 5, "a"), (6, 0, 9, 5, "b")]) == ["a b"]
+assert set(hf_export.export_visrag_ret(model)) >= {"llm.model.norm.weight"}
+assert timing.measure(lambda: None, iters=2) >= 0
+with profiling.annotate("x"):
+    flops.mfu(1.0, 1.0, peak_tflops=1.0)
 added = sorted(m for m in set(sys.modules) - before
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "visrag_tpu"))
 print("ADDED", added)
@@ -144,7 +170,9 @@ def test_port_runs_without_jax():
     engine (bf16 and int8 pools), taking one RLTrainer.fit step, one GAE
     step with the critic and one SFT step, and answering through the three
     VisRAG-Gen backends (beam-scored weighted selection on MiniCPM-V 2.0,
-    two pages on 2.6, text on MiniCPM-2B) load no module of jax, flax or
+    two pages on 2.6, text on MiniCPM-2B), and running the SigLIP bi-tower,
+    the int8 scan, self_retrieve, fast_gelu, the exporters, OCR, the utils
+    and the synthesize twin's module load no module of jax, flax or
     visrag_tpu."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,

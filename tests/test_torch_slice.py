@@ -155,7 +155,8 @@ def synth_data(tmp_path):
     return tmp_path
 
 
-def test_eval_retriever_driver_cpu(synth_data, tmp_path):
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_eval_retriever_driver_cpu(synth_data, tmp_path, quant):
     from visrag_tpu.retrieval.trec import load_from_trec
     from visrag_tpu_torch.driver.eval_retriever import main
     out = tmp_path / "out"
@@ -163,7 +164,7 @@ def test_eval_retriever_driver_cpu(synth_data, tmp_path):
                "--queries", str(synth_data / "queries.parquet"),
                "--qrels", str(synth_data / "qrels.tsv"),
                "--output-dir", str(out), "--tiny", "--batch-size", "2",
-               "--depth", "5", "--device", "cpu"])
+               "--depth", "5", "--corpus-quant", quant, "--device", "cpu"])
     assert rc == 0
     assert (out / "test.trec").exists()
     metrics = json.loads((out / "metrics.json").read_text())

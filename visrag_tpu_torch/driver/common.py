@@ -16,7 +16,8 @@ package's initialiser families so that activations stay finite through the
   * token embeddings: normal, std 1/sqrt(hidden);
   * ViT pos_embed: normal(0.02); resampler query: truncated normal(0.02);
     resampler in_proj: xavier uniform; resampler proj: normal(E^-1/2);
-    the resampler's query pos embed: the fixed 8×8 2-D sin-cos table.
+    the resampler's query pos embed: the fixed 8×8 2-D sin-cos table;
+    SigLIP's MAP head: probe normal(0.02), in_proj xavier uniform.
 
 Full width is bf16, `tiny` fp32. `ModelConfig.remat` switches on
 whole-block recomputation in the ViT and the LM when gradients are on.
@@ -36,6 +37,7 @@ from ..models.common import LayerNorm, RMSNorm, get_2d_sincos_pos_embed
 from ..models.hf_loader import (load_safetensors_dir, load_visrag_ret_state,
                                 minicpmv_hf_to_port)
 from ..models.resampler import Resampler
+from ..models.siglip import SiglipMAPHead
 from ..models.siglip_vit import SiglipViT
 from ..models.visrag_ret import VisRAGRet, VisRAGRetConfig
 from ..preprocess import MockTokenizer, PipelineConfig
@@ -106,6 +108,11 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> None:
             nn.init.xavier_uniform_(module.attn.in_proj_weight, generator=gen)
             module.attn.in_proj_bias.zero_()
             module.proj.normal_(0.0, c.embed_dim ** -0.5, generator=gen)
+        elif isinstance(module, SiglipMAPHead):
+            module.probe.normal_(0.0, 0.02, generator=gen)
+            nn.init.xavier_uniform_(module.attention.in_proj_weight,
+                                    generator=gen)
+            module.attention.in_proj_bias.zero_()
 
 
 def build_visrag_ret(model_cfg: ModelConfig, *, tiny: bool = False,
@@ -252,3 +259,17 @@ def build_qwen25_vl(cfg, *, device="cuda", seed: int = 0, state=None):
     else:
         load_qwen25_vl_state(model, state)
     return model.eval()
+
+
+def load_qwen25_vl_checkpoint(checkpoint: str, device="cuda"):
+    """A Qwen2.5-VL checkpoint dir → (processor, tokenizer, model): the
+    weights by their HF names on `device`, the config from config.json.
+    A checkpoint without a processor: its tokenizer applies the chat
+    template and stands in as the processor."""
+    processor = get_processor(checkpoint)
+    tok = processor.tokenizer if processor is not None \
+        else get_tokenizer(checkpoint)
+    state = load_safetensors_dir(checkpoint)
+    cfg = qwen_config_from_checkpoint(checkpoint, state)
+    model = build_qwen25_vl(cfg, device=device, state=state)
+    return processor if processor is not None else tok, tok, model

@@ -6,9 +6,11 @@ test_result.log and metrics.json (ndcg_cut_k / recall_k / mrr_k).
 
     python -m visrag_tpu_torch.driver.eval_retriever \
         --corpus corpus.parquet --queries queries.parquet \
-        --qrels qrels.tsv --output-dir out/ [--depth 10] [--device cuda]
+        --qrels qrels.tsv --output-dir out/ [--depth 10] \
+        [--corpus-quant int8] [--device cuda]
 
-The int8 corpus scan (--corpus-quant) is not ported yet.
+`--corpus-quant int8` scans a per-row int8 corpus (retrieval/search.py:
+half the resident bytes of bf16, the product on K6 on the card).
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ def main(argv=None):
     ap.add_argument("--phase", default=None,
                     choices=["all", "encode", "retrieve", "eval"])
     ap.add_argument("--depth", type=int, default=None)
+    ap.add_argument("--corpus-quant", default="none", choices=["none", "int8"],
+                    help="int8: per-row-quantized corpus scan (half the "
+                         "device bytes of bf16, a quarter of fp32)")
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--tiny", action="store_true",
                     help="tiny random model (smoke runs)")
@@ -120,7 +125,8 @@ def main(argv=None):
                                     "embeddings.query", cfg.data.q_max_len)
         print("retrieving...", file=sys.stderr)
         searcher = StreamingSearcher(
-            k=min(cfg.retrieval.depth, len(doc_ids)), device=device)
+            k=min(cfg.retrieval.depth, len(doc_ids)), device=device,
+            quant=args.corpus_quant)
         scores, idx = searcher.search(q_reps, [(doc_reps, 0)])
         save_as_trec(build_run(scores, idx, q_ids, doc_ids), trec_path)
         print(f"run saved to {trec_path}", file=sys.stderr)

@@ -102,19 +102,11 @@ def main(argv=None):
     from PIL import Image
 
     from ..generation.prompts import build_prompt
-    from .common import (build_qwen25_vl, get_processor, get_tokenizer,
-                         load_safetensors_dir, qwen_config_from_checkpoint)
+    from .common import load_qwen25_vl_checkpoint
 
-    processor = get_processor(args.checkpoint)
-    # a checkpoint without a processor: its tokenizer applies the template
-    tok = processor.tokenizer if processor is not None \
-        else get_tokenizer(args.checkpoint)
-    if processor is None:
-        processor = tok
-    state = load_safetensors_dir(args.checkpoint)
-    cfg = qwen_config_from_checkpoint(args.checkpoint, state)
-    model = build_qwen25_vl(cfg, device=args.device, state=state)
-    del state
+    processor, tok, model = load_qwen25_vl_checkpoint(args.checkpoint,
+                                                      args.device)
+    cfg = model.cfg
     engine = build_engine(model, tok.eos_token_id)
     sampling = sampling_params(processor, tok, args.temperature,
                                args.max_tokens)

@@ -34,6 +34,13 @@ convert_minicpmv and convert_minicpmv26 map are taken, any other name is
 skipped as there, and a parameter left unloaded raises.
 `generation_from_jax_params` carries the JAX package's param trees of the
 same three models.
+
+SigLIP (the bi-tower baseline, models/siglip.py): the port's module
+carries HF SiglipModel's names, so `load_siglip_hf_state` is a strict copy
+by name (the conv patch embed flattened; the position_ids buffers of older
+checkpoints skipped; any other unknown or missing name raises), the
+counterpart of the JAX package's convert_siglip. `siglip_from_jax_params`
+carries a JAX SiglipModel parameter tree.
 """
 
 from __future__ import annotations
@@ -461,3 +468,67 @@ def generation_from_jax_params(model, params: Mapping) -> None:
         params = params["params"]
     load_strict(model, generation_jax_params_to_state(params, model),
                 type(model).__name__, _GEN_RESHAPED)
+
+
+# --- SigLIP bi-tower ----------------------------------------------------------
+
+_SIGLIP_RESHAPED = ("vision_model.embeddings.patch_embedding.weight",
+                    "logit_scale", "logit_bias")
+_SIGLIP_LAYER = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+                 "v_proj": "self_attn.v_proj",
+                 "out_proj": "self_attn.out_proj", "fc1": "mlp.fc1",
+                 "fc2": "mlp.fc2", "layer_norm1": "layer_norm1",
+                 "layer_norm2": "layer_norm2"}
+_SIGLIP_VISION = {
+    "patch_embedding": "embeddings.patch_embedding.weight",
+    "patch_bias": "embeddings.patch_embedding.bias",
+    "position_embedding": "embeddings.position_embedding.weight",
+    "probe": "head.probe",
+    "in_proj_weight": "head.attention.in_proj_weight",
+    "in_proj_bias": "head.attention.in_proj_bias",
+    "attn_out_proj": "head.attention.out_proj", "map_layernorm":
+    "head.layernorm", "map_fc1": "head.mlp.fc1", "map_fc2": "head.mlp.fc2"}
+_SIGLIP_TEXT = {"token_embedding.embedding":
+                "embeddings.token_embedding.weight",
+                "position_embedding": "embeddings.position_embedding.weight"}
+
+
+def load_siglip_hf_state(model, state: Mapping) -> None:
+    """An HF SiglipModel state dict (numpy arrays or tensors) into the
+    port's SiglipModel, cast to each parameter's dtype and device."""
+    state = {k: v for k, v in state.items()
+             if not k.endswith("embeddings.position_ids")}
+    load_strict(model, state, "SiglipModel", _SIGLIP_RESHAPED)
+
+
+def _siglip_tower_state(tree: Mapping, tower: str,
+                        names: Mapping) -> Dict[str, np.ndarray]:
+    state = {}
+    for key, v in _flatten(tree).items():
+        if key.startswith("layers_"):
+            layer, rest = key.split(".", 1)
+            mod, _, leaf = rest.rpartition(".")
+            key = (f"encoder.layers.{layer[len('layers_'):]}."
+                   f"{_SIGLIP_LAYER[mod]}.{leaf}")
+        elif key in names:
+            key = names[key]
+        else:
+            mod, _, leaf = key.rpartition(".")
+            key = f"{names.get(mod, mod)}.{leaf}"
+        state[f"{tower}.{key}"] = v
+    return state
+
+
+def siglip_from_jax_params(model, params: Mapping) -> None:
+    """Load visrag_tpu SiglipModel flax params (with or without the
+    "params" root), as nested dicts of numpy arrays, into the port's
+    SiglipModel."""
+    if "params" in params:
+        params = params["params"]
+    state = {**_siglip_tower_state(params["text_model"], "text_model",
+                                   _SIGLIP_TEXT),
+             **_siglip_tower_state(params["vision_model"], "vision_model",
+                                   _SIGLIP_VISION),
+             "logit_scale": np.asarray(params["logit_scale"]),
+             "logit_bias": np.asarray(params["logit_bias"])}
+    load_strict(model, state, "SiglipModel", _SIGLIP_RESHAPED)

@@ -6,9 +6,11 @@ validity mask, and the bicubic pos-embed resample is a per-slice operator,
 pos = pos_matrix @ pos_embed, so slices of any grid batch together.
 
 Arch: patch 14, width 1152, 26 blocks (the 27th is dropped), 16 heads of
-d=72, MLP 4304, LayerNorm eps 1e-6, exact (erf) GELU, qkv bias. MiniCPM-V
-2.6 runs the same tower at 27 blocks and a 70x70 pos grid with the tanh
-GELU (`act="tanh"`, HF SigLIP's gelu_pytorch_tanh). Attention
+d=72, MLP 4304, LayerNorm eps 1e-6, exact (erf) GELU correctly rounded
+to bf16 (ops/gelu.fast_gelu, as the JAX tower runs; F.gelu in bf16 differs
+on 334 bf16 inputs), qkv bias. MiniCPM-V 2.6 runs the same tower at 27
+blocks and a 70x70 pos grid with the tanh GELU (`act="tanh"`, HF SigLIP's
+gelu_pytorch_tanh). Attention
 is the fused qkv GEMM → flat lengths kernel (ops/attention_lengths.py) →
 projection GEMM, all in the (N*P, ...) layout; d=72 goes to the kernel
 unpadded, and its gradient (K2) comes back in the same flat layout.
@@ -26,6 +28,7 @@ zero, so the real columns' codes, scales and outputs are the ones here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -34,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_lengths import flash_fwd_lengths_flat
+from ..ops.gelu import fast_gelu
 from .common import LayerNorm, QuantLinear
 
 
@@ -99,10 +103,11 @@ class Mlp(nn.Module):
         linear = QuantLinear if c.quant == "int8" else nn.Linear
         self.fc1 = linear(c.embed_dim, c.mlp_dim, dtype=c.dtype)
         self.fc2 = nn.Linear(c.mlp_dim, c.embed_dim, dtype=c.dtype)
-        self.approximate = "tanh" if c.act == "tanh" else "none"
+        self.act = fast_gelu if c.act == "erf" else functools.partial(
+            F.gelu, approximate="tanh")
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class ViTBlock(nn.Module):

@@ -302,6 +302,26 @@ is non-zero; no phase catches an error and carries on):
      twin (driver/synthesize_queries' generator at Qwen2.5-VL-3B's width
      on random weights, one page, 16 new tokens, K3, K1 and K5 launches
      reckoned from the model's calls).
+ 16. the multi-GPU layer (mesh.py, parallel/, the sharded search, the
+     trainers on FSDP2) on this one card as a one-rank NCCL group, at
+     full width: eval_retriever on the 16 pages and 8 queries on one
+     device and then under --coordinator (the driver makes its own group:
+     the data-parallel encode, the sharded fp32 search), the ranked ids
+     equal; make_sharded_topk fp32 and int8 (K6) over phase 15's
+     1,000,000 x 2304 corpus (SCAN_SEED), ids and scores bit for bit
+     phase 15's; parallel.ulysses_attention over the seq group (NCCL
+     all_to_alls) forward and backward at the per-rank shapes of 2- and
+     4-way Ulysses on phase 10's SFT batch (4 x 4096, 8/1 and 4/1 heads,
+     d 128), K4's forward, dq and dk/dv launched once each, then checked
+     and timed there against the plain versions (phase 8's check);
+     train_retriever under --coordinator for 2 of phase 5's steps (FSDP2,
+     GradCache, the negatives' gather; the full-state checkpoint), its
+     losses within RTOL_TRAIN of phase 5's; 2 SFT steps at Qwen2.5-VL-3B's
+     width through sft_main's build_sft / run_sft on a one-rank mesh
+     (ulysses_size 1: K1 + LSE and K2), losses and grad norms within
+     RTOL_TRAIN of phase 10's (of a one-device run in the phase under
+     --dist-only); K1, K2, K4, K6 and K7 launches
+     asserted on these runs.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq and
@@ -314,7 +334,9 @@ d = 128 with grouped kv heads, K7 as
 and K1 at MiniCPM-2B's generation prefill and at MiniCPM-V 2.6's, and K5
 at MiniCPM-2B's 36/36 d 64 decode (launches from phases 12 and 13),
 and K1 at SigLIP's vision and text shapes, K7 LayerNorm at SigLIP's rows
-and K6 at the int8 scan's shape (launches from phase 15):
+and K6 at the int8 scan's shape (launches from phase 15),
+and K4's forward, dq and dk/dv at Ulysses' per-rank shapes (launches
+from phase 16's ulysses_attention runs):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
 max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
 forward, dq and dk/dv (the mma.sync kernels), pr5_ms for K6 (the
@@ -326,7 +348,8 @@ pr3_ms for K3 (the first kernel, csrc/attention_kvgrid.cu);
 every checked shape under "checks"), and
 {"ok": true, "device": {...}}. `--rl-only` runs phases 0, 1, 1b and 8-11,
 `--gen-only` phases 0, 1, 1b and 12-14, `--ret-only` phases 0, 1, 1b and
-15; each ends without the ok line and exits 1.
+15, `--dist-only` phases 0, 1, 1b and 16; each ends without the ok line
+and exits 1.
 """
 
 from __future__ import annotations
@@ -1225,6 +1248,23 @@ def phase3b_int8_encode(gen, setup):
         checks.append(_check_int8_gemm(gen, label, m, k, n, bias,
                                        timed=False, out_dtype=dt))
 
+    # ops/quant.quant_rowwise divides by a tensor, not by a Python scalar
+    # (which PyTorch's CUDA kernels turn into a reciprocal multiply): the
+    # card's codes and scales of an activation are the CPU's bit for bit
+    from visrag_tpu_torch.ops.quant import quant_rowwise
+    act = (torch.randn(m_vit, e, generator=gen, device=DEV) * torch.rand(
+        m_vit, 1, generator=gen, device=DEV) * 8).to(torch.bfloat16)
+    codes, scales = quant_rowwise(act)
+    codes_cpu, scales_cpu = quant_rowwise(act.cpu())
+    same = torch.equal(codes.cpu(), codes_cpu) and \
+        torch.equal(scales.cpu(), scales_cpu)
+    log(f"[3b] quant_rowwise on a ViT activation ({m_vit} x {e} bf16): "
+        f"codes and scales on the card bit-equal to the CPU's {same}")
+    if not same:
+        raise RuntimeError("quant_rowwise: the card's codes differ from the "
+                           "CPU's")
+    del act, codes, scales
+
     # inference only: the int8 configs refuse remat, which the driver's
     # ModelConfig turns on for training
     cfg = dataclasses.replace(model.cfg, backbone=dataclasses.replace(
@@ -1687,7 +1727,8 @@ def phase5_training(setup):
                            f"{after}")
     del trainer
     torch.cuda.empty_cache()
-    return {**launches, "k2_by_head_dim": k2_by_d}
+    return {**launches, "k2_by_head_dim": k2_by_d,
+            "losses": [m["loss"] for m in hist]}
 
 # ---------------------------------------------------------------------------
 # Phases 6-7: EVisRAG serving (Qwen2.5-VL-7B, paged KV engine)
@@ -3726,7 +3767,8 @@ def phase10_sft(tmp):
     gc.collect()
     torch.cuda.empty_cache()
     probe = _sft_micro_check(batches[0], cfg)
-    return {"run": launches, "probe": probe, "k2_by_head_dim": k2_by_d}
+    return {"run": launches, "probe": probe, "k2_by_head_dim": k2_by_d,
+            "history": history}
 
 
 def _checksums(tensors):
@@ -4732,6 +4774,31 @@ def _synthesize_twin(gen):
     return {"launches": got, "calls": dict(c), "s": run_s}
 
 
+SCAN_SEED = 15
+
+
+def _scan_inputs():
+    """Phase 15's scan: SCAN_ROWS unit rows, SCAN_QUERIES queries planted
+    near rows (noise 0.1 / sqrt(D)), the rows quantized on the device in
+    STREAM_ROWS blocks; from a generator seeded SCAN_SEED, so that phase 16
+    searches the same corpus. → (corpus, codes, scales, queries, planted)."""
+    from visrag_tpu_torch.retrieval import search
+    gen = torch.Generator(device=DEV).manual_seed(SCAN_SEED)
+    corpus = torch.randn(SCAN_ROWS, SCAN_DIM, generator=gen, device=DEV)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    planted = torch.randperm(SCAN_ROWS, generator=gen,
+                             device=DEV)[:SCAN_QUERIES]
+    q = corpus[planted] + 0.1 * torch.randn(
+        SCAN_QUERIES, SCAN_DIM, generator=gen, device=DEV) / SCAN_DIM ** 0.5
+    q /= q.norm(dim=1, keepdim=True)
+    cq = torch.empty(SCAN_ROWS, SCAN_DIM, dtype=torch.int8, device=DEV)
+    cs = torch.empty(SCAN_ROWS, device=DEV)
+    for a in range(0, SCAN_ROWS, STREAM_ROWS):
+        cq[a:a + STREAM_ROWS], cs[a:a + STREAM_ROWS] = \
+            search.quantize_rows(corpus[a:a + STREAM_ROWS])
+    return corpus, cq, cs, q, planted
+
+
 def phase15_retrieval(gen):
     """The SigLIP-only retriever baseline at full width, the int8 corpus
     scan over a resident 1M x 2304 corpus, self_retrieve, the GELU sweep,
@@ -4786,20 +4853,10 @@ def phase15_retrieval(gen):
             .search(q_emb, [(p_emb, 0)])[1] for quant in search.QUANTS}
 
     # the scan: a resident corpus of unit rows, 64 queries planted on rows
-    corpus = torch.randn(SCAN_ROWS, SCAN_DIM, generator=gen, device=DEV)
-    corpus /= corpus.norm(dim=1, keepdim=True)
-    planted = torch.randperm(SCAN_ROWS, generator=gen,
-                             device=DEV)[:SCAN_QUERIES]
-    q = corpus[planted] + 0.1 * torch.randn(
-        SCAN_QUERIES, SCAN_DIM, generator=gen, device=DEV) / SCAN_DIM ** 0.5
-    q /= q.norm(dim=1, keepdim=True)
-    cq = torch.empty(SCAN_ROWS, SCAN_DIM, dtype=torch.int8, device=DEV)
-    cs = torch.empty(SCAN_ROWS, device=DEV)
-    for a in range(0, SCAN_ROWS, STREAM_ROWS):
-        cq[a:a + STREAM_ROWS], cs[a:a + STREAM_ROWS] = \
-            search.quantize_rows(corpus[a:a + STREAM_ROWS])
+    corpus, cq, cs, q, planted = _scan_inputs()
     s32, i32 = search.topk_single(q, corpus, SCAN_K)
     s8, i8 = search.topk_single_int8(q, cq, cs, SCAN_K)
+    scan_ids = {"none": (s32.cpu(), i32.cpu()), "int8": (s8.cpu(), i8.cpu())}
     rank1 = {"fp32": int((i32[:, 0] == planted).sum()),
              "int8": int((i8[:, 0] == planted).sum())}
     overlap = float(np.mean([len(set(a) & set(b)) / SCAN_K for a, b in zip(
@@ -4978,7 +5035,8 @@ def phase15_retrieval(gen):
     gelu_stats = _gelu_sweep()
     twin = _synthesize_twin(gen)
     log(f"[15] phase 15 in {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": {"vision": vision, "text": text, **launches},
+    return {"scan_ids": scan_ids,
+            "launches": {"vision": vision, "text": text, **launches},
             "checks": checks,
             "stats": {"layer_rel_err": layer_rel, "scan": scan,
                       "tower_ms": tower_ms, "init_s": init_s,
@@ -5110,6 +5168,371 @@ def gen_kernel_rows(gen_results):
          "gather_sdpa_ms": k5["gather_sdpa_ms"], "checks": c12["k5"]}]
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the multi-GPU layer as a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+DIST_EVAL_BATCH = 8        # eval_retriever --batch-size on the 16 pages
+DIST_TRAIN_STEPS = 2
+DIST_SFT_STEPS = 2
+# the SFT batch's rows under 2- and 4-way Ulysses: every rank attends the
+# whole sequence at (query heads, kv heads) = 16/n, 2 → 1 (repeated by
+# n // gcd(2, n) before the all_to_all)
+ULYSSES_SHAPES = ((2, 8, 1), (4, 4, 1))
+
+
+def _coordinator():
+    from visrag_tpu_torch.mesh import free_port
+    return ["--coordinator", f"localhost:{free_port()}", "--process-id", "0",
+            "--num-processes", "1"]
+
+
+def _dist_eval(work):
+    """eval_retriever on the 16 pages and 8 queries at full width: one
+    device, then under --coordinator (the driver makes and ends its
+    one-rank NCCL group: DP encode, sharded fp32 search). → the launch
+    counts of the distributed run."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from visrag_tpu_torch.driver import eval_retriever
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.retrieval.trec import load_from_trec
+    pages = _pages(0)
+    images = []
+    for _, img in pages:
+        buf = io.BytesIO()
+        img.save(buf, format="PNG", compress_level=1)
+        images.append({"bytes": buf.getvalue()})
+    pq.write_table(pa.table({
+        "corpus-id": [f"p{i}" for i in range(N_PAGES)],
+        "text": [""] * N_PAGES, "image": images}), f"{work}/corpus.parquet")
+    pq.write_table(pa.table({
+        "query-id": [f"q{i}" for i in range(N_QUERIES)],
+        "query": [t for t, _ in _queries(N_QUERIES)]}),
+        f"{work}/queries.parquet")
+    with open(f"{work}/qrels.tsv", "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n" + "".join(
+            f"q{i}\tp{i}\t1\n" for i in range(N_QUERIES)))
+    runs, launches, secs = {}, None, {}
+    for name, extra in (("one", []), ("dist", _coordinator())):
+        argv = ["--corpus", f"{work}/corpus.parquet",
+                "--queries", f"{work}/queries.parquet",
+                "--qrels", f"{work}/qrels.tsv",
+                "--output-dir", f"{work}/eval_{name}",
+                "--batch-size", str(DIST_EVAL_BATCH), "--depth", "10",
+                "--device", DEV, *extra]
+        al.reset_launch_counts()
+        norms.reset_launch_counts()
+        t0 = time.perf_counter()
+        if eval_retriever.main(argv) != 0:
+            raise RuntimeError(f"eval_retriever ({name}) failed")
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches = {**al.launch_counts(), **norms.launch_counts()}
+        runs[name] = load_from_trec(f"{work}/eval_{name}/test.trec")
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = {q: list(d) for q, d in runs["dist"].items()} == \
+        {q: list(d) for q, d in runs["one"].items()}
+    log(f"[16] eval_retriever on {N_PAGES} pages, {N_QUERIES} queries: one "
+        f"device {secs['one']:.1f} s, one-rank NCCL group (--coordinator) "
+        f"{secs['dist']:.1f} s incl. model init; ranked ids equal {same}; "
+        f"launches of the distributed run {launches}")
+    if not same:
+        raise RuntimeError("eval_retriever across ranks ranked other ids")
+    if not (launches["flat"] > 0 and launches["stacked"] > 0
+            and launches["layernorm"] > 0 and launches["rmsnorm"] > 0):
+        raise RuntimeError(f"eval_retriever launches {launches}")
+    return launches
+
+
+def _dist_scan(mesh, scan_ids):
+    """make_sharded_topk over phase 15's corpus, fp32 and int8 (K6), ids
+    and scores bit for bit the one-device scan's (phase 15's when given).
+    → (K6 launches, timings)."""
+    from visrag_tpu_torch.ops import matmul_int8 as mi
+    from visrag_tpu_torch.retrieval import search
+    from visrag_tpu_torch.utils import timing
+    corpus, cq, cs, q, planted = _scan_inputs()
+    ref = scan_ids or {
+        "none": tuple(t.cpu() for t in search.topk_single(q, corpus,
+                                                          SCAN_K)),
+        "int8": tuple(t.cpu() for t in search.topk_single_int8(q, cq, cs,
+                                                               SCAN_K))}
+    fns = {quant: search.make_sharded_topk(mesh, SCAN_K, quant)
+           for quant in search.QUANTS}
+    args = {"none": (q, corpus, SCAN_ROWS), "int8": (q, cq, cs, SCAN_ROWS)}
+    mi.reset_launch_counts()
+    got = {quant: fns[quant](*args[quant]) for quant in search.QUANTS}
+    torch.cuda.synchronize()
+    k6 = mi.launches
+    equal = {quant: torch.equal(got[quant][1].cpu(), ref[quant][1])
+             and torch.equal(got[quant][0].cpu(), ref[quant][0])
+             for quant in search.QUANTS}
+    ms = {quant: timing.measure(fns[quant], *args[quant]) * 1e3
+          for quant in search.QUANTS}
+    log(f"[16] make_sharded_topk at one rank over {SCAN_ROWS} x {SCAN_DIM}, "
+        f"{SCAN_QUERIES} queries, k {SCAN_K}: ids and scores bit-equal to "
+        f"{'phase 15' if scan_ids else 'the one-device scan'} {equal}; "
+        f"fp32 {ms['none']:.4f} ms, int8 {ms['int8']:.4f} ms (merge and "
+        f"all_gather included); K6 launches {k6} | {smi()}")
+    del corpus, cq, cs, q, planted
+    torch.cuda.empty_cache()
+    if not all(equal.values()) or k6 != 1:
+        raise RuntimeError(f"sharded scan: equal {equal}, K6 launches {k6}")
+    return k6, ms
+
+
+def _sft_batch_ids():
+    """The segment masks of phase 10's first SFT batch (4 rows up to 4096
+    tokens, right-padded to a multiple of 128). → (B, S) int32 numpy."""
+    import numpy as np
+    from visrag_tpu_torch.driver import sft_main
+    tok = RLStandInTokenizer()
+    pairs = []
+    for i, (np_, nr) in enumerate(SFT_ROWS[:SFT_BATCH]):
+        row = {"prompt": " ".join(f"q{i}w{j}" for j in range(np_)),
+               "response": " ".join(f"a{i}w{j}" for j in range(nr))}
+        pairs.append(sft_main.encode_sft_row(row, tok, tok, SFT_MAX_LEN))
+    batch = sft_main.make_sft_batch(pairs)
+    return batch["attention_mask"].astype(np.int32)
+
+
+def _dist_ulysses(mesh, gen):
+    """K4 under Ulysses at the per-rank shapes of 2- and 4-way sequence
+    parallelism on the 3B SFT batch: parallel.ulysses_attention over the
+    one-rank seq group (its all_to_alls over NCCL) forward and backward,
+    launches counted; then K4's forward, dq and dk/dv at those shapes
+    against the plain versions, timed (phase 8's check). → ({shape: K4
+    launches}, {shape: records})."""
+    from visrag_tpu_torch.mesh import SEQ, axis_group
+    from visrag_tpu_torch.ops import attention as seg
+    from visrag_tpu_torch.parallel.ulysses import ulysses_attention
+    ids_np = _sft_batch_ids()
+    ids = torch.as_tensor(ids_np, device=DEV)
+    b, s = ids_np.shape
+    group = axis_group(mesh, SEQ)
+    launches, records = {}, {}
+    for n, h, hk in ULYSSES_SHAPES:
+        label = (f"Ulysses {n}-way per rank, SFT batch {b} x {s}, {h}/{hk} "
+                 f"heads d 128")
+        q, k, v = (torch.randn((b, s, x, 128), generator=gen, device=DEV,
+                               dtype=torch.bfloat16).requires_grad_()
+                   for x in (h, hk, hk))
+        seg.reset_launch_counts()
+        o = ulysses_attention(q, k, v, group, q_seg=ids, kv_seg=ids,
+                              causal=True)
+        o.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launches[n] = seg.launch_counts()
+        if not all(launches[n][kind] == 1 for kind in SEG_REPLACES) or \
+                not torch.isfinite(q.grad.float()).all():
+            raise RuntimeError(f"[16] {label}: launches {launches[n]}")
+        del q, k, v, o
+        records[n] = _check_segment_kernels(label, ids_np, ids_np, h, hk,
+                                            128, True, gen)
+        log(f"[16] {label}: ulysses_attention forward + backward launched "
+            f"{launches[n]}")
+    return launches, records
+
+
+def _dist_train(work, phase5_losses):
+    """train_retriever.main under --coordinator at full width: phase 5's
+    run (16 pairs, GradCache micro-batch 4, bf16 AdamW, remat) for
+    DIST_TRAIN_STEPS steps with FSDP2 over the one-rank group and the
+    cross-device negatives' path; its losses against phase 5's (run here
+    on one device when phase 5 did not run). → the launch counts."""
+    from visrag_tpu_torch.driver import train_retriever
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    data = f"{work}/train.parquet"
+    _write_train_parquet(data, _pages(0), N_PAGES)
+
+    def argv(out):
+        return ["--train-data", data, "--output-dir", out,
+                "--set", f"train.max_steps={DIST_TRAIN_STEPS}",
+                "--set", f"train.epochs={TRAIN_STEPS}",
+                "--set", "train.grad_cache=true",
+                "--set", f"train.grad_cache_micro_batch_size={MICRO}",
+                "--set", "train.optimizer_state_dtype=bfloat16",
+                "--set", "model.remat=true", "--set", "model.pooling=wmean",
+                "--set", "train.lr=5e-6", "--set", "train.grad_clip=1.0",
+                "--set", "train.softmax_temperature=0.02",
+                "--set", f"data.batch_size={N_PAGES}",
+                "--set", "train.log_every=1",
+                "--set", f"train.save_every={DIST_TRAIN_STEPS}"]
+
+    def losses(out):
+        with open(f"{out}/metrics.jsonl") as f:
+            return [json.loads(line)["loss"] for line in f]
+
+    if phase5_losses is None:
+        if train_retriever.main(argv(f"{work}/one")) != 0:
+            raise RuntimeError("train_retriever (one device) failed")
+        phase5_losses = losses(f"{work}/one")
+        shutil.rmtree(f"{work}/one", ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    al.reset_launch_counts()
+    norms.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if train_retriever.main(argv(f"{work}/dist") + _coordinator()) != 0:
+        raise RuntimeError("train_retriever under --coordinator failed")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**al.launch_counts(), **norms.launch_counts()}
+    got = losses(f"{work}/dist")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, phase5_losses))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[16] train_retriever under --coordinator (FSDP2 over the one-rank "
+        f"group, GradCache, negatives gathered): {DIST_TRAIN_STEPS} steps in "
+        f"{run_s:.1f} s incl. model init and the full-state checkpoint | "
+        f"losses {[round(x, 5) for x in got]} against one device's "
+        f"{[round(x, 5) for x in phase5_losses[:DIST_TRAIN_STEPS]]}: "
+        f"max rel err {rel:.3g} (bound {RTOL_TRAIN}) | peak {peak:.2f} GB | "
+        f"launches {launches}")
+    shutil.rmtree(f"{work}/dist", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(got) != DIST_TRAIN_STEPS or not rel <= RTOL_TRAIN:
+        raise RuntimeError(f"distributed training losses {got} against "
+                           f"{phase5_losses}")
+    if not all(launches[k] > 0 for k in ("flat", "stacked", "fwd_lse", "dq",
+                                         "dkv", "layernorm", "rmsnorm")):
+        raise RuntimeError(f"distributed training launches {launches}")
+    return launches
+
+
+def _run_sft(model, step, scfg, rows, out_dir):
+    """sft_main.run_sft over phase 10's rows with the stand-in tokenizer,
+    its saved weights removed after. → the steps' metrics."""
+    from visrag_tpu_torch.driver import sft_main
+    tok = RLStandInTokenizer()
+    try:
+        return sft_main.run_sft(
+            model, step, scfg, rows,
+            lambda row: sft_main.encode_sft_row(row, tok, tok, SFT_MAX_LEN),
+            batch_size=SFT_BATCH, output_dir=out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _dist_sft(work, phase10_history=None):
+    """sft_main's build_sft / run_sft at Qwen2.5-VL-3B's full width on a
+    one-rank mesh (seq 1: sp_flash_attention falls through to K1 / K2),
+    FSDP2 over the group, DIST_SFT_STEPS steps of phase 10's rows from
+    phase 10's seed and lr, rank 0 saving the full weights; the losses and
+    grad norms within RTOL_TRAIN of phase 10's (run here on one device,
+    without a mesh, when phase 10 did not run). → the launch counts."""
+    from visrag_tpu_torch import mesh as vmesh
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.driver import sft_main
+    from visrag_tpu_torch.driver.common import build_qwen25_vl
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.training.sft import SFTConfig
+    cfg = Qwen25VLConfig.b3()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                            remat=True))
+    # phase 10's optimizer: warmup 1 step, then the constant lr
+    scfg = SFTConfig(lr=SFT_LR, warmup_steps=1, total_steps=DIST_SFT_STEPS,
+                     optimizer_state_dtype="float32", ulysses_size=1)
+    rows = _sft_rows(work)
+    if phase10_history is None:
+        model = build_qwen25_vl(cfg, device=DEV, seed=0)
+        _, step = sft_main.build_sft(model, scfg)
+        phase10_history = _run_sft(model, step, scfg, rows,
+                                   f"{work}/sft_one")
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    with vmesh.distributed(f"localhost:{vmesh.free_port()}", 0, 1, DEV):
+        mesh = vmesh.build_mesh(MeshConfig(seq=scfg.ulysses_size))
+        model = build_qwen25_vl(cfg, device=DEV, seed=0)
+        _, step = sft_main.build_sft(model, scfg, mesh)
+        al.reset_launch_counts()
+        norms.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = _run_sft(model, step, scfg, rows, f"{work}/sft_dist")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {**al.launch_counts(), **norms.launch_counts()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = phase10_history[:DIST_SFT_STEPS]
+    rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(hist, one)
+              for k in ("loss", "grad_norm"))
+    log(f"[16] SFT through sft_main.build_sft / run_sft on a one-rank mesh "
+        f"(FSDP2, ulysses_size 1): {len(hist)} steps in {run_s:.1f} s incl. "
+        f"the full-weights save | losses "
+        f"{[round(m['loss'], 6) for m in hist]}, grad norms "
+        f"{[round(m['grad_norm'], 5) for m in hist]} against one device's "
+        f"{[round(m['loss'], 6) for m in one]}, "
+        f"{[round(m['grad_norm'], 5) for m in one]}: max rel err {rel:.3g} "
+        f"(bound {RTOL_TRAIN}) | peak {peak:.2f} GB | launches {launches}")
+    if len(hist) != DIST_SFT_STEPS or not rel <= RTOL_TRAIN:
+        raise RuntimeError(f"distributed SFT {hist} against one device's "
+                           f"{one}")
+    if not all(launches[k] > 0 for k in ("fwd_lse", "dq", "dkv", "rmsnorm")):
+        raise RuntimeError(f"distributed SFT launches {launches}")
+    return launches
+
+
+def phase16_distributed(gen, scan_ids=None, phase5_losses=None,
+                        phase10_history=None):
+    """The multi-GPU layer on one card: every distributed entry point over
+    a one-rank NCCL group at full width (eval_retriever and
+    train_retriever under --coordinator, make_sharded_topk, SFT on a mesh)
+    and K4 at Ulysses' per-rank shapes. → {"launches", "ulysses", "scan"}."""
+    from visrag_tpu_torch import mesh as vmesh
+    from visrag_tpu_torch.config import MeshConfig
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="visrag_dist_")
+    try:
+        eval_launches = _dist_eval(work)
+        with vmesh.distributed(f"localhost:{vmesh.free_port()}", 0, 1, DEV):
+            mesh = vmesh.build_mesh(MeshConfig())
+            k6, scan_ms = _dist_scan(mesh, scan_ids)
+            ulysses_launches, ulysses = _dist_ulysses(mesh, gen)
+        train_launches = _dist_train(work, phase5_losses)
+        sft_launches = _dist_sft(work, phase10_history)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[16] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"eval": eval_launches, "train": train_launches,
+                         "sft": sft_launches, "scan_int8_gemm": k6,
+                         "ulysses": ulysses_launches},
+            "ulysses": ulysses, "scan_ms": scan_ms}
+
+
+def dist_kernel_rows(dist_results):
+    """K4's rows at the Ulysses per-rank shapes (launches from phase 16's
+    ulysses_attention runs, numbers from its checks)."""
+    from visrag_tpu_torch.ops import attention as seg
+    rows = []
+    for n, h, hk in ULYSSES_SHAPES:
+        rec = dist_results["ulysses"][n]
+        for kind, name in (("seg_fwd", "segment_fwd"),
+                           ("seg_dq", "segment_bwd_dq"),
+                           ("seg_dkv", "segment_bwd_dkv")):
+            rows.append({"name": f"{name} (Ulysses {n}-way per rank, "
+                                 f"{h}/{hk} heads)",
+                         "route": "cuda", "source": seg.HOPPER_SOURCE,
+                         "replaces": SEG_REPLACES[kind],
+                         "launches": dist_results["launches"]["ulysses"][n][
+                             kind],
+                         **{k: rec[kind][k] for k in KEYS},
+                         "pr4_ms": rec[kind].get("pr4_ms"),
+                         "checks": [rec[kind]]})
+    return rows
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser()
@@ -5124,6 +5547,10 @@ def main(argv=None):
                     help="phases 0, 1, 1b and 15 only, for work on the "
                          "SigLIP baseline and the int8 scan; the run then "
                          "ends without the ok line")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="phases 0, 1, 1b and 16 only, for work on the "
+                         "multi-GPU layer; the run then ends without the "
+                         "ok line")
     args = ap.parse_args(argv)
     # full fp32 wherever fp32 is asked for (pos embed, the fp32 references)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5151,6 +5578,12 @@ def main(argv=None):
         print(smi())
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": False, "partial": "--ret-only"}))
+        return 1
+    if args.dist_only:
+        rows = dist_kernel_rows(phase16_distributed(gen))
+        print(smi())
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": False, "partial": "--dist-only"}))
         return 1
     setup = phase3_setup()
     results = phase2_kernel(gen, setup)
@@ -5182,6 +5615,11 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     ret_results = phase15_retrieval(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_results = phase16_distributed(gen, ret_results["scan_ids"],
+                                       train_launches["losses"],
+                                       sft_launches["history"])
     log(f"[K2] Hopper launches by kernel and head dim (route counters): "
         f"phase 5 {train_launches['k2_by_head_dim']}, phase 9 (padded "
         f"update) {rl_launches['padded_update']['k2_by_head_dim']}, phase 10 "
@@ -5285,6 +5723,7 @@ def main(argv=None):
     kernels += norm_kernel_rows(norm_results, sft_launches, serve_launches)
     kernels += gen_kernel_rows(gen_results)
     kernels += ret_kernel_rows(ret_results)
+    kernels += dist_kernel_rows(dist_results)
     for k in kernels:
         if not k["launches"] > 0:
             raise RuntimeError(f"{k['name']} was not launched on its path")

@@ -154,6 +154,21 @@ assert set(hf_export.export_visrag_ret(model)) >= {"llm.model.norm.weight"}
 assert timing.measure(lambda: None, iters=2) >= 0
 with profiling.annotate("x"):
     flops.mfu(1.0, 1.0, peak_tflops=1.0)
+# the multi-device layer: a one-rank gloo mesh, the sharded search and
+# the sequence-parallel attention at seq 1, Ulysses' and ring's modules
+import torch.distributed as dist
+from visrag_tpu_torch import mesh as vmesh
+from visrag_tpu_torch.parallel import ring, ulysses
+from visrag_tpu_torch.retrieval.search import make_sharded_topk
+one = vmesh.single_device_mesh("cpu")
+s1, i1 = make_sharded_topk(one, 2)(torch.from_numpy(reps),
+                                   torch.from_numpy(reps), 4)
+assert torch.equal(i1, topk_single(torch.from_numpy(reps),
+                                   torch.from_numpy(reps), 2)[1])
+x = torch.randn(1, 8, 2, 16)
+assert ulysses.sp_flash_attention(x, x, x, causal=True, mesh=one).shape == \
+    x.shape
+dist.destroy_process_group()
 added = sorted(m for m in set(sys.modules) - before
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "visrag_tpu"))
 print("ADDED", added)
@@ -172,8 +187,9 @@ def test_port_runs_without_jax():
     VisRAG-Gen backends (beam-scored weighted selection on MiniCPM-V 2.0,
     two pages on 2.6, text on MiniCPM-2B), and running the SigLIP bi-tower,
     the int8 scan, self_retrieve, fast_gelu, the exporters, OCR, the utils
-    and the synthesize twin's module load no module of jax, flax or
-    visrag_tpu."""
+    and the synthesize twin's module, and the multi-device layer (mesh,
+    parallel/ulysses and parallel/ring, the sharded top-k on a one-rank
+    gloo mesh) load no module of jax, flax or visrag_tpu."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,

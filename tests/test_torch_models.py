@@ -208,6 +208,28 @@ def test_minicpm_model_matches_jax(causal):
     np.testing.assert_allclose(out[valid], ref[valid], rtol=1e-4, atol=1e-4)
 
 
+def test_minicpm_grouped_kv_heads_match_jax():
+    """4 query heads on 2 kv heads (the JAX config's num_key_value_heads):
+    K1's grouped form on the port's side, 1e-4 on valid rows, causal."""
+    rng = np.random.default_rng(16)
+    b, s = 3, 16
+    ids = rng.integers(0, 256, (b, s)).astype(np.int32)
+    lengths = [16, 11, 2]
+    mask = _masks(lengths, s).astype(np.int32)
+    jm = JMiniCPMModel(JMiniCPMConfig.tiny(num_key_value_heads=2))
+    params = jm.init(jax.random.PRNGKey(3), jnp.asarray(ids),
+                     attention_mask=jnp.asarray(mask))["params"]
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(ids),
+                              attention_mask=jnp.asarray(mask)))
+    mod = _load(MiniCPMModel(MiniCPMConfig.tiny(num_key_value_heads=2)),
+                export_minicpm_lm(params))
+    assert mod.layers[0].self_attn.k_proj.weight.shape == (32, 64)
+    with torch.no_grad():
+        out = mod(_t(ids), attention_mask=_t(mask)).numpy()
+    valid = _masks(lengths, s)
+    np.testing.assert_allclose(out[valid], ref[valid], rtol=1e-4, atol=1e-4)
+
+
 def _input_grads_match_jax(jm, jparams, jinputs, mod, tinputs, w, mask_valid,
                            call, tol):
     """jax.grad and torch autograd of sum(out * w) over valid rows, with

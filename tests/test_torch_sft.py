@@ -177,7 +177,10 @@ def test_token_accuracy_by_chunks_equals_full():
 
 
 def test_sequence_parallelism_is_refused(shared):
-    with pytest.raises(NotImplementedError):
+    """ulysses_size > 1 needs a mesh whose seq axis has that size (the JAX
+    step's check); without one it is refused (the run over ranks is in
+    tests/test_torch_dist_training.py)."""
+    with pytest.raises(ValueError, match="seq=2"):
         make_sft_step(_port_model(shared), SFTConfig(ulysses_size=2))
 
 
@@ -242,12 +245,15 @@ def test_sft_main_cli(tiny_ckpt, tmp_path, monkeypatch):
 
 def test_sft_main_refuses_more_than_one_process(tiny_ckpt, tmp_path,
                                                 monkeypatch):
+    """One process without a process group refuses what needs more: a
+    WORLD_SIZE without torchrun's rendezvous (no coordinator), and
+    ulysses_size > 1 (a seq axis of 2 ranks)."""
     from visrag_tpu_torch.driver import sft_main
     monkeypatch.setitem(os.environ, "WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no coordinator"):
         sft_main.main(_sft_args(tiny_ckpt, tmp_path))
     monkeypatch.setitem(os.environ, "WORLD_SIZE", "1")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seq=2"):
         sft_main.main(_sft_args(tiny_ckpt, tmp_path)
                       + ["--set", "ulysses_size=2"])
 

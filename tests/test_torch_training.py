@@ -588,12 +588,15 @@ def test_train_retriever_driver_cpu(train_parquet, tmp_path, variant):
 
 def test_train_retriever_driver_refuses_more_than_one_device(train_parquet,
                                                              tmp_path):
+    """One process without a process group refuses what needs more: a
+    mesh larger than its one device, and a process count without a
+    coordinator (the runs across ranks are tests/test_torch_dist_*.py)."""
     from visrag_tpu_torch.driver.train_retriever import main
     base = ["--train-data", str(train_parquet), "--output-dir",
             str(tmp_path / "o"), "--tiny", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="one GPU"):
+    with pytest.raises(ValueError, match="1 devices"):
         main(base + ["--set", "mesh.data=2"])
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(ValueError, match="no coordinator"):
         main(base + ["--num-processes", "2"])
     with pytest.raises(ValueError, match="multiple"):
         main(base + ["--set", "train.grad_cache=true",

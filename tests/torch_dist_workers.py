@@ -1,0 +1,291 @@
+"""Multi-rank jobs for the port's distributed tests: gloo ranks on the CPU.
+
+`spawn(target, world, *args)` starts `world` processes (the spawn method),
+joins them into one gloo group at a free localhost port through
+visrag_tpu_torch.mesh.init_distributed, runs target(rank, world, *args) in
+each and returns the ranks' results in rank order. Every wait has a
+timeout, a rank that fails raises its traceback here, and a job that hangs
+is killed. The targets live in this module, which imports no jax: a
+spawned child imports only what its target needs.
+"""
+
+from __future__ import annotations
+
+import queue
+import sys
+import traceback
+
+JOB_TIMEOUT = 240
+
+
+def _child(target, rank, world, port, out, args, timeout):
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    # a rank that hangs prints where before the parent kills it
+    faulthandler.dump_traceback_later(max(timeout - 20, 5))
+    try:
+        from visrag_tpu_torch.mesh import init_distributed
+        init_distributed(f"localhost:{port}", rank, world, "cpu")
+        result = target(rank, world, *args)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "jaxlib", "flax", "visrag_tpu"))
+        if leaked:
+            raise ImportError(f"a rank imported {leaked[:5]}")
+        out.put((rank, True, result))
+    except BaseException:      # handed to the parent, raised there
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(target, world: int, *args, timeout: float = JOB_TIMEOUT):
+    import multiprocessing as mp
+    import time
+    from visrag_tpu_torch.mesh import free_port
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_child,
+                         args=(target, r, world, port, out, args, timeout))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.monotonic() + timeout
+    try:
+        for _ in range(world):
+            try:
+                rank, ok, payload = out.get(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except queue.Empty:
+                raise TimeoutError(f"{target.__name__} at {world} ranks "
+                                   f"gave no result within {timeout} s")
+            (results.__setitem__(rank, payload) if ok
+             else errors.append(f"rank {rank}:\n{payload}"))
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    assert not any(p.is_alive() for p in procs)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+# ---- shared tiny inputs -----------------------------------------------------
+
+
+def tiny_pcfg():
+    """The tiny retriever's pipeline, as build_visrag_ret(tiny=True)."""
+    from visrag_tpu_torch.preprocess import PipelineConfig
+    return PipelineConfig(seq_len=64, query_num=4, patch_size=2, src_grid=4,
+                          scale_resolution=8, max_patches=64)
+
+
+def encode_batch(items, slots=None):
+    """items → a finished EncodeBatch on the CPU (MockTokenizer)."""
+    from visrag_tpu_torch.preprocess import MockTokenizer, build_encode_batch
+    from visrag_tpu_torch.preprocess.device import (finish_encode_batch,
+                                                    pos_table_tensor)
+    pcfg = tiny_pcfg()
+    raw = build_encode_batch(MockTokenizer(), items, pcfg,
+                             n_slice_slots=slots, device_mode=True)
+    return finish_encode_batch(raw, pos_table_tensor(pcfg.src_grid, "cpu"))
+
+
+def tiny_retriever(params):
+    from visrag_tpu_torch.models.hf_loader import from_jax_params
+    from visrag_tpu_torch.models.visrag_ret import VisRAGRet, VisRAGRetConfig
+    model = VisRAGRet(VisRAGRetConfig.tiny())
+    from_jax_params(model, params)
+    return model
+
+
+def micro_batches(items_q, items_p, micro):
+    return [(encode_batch(items_q[i:i + micro]),
+             encode_batch(items_p[i:i + micro]))
+            for i in range(0, len(items_q), micro)]
+
+
+# ---- retrieval --------------------------------------------------------------
+
+
+def sharded_search(rank, world, queries, corpus, k, chunk_rows):
+    """make_sharded_topk through StreamingSearcher(mesh=...), fp32 and
+    int8, the corpus whole and in chunks of chunk_rows; self_retrieve."""
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.mesh import build_mesh
+    from visrag_tpu_torch.retrieval.search import (StreamingSearcher,
+                                                   self_retrieve)
+    mesh = build_mesh(MeshConfig())
+    out = {}
+    for quant in ("none", "int8"):
+        searcher = StreamingSearcher(k, "cpu", quant, mesh=mesh)
+        out[quant] = searcher.search(queries, [(corpus, 0)])
+        chunks = [(corpus[i:i + chunk_rows], i)
+                  for i in range(0, len(corpus), chunk_rows)]
+        out[quant + "_chunks"] = searcher.search(queries, chunks)
+    out["self"] = self_retrieve(
+        queries, [f"q{i}" for i in range(len(queries))], 3, "cpu", mesh=mesh)
+    return out
+
+
+def dp_encode_and_eval(rank, world, params, items, eval_argvs):
+    """make_encode_step over the ranks (every rank gets the global batch's
+    representations in the global order), then eval_retriever.main with
+    each argv in the job's group."""
+    import torch
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.driver.eval_retriever import main
+    from visrag_tpu_torch.mesh import build_mesh, local_slice
+    from visrag_tpu_torch.retrieval.encode import make_encode_step
+    model = tiny_retriever(params).eval()
+    mesh = build_mesh(MeshConfig())
+
+    @torch.inference_mode()
+    def apply(batch):
+        return model(batch)
+
+    step = make_encode_step(apply, mesh)
+    reps = step(batch=encode_batch(local_slice(items, mesh)))
+    return reps.numpy(), [main(argv) for argv in eval_argvs]
+
+
+# ---- training ---------------------------------------------------------------
+
+
+def retriever_steps(rank, world, params, items_q, items_p, train_kw,
+                    mesh_kw, runs, resume_from=None, save_to=None):
+    """For each (grad_cache, micro) in runs: a fresh trainer on the mesh,
+    two steps on this rank's block of the global batch → the metrics and,
+    on rank 0, the full weights after them. With resume_from: a fresh
+    trainer resumed from that checkpoint → its full weights and optimizer
+    states (rank 0). With save_to: the last run's trainer saves there."""
+    from visrag_tpu_torch.config import MeshConfig, TrainConfig
+    from visrag_tpu_torch.mesh import build_mesh, local_slice
+    from visrag_tpu_torch.training.checkpoint import full_tensors
+    from visrag_tpu_torch.training.trainer import RetrieverTrainer
+    mesh = build_mesh(MeshConfig(**mesh_kw))
+    lq, lp = local_slice(items_q, mesh), local_slice(items_p, mesh)
+    out = {"runs": []}
+    tr = None
+    for grad_cache, micro in runs:
+        cfg = TrainConfig(**train_kw, grad_cache=grad_cache,
+                          grad_cache_micro_batch_size=micro)
+        tr = RetrieverTrainer(tiny_retriever(params), cfg, total_steps=10,
+                              mesh=mesh)
+        batch = micro_batches(lq, lp, micro if grad_cache else len(lq))
+        hist = [tr.train_step(batch) for _ in range(2)]
+        state = full_tensors(tr.model.state_dict())
+        out["runs"].append((hist, _numpy(state) if rank == 0 else None))
+    if save_to is not None:
+        tr.save(save_to)
+    if resume_from is not None:
+        cfg = TrainConfig(**train_kw)
+        fresh = RetrieverTrainer(tiny_retriever(params), cfg, total_steps=10,
+                                 mesh=mesh)
+        step = fresh.maybe_resume(resume_from)
+        tree = full_tensors({"model": fresh.model.state_dict(),
+                             "optimizer": fresh.optimizer.state_dict()})
+        out["resumed"] = (step, _numpy(tree) if rank == 0 else None)
+    return out
+
+
+def _numpy(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().float().numpy()
+    return tree
+
+
+def sft_steps(rank, world, state, cfg_kw, sft_kw, mesh_kw, batch, steps):
+    """make_sft_step on the mesh from the same weights: `steps` steps on
+    the global batch → the metrics and, on rank 0, the full text weights."""
+    import dataclasses
+    import torch
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.mesh import build_mesh
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VL, Qwen25VLConfig
+    from visrag_tpu_torch.training.checkpoint import full_tensors
+    from visrag_tpu_torch.training.sft import SFTConfig, make_sft_step
+    cfg = Qwen25VLConfig.tiny()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                            **cfg_kw))
+    model = Qwen25VL(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    mesh = build_mesh(MeshConfig(**mesh_kw))
+    _, step = make_sft_step(model, SFTConfig(**sft_kw), mesh)
+    hist = [{k: float(v) for k, v in step(batch).items()}
+            for _ in range(steps)]
+    full = full_tensors(model.state_dict())
+    return hist, (_numpy(full) if rank == 0 else None)
+
+
+# ---- sequence parallelism ---------------------------------------------------
+
+
+def sp_attention(rank, world, cases):
+    """Each case (q, k, v, seg, use_lengths, mesh_kw, backend):
+    sp_flash_attention on this rank's rows (mesh.local_slice) and sequence
+    block, with the rows' full segment ids or (use_lengths) their lengths;
+    the loss sum(out**2) over valid rows differentiated. → every case's
+    (out, dq, dk, dv) blocks."""
+    import torch
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.mesh import SEQ, axis_index, build_mesh, local_slice
+    from visrag_tpu_torch.parallel.ulysses import sp_flash_attention
+    out = []
+    for q, k, v, seg, use_lengths, mesh_kw, backend in cases:
+        mesh = build_mesh(MeshConfig(**mesh_kw))
+        n, r = mesh_kw.get("seq", 1), axis_index(mesh, SEQ)
+        blk = slice(r * q.shape[1] // n, (r + 1) * q.shape[1] // n)
+        t = [torch.from_numpy(local_slice(x, mesh)[:, blk]).requires_grad_()
+             for x in (q, k, v)]
+        seg = torch.from_numpy(local_slice(seg, mesh))
+        kw = {"lengths": (seg > 0).sum(1)} if use_lengths \
+            else {"q_seg": seg, "kv_seg": seg}
+        o = sp_flash_attention(*t, causal=True, mesh=mesh, backend=backend,
+                               **kw)
+        ((o ** 2) * (seg[:, blk] > 0)[:, :, None, None]).sum().backward()
+        out.append([x.detach().numpy() for x in (o, *(a.grad for a in t))])
+    return out
+
+
+# ---- the mesh ---------------------------------------------------------------
+
+
+def mesh_layout(rank, world, layouts, rows):
+    """For each mesh layout: this rank's coordinates, its groups' ranks
+    and its local_slice of `rows`."""
+    import torch.distributed as dist
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.mesh import (BATCH_AXES, WEIGHT_AXES, axis_group,
+                                       build_mesh, local_slice)
+    out = []
+    for kw in layouts:
+        mesh = build_mesh(MeshConfig(**kw))
+        out.append({
+            "coords": {a: mesh.get_local_rank(a)
+                       for a in mesh.mesh_dim_names},
+            "groups": {"+".join(axes): dist.get_process_group_ranks(
+                axis_group(mesh, *axes))
+                for axes in (("data",), ("seq",), BATCH_AXES, WEIGHT_AXES)},
+            "slice": local_slice(rows, mesh)})
+    return out
+
+
+def training_job(rank, world, retriever_args, sft_args):
+    """retriever_steps and sft_steps in one job (each argument tuple is
+    theirs after rank and world; None skips it)."""
+    return (retriever_steps(rank, world, *retriever_args)
+            if retriever_args else None,
+            sft_steps(rank, world, *sft_args) if sft_args else None)

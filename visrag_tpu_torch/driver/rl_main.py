@@ -57,14 +57,15 @@ def engine_settings(cfg) -> dict:
 def _single_device(args, cfg) -> None:
     if (args.num_processes or 1) > 1 or args.coordinator:
         raise NotImplementedError(
-            "multi-process RL training is not ported to visrag_tpu_torch; "
-            "run one process on one GPU")
+            "multi-process RL training is the next slice of the "
+            "multi-GPU port; run one process on one GPU")
     m = cfg.mesh
     sizes = {"data": m.data, "model": m.model, "seq": m.seq,
              "replica": m.replica}
     if any(v not in (-1, 1) for v in sizes.values()):
         raise NotImplementedError(
-            f"mesh {sizes}: visrag_tpu_torch runs RL on one GPU")
+            f"mesh {sizes}: visrag_tpu_torch runs RL on one GPU (RL "
+            "across ranks is the next slice of the multi-GPU port)")
 
 
 def build_critic(model, cfg, *, seed: int = 0):

@@ -3,7 +3,7 @@
 Counterpart of visrag_tpu/driver/sft_main.py (the reference's LLaMA-Factory
 full fine-tune of Qwen2.5-VL-7B: freeze_vision_tower, lr 5e-7): data rows
 are chat conversations {prompt|problem, response|answer}; the loss covers
-response tokens only; the vision tower is frozen. One process, one GPU.
+response tokens only; the vision tower is frozen.
 
     python -m visrag_tpu_torch.driver.sft_main --data sft.jsonl \
         --checkpoint <qwen2.5-vl-dir> --output-dir sft_run/ \
@@ -14,9 +14,20 @@ whole blocks in the backward: at the default batch of 4 x 4096 tokens the
 3B model's activations do not fit one 80 GB card otherwise. `build_sft` and
 `run_sft` are what `main` runs, so that a caller with its own tokenizer
 and weights drives exactly the same path. The final weights are saved as
-`global_step_N/model.pt` under --output-dir. More than one process, or
-`ulysses_size > 1`, raises (WORLD_SIZE in the environment counts the
-processes).
+`global_step_N/model.pt` under --output-dir.
+
+Across GPUs, one process each (torchrun, or --coordinator with
+--process-id / --num-processes):
+
+    torchrun --nproc_per_node 8 -m visrag_tpu_torch.driver.sft_main \
+        --data sft.jsonl --checkpoint <dir> --output-dir out/ \
+        --set ulysses_size=4
+
+the mesh is data x seq with seq = ulysses_size (the JAX driver's sizing:
+the data axis takes the rest), --batch-size is the global batch, every
+rank reads the same rows and trains on its own (training/sft.py:
+FSDP2 over all ranks, Ulysses over the seq axis), and rank 0 saves the
+full weights.
 """
 
 from __future__ import annotations
@@ -64,11 +75,12 @@ def make_sft_batch(pairs):
             "positions": pos}
 
 
-def build_sft(model, cfg):
+def build_sft(model, cfg, mesh=None):
     """The SFT step as the driver wires it (training.sft.make_sft_step: the
-    tower frozen, AdamW over the rest). → (optimizer, step)."""
+    tower frozen, AdamW over the rest; with a mesh, FSDP2 and the seq
+    axis). → (optimizer, step)."""
     from ..training.sft import make_sft_step
-    return make_sft_step(model, cfg)
+    return make_sft_step(model, cfg, mesh)
 
 
 def run_sft(model, step, cfg, data, encode_row, *, batch_size: int,
@@ -76,9 +88,11 @@ def run_sft(model, step, cfg, data, encode_row, *, batch_size: int,
     """Rows of `data` (a jsonl or parquet path) in batches of batch_size
     (a short last batch is dropped), one step each up to cfg.total_steps,
     metrics logged every 10 steps; then the weights are saved under
-    output_dir. → the per-step metrics as floats."""
+    output_dir (under a process group: gathered from their shards, and
+    written by rank 0). → the per-step metrics as floats."""
+    import torch.distributed as dist
     from ..data.datasets import batched, iter_rows
-    from ..training.checkpoint import save_checkpoint
+    from ..training.checkpoint import full_tensors, save_checkpoint
     history = []
     for rows in batched(iter_rows(data), batch_size):
         if len(rows) < batch_size:
@@ -89,7 +103,14 @@ def run_sft(model, step, cfg, data, encode_row, *, batch_size: int,
             tracker.log(history[-1], len(history))
         if len(history) >= cfg.total_steps:
             break
-    save_checkpoint(output_dir, len(history), {"model": model.state_dict()})
+    state = model.state_dict()
+    if dist.is_initialized():
+        state = full_tensors(state)
+        if dist.get_rank() == 0:
+            save_checkpoint(output_dir, len(history), {"model": state})
+        dist.barrier()
+    else:
+        save_checkpoint(output_dir, len(history), {"model": state})
     return history
 
 
@@ -104,13 +125,20 @@ def main(argv=None):
     ap.add_argument("--set", action="append", default=[],
                     help="SFTConfig overrides, e.g. --set lr=1e-6")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 (multi-process runs)")
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--num-processes", type=int, default=None)
     args = ap.parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "multi-process SFT (WORLD_SIZE > 1) is not ported to "
-            "visrag_tpu_torch; run one process on one GPU")
+    from ..mesh import distributed
+    with distributed(args.coordinator, args.process_id, args.num_processes,
+                     args.device):
+        return _run(ap, args)
 
-    from ..config import merge_dotlist
+
+def _run(ap, args):
+    import torch.distributed as dist
+    from ..config import MeshConfig, merge_dotlist
     from ..training.sft import SFTConfig
     from ..utils.tracker import Tracker
     from .common import (build_qwen25_vl, get_processor, get_tokenizer,
@@ -120,6 +148,10 @@ def main(argv=None):
         cfg = merge_dotlist(SFTConfig(), list(args.set))
     except (KeyError, ValueError) as e:
         ap.error(str(e))
+    from ..mesh import build_mesh, local_device
+    mesh = build_mesh(MeshConfig(seq=cfg.ulysses_size)) \
+        if dist.is_initialized() else None
+    rank0 = mesh is None or dist.get_rank() == 0
     os.makedirs(args.output_dir, exist_ok=True)
     processor = get_processor(args.checkpoint)
     # text-only checkpoints have no processor (get_processor → None);
@@ -132,11 +164,12 @@ def main(argv=None):
     mcfg = qwen_config_from_checkpoint(args.checkpoint, state)
     mcfg = dataclasses.replace(
         mcfg, text=dataclasses.replace(mcfg.text, remat=True))
-    model = build_qwen25_vl(mcfg, device=args.device, state=state)
+    model = build_qwen25_vl(mcfg, device=local_device(args.device),
+                            state=state)
     del state
 
-    _, step = build_sft(model, cfg)
-    tracker = Tracker(args.output_dir)
+    _, step = build_sft(model, cfg, mesh)
+    tracker = Tracker(args.output_dir if rank0 else None)
     history = run_sft(
         model, step, cfg, args.data,
         lambda row: encode_sft_row(row, processor, tok, args.max_len),

@@ -16,8 +16,19 @@ slice, and every token batch is cut to its longest prompt (64-multiple).
 With train.grad_cache each micro-batch of grad_cache_micro_batch_size pairs
 is built as its own batch.
 
-One GPU: cross-device negatives over torch.distributed are not ported, so
-a multi-device mesh or a multi-process launch raises.
+Across GPUs, one process each:
+
+    torchrun --nproc_per_node 8 -m visrag_tpu_torch.driver.train_retriever \
+        --train-data pairs.parquet --output-dir out/
+
+(or --coordinator host:port --process-id i --num-processes n, the JAX
+driver's flags, in each process; `--device cpu` runs gloo ranks). The
+mesh is `mesh` of the config (replica spanning nodes, data the rest),
+data.batch_size is the global batch: every rank reads the same rows, and
+builds and trains on its block of each batch (mesh.local_slice), so the
+data cursor in a checkpoint is global and a resume lands on the same row
+at any rank count. Negatives are shared across ranks and the weights are
+FSDP2-sharded (training/trainer.py); rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -30,20 +41,6 @@ import sys
 import torch
 
 
-def _single_device(args, mesh) -> None:
-    if (args.num_processes or 1) > 1 or args.coordinator:
-        raise NotImplementedError(
-            "multi-process training is not ported to visrag_tpu_torch: "
-            "cross-device negatives over torch.distributed come with the "
-            "multi-GPU slice; run one process on one GPU")
-    sizes = {"data": mesh.data, "model": mesh.model, "seq": mesh.seq,
-             "replica": mesh.replica}
-    if any(v not in (-1, 1) for v in sizes.values()):
-        raise NotImplementedError(
-            f"mesh {sizes}: visrag_tpu_torch trains on one GPU (cross-device "
-            "negatives over torch.distributed are not ported yet)")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--train-data", required=True)
@@ -53,13 +50,20 @@ def main(argv=None):
                     help="dotlist overrides, e.g. train.lr=1e-5")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--coordinator", default=None,
-                    help="multi-process runs are not ported (raises)")
+                    help="host:port of process 0 (multi-process runs)")
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device for the model and the step")
     args = ap.parse_args(argv)
+    from ..mesh import distributed
+    with distributed(args.coordinator, args.process_id, args.num_processes,
+                     args.device) as (pid, nproc):
+        return _run(args, pid, nproc)
 
+
+def _run(args, pid, nproc):
+    import torch.distributed as dist
     from ..config import RetrieverTrainConfig, dump_config, load_config
     from ..data.datasets import MMDRTrainDataset, StatefulIterator, qp_collate
     from ..preprocess import build_encode_batch
@@ -68,27 +72,35 @@ def main(argv=None):
     from ..training.trainer import RetrieverTrainer
     from ..utils.tracker import Tracker
     from .common import build_tokenizer, build_visrag_ret
+    from ..mesh import (build_mesh, local_batch_size, local_device,
+                        local_slice, mesh_shape, multihost_mesh_config,
+                        num_nodes_of_job)
 
     cfg = load_config(RetrieverTrainConfig, yaml_path=args.config,
                       dotlist=args.set)
-    _single_device(args, cfg.mesh)
+    mesh_cfg = multihost_mesh_config(cfg.mesh, num_nodes_of_job())
+    mesh_shape(mesh_cfg, nproc)                  # the layout, or ValueError
     tcfg = cfg.train
     tcfg.output_dir = args.output_dir
-    os.makedirs(args.output_dir, exist_ok=True)
-    dump_config(cfg, os.path.join(args.output_dir, "run_config.json"))
-    device = torch.device(args.device)
+    if pid == 0:
+        os.makedirs(args.output_dir, exist_ok=True)
+        dump_config(cfg, os.path.join(args.output_dir, "run_config.json"))
+    device = local_device(args.device)
+    mesh = build_mesh(mesh_cfg) if dist.is_initialized() else None
 
     model, pcfg = build_visrag_ret(cfg.model, tiny=args.tiny, device=device)
     pcfg = dataclasses.replace(pcfg, seq_auto=True)
     tok = build_tokenizer(cfg.model.checkpoint)
-    tracker = Tracker(args.output_dir)
+    tracker = Tracker(args.output_dir if pid == 0 else None)
     table = pos_table_tensor(pcfg.src_grid, device)
 
     bs = cfg.data.batch_size
-    micro = tcfg.grad_cache_micro_batch_size if tcfg.grad_cache else bs
-    if micro <= 0 or bs % micro:
-        raise ValueError(f"data.batch_size {bs} is not a multiple of "
-                         f"train.grad_cache_micro_batch_size {micro}")
+    local_bs = local_batch_size(bs, mesh)
+    micro = tcfg.grad_cache_micro_batch_size if tcfg.grad_cache else local_bs
+    if micro <= 0 or local_bs % micro:
+        raise ValueError(f"data.batch_size {bs} over {nproc} ranks is not a "
+                         f"multiple of train.grad_cache_micro_batch_size "
+                         f"{micro} on each")
 
     params = None
     if tcfg.lora_rank > 0:
@@ -125,14 +137,16 @@ def main(argv=None):
                 continue
             coll = qp_collate(buf)
             buf = []
-            yield [(encode_batch(coll["queries"][i:i + micro]),
-                    encode_batch(coll["passages"][i:i + micro],
+            queries = local_slice(coll["queries"], mesh)
+            passages = local_slice(coll["passages"], mesh)
+            yield [(encode_batch(queries[i:i + micro]),
+                    encode_batch(passages[i:i + micro],
                                  micro * pcfg.max_slices_per_page))
-                   for i in range(0, bs, micro)]
+                   for i in range(0, local_bs, micro)]
 
     trainer = RetrieverTrainer(model, tcfg, total_steps=total,
                                logger=lambda s, m: tracker.log(m, s),
-                               params=params)
+                               params=params, mesh=mesh)
     trainer.data_iter = row_iter
     done_steps = trainer.maybe_resume(args.output_dir)
     if done_steps:
@@ -141,7 +155,7 @@ def main(argv=None):
     trainer.train(batches(), checkpoint_dir=args.output_dir)
     if trainer.step > done_steps and trainer.step % tcfg.save_every:
         trainer.save(args.output_dir)      # the last step, resumable
-    if params is not None and trainer.step:
+    if params is not None and trainer.step and pid == 0:
         from ..training.lora import lora_merge
         save_checkpoint(args.output_dir, trainer.step,
                         {"merged_model": lora_merge(model).state_dict()})

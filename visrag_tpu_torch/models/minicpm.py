@@ -69,10 +69,10 @@ class MiniCPMConfig:
             raise ValueError(
                 "quant='int8' is inference-only (no VJP); remat=True marks a "
                 "training config — use quant='none' for training")
-        if self.num_key_value_heads != self.num_attention_heads:
-            raise ValueError("grouped kv heads are not ported "
-                             "(MiniCPM-2B has num_key_value_heads == "
-                             "num_attention_heads)")
+        if self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError(
+                f"num_key_value_heads {self.num_key_value_heads} does not "
+                f"divide num_attention_heads {self.num_attention_heads}")
 
     @property
     def head_dim(self) -> int:
@@ -127,19 +127,20 @@ class MiniCPMAttention(nn.Module):
         super().__init__()
         self.cfg = c
         hd = c.num_attention_heads * c.head_dim
+        kvd = c.num_key_value_heads * c.head_dim
         linear = QuantLinear if c.quant == "int8" else nn.Linear
         self.q_proj = linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
-        self.k_proj = linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
-        self.v_proj = linear(c.hidden_size, hd, bias=False, dtype=c.dtype)
+        self.k_proj = linear(c.hidden_size, kvd, bias=False, dtype=c.dtype)
+        self.v_proj = linear(c.hidden_size, kvd, bias=False, dtype=c.dtype)
         self.o_proj = linear(hd, c.hidden_size, bias=False, dtype=c.dtype)
 
     def _qkv(self, x, positions, inv_freq):
         c = self.cfg
         b, s, _ = x.shape
-        h, d = c.num_attention_heads, c.head_dim
+        h, hk, d = c.num_attention_heads, c.num_key_value_heads, c.head_dim
         q = self.q_proj(x).view(b, s, h, d)
-        k = self.k_proj(x).view(b, s, h, d)
-        v = self.v_proj(x).view(b, s, h, d)
+        k = self.k_proj(x).view(b, s, hk, d)
+        v = self.v_proj(x).view(b, s, hk, d)
         q, k = apply_rope(q, k, positions, inv_freq, scaling=c.rope_scaling)
         return q, k, v
 

@@ -1,9 +1,9 @@
 """Qwen2.5-VL (3B/7B): the EVisRAG generator.
 
 Counterpart of visrag_tpu/models/qwen25_vl.py (configs, vision tower, text
-model, Qwen25VL with the training forward and prefill / decode /
-embed_prompt / prefill_chunk, and the critic's `QwenForValue`; the
-sequence-parallel `sp_mesh` is not ported). Module names follow the HF
+model with its sequence-parallel `sp_mesh` path, Qwen25VL with the
+training forward and prefill / decode / embed_prompt / prefill_chunk, and
+the critic's `QwenForValue`). Module names follow the HF
 checkpoint (`visual.blocks.{i}.attn.qkv`,
 `model.layers.{i}.self_attn.q_proj`, ...), so loading is a copy by name
 (models/hf_loader.py).
@@ -30,6 +30,13 @@ checkpoint (`visual.blocks.{i}.attn.qkv`,
     `Qwen25VL.forward(..., return_logits=False)` skips the full-sequence LM
     head: eager PyTorch has no dead-code elimination, and (B, S, vocab)
     logits of a 16k-token row are 10 GB in fp32.
+  * Sequence parallelism (`sp_mesh`, a mesh with a seq axis): each rank of
+    the seq group keeps its contiguous block of the sequence through every
+    layer (the embeddings, mrope positions and cos/sin are sliced along S;
+    the vision tower runs unsharded), attention runs
+    parallel/ulysses.sp_flash_attention (`sp_backend` "ulysses": K4 at
+    H/n heads between all_to_alls; "ring": P2P ring attention), and the
+    model returns this rank's block of the hidden states.
   * KV writes are in place into the caller's layer-stacked cache tensors
     (layers, ...), which the JAX package threads through as donated
     per-layer buffers instead.
@@ -106,6 +113,9 @@ class QwenTextConfig:
     dtype: Any = torch.bfloat16
     # False | True (whole-block recomputation) | "mlp" (the MLP only)
     remat: Any = False
+    # sequence-parallel attention when an sp_mesh is passed: "ulysses"
+    # (all_to_all head sharding) | "ring" (P2P k/v rotation)
+    sp_backend: str = "ulysses"
 
     @property
     def head_dim(self) -> int:
@@ -160,7 +170,7 @@ class Qwen25VLConfig:
         t = d.get("text_config") or d
         v = d.get("vision_config") or {}
 
-        def pick(src, config_cls, skip=("dtype",)):
+        def pick(src, config_cls, skip=("dtype", "sp_backend")):
             names = {f.name for f in dataclasses.fields(config_cls)}
             return {k: (tuple(x) if isinstance(x := src[k], list) else x)
                     for k in src
@@ -327,21 +337,24 @@ class QwenTextBlock(nn.Module):
             return x + checkpoint(self._mlp_part, x, use_reentrant=False)
         return x + self._mlp_part(x)
 
-    def forward(self, x, cos, sin, lengths, seg=None):
+    def forward(self, x, cos, sin, lengths, seg=None, sp_mesh=None):
         """Whole-row causal pass: right-padded rows with `lengths` (K1), or
         packed rows with segment ids `seg` (B, S) int32 (K4; lengths is
-        then None). → (out, (k, v)) with k/v (B, S, kvh, d) after rope."""
+        then None). With sp_mesh, x is this rank's sequence block and
+        lengths / seg the full rows' (sp_flash_attention). → (out, (k, v))
+        with k/v (B, S, kvh, d) after rope."""
         q, k, v = self._qkv(x, cos, sin)
-        if seg is not None:
+        if sp_mesh is not None:
+            from ..parallel.ulysses import sp_flash_attention
+            o = sp_flash_attention(q, k, v, q_seg=seg, kv_seg=seg,
+                                   lengths=lengths, causal=True,
+                                   mesh=sp_mesh, backend=self.cfg.sp_backend)
+        elif seg is not None:
             o = flash_attention(q, k, v, seg, seg, causal=True)
         else:
             o = flash_fwd_lengths(q, k, v, lengths, True,
                                   self.cfg.head_dim ** -0.5)
         return self._residual(x, o), (k, v)
-
-    def hidden(self, x, cos, sin, lengths, seg=None):
-        """forward without the K/V (what a recomputed block returns)."""
-        return self.forward(x, cos, sin, lengths, seg)[0]
 
     def prefill_chunk(self, x, cos, sin, kc, vc, chunk_rows, gather_rows,
                       start):
@@ -417,17 +430,33 @@ class QwenTextModel(nn.Module):
         return mrope_cos_sin(positions, inv_freq, c.mrope_section)
 
     def forward(self, input_ids=None, *, inputs_embeds=None, positions=None,
-                attention_mask=None, segment_ids=None, return_kv=False):
+                attention_mask=None, segment_ids=None, return_kv=False,
+                sp_mesh=None):
         """Causal pass over right-padded rows (attention_mask (B, S): a
         contiguous valid prefix per row; None: all valid) or, with
         segment_ids (B, S), over packed rows whose sequences stay
         independent (ids <= 0 are padding). → hidden (B, S, E) after the
-        final norm, and with return_kv the per-layer (k, v) list."""
+        final norm, and with return_kv the per-layer (k, v) list. sp_mesh:
+        a mesh (mesh.build_mesh) whose seq ranks share these rows; at seq
+        > 1 the hidden states returned are this rank's (B, S / seq, E)
+        block of the sequence."""
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         b, s, _ = inputs_embeds.shape
         device = inputs_embeds.device
         cos, sin = self.cos_sin(positions, b, s, device)
+        from ..mesh import SEQ, axis_index, axis_size
+        n_seq = axis_size(sp_mesh, SEQ)
+        if n_seq > 1:
+            if s % n_seq or return_kv:
+                raise ValueError(f"sequence parallelism over {n_seq} ranks "
+                                 f"needs S ({s}) a multiple of it "
+                                 "(parallel.ulysses.pad_seq_for_ulysses) "
+                                 "and no return_kv")
+            blk = slice(axis_index(sp_mesh, SEQ) * (s // n_seq),
+                        (axis_index(sp_mesh, SEQ) + 1) * (s // n_seq))
+            inputs_embeds = inputs_embeds[:, blk]
+            cos, sin = cos[:, blk], sin[:, blk]
         seg = lengths = None
         if segment_ids is not None:
             seg = segment_ids.to(device=device, dtype=torch.int32).contiguous()
@@ -441,10 +470,12 @@ class QwenTextModel(nn.Module):
         kvs = []
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer.hidden, x, cos, sin, lengths, seg,
-                               use_reentrant=False)
+                # the module's own call, so that FSDP2's hooks gather a
+                # sharded block's weights in the forward and the recompute
+                x = checkpoint(layer, x, cos, sin, lengths, seg, sp_mesh,
+                               use_reentrant=False)[0]
                 continue
-            x, kv = layer(x, cos, sin, lengths, seg)
+            x, kv = layer(x, cos, sin, lengths, seg, sp_mesh)
             if return_kv:
                 kvs.append(kv)
         out = self.norm(x)
@@ -547,17 +578,19 @@ class Qwen25VL(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, positions=None,
                 vision_batch=None, slot_map=None, segment_ids=None,
-                vision_embeds=None, return_logits=True):
+                vision_embeds=None, return_logits=True, sp_mesh=None):
         """→ (logits (B, S, V), hidden (B, S, E)). vision_embeds: a
         precomputed (N, E) table of tower outputs that slot_map indexes (the
         frozen-tower RL update), instead of vision_batch. return_logits
         False → (None, hidden): the caller projects chunks of hidden
-        itself and the (B, S, V) tensor is never built."""
+        itself and the (B, S, V) tensor is never built. sp_mesh: sequence
+        parallelism (QwenTextModel.forward): at seq > 1, S in the outputs
+        is this rank's block."""
         hidden = self.model(
             inputs_embeds=self._embed(input_ids, vision_batch, slot_map,
                                       vision_embeds),
             positions=positions, attention_mask=attention_mask,
-            segment_ids=segment_ids)
+            segment_ids=segment_ids, sp_mesh=sp_mesh)
         return (self.compute_logits(hidden) if return_logits else None), \
             hidden
 

@@ -30,7 +30,10 @@ def quant_rowwise(x, axis: int = -1):
     """x (..., k) → (int8 q, fp32 scale (..., 1)). Symmetric absmax."""
     xf = x.float()
     amax = xf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    # a tensor divisor: PyTorch's CUDA kernels divide by a Python scalar
+    # as a multiply by its reciprocal, which can round the scale an ulp
+    # away from the CPU's division, and a code a step away with it
+    scale = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 

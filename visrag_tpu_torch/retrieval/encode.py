@@ -1,9 +1,12 @@
 """Batched embedding inference loop.
 
-Counterpart of visrag_tpu/retrieval/encode.py (prefetch, EmbeddingWriter,
-encode_dataset): host preprocessing of batch n+1 runs in a worker thread
-while the GPU encodes batch n, the first batch is checked for NaNs, and
-embeddings can spill to .npy/.json shards for corpora larger than host RAM.
+Counterpart of visrag_tpu/retrieval/encode.py (make_encode_step,
+prefetch, EmbeddingWriter, encode_dataset): host preprocessing of batch
+n+1 runs in a worker thread while the GPU encodes batch n, the first
+batch is checked for NaNs, and embeddings can spill to .npy/.json shards
+for corpora larger than host RAM. Across ranks, each rank encodes its
+block of every batch and the representations come back in the global
+order on every rank.
 """
 
 from __future__ import annotations
@@ -17,6 +20,24 @@ from typing import Callable, Iterable, Iterator, List, Optional, Sequence, \
 
 import numpy as np
 import torch
+
+
+def make_encode_step(model_apply: Callable[..., torch.Tensor], mesh=None):
+    """The data-parallel encode step. Without a mesh: model_apply itself.
+    With one: step(**batch) encodes this rank's block of the global batch
+    (the caller builds it from mesh.local_slice of the batch's rows) and
+    all-gathers the (rows, D) representations over (replica, data), so
+    that every rank returns the global batch's in the global order, as one
+    process would."""
+    if mesh is None:
+        return model_apply
+    from ..mesh import BATCH_AXES, all_gather_rows, axis_group
+    group = axis_group(mesh, *BATCH_AXES)
+
+    def step(**batch):
+        return all_gather_rows(model_apply(**batch).float(), group)
+
+    return step
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
@@ -97,13 +118,14 @@ def encode_dataset(step: Callable[..., torch.Tensor],
                    batches: Iterable[Tuple[Sequence[str], dict]],
                    writer: Optional[EmbeddingWriter] = None,
                    prefetch_depth: int = 2) -> Tuple[List[str], np.ndarray]:
-    """`batches` yields (ids, batch dict); step(**batch) → (B, D) tensor.
+    """`batches` yields (ids, batch) with step(**batch) → (B, D) tensor.
     Batches may be padded on dim 0: ids mark the valid prefix. Raises
     FloatingPointError if the first batch gives a NaN."""
     writer = writer or EmbeddingWriter()
     first = True
     for ids, batch in prefetch(iter(batches), prefetch_depth):
-        reps = step(**batch).float().cpu().numpy()[:len(ids)]
+        reps = step(**batch)
+        reps = reps.float().cpu().numpy()[:len(ids)]
         if first:
             if np.isnan(reps).any():
                 raise FloatingPointError("NaN embeddings in first batch")

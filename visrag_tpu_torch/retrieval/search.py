@@ -1,11 +1,21 @@
 """Exact dense top-k retrieval on one GPU, over an fp32 or an int8 corpus.
 
 Counterpart of visrag_tpu/retrieval/search.py (topk_single,
-quantize_rows, topk_single_int8, quantize_rows_np, StreamingSearcher,
-self_retrieve, build_run): the scores of a query batch against the corpus
-on the device, their top-k, and a corpus streamed in chunks whose running
-top-k is merged on the host. The multi-device sharded top-k is not ported
-(one card).
+quantize_rows, topk_single_int8, quantize_rows_np, make_sharded_topk,
+shard_corpus, shard_corpus_int8, StreamingSearcher, self_retrieve,
+build_run): the scores of a query batch against the corpus on the device,
+their top-k, and a corpus streamed in chunks whose running top-k is merged
+on the host.
+
+Across ranks (a mesh): each rank holds a contiguous shard of the corpus
+rows, in (replica, data) order, scores it (a plain GEMM in fp32, K6 over
+an int8 shard), masks the pad rows past the true corpus size to -inf,
+takes its local top-k (min(k, rows) wide, padded with -inf), offsets the
+ids by rank * rows, and one all_gather of the (Q, k) candidates gives
+every rank the exact global top-k. Candidates are shard-major and each
+shard's are in (score descending, id ascending) order, so ties taken to
+the lower position are ties to the lower global id, as in the JAX
+shard_map.
 
 The int8 corpus halves the bytes of a resident corpus against bf16 (a
 quarter of fp32), and the scan is bound by those bytes. Codes and scales
@@ -107,21 +117,111 @@ def topk_single_int8(queries, corpus_q, corpus_scale, k: int):
     return topk_lower_index(scores, k)
 
 
+def _merge(scores, k: int, n_true, shard: int, group):
+    """A shard's scores (Q, rows) → the global (scores (Q, k), ids (Q, k))
+    on every rank of `group` (see the module docstring)."""
+    rows = scores.shape[1]
+    if (shard + 1) * rows > n_true:          # this shard holds pad rows
+        ids = shard * rows + torch.arange(rows, device=scores.device)
+        scores = torch.where(ids[None, :] < n_true, scores,
+                             torch.full_like(scores, -torch.inf))
+    s, idx = topk_lower_index(scores, min(k, rows))
+    if s.shape[1] < k:
+        pad = k - s.shape[1]
+        s = torch.nn.functional.pad(s, (0, pad), value=-torch.inf)
+        idx = torch.nn.functional.pad(idx, (0, pad))
+    idx = idx + shard * rows
+    from ..mesh import all_gather_rows
+    s_all = all_gather_rows(s.T, group).T               # (Q, n * k)
+    idx_all = all_gather_rows(idx.T, group).T
+    best_s, pos = topk_lower_index(s_all.contiguous(), k)
+    return best_s, idx_all.gather(1, pos)
+
+
+def make_sharded_topk(mesh, k: int, quant: str = "none"):
+    """The sharded exact top-k over the mesh's (replica, data) ranks.
+    quant "none": fn(queries (Q, D), corpus_shard (rows, D), n_true);
+    "int8": fn(queries, codes_shard int8 (rows, D), scales_shard fp32
+    (rows,), n_true). Every rank passes the same queries and its own shard
+    (shard_corpus / shard_corpus_int8); each gets (scores (Q, k) fp32,
+    global ids (Q, k))."""
+    from ..mesh import BATCH_AXES, axis_group, axis_index
+    if quant not in QUANTS:
+        raise ValueError(f"quant {quant!r}: expected one of {QUANTS}")
+    group = axis_group(mesh, *BATCH_AXES)
+    shard = axis_index(mesh, *BATCH_AXES)
+
+    def fn(queries, corpus_shard, *rest):
+        if quant == "int8":
+            from ..ops.matmul_int8 import int8_matmul_fused
+            scales, n_true = rest
+            qq, qs = quantize_rows(queries)
+            scores = int8_matmul_fused(qq, qs, corpus_shard, scales, None,
+                                       out_dtype=torch.float32)
+        else:
+            (n_true,) = rest
+            scores = queries.float() @ corpus_shard.float().T
+        return _merge(scores, k, n_true, shard, group)
+
+    return fn
+
+
+def _shard_rows(x: np.ndarray, mesh, fill):
+    """This rank's block of x's rows after padding them with `fill` to a
+    multiple of the (replica, data) size."""
+    from ..mesh import BATCH_AXES, axis_size, local_slice
+    pad = (-x.shape[0]) % axis_size(mesh, *BATCH_AXES)
+    if pad:
+        x = np.concatenate([x, np.full((pad, *x.shape[1:]), fill, x.dtype)])
+    return local_slice(x, mesh)
+
+
+def shard_corpus(corpus: np.ndarray, mesh, device="cuda") -> torch.Tensor:
+    """This rank's shard of the corpus rows (fp32 on `device`): zero rows
+    pad the corpus to a multiple of the shard count, and the search masks
+    them by n_true."""
+    return torch.as_tensor(_shard_rows(np.asarray(corpus, np.float32), mesh,
+                                       0.0), device=device)
+
+
+def shard_corpus_int8(corpus_q: np.ndarray, corpus_scale: np.ndarray, mesh,
+                      device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """shard_corpus for a quantized corpus: pad rows are zero codes with
+    scale 1, codes and scales padded together."""
+    q = _shard_rows(np.asarray(corpus_q, np.int8), mesh, 0)
+    s = _shard_rows(np.asarray(corpus_scale, np.float32), mesh, 1.0)
+    return torch.as_tensor(q, device=device), torch.as_tensor(s, device=device)
+
+
 class StreamingSearcher:
     """Exact top-k over a corpus that arrives in chunks (device-memory
     bounded): each chunk is scored on `device`, its top-k merged on the
     host with the running best. quant="int8" quantizes each chunk on the
     host before its upload (quantize_rows_np) and the queries on the device
-    (quantize_rows), as the JAX searcher does."""
+    (quantize_rows), as the JAX searcher does. With a mesh each chunk is
+    sharded over the (replica, data) ranks and searched with
+    make_sharded_topk (every rank passes the same queries and chunks and
+    gets the same result); without one it is searched on one device."""
 
-    def __init__(self, k: int, device="cuda", quant: str = "none"):
+    def __init__(self, k: int, device="cuda", quant: str = "none",
+                 mesh=None):
         if quant not in QUANTS:
             raise ValueError(f"quant {quant!r}: expected one of {QUANTS}")
         self.k = k
         self.device = torch.device(device)
         self.quant = quant
+        self.mesh = mesh
+        self._fn = None if mesh is None else \
+            make_sharded_topk(mesh, k, quant)
 
     def _chunk_topk(self, q, chunk, k):
+        if self.mesh is not None:
+            if self.quant == "int8":
+                cq, cs = shard_corpus_int8(*quantize_rows_np(chunk),
+                                           self.mesh, self.device)
+                return self._fn(q, cq, cs, chunk.shape[0])
+            return self._fn(q, shard_corpus(chunk, self.mesh, self.device),
+                            chunk.shape[0])
         if self.quant == "int8":
             cq, cs = quantize_rows_np(chunk)
             return topk_single_int8(q, torch.from_numpy(cq).to(self.device),
@@ -156,11 +256,11 @@ class StreamingSearcher:
 
 
 def self_retrieve(query_reps: np.ndarray, query_ids: List[str], k: int,
-                  device="cuda") -> dict:
+                  device="cuda", mesh=None) -> dict:
     """Query-to-query retrieval for near-duplicate detection: the query
     embeddings are also the corpus, and self-matches are kept (the
     reference's distributed_parallel_self_retrieve). → a TREC-style run."""
-    scores, indices = StreamingSearcher(k, device).search(
+    scores, indices = StreamingSearcher(k, device, mesh=mesh).search(
         query_reps, [(query_reps, 0)])
     return build_run(scores, indices, query_ids, query_ids)
 

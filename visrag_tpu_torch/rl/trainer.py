@@ -126,17 +126,19 @@ class RLTrainer:
         alg = cfg.algorithm
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (data parallelism, FSDP) is not ported: the RL "
-                "trainer runs on one GPU")
+                "mesh= (data parallelism, FSDP) for RS-GRPO is the next "
+                "slice of the multi-GPU port: the RL trainer runs on one "
+                "GPU")
         if cfg.actor.ulysses_size > 1:
             raise NotImplementedError(
-                f"actor.ulysses_size={cfg.actor.ulysses_size}: sequence "
-                "parallelism is not ported (one GPU)")
+                f"actor.ulysses_size={cfg.actor.ulysses_size}: the RL "
+                "update under Ulysses is the next slice of the multi-GPU "
+                "port (SFT has it: training/sft.py)")
         if cfg.rollout.tensor_parallel_size > 1:
             raise NotImplementedError(
                 f"rollout.tensor_parallel_size="
                 f"{cfg.rollout.tensor_parallel_size}: the tensor-parallel "
-                "rollout engine is not ported (one GPU)")
+                "rollout engine is the next slice of the multi-GPU port")
         if (alg.adv_estimator == "gae") != (critic is not None):
             raise ValueError(
                 "adv_estimator='gae' needs a critic (rl/critic.py "

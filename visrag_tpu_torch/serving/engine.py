@@ -25,7 +25,7 @@ Differences from the JAX engine:
     the prefix cache (the JAX engine inserts the whole ids);
   * `set_params` takes the module (updated in place by the optimizer) and
     clears the prefix cache; there is no resharding at one card;
-  * not ported: tensor parallelism (`mesh`).
+  * tensor parallelism (`mesh`) is the next slice of the multi-GPU port.
 
 The engine calls only the model's `prefill` / `decode` and reads
 `cfg.text` for the pool's shape, plus `prefill_chunk` and `embed_prompt`

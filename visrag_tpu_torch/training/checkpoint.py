@@ -12,6 +12,12 @@ of orbax and the same layout:
 and keep-(newest + best) retention. Loading maps every tensor to the CPU
 through mmap, so a resume copies into the live model and optimizer without
 a second copy on the device.
+
+A trainer sharded by FSDP2 saves the same files: `full_tensors` gathers
+each sharded tensor (a collective every rank joins) and rank 0 writes;
+`load_full_into` copies this rank's piece of a full tensor into a sharded
+one. So one process and any number of ranks load each other's
+checkpoints to the same tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def _ckpt_dir(root: str, step: int) -> str:
@@ -112,3 +119,48 @@ def load_checkpoint(path: str):
         with open(epath) as f:
             extra = json.load(f)
     return tree, extra
+
+
+def full_tensors(tree):
+    """tree with every DTensor gathered to a full CPU tensor (a collective:
+    every rank of its mesh calls it) and plain tensors moved to the CPU;
+    dicts and lists are walked."""
+    if isinstance(tree, dict):
+        return {k: full_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_tensors(v) for v in tree)
+    if isinstance(tree, DTensor):
+        return tree.full_tensor().cpu()
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def load_full_into(dst: torch.Tensor, full: torch.Tensor) -> None:
+    """Copy `full` into dst in place; a sharded dst (DTensor) takes only
+    this rank's piece, chunked as DTensor's Shard placements chunk."""
+    if not isinstance(dst, DTensor):
+        dst.copy_(full)
+        return
+    piece = full
+    mesh = dst.device_mesh
+    for dim, placement in enumerate(dst.placements):
+        if placement.is_shard():
+            n, i = mesh.size(dim), mesh.get_local_rank(dim)
+            chunks = torch.chunk(piece, n, dim=placement.dim)
+            piece = chunks[i] if i < len(chunks) else \
+                piece.narrow(placement.dim, 0, 0)
+    dst.to_local().copy_(piece)
+
+
+def load_state_into(module: torch.nn.Module, state: Dict[str, Any]) -> None:
+    """module.load_state_dict(state) for a module whose tensors may be
+    sharded: the keys must match; each tensor takes its piece."""
+    own = module.state_dict()
+    if set(own) != set(state):
+        missing, extra = set(own) - set(state), set(state) - set(own)
+        raise KeyError(f"state keys differ: missing {sorted(missing)[:5]}, "
+                       f"unexpected {sorted(extra)[:5]}")
+    with torch.no_grad():
+        for name, t in own.items():
+            load_full_into(t, state[name])

@@ -5,9 +5,15 @@ Counterpart of visrag_tpu/training/contrastive.py:
   * target[i] = i * n_passages (one positive among n_passages per query);
   * loss = mean cross-entropy over the batch; accuracy = argmax == target.
 
-Negatives come from the batch on this GPU; cross-device negatives over
-torch.distributed are not ported (the trainer refuses more than one
-device).
+Cross-device negatives: with a process group (the mesh's (replica, data)
+ranks, each holding a contiguous block of the global batch) every rank
+all-gathers the representations, splices its own block back in with its
+gradient, and computes the loss over the gathered global order, query i
+against passage i * n_passages; each rank's backward then reaches only
+its own block's encoder. The loss is the same global mean on every rank,
+so the ranks' parameter gradients sum to the one-process gradient; FSDP2
+averages them over the ranks, and the trainer scales the backward by the
+rank count to undo that average (the reference's x world_size).
 
 GradCache runs in two passes over micro-batches of (query, page) batches:
   pass 1: encode every micro-batch under torch.no_grad (the attention
@@ -29,6 +35,7 @@ import dataclasses
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +59,25 @@ def contrastive_loss(q_reps, p_reps, cfg: ContrastiveConfig):
     return loss, {"accuracy": accuracy.detach(), "loss": loss.detach()}
 
 
-def direct_loss_fn(encode: Callable, cfg: ContrastiveConfig):
-    """loss(q_batch, p_batch, generator) for the path without GradCache."""
+def gather_reps(local, group=None):
+    """Every rank's (n, D) block in rank order, this rank's block spliced
+    back in with its gradient (the others are constants); `local` itself
+    without a group."""
+    if group is None:
+        return local
+    from ..mesh import all_gather_rows
+    full = all_gather_rows(local.detach(), group)
+    r, n = dist.get_rank(group), local.shape[0]
+    return torch.cat([full[:r * n], local, full[(r + 1) * n:]])
+
+
+def direct_loss_fn(encode: Callable, cfg: ContrastiveConfig, group=None):
+    """loss(q_batch, p_batch, generator) for the path without GradCache;
+    with a group, over the gathered global batch."""
 
     def fn(q_batch, p_batch, generator=None):
-        q_reps = encode(q_batch, generator)
-        p_reps = encode(p_batch, generator)
+        q_reps = gather_reps(encode(q_batch, generator), group)
+        p_reps = gather_reps(encode(p_batch, generator), group)
         return contrastive_loss(q_reps, p_reps, cfg)
 
     return fn
@@ -69,9 +89,12 @@ def _state(generator):
 
 def gradcache_backward(encode: Callable, cfg: ContrastiveConfig,
                        micro_batches: Sequence[Tuple[object, object]],
-                       generator: Optional[torch.Generator] = None):
-    """Two-pass GradCache over [(q_batch, p_batch), ...]; accumulates the
-    parameter gradients into .grad and returns (loss, metrics)."""
+                       generator: Optional[torch.Generator] = None,
+                       group=None, grad_scale: float = 1.0):
+    """Two-pass GradCache over [(q_batch, p_batch), ...], this rank's
+    micro-batches; with a group the loss is over every rank's. Accumulates
+    grad_scale x the parameter gradients into .grad and returns (loss,
+    metrics)."""
     states, q_parts, p_parts = [], [], []
     with torch.no_grad():
         for qb, pb in micro_batches:
@@ -81,8 +104,9 @@ def gradcache_backward(encode: Callable, cfg: ContrastiveConfig,
     q_reps = torch.cat(q_parts).requires_grad_(True)
     p_reps = torch.cat(p_parts).requires_grad_(True)
     with torch.enable_grad():
-        loss, metrics = contrastive_loss(q_reps, p_reps, cfg)
-        loss.backward()
+        loss, metrics = contrastive_loss(gather_reps(q_reps, group),
+                                         gather_reps(p_reps, group), cfg)
+        (loss * grad_scale).backward()
     gq = q_reps.grad.split([q.shape[0] for q in q_parts])
     gp = None if p_reps.grad is None else \
         p_reps.grad.split([p.shape[0] for p in p_parts])

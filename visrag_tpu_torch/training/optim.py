@@ -103,6 +103,9 @@ class AnyPrecisionAdamW(torch.optim.Optimizer):
                           for p in group["params"]]}
 
     def load_state_dict(self, state_dict):
+        """Copy saved states in place; a sharded (DTensor) state takes its
+        piece of a full saved one (training/checkpoint.load_full_into)."""
+        from .checkpoint import load_full_into
         params = [p for group in self.param_groups for p in group["params"]]
         if len(state_dict["state"]) != len(params):
             raise ValueError(f"optimizer state holds "
@@ -114,7 +117,7 @@ class AnyPrecisionAdamW(torch.optim.Optimizer):
                 raise ValueError(f"optimizer state keys {sorted(saved)} != "
                                  f"{sorted(st)}")
             for key, value in saved.items():
-                st[key].copy_(value)
+                load_full_into(st[key], value)
         self.count = int(state_dict["count"])
 
 

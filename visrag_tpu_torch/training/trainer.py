@@ -2,11 +2,21 @@
 clipping, the contrastive step (direct or GradCache), logging and
 checkpointing.
 
-Counterpart of visrag_tpu/training/trainer.py on one GPU. A step takes a
-list of (query batch, page batch) micro-batches: one pair on the direct
-path; with GradCache the caller splits the batch into micro-batches of
+Counterpart of visrag_tpu/training/trainer.py. A step takes a list of
+(query batch, page batch) micro-batches: one pair on the direct path;
+with GradCache the caller splits the batch into micro-batches of
 `grad_cache_micro_batch_size` pairs (each built on the host as its own
 batch, so every micro-batch's slot map indexes its own slices).
+
+With a mesh (one process per GPU) each rank takes its block of the global
+batch (mesh.local_slice, the JAX batch sharding), the negatives are
+shared across ranks (training/contrastive.py), and the weights are
+sharded by FSDP2: `fully_shard` on every ViT block and LM layer and at
+the root, over the `data` axis, or HSDP over (replica, data) when the
+replica axis is larger than 1, each parameter on the axis that the JAX
+rule `mesh.fsdp_param_spec` picks. The global-norm clip reduces the
+squared norms of the shards, and a checkpoint holds the full tensors
+(rank 0 writes the one-process format).
 """
 
 from __future__ import annotations
@@ -15,6 +25,8 @@ import time
 from typing import Callable, Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..config import TrainConfig
 from .contrastive import (ContrastiveConfig, direct_loss_fn,
@@ -42,18 +54,64 @@ def make_optimizer(params, cfg: TrainConfig, total_steps: int):
                              state_dtype=cfg.optimizer_state_dtype)
 
 
+def _sharded_norm(grads) -> torch.Tensor:
+    """The global norm of FSDP-sharded gradients: the shards' squared
+    norms summed over the mesh dims they are sharded on (not over the
+    replicated HSDP dim)."""
+    sq = torch.stack([torch.linalg.vector_norm(g.to_local().float()) ** 2
+                      for g in grads]).sum()
+    mesh = grads[0].device_mesh
+    for dim, placement in enumerate(grads[0].placements):
+        if placement.is_shard():
+            dist.all_reduce(sq, group=mesh.get_group(dim))
+    return sq.sqrt()
+
+
 @torch.no_grad()
 def clip_by_global_norm_(params: Sequence[torch.Tensor],
                          max_norm: float) -> torch.Tensor:
     """Scale the gradients in place to global norm ≤ max_norm (as
-    optax.clip_by_global_norm); → the norm before clipping (fp32)."""
+    optax.clip_by_global_norm); → the norm before clipping (fp32). Sharded
+    (FSDP2) gradients give the same norm as the full ones."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    if grads and isinstance(grads[0], DTensor):
+        norm = _sharded_norm(grads)
+        grads = [g.to_local() for g in grads]
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
     if norm >= max_norm:
         for g in grads:
             g.div_(norm.to(g.dtype)).mul_(max_norm)
     return norm
+
+
+def shard_model(model: torch.nn.Module, blocks, mesh, fsdp_mesh=None):
+    """FSDP2: `fully_shard` on each module of `blocks` and at the root,
+    over `fsdp_mesh` (default: the mesh's data axis, or HSDP on (replica,
+    data) when replica > 1), each parameter on the axis that
+    fsdp_param_spec picks for the shard count."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+    from ..mesh import BATCH_AXES, DATA, REPLICA, axis_size, fsdp_shard_dim, \
+        sub_mesh
+    if fsdp_mesh is None:
+        fsdp_mesh = sub_mesh(mesh, *BATCH_AXES) \
+            if axis_size(mesh, REPLICA) > 1 else sub_mesh(mesh, DATA)
+    sizes = {DATA: fsdp_mesh.mesh.shape[-1]}
+
+    def placement(p):
+        return Shard(fsdp_shard_dim(tuple(p.shape), sizes))
+
+    for block in blocks:
+        fully_shard(block, mesh=fsdp_mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=fsdp_mesh, shard_placement_fn=placement)
+
+
+def retriever_blocks(model: torch.nn.Module):
+    """The FSDP units of VisRAG-Ret: every ViT block and LM layer."""
+    bb = model.backbone
+    return list(bb.vpm.blocks) + list(bb.llm.layers)
 
 
 class RetrieverTrainer:
@@ -63,9 +121,11 @@ class RetrieverTrainer:
                  total_steps: int = 1000,
                  logger: Optional[Callable[[int, dict], None]] = None,
                  params: Optional[Sequence[torch.Tensor]] = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         """params: the tensors to train (default: every parameter of the
-        model that requires grad, e.g. only the LoRA adapters)."""
+        model that requires grad, e.g. only the LoRA adapters). mesh: a
+        DeviceMesh (mesh.build_mesh); the model is then sharded here and
+        each step takes this rank's micro-batches."""
         # as the JAX trainer: biaxial_loss is refused (the reference forbids
         # it); inbatch_loss=False and per-device negatives have no meaning
         # for an in-batch CE over the whole batch
@@ -84,6 +144,13 @@ class RetrieverTrainer:
                 "reduce the negative pool instead")
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            if params is not None:
+                raise NotImplementedError(
+                    "a subset of parameters (LoRA) under a mesh is not "
+                    "ported yet: FSDP2 shards every parameter of the model")
+            shard_model(model, retriever_blocks(model), mesh)
         self.params = list(params) if params is not None else \
             [p for p in model.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.params, cfg, total_steps)
@@ -107,18 +174,25 @@ class RetrieverTrainer:
         for p in self.params:
             p.grad = None
         self.model.train()
+        # the loss is the global mean on every rank and FSDP2 averages the
+        # ranks' gradients: scaling by the rank count makes their sum
+        from ..mesh import BATCH_AXES, axis_group, axis_size
+        group = None if self.mesh is None else \
+            axis_group(self.mesh, *BATCH_AXES)
+        scale = axis_size(self.mesh, *BATCH_AXES)
         if self.cfg.grad_cache:
-            loss, metrics = gradcache_backward(self.encode, self.ccfg,
-                                               micro_batches, self.generator)
+            loss, metrics = gradcache_backward(
+                self.encode, self.ccfg, micro_batches, self.generator,
+                group=group, grad_scale=scale)
         else:
             if len(micro_batches) != 1:
                 raise ValueError("without grad_cache a step takes one "
                                  f"(query, page) batch, got "
                                  f"{len(micro_batches)}")
             (qb, pb), = micro_batches
-            loss, metrics = direct_loss_fn(self.encode, self.ccfg)(
+            loss, metrics = direct_loss_fn(self.encode, self.ccfg, group)(
                 qb, pb, self.generator)
-            loss.backward()
+            (loss * scale).backward()
         return metrics
 
     def train_step(self, micro_batches) -> dict:
@@ -149,26 +223,36 @@ class RetrieverTrainer:
         return metrics_hist
 
     def save(self, checkpoint_dir: str) -> str:
-        from .checkpoint import save_checkpoint
+        """Save model, optimizer, step and data cursor; under a mesh every
+        rank gathers the full tensors and rank 0 writes them."""
+        from .checkpoint import _ckpt_dir, full_tensors, save_checkpoint
         extra = {"step": self.step}
         if self.data_iter is not None:
             extra["data"] = self.data_iter.state()
-        return save_checkpoint(
-            checkpoint_dir, self.step,
-            {"model": self.model.state_dict(),
-             "optimizer": self.optimizer.state_dict()},
-            extra=extra, save_limit=getattr(self.cfg, "save_limit", None))
+        tree = {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+        if self.mesh is None:
+            return save_checkpoint(
+                checkpoint_dir, self.step, tree, extra=extra,
+                save_limit=getattr(self.cfg, "save_limit", None))
+        tree = full_tensors(tree)
+        if dist.get_rank() == 0:
+            save_checkpoint(checkpoint_dir, self.step, tree, extra=extra,
+                            save_limit=getattr(self.cfg, "save_limit", None))
+        dist.barrier()
+        return _ckpt_dir(checkpoint_dir, self.step)
 
     def maybe_resume(self, checkpoint_dir: str) -> int:
         """Resume model, optimizer and step from the newest checkpoint; with
         self.data_iter set and a data cursor in the checkpoint, the iterator
         continues at the exact row. → the restored step (0 if none)."""
-        from .checkpoint import find_latest_ckpt, load_checkpoint
+        from .checkpoint import (find_latest_ckpt, load_checkpoint,
+                                 load_state_into)
         path = find_latest_ckpt(checkpoint_dir)
         if path is None:
             return 0
         tree, extra = load_checkpoint(path)
-        self.model.load_state_dict(tree["model"])
+        load_state_into(self.model, tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         self.step = int(extra["step"]) if extra else 0
         if self.data_iter is not None and extra and "data" in extra:

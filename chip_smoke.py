@@ -318,10 +318,24 @@ is non-zero; no phase catches an error and carries on):
      GradCache, the negatives' gather; the full-state checkpoint), its
      losses within RTOL_TRAIN of phase 5's; 2 SFT steps at Qwen2.5-VL-3B's
      width through sft_main's build_sft / run_sft on a one-rank mesh
-     (ulysses_size 1: K1 + LSE and K2), losses and grad norms within
-     RTOL_TRAIN of phase 10's (of a one-device run in the phase under
+     (ulysses_size 1: K1 + LSE and K2), losses and grad norms bit for bit
+     phase 10's (of a one-device run in the phase under
      --dist-only); K1, K2, K4, K6 and K7 launches
-     asserted on these runs.
+     asserted on these runs. 16e: train_retriever with train.lora_rank 8
+     (lr 1e-4, otherwise phase 5's settings) for 2 steps on one device and
+     under --coordinator (FSDP2 shards each block's frozen base with its
+     adapters), the losses and grad norms bit for bit, rank 0's
+     merged_model reloaded and one page embedded against the adapted
+     model. 16f: RS-GRPO through rl_main's rl_mesh, build_trainer and
+     run_training on a one-rank group at phase 9's 3B configuration for 2
+     steps (FSDP2 actor and reference policy, the engine on the whole
+     copy refilled after the update), step 1's token ids and rewards equal
+     to phase 9's and both steps' losses bit for bit, then one GAE step at
+     phase 11's settings (the critic sharded) bit for bit phase 11's first
+     (under --dist-only both against one-device runs in the phase). 16g:
+     K4 at the per-rank Ulysses shapes of phase 9's packed update (8/1 and
+     4/1 heads), launched through ulysses_attention and checked and timed
+     as the SFT batch's.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq and
@@ -335,8 +349,9 @@ and K1 at MiniCPM-2B's generation prefill and at MiniCPM-V 2.6's, and K5
 at MiniCPM-2B's 36/36 d 64 decode (launches from phases 12 and 13),
 and K1 at SigLIP's vision and text shapes, K7 LayerNorm at SigLIP's rows
 and K6 at the int8 scan's shape (launches from phase 15),
-and K4's forward, dq and dk/dv at Ulysses' per-rank shapes (launches
-from phase 16's ulysses_attention runs):
+and K4's forward, dq and dk/dv at Ulysses' per-rank shapes of the SFT
+batch and of the RL packed update (launches from phase 16's
+ulysses_attention runs):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
 max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
 forward, dq and dk/dv (the mma.sync kernels), pr5_ms for K6 (the
@@ -3435,6 +3450,7 @@ def phase9_rl(rows_path, cfg, tmp):
         return rb
     trainer._pack_micro, trainer.rollout = pack_micro, rollout
 
+    batches = _capture_batches(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in (al, kg, pk, seg):
@@ -3548,6 +3564,8 @@ def phase9_rl(rows_path, cfg, tmp):
             f"reward_mean {m['reward_mean']:.3f} | seconds {split} | "
             f"{m['perf/throughput']:.1f} tokens/s")
     launches["padded_update"] = _micro_check(trainer, stash, cfg)
+    # what phase 16 holds RS-GRPO across ranks to
+    launches["reference"] = ([m for _, m in history], batches)
     del trainer, model, ref_model, engine, stash, rollouts
     gc.collect()
     torch.cuda.empty_cache()
@@ -3835,6 +3853,7 @@ def phase11_gae(rows_path, tmp):
         return encode_qwen_prompt_row(row, tok, tok, cfg, rcfg.rollout)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    batches = _capture_batches(trainer)
     for mod in (al, kg, pk, seg, norms):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3927,7 +3946,8 @@ def phase11_gae(rows_path, tmp):
     del trainer, critic, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {**launches, "k2_by_head_dim": k2_by_d}
+    return {**launches, "k2_by_head_dim": k2_by_d,
+            "reference": ([m for _, m in history], batches)}
 
 
 def rl_phases(gen):
@@ -5175,9 +5195,14 @@ def gen_kernel_rows(gen_results):
 DIST_EVAL_BATCH = 8        # eval_retriever --batch-size on the 16 pages
 DIST_TRAIN_STEPS = 2
 DIST_SFT_STEPS = 2
-# the SFT batch's rows under 2- and 4-way Ulysses: every rank attends the
+DIST_LORA_RANK = 8
+# LoRA's learning rate: large enough that one step of the rank-8 adapters
+# (scale alpha / r = 8) moves bf16 weights of the merged model
+DIST_LORA_LR = 1e-4
+# the 3B's 16/2 heads under 2- and 4-way Ulysses: every rank attends the
 # whole sequence at (query heads, kv heads) = 16/n, 2 → 1 (repeated by
-# n // gcd(2, n) before the all_to_all)
+# n // gcd(2, n) before the all_to_all); the SFT batch's rows and the RL
+# packed update's
 ULYSSES_SHAPES = ((2, 8, 1), (4, 4, 1))
 
 
@@ -5299,23 +5324,23 @@ def _sft_batch_ids():
     return batch["attention_mask"].astype(np.int32)
 
 
-def _dist_ulysses(mesh, gen):
+def _dist_ulysses(mesh, gen, ids_np, tag):
     """K4 under Ulysses at the per-rank shapes of 2- and 4-way sequence
-    parallelism on the 3B SFT batch: parallel.ulysses_attention over the
+    parallelism on rows with segment ids `ids_np` (the 3B SFT batch, or
+    the packed update of phase 9): parallel.ulysses_attention over the
     one-rank seq group (its all_to_alls over NCCL) forward and backward,
     launches counted; then K4's forward, dq and dk/dv at those shapes
-    against the plain versions, timed (phase 8's check). → ({shape: K4
-    launches}, {shape: records})."""
+    against the plain versions, timed (phase 8's check). → ({n: K4
+    launches}, {n: records})."""
     from visrag_tpu_torch.mesh import SEQ, axis_group
     from visrag_tpu_torch.ops import attention as seg
     from visrag_tpu_torch.parallel.ulysses import ulysses_attention
-    ids_np = _sft_batch_ids()
     ids = torch.as_tensor(ids_np, device=DEV)
     b, s = ids_np.shape
     group = axis_group(mesh, SEQ)
     launches, records = {}, {}
     for n, h, hk in ULYSSES_SHAPES:
-        label = (f"Ulysses {n}-way per rank, SFT batch {b} x {s}, {h}/{hk} "
+        label = (f"Ulysses {n}-way per rank, {tag} {b} x {s}, {h}/{hk} "
                  f"heads d 128")
         q, k, v = (torch.randn((b, s, x, 128), generator=gen, device=DEV,
                                dtype=torch.bfloat16).requires_grad_()
@@ -5335,6 +5360,23 @@ def _dist_ulysses(mesh, gen):
         log(f"[16] {label}: ulysses_attention forward + backward launched "
             f"{launches[n]}")
     return launches, records
+
+
+def _rl_packed_ids(work):
+    """The segment ids of phase 9's first packed micro-batch (its prompts
+    encoded by the driver's encode_qwen_prompt_row, RL_RESPONSE_TOKENS
+    each, 4 samples a prompt), as phase 8 builds them."""
+    from visrag_tpu_torch.driver.common import encode_qwen_prompt_row
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    tok = RLStandInTokenizer()
+    rollout_cfg = _rl_config(work, 1).rollout
+    with open(_rl_rows(work)) as f:
+        prompts = [encode_qwen_prompt_row(json.loads(line), tok, tok,
+                                          Qwen25VLConfig.b3(), rollout_cfg)
+                   for line in f]
+    seqlens = [len(p["input_ids"]) + RL_RESPONSE_TOKENS
+               for p in prompts for _ in range(4)]
+    return _packed_ids(seqlens, 16384)[0]
 
 
 def _dist_train(work, phase5_losses):
@@ -5424,8 +5466,9 @@ def _dist_sft(work, phase10_history=None):
     one-rank mesh (seq 1: sp_flash_attention falls through to K1 / K2),
     FSDP2 over the group, DIST_SFT_STEPS steps of phase 10's rows from
     phase 10's seed and lr, rank 0 saving the full weights; the losses and
-    grad norms within RTOL_TRAIN of phase 10's (run here on one device,
-    without a mesh, when phase 10 did not run). → the launch counts."""
+    grad norms bit for bit phase 10's (run here on one device, without a
+    mesh, when phase 10 did not run): one rank computes one device's
+    step. → the launch counts."""
     from visrag_tpu_torch import mesh as vmesh
     from visrag_tpu_torch.config import MeshConfig
     from visrag_tpu_torch.driver import sft_main
@@ -5468,15 +5511,18 @@ def _dist_sft(work, phase10_history=None):
     one = phase10_history[:DIST_SFT_STEPS]
     rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(hist, one)
               for k in ("loss", "grad_norm"))
+    same = [(g["loss"], g["grad_norm"]) for g in hist] == \
+        [(w["loss"], w["grad_norm"]) for w in one]
     log(f"[16] SFT through sft_main.build_sft / run_sft on a one-rank mesh "
         f"(FSDP2, ulysses_size 1): {len(hist)} steps in {run_s:.1f} s incl. "
         f"the full-weights save | losses "
         f"{[round(m['loss'], 6) for m in hist]}, grad norms "
         f"{[round(m['grad_norm'], 5) for m in hist]} against one device's "
         f"{[round(m['loss'], 6) for m in one]}, "
-        f"{[round(m['grad_norm'], 5) for m in one]}: max rel err {rel:.3g} "
-        f"(bound {RTOL_TRAIN}) | peak {peak:.2f} GB | launches {launches}")
-    if len(hist) != DIST_SFT_STEPS or not rel <= RTOL_TRAIN:
+        f"{[round(m['grad_norm'], 5) for m in one]}: max rel err {rel:.3g}, "
+        f"bit for bit {same} (bound: bit for bit) | peak {peak:.2f} GB | "
+        f"launches {launches}")
+    if len(hist) != DIST_SFT_STEPS or not same:
         raise RuntimeError(f"distributed SFT {hist} against one device's "
                            f"{one}")
     if not all(launches[k] > 0 for k in ("fwd_lse", "dq", "dkv", "rmsnorm")):
@@ -5484,52 +5530,318 @@ def _dist_sft(work, phase10_history=None):
     return launches
 
 
+def _capture_batches(trainer):
+    """Keep each step's token ids and rewards (trainer.make_batch
+    wrapped). → the list they go into."""
+    seen = []
+    make = trainer.make_batch
+
+    def make_batch(*a, **kw):
+        batch = make(*a, **kw)
+        if batch is not None:
+            seen.append({k: batch[k].copy()
+                         for k in ("input_ids", "reward_tensor")})
+        return batch
+    trainer.make_batch = make_batch
+    return seen
+
+
+def _dist_lora(work):
+    """16e: train_retriever.main with train.lora_rank=DIST_LORA_RANK at
+    phase 5's settings (lr DIST_LORA_LR) for DIST_TRAIN_STEPS steps, on
+    one device and under --coordinator (FSDP2 over the one-rank group,
+    each block's frozen base and its adapters one unit, the optimizer on
+    the adapters alone): the losses and grad norms bit for bit; rank 0's
+    merged_model reloaded embeds a page as the adapted model does. → the
+    distributed run's launch counts."""
+    from visrag_tpu_torch.config import ModelConfig, TrainConfig
+    from visrag_tpu_torch.driver import train_retriever
+    from visrag_tpu_torch.driver.common import build_visrag_ret
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.preprocess import MockTokenizer, build_encode_batch
+    from visrag_tpu_torch.preprocess.device import (finish_encode_batch,
+                                                    pos_table_tensor)
+    from visrag_tpu_torch.training.checkpoint import (find_latest_ckpt,
+                                                      load_checkpoint,
+                                                      load_state_into)
+    from visrag_tpu_torch.training.lora import lora_init, lora_merge
+    data = f"{work}/train.parquet"
+    if not os.path.exists(data):
+        _write_train_parquet(data, _pages(0), N_PAGES)
+
+    def argv(out):
+        return ["--train-data", data, "--output-dir", out,
+                "--set", f"train.max_steps={DIST_TRAIN_STEPS}",
+                "--set", f"train.epochs={TRAIN_STEPS}",
+                "--set", "train.grad_cache=true",
+                "--set", f"train.grad_cache_micro_batch_size={MICRO}",
+                "--set", "train.optimizer_state_dtype=bfloat16",
+                "--set", "model.remat=true", "--set", "model.pooling=wmean",
+                "--set", f"train.lr={DIST_LORA_LR}",
+                "--set", "train.grad_clip=1.0",
+                "--set", "train.softmax_temperature=0.02",
+                "--set", f"data.batch_size={N_PAGES}",
+                "--set", "train.log_every=1",
+                "--set", f"train.lora_rank={DIST_LORA_RANK}",
+                "--set", f"train.save_every={DIST_TRAIN_STEPS}"]
+
+    hist, secs, launches, peak = {}, {}, None, 0.0
+    for name, extra in (("one", []), ("dist", _coordinator())):
+        out = f"{work}/lora_{name}"
+        al.reset_launch_counts()
+        norms.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if train_retriever.main(argv(out) + extra) != 0:
+            raise RuntimeError(f"train_retriever with LoRA ({name}) failed")
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches = {**al.launch_counts(), **norms.launch_counts()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with open(f"{out}/metrics.jsonl") as f:
+            hist[name] = [(m["loss"], m["grad_norm"])
+                          for m in map(json.loads, f)]
+        if name == "one":
+            shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for g, w in zip(hist["dist"], hist["one"])
+              for a, b in zip(g, w))
+    same = hist["dist"] == hist["one"]
+
+    # rank 0's merged save against the adapted model on one page
+    tree, _ = load_checkpoint(find_latest_ckpt(f"{work}/lora_dist"))
+    model, pcfg = build_visrag_ret(ModelConfig(pooling="wmean"), device=DEV,
+                                   seed=0)
+    lora_init(model, rank=DIST_LORA_RANK, alpha=TrainConfig().lora_alpha,
+              generator=torch.Generator(device=DEV).manual_seed(0))
+    load_state_into(model, tree["model"])
+    page = finish_encode_batch(
+        build_encode_batch(MockTokenizer(), _pages(0)[:1], pcfg,
+                           device_mode=True),
+        pos_table_tensor(pcfg.src_grid, DEV))
+    merged = tree["merged_model"]
+    moved = sum(int((merged[k] != tree["model"][k]).sum())
+                for k in merged if f"{k[:-len('weight')]}lora_a"
+                in tree["model"])
+    with torch.inference_mode():
+        adapted = model(page).float()
+    model = lora_merge(model)
+    model.load_state_dict(merged)
+    with torch.inference_mode():
+        reloaded = model(page).float()
+    err = float((adapted - reloaded).abs().max())
+    del model, tree, merged, page
+    shutil.rmtree(f"{work}/lora_dist", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[16e] train_retriever with train.lora_rank={DIST_LORA_RANK} "
+        f"(lr {DIST_LORA_LR}, otherwise phase 5's settings), "
+        f"{DIST_TRAIN_STEPS} steps: one device {secs['one']:.1f} s, "
+        f"--coordinator (FSDP2, base and adapters one unit a block) "
+        f"{secs['dist']:.1f} s incl. model init and the saves | (loss, grad "
+        f"norm) {hist['dist']} against one device's {hist['one']}: bit for "
+        f"bit {same}, max rel err {rel:.3g} | merged_model written by rank "
+        f"0: {moved} base weights moved by the adapters; one page embedded "
+        f"by the reloaded merged model against the adapted model: max abs "
+        f"err {err:.3g} (bound {RTOL_BLOCK}) | peak {peak:.2f} GB | "
+        f"launches {launches}")
+    if not same or not err <= RTOL_BLOCK or moved == 0:
+        raise RuntimeError(f"LoRA under a mesh: {hist} against one "
+                           f"device's, merged embedding err {err}, "
+                           f"{moved} weights moved")
+    if not all(launches[k] > 0 for k in ("flat", "stacked", "fwd_lse", "dq",
+                                         "dkv", "layernorm", "rmsnorm")):
+        raise RuntimeError(f"LoRA training launches {launches}")
+    return launches
+
+
+def _rl_run(work, model_cfg, rcfg, mesh=None, gae=False):
+    """rl_main's build_trainer (and build_critic with gae) on Qwen2.5-VL
+    of seed 0 and run_training over phase 9's prompts and reward, without
+    a save; with `mesh` (rl_main.rl_mesh) across its ranks. → (history,
+    each step's token ids and rewards, launch counts, seconds, peak GB)."""
+    from visrag_tpu_torch.driver.common import (build_qwen25_vl,
+                                                encode_qwen_prompt_row)
+    from visrag_tpu_torch.driver.rl_main import (build_critic, build_trainer,
+                                                 run_training)
+    from visrag_tpu_torch.ops import attention as seg
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.ops import norms
+    from visrag_tpu_torch.serving import paged_kv as pk
+    tok = RLStandInTokenizer()
+    rows_path = _rl_rows(work)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_qwen25_vl(model_cfg, device=DEV, seed=0)
+    ref_model = copy.deepcopy(model) if rcfg.actor.kl_coef > 0 else None
+    critic = build_critic(model, rcfg, seed=0, mesh=mesh) if gae else None
+    trainer = build_trainer(model, rcfg, tok, tok, ref_model=ref_model,
+                            critic=critic, mesh=mesh)
+    batches = _capture_batches(trainer)
+    for mod in (al, kg, pk, seg, norms):
+        mod.reset_launch_counts()
+    history = run_training(
+        trainer, rcfg, rows_path,
+        lambda row: encode_qwen_prompt_row(row, tok, tok, model_cfg,
+                                           rcfg.rollout), save_final=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {**al.launch_counts(), "kvgrid": kg.launches,
+                "paged": pk.launches, **seg.launch_counts(),
+                **norms.launch_counts()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del trainer, critic, model, ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [m for _, m in history], batches, launches, secs, peak
+
+
+def _same_batches(got, want):
+    return len(got) >= 1 and len(want) >= 1 and all(
+        got[0][k].shape == want[0][k].shape and (got[0][k] == want[0][k])
+        .all() for k in ("input_ids", "reward_tensor"))
+
+
+def _dist_rl(work, rl_ref=None, gae_ref=None):
+    """16f: RS-GRPO through rl_main's rl_mesh, build_trainer and
+    run_training over a one-rank NCCL group at phase 9's 3B configuration
+    (FSDP2 actor and reference policy, the rollout on the whole copy),
+    RL_STEPS steps, against phase 9's run (run here on one device when it
+    did not run): step 1's token ids and rewards equal and its loss bit
+    for bit, step 2's loss within the one-rank bound (bit for bit); then
+    one GAE step at phase 11's settings (the critic sharded too) held the
+    same way to phase 11's first. → the runs' launch counts."""
+    from visrag_tpu_torch import mesh as vmesh
+    from visrag_tpu_torch.driver.rl_main import rl_mesh
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    r = dataclasses.replace
+    cfg = Qwen25VLConfig.b3()
+    cfg = r(cfg, text=r(cfg.text, remat=True))
+    rcfg = _rl_config(f"{work}/rl_dist", RL_STEPS)
+    rcfg = r(rcfg, trainer=r(rcfg.trainer, save_freq=0))
+    gcfg = r(cfg, text=r(cfg.text, num_hidden_layers=GAE_LAYERS))
+    grcfg = _rl_config(f"{work}/gae_dist", 1)
+    grcfg = r(grcfg, algorithm=r(grcfg.algorithm, adv_estimator="gae"),
+              actor=r(grcfg.actor, kl_coef=0.0),
+              trainer=r(grcfg.trainer, critic_warmup=1, save_freq=0))
+    held_to = "phase 9's" if rl_ref is not None else "one device's"
+    if rl_ref is None:
+        rl_ref = _rl_run(work, cfg, rcfg)[:2]
+    if gae_ref is None:
+        gae_ref = _rl_run(work, gcfg, grcfg, gae=True)[:2]
+    runs = {}
+    for name, mcfg, c, gae in (("rl", cfg, rcfg, False),
+                               ("gae", gcfg, grcfg, True)):
+        with vmesh.distributed(f"localhost:{vmesh.free_port()}", 0, 1, DEV):
+            runs[name] = _rl_run(work, mcfg, c, rl_mesh(c), gae=gae)
+    hist, batches, launches, secs, peak = runs["rl"]
+    ref_hist, ref_batches = rl_ref
+    same_rollout = _same_batches(batches, ref_batches)
+    losses = [m["loss"] for m in hist]
+    ref_losses = [m["loss"] for m in ref_hist[:RL_STEPS]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    ghist, gbatches, glaunches, gsecs, gpeak = runs["gae"]
+    keys = ("critic/vf_loss", "critic/grad_norm", "critic/values/mean")
+    gsame = _same_batches(gbatches, gae_ref[1]) and all(
+        ghist[0][k] == gae_ref[0][0][k] for k in keys)
+    log(f"[16f] RS-GRPO through rl_main.rl_mesh / build_trainer / "
+        f"run_training on a one-rank NCCL group (FSDP2 actor and reference "
+        f"policy, the engine on the whole copy), {RL_STEPS} steps in "
+        f"{secs:.1f} s incl. init | step 1 token ids and rewards equal to "
+        f"{held_to} {same_rollout} | "
+        f"losses {losses} against {ref_losses}: step 1 bit for bit "
+        f"{losses[0] == ref_losses[0]}, step 2 rel err "
+        f"{abs(losses[1] - ref_losses[1]) / abs(ref_losses[1]):.3g} (max "
+        f"{rel:.3g}; bound: bit for bit) | peak {peak:.2f} GB | launches "
+        f"{launches}")
+    log(f"[16f] GAE, {GAE_LAYERS} text layers, one step (critic warmup) on "
+        f"a one-rank group, critic sharded: {gsecs:.1f} s incl. init | "
+        f"token ids and rewards equal and {keys} "
+        f"{[ghist[0][k] for k in keys]} against "
+        f"{[gae_ref[0][0][k] for k in keys]}: bit for bit {gsame} | peak "
+        f"{gpeak:.2f} GB | launches {glaunches}")
+    if not same_rollout or losses != ref_losses or not gsame:
+        raise RuntimeError(f"RS-GRPO across ranks: rollout equal "
+                           f"{same_rollout}, losses {losses} against "
+                           f"{ref_losses}; GAE equal {gsame}")
+    if not all(launches[k] > 0 for k in ("stacked", "kvgrid", "paged",
+                                         "seg_fwd", "seg_dq", "seg_dkv",
+                                         "rmsnorm")) or \
+            not all(glaunches[k] > 0 for k in ("stacked", "fwd_lse", "dq",
+                                               "dkv", "paged")):
+        raise RuntimeError(f"RS-GRPO across ranks launches {launches}, "
+                           f"GAE {glaunches}")
+    return {"rl": launches, "gae": glaunches}
+
+
 def phase16_distributed(gen, scan_ids=None, phase5_losses=None,
-                        phase10_history=None):
+                        phase10_history=None, rl_ref=None, gae_ref=None):
     """The multi-GPU layer on one card: every distributed entry point over
     a one-rank NCCL group at full width (eval_retriever and
-    train_retriever under --coordinator, make_sharded_topk, SFT on a mesh)
-    and K4 at Ulysses' per-rank shapes. → {"launches", "ulysses", "scan"}."""
+    train_retriever under --coordinator, make_sharded_topk, SFT on a
+    mesh, LoRA retriever training, RS-GRPO and GAE across ranks) and K4
+    at Ulysses' per-rank shapes of the SFT batch and of the RL packed
+    update. → {"launches", "ulysses", "scan_ms"}."""
     from visrag_tpu_torch import mesh as vmesh
     from visrag_tpu_torch.config import MeshConfig
     t_phase = time.perf_counter()
     work = tempfile.mkdtemp(prefix="visrag_dist_")
+    ulysses, ulysses_launches = {}, {}
     try:
         eval_launches = _dist_eval(work)
         with vmesh.distributed(f"localhost:{vmesh.free_port()}", 0, 1, DEV):
             mesh = vmesh.build_mesh(MeshConfig())
             k6, scan_ms = _dist_scan(mesh, scan_ids)
-            ulysses_launches, ulysses = _dist_ulysses(mesh, gen)
+            t0 = time.perf_counter()
+            for tag, ids in (("SFT batch", _sft_batch_ids()),
+                             ("RL packed update", _rl_packed_ids(work))):
+                ulysses_launches[tag], ulysses[tag] = _dist_ulysses(
+                    mesh, gen, ids, tag)
+            log(f"[16g] K4 at the Ulysses shapes in "
+                f"{time.perf_counter() - t0:.1f} s")
         train_launches = _dist_train(work, phase5_losses)
         sft_launches = _dist_sft(work, phase10_history)
+        t0 = time.perf_counter()
+        lora_launches = _dist_lora(work)
+        log(f"[16e] in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rl_launches = _dist_rl(work, rl_ref, gae_ref)
+        log(f"[16f] in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[16] phase 16 in {time.perf_counter() - t_phase:.1f} s")
     return {"launches": {"eval": eval_launches, "train": train_launches,
                          "sft": sft_launches, "scan_int8_gemm": k6,
-                         "ulysses": ulysses_launches},
+                         "ulysses": ulysses_launches, "lora": lora_launches,
+                         **rl_launches},
             "ulysses": ulysses, "scan_ms": scan_ms}
 
 
 def dist_kernel_rows(dist_results):
-    """K4's rows at the Ulysses per-rank shapes (launches from phase 16's
-    ulysses_attention runs, numbers from its checks)."""
+    """K4's rows at the Ulysses per-rank shapes of the SFT batch and of
+    the RL packed update (launches from phase 16's ulysses_attention runs,
+    numbers from its checks)."""
     from visrag_tpu_torch.ops import attention as seg
     rows = []
-    for n, h, hk in ULYSSES_SHAPES:
-        rec = dist_results["ulysses"][n]
-        for kind, name in (("seg_fwd", "segment_fwd"),
-                           ("seg_dq", "segment_bwd_dq"),
-                           ("seg_dkv", "segment_bwd_dkv")):
-            rows.append({"name": f"{name} (Ulysses {n}-way per rank, "
-                                 f"{h}/{hk} heads)",
-                         "route": "cuda", "source": seg.HOPPER_SOURCE,
-                         "replaces": SEG_REPLACES[kind],
-                         "launches": dist_results["launches"]["ulysses"][n][
-                             kind],
-                         **{k: rec[kind][k] for k in KEYS},
-                         "pr4_ms": rec[kind].get("pr4_ms"),
-                         "checks": [rec[kind]]})
+    for tag, suffix in (("SFT batch", ""), ("RL packed update",
+                                            ", RL packed update")):
+        for n, h, hk in ULYSSES_SHAPES:
+            rec = dist_results["ulysses"][tag][n]
+            for kind, name in (("seg_fwd", "segment_fwd"),
+                               ("seg_dq", "segment_bwd_dq"),
+                               ("seg_dkv", "segment_bwd_dkv")):
+                rows.append({"name": f"{name} (Ulysses {n}-way per rank, "
+                                     f"{h}/{hk} heads{suffix})",
+                             "route": "cuda", "source": seg.HOPPER_SOURCE,
+                             "replaces": SEG_REPLACES[kind],
+                             "launches": dist_results["launches"][
+                                 "ulysses"][tag][n][kind],
+                             **{k: rec[kind][k] for k in KEYS},
+                             "pr4_ms": rec[kind].get("pr4_ms"),
+                             "checks": [rec[kind]]})
     return rows
 
 
@@ -5619,7 +5931,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     dist_results = phase16_distributed(gen, ret_results["scan_ids"],
                                        train_launches["losses"],
-                                       sft_launches["history"])
+                                       sft_launches["history"],
+                                       rl_launches["reference"],
+                                       gae_launches["reference"])
     log(f"[K2] Hopper launches by kernel and head dim (route counters): "
         f"phase 5 {train_launches['k2_by_head_dim']}, phase 9 (padded "
         f"update) {rl_launches['padded_update']['k2_by_head_dim']}, phase 10 "

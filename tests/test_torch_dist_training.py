@@ -20,6 +20,7 @@ processes that import no jax), and one torchrun launch of 2 processes
 (eval_retriever across 2 ranks is in tests/test_torch_dist_retrieval.py).
 """
 
+import dataclasses as dc
 import json
 import os
 import subprocess
@@ -42,13 +43,19 @@ from visrag_tpu.preprocess.device import finish_encode_batch as jfinish
 from visrag_tpu.training.trainer import RetrieverTrainer as JTrainer
 from visrag_tpu_torch.config import TrainConfig
 from visrag_tpu_torch.mesh import free_port
-from visrag_tpu_torch.models.hf_loader import from_jax_params
+from visrag_tpu_torch.models.hf_loader import (from_jax_params,
+                                               qwen_from_jax_params)
+from visrag_tpu_torch.models.qwen25_vl import Qwen25VL as Qwen25VLTorch
+from visrag_tpu_torch.models.qwen25_vl import \
+    Qwen25VLConfig as Qwen25VLConfigTorch
 from visrag_tpu_torch.preprocess import MockTokenizer, build_encode_batch
 from visrag_tpu_torch.preprocess.transform import bicubic_table
 from visrag_tpu_torch.training.checkpoint import load_checkpoint
 from visrag_tpu_torch.training.trainer import RetrieverTrainer
-from torch_dist_workers import (micro_batches, retriever_steps, spawn,
+from torch_dist_workers import (critic_update, micro_batches, rl_config,
+                                rl_trainer, rl_update, spawn, tiny_critic,
                                 tiny_pcfg, tiny_retriever, training_job)
+from test_torch_rl import tiny_ckpt  # noqa: F401  (fixture)
 
 TRAIN_KW = dict(lr=1e-3, warmup_ratio=0.0, softmax_temperature=0.05,
                 grad_clip=1.0, log_every=1)
@@ -158,24 +165,34 @@ def retriever(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def two(retriever, tmp_path_factory):
+def two(retriever, lora, rl, tmp_path_factory):
+    """The 2-rank job: the retriever runs, LoRA (the trainer and
+    train_retriever's merged save), and the RS-GRPO cases at data 2."""
     save_to = str(tmp_path_factory.mktemp("two_ckpt"))
     r = retriever
-    ranks = spawn(retriever_steps, 2, r["params"], r["queries"], r["pages"],
-                  TRAIN_KW, dict(data=2), [(False, 2), (True, 1)],
-                  r["ckpt"], save_to)
-    return ranks, save_to
+    ranks = spawn(training_job, 2,
+                  (r["params"], r["queries"], r["pages"], TRAIN_KW,
+                   dict(data=2), [(False, 2), (True, 1)], r["ckpt"],
+                   save_to),
+                  None, lora["args"](dict(data=2)),
+                  ([("visrag_tpu_torch.driver.train_retriever",
+                     lora["argv"](lora["dist_dir"]))],),
+                  rl["args"](2))
+    return [dict(rank[0], lora=rank[2], driver=rank[3], rl=rank[4])
+            for rank in ranks], save_to
 
 
 @pytest.fixture(scope="module")
-def four(retriever, sft):
+def four(retriever, sft, lora, rl):
     r = retriever
     return spawn(training_job, 4,
                  (r["params"], r["queries"], r["pages"], TRAIN_KW,
                   dict(replica=2, data=2), [(False, 1), (True, 1)]),
                  (sft["state"], {"remat": True},
                   dict(SFT_KW, ulysses_size=2), dict(data=2, seq=2),
-                  sft["batch"], 2))
+                  sft["batch"], 2),
+                 lora["args"](dict(replica=2, data=2)), None,
+                 rl["args"](4))
 
 
 def _check_retriever_runs(runs, retriever):
@@ -236,6 +253,110 @@ def test_checkpoints_cross_between_one_process_and_two_ranks(two,
     assert fresh.optimizer.count == 2
 
 
+# ---- LoRA -------------------------------------------------------------------
+
+LORA_KW = dict(rank=4, alpha=8.0)
+LORA_STEPS = 2
+
+
+@pytest.fixture(scope="module")
+def lora(retriever, tmp_path_factory):
+    """The one-process LoRA runs the ranks are held to: RetrieverTrainer
+    with the adapters (two direct steps on the global batch of 4) and
+    train_retriever.main with train.lora_rank on the tiny config (its
+    merged save)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from test_torch_slice import _img_bytes
+    from visrag_tpu_torch.driver.train_retriever import main as train_main
+    from visrag_tpu_torch.training.lora import lora_init, lora_merged_state
+    r = retriever
+    model = tiny_retriever(r["params"])
+    base = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    adapters = lora_init(model, generator=torch.Generator().manual_seed(0),
+                         **LORA_KW)
+    init = {k: v.detach().numpy().copy()
+            for k, v in model.state_dict().items() if ".lora_" in k}
+    tr = RetrieverTrainer(model, TrainConfig(**TRAIN_KW), total_steps=10,
+                          params=adapters)
+    batch = micro_batches(r["queries"], r["pages"], 4)
+    hist = [tr.train_step(batch) for _ in range(LORA_STEPS)]
+    state = model.state_dict()
+    one = (hist, {k: v.numpy() for k, v in state.items() if ".lora_" in k},
+           {k: v.numpy() for k, v in lora_merged_state(model).items()})
+
+    d = tmp_path_factory.mktemp("lora_driver")
+    rng = np.random.default_rng(3)
+    pq.write_table(pa.table({
+        "query": [f"question {i}" for i in range(8)],
+        "image": [{"bytes": _img_bytes(rng)} for _ in range(8)]}),
+        d / "train.parquet")
+    (d / "metadata.json").write_text('{"length": 8}')
+
+    def argv(out):
+        return ["--train-data", str(d / "train.parquet"), "--tiny",
+                "--device", "cpu", "--output-dir", str(out),
+                "--set", "train.max_steps=2", "--set", "train.log_every=1",
+                "--set", "data.batch_size=4", "--set", "train.lora_rank=4",
+                "--set", "train.lr=1e-3", "--set", "train.warmup_ratio=0"]
+    assert train_main(argv(d / "one")) == 0
+    return dict(one=one, init=init, base=base, argv=argv, dir=d,
+                dist_dir=d / "dist",
+                args=lambda mesh_kw: (r["params"], r["queries"], r["pages"],
+                                      TRAIN_KW, mesh_kw, LORA_KW,
+                                      LORA_STEPS))
+
+
+def _check_lora(got, lora):
+    """Loss and grad norm within 1e-5, the adapters' update and the merged
+    weights' change within 1e-3 relative Frobenius error of one
+    process's."""
+    hist, state = got
+    one_hist, one_adapters, one_merged = lora["one"]
+    _close_hist(hist, one_hist, 1e-5)
+    for key, one, before in (("adapters", one_adapters, lora["init"]),
+                             ("merged", one_merged, lora["base"])):
+        assert sorted(state[key]) == sorted(one)
+        names = [k for k in one if not np.array_equal(one[k], before[k])]
+        assert names
+        assert _update_err({k: torch.from_numpy(v)
+                            for k, v in state[key].items()},
+                           {k: torch.from_numpy(v) for k, v in one.items()},
+                           {k: torch.from_numpy(v)
+                            for k, v in before.items()}, names) <= 1e-3
+
+
+def test_lora_step_data2_matches_one_process(two, lora):
+    """data=2: the adapters after two steps (FSDP2 shards each block's
+    frozen base with its adapters; only the adapters train) and the
+    merged weights, against one process."""
+    ranks, _ = two
+    assert ranks[1]["lora"][0] == ranks[0]["lora"][0]
+    _check_lora(ranks[0]["lora"], lora)
+
+
+def test_lora_step_hsdp_matches_one_process(four, lora):
+    """replica=2 x data=2 (HSDP), the same step."""
+    _check_lora(four[0][2], lora)
+
+
+def test_lora_driver_merged_save_at_two_ranks(two, lora):
+    """train_retriever.main with train.lora_rank=4 across 2 ranks: every
+    rank gathers, rank 0 merges and writes merged_model: the one-process
+    driver's keys, and its tensors within 1e-5 (the same fp32 step split
+    over two ranks)."""
+    ranks, _ = two
+    assert ranks[0]["driver"] == ranks[1]["driver"] == [0]
+    got, _ = load_checkpoint(str(lora["dist_dir"] / "global_step_2"))
+    want, _ = load_checkpoint(str(lora["dir"] / "one" / "global_step_2"))
+    got, want = got["merged_model"], want["merged_model"]
+    assert sorted(got) == sorted(want)
+    assert not any(".lora_" in k for k in got)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)
+
+
 # ---- SFT --------------------------------------------------------------------
 
 
@@ -288,7 +409,8 @@ def sft():
         params, opt_state, m = jstep(params, opt_state, jb)
         jhist.append({k: float(v) for k, v in m.items()})
     return dict(state=state, batch=batch, before=before, one=one,
-                jax=(jhist, _as_port_tensors(shared, params)))
+                jax=(jhist, _as_port_tensors(shared, params)),
+                jparams=shared)
 
 
 def test_sft_step_data2_seq2_matches_one_process_and_jax(four, sft):
@@ -312,28 +434,285 @@ def test_sft_step_data2_seq2_matches_one_process_and_jax(four, sft):
                if k.startswith("visual."))
 
 
+# ---- RS-GRPO ----------------------------------------------------------------
+
+RL_RTOL, RL_ATOL = 2e-4, 2e-5      # the JAX package's sharded-update bar
+RL_LR = 1e-3
+
+
+def _close_weights(got, want, before):
+    """Every tensor within RL_RTOL / RL_ATOL of `want`, except the key
+    projections' biases: their gradient is zero in exact arithmetic (a
+    bias on the keys shifts a query's scores by one constant, which the
+    softmax removes), so AdamW's first step there is rounding noise of
+    about its eps normalised to up to lr, and one process's port and the
+    JAX package already differ there by ~2e-5. Those move from `before`
+    by at most lr (and the weight decay's share of it) in both."""
+    for k, v in want.items():
+        if k.endswith("k_proj.bias"):
+            for x in (got[k], v):
+                assert np.abs(x - before[k]).max() <= 1.1 * RL_LR, k
+            continue
+        np.testing.assert_allclose(got[k], v, rtol=RL_RTOL, atol=RL_ATOL,
+                                   err_msg=k)
+RL_UPDATES = {"padded": dict(padding_free=False, kl_coef=0.02),
+              "packed": dict(padding_free=True, kl_coef=0.02)}
+RL_SP = {"ulysses": ({}, None),
+         "ring": ({"sp_backend": "ring"}, {"sp_backend": "ring"})}
+
+
+def _jax_update(shared, cfg, batch):
+    from test_torch_rl import _jax_trainer
+    jt = _jax_trainer(shared, cfg, ref_params=jax.tree.map(jnp.asarray,
+                                                           shared))
+    b = dict(batch)
+    b["old_log_probs"] = jt.compute_log_probs(jt.params, b)
+    ref = jt.compute_log_probs(jt.ref_params, b)
+    b["ref_log_probs"] = ref - 0.1 * batch["response_mask"]
+    m = jt.update_policy(b)
+    moved = Qwen25VLTorch(Qwen25VLConfigTorch.tiny())
+    qwen_from_jax_params(moved, jax.tree.map(np.asarray, jt.params))
+    return b["old_log_probs"], m, {k: v.numpy() for k, v in
+                                   moved.state_dict().items()}
+
+
+@pytest.fixture(scope="module")
+def rl(sft, tmp_path_factory):
+    """The RS-GRPO inputs and what the ranks are held to: the tiny
+    Qwen2.5-VL's shared weights (the SFT fixture's JAX init) and a critic
+    over its text stack with a seeded score head; one synthetic
+    post-rollout batch (tests/test_rl.py's); the port's one-process padded
+    and packed updates, critic update and greedy rollout, and the JAX
+    one-device updates and critic; a one-process GAE trainer's checkpoint
+    for the ranks to resume."""
+    from test_torch_critic import _jax_critic, _port_value
+    from test_torch_rl import _synth, _vision_prompt
+    from visrag_tpu_torch.rl.critic import CriticTrainer
+    shared, state = sft["jparams"], sft["state"]
+    text = shared["params"]["model"]
+    vshared = {"params": {"model": text, "score": {"weight": (
+        np.random.default_rng(2).normal(0, 0.1, (
+            1, text["embed_tokens"]["embedding"].shape[1]))
+        .astype(np.float32))}}}
+    vstate = {k: v.numpy().copy()
+              for k, v in _port_value(vshared).state_dict().items()}
+    batch = _synth(7)
+    one, jx = {}, {}
+    for name, actor_kw in RL_UPDATES.items():
+        cfg = rl_config(actor_kw)
+        t = rl_trainer(state, cfg, None, ref=True)
+        one[name] = (*rl_update(t, batch), {k: v.numpy() for k, v in
+                                            t.model.state_dict().items()})
+        jx[name] = _jax_update(shared, cfg, batch)
+
+    cfg = rl_config(critic={"lr": 1e-3})
+    cbatch = _synth(5)
+    jc = _jax_critic(vshared, cfg)
+    jv = jc.compute_values(cbatch)
+    cbatch["values"] = jv
+    cbatch["returns"] = (jv + np.random.default_rng(6).normal(
+        0, 0.8, jv.shape)).astype(np.float32)
+    jc.update(dict(cbatch))
+    c = CriticTrainer(tiny_critic(vstate), cfg.critic,
+                      global_batch_size=cfg.trainer.global_batch_size)
+    one["critic"] = (*critic_update(c, cbatch), {
+        k: v.numpy() for k, v in c.model.state_dict().items()})
+    jx["critic"] = (jv, {k: v.numpy() for k, v in _port_value(
+        jax.tree.map(np.asarray, jc.params)).state_dict().items()})
+
+    rng = np.random.default_rng(4)
+    prompts = [dict(input_ids=rng.integers(0, 100, size=(6,))
+                    .astype(np.int32), ground_truth="gt6"),
+               _vision_prompt(rng),
+               dict(input_ids=rng.integers(0, 100, size=(11,))
+                    .astype(np.int32), ground_truth="gt11")]
+    rb = rl_trainer(state, rl_config(), None).rollout(prompts, 0, n=2,
+                                                       temperature=0.0)
+    one["rollout"] = {f.name: getattr(rb, f.name)
+                      for f in dc.fields(rb)}
+
+    # a one-process GAE trainer after one update of each model, saved
+    src = str(tmp_path_factory.mktemp("rl_one_ckpt"))
+    gcfg = rl_config(algorithm={"adv_estimator": "gae"},
+                     trainer={"output_dir": src})
+    gc = CriticTrainer(tiny_critic(vstate), gcfg.critic)
+    gt = rl_trainer(state, gcfg, None, critic=gc)
+    b = dict(batch)
+    b["old_log_probs"] = gt.compute_log_probs(gt.model, b)
+    gt.update_policy(b)
+    gc.update(dict(cbatch))
+    gt.step, gt._rng = 1, torch.Generator().manual_seed(5)
+    gt.save()
+    dst = str(tmp_path_factory.mktemp("rl_dist_ckpt"))
+
+    def args(world):
+        if world == 2:
+            cases = [("update", dict(data=2), (batch, kw, None))
+                     for kw in RL_UPDATES.values()]
+            cases += [("critic", dict(data=2), (cbatch,)),
+                      ("rollout", dict(data=2), (prompts, 2)),
+                      ("resume", dict(data=2), (batch, src, dst))]
+        else:
+            cases = [("update", dict(data=2, seq=2),
+                      (batch, dict(RL_UPDATES["packed"], ulysses_size=2,
+                                   **actor_kw), text_over))
+                     for actor_kw, text_over in RL_SP.values()]
+        return state, vstate, cases
+    return dict(one=one, jax=jx, args=args, src=src, dst=dst, gcfg=gcfg,
+                state=state, vstate=vstate,
+                critic_valid=cbatch["attention_mask"].astype(bool))
+
+
+def _check_update(got, one, jx, before):
+    """Old log-probs (and the reference pass, the same weights) and the
+    weights after one update against one process (rl_update) and the JAX
+    one-device update, at the JAX package's sharded-update tolerance."""
+    logp, ref, metrics, state = got
+    one_logp, _, one_metrics, one_state = one
+    jlogp, jmetrics, jstate = jx
+    np.testing.assert_allclose(logp, one_logp, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ref, logp, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(logp, jlogp, rtol=1e-4, atol=1e-4)
+    for k in ("loss", "grad_norm", "kl_loss", "entropy_loss"):
+        assert metrics[k] == pytest.approx(one_metrics[k], rel=1e-5,
+                                           abs=1e-7), k
+        assert metrics[k] == pytest.approx(jmetrics[k], rel=1e-3,
+                                           abs=1e-6), k
+    assert metrics["grad_skipped"] == 0.0
+    for want in (one_state, jstate):
+        _close_weights(state, want, before)
+
+
+@pytest.mark.parametrize("layout", list(RL_UPDATES))
+def test_rl_update_data2_matches_one_process_and_jax(two, rl, layout):
+    """data=2: compute_log_probs of the FSDP2 actor and reference policy
+    and one update_policy, padded (K1 / K2's plain versions) or packed
+    (K4's), each rank on its part of every micro-batch."""
+    ranks, _ = two
+    at = list(RL_UPDATES).index(layout)
+    assert ranks[1]["rl"][at][2] == ranks[0]["rl"][at][2]
+    _check_update(ranks[0]["rl"][at], rl["one"][layout], rl["jax"][layout],
+                  rl["state"])
+
+
+@pytest.mark.parametrize("backend", list(RL_SP))
+def test_rl_packed_update_data2_seq2_matches(four, rl, backend):
+    """data=2 x seq=2, actor.ulysses_size=2: the packed update and its
+    log-probs sequence-parallel (Ulysses all_to_all around K4's plain
+    version, or the ring), FSDP2 over the 4 ranks, against the packed
+    one-process and JAX updates."""
+    at = list(RL_SP).index(backend)
+    got = four[0][4][at]
+    assert all(r[4][at][2] == got[2] for r in four)
+    _check_update(got, rl["one"]["packed"], rl["jax"]["packed"],
+                  rl["state"])
+
+
+def test_gae_critic_data2_matches_one_process_and_jax(two, rl):
+    """data=2: the critic's values (gathered to the global batch) and one
+    clipped value update, against one process and the JAX critic."""
+    ranks, _ = two
+    values, metrics, state = ranks[0]["rl"][2]
+    before = rl["vstate"]
+    one_values, one_metrics, one_state = rl["one"]["critic"]
+    jvalues, jstate = rl["jax"]["critic"]
+    valid = rl["critic_valid"]
+    np.testing.assert_allclose(values, one_values, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(values[valid], jvalues[valid], rtol=1e-4,
+                               atol=1e-4)
+    for k, v in one_metrics.items():
+        assert metrics[k] == pytest.approx(v, rel=1e-5, abs=1e-7), k
+    for want in (one_state, jstate):
+        _close_weights(state, want, before)
+
+
+def test_greedy_rollout_data2_equals_one_process(two, rl):
+    """data=2, temperature 0: each rank rolls out its share of the 3
+    prompts (one multimodal) on its whole copy of the actor, and every
+    rank holds the one-process RolloutBatch, row for row."""
+    ranks, _ = two
+    want = rl["one"]["rollout"]
+    for rank in ranks:
+        got = rank["rl"][3]
+        for name, w in want.items():
+            if name == "vision":
+                assert sorted(got[name]) == sorted(w)
+                for k in w:
+                    np.testing.assert_array_equal(got[name][k], w[k], k)
+            elif isinstance(w, np.ndarray):
+                np.testing.assert_array_equal(got[name], w, name)
+            else:
+                assert got[name] == w, name
+
+
+def test_rl_checkpoints_cross_between_one_process_and_two_ranks(two, rl):
+    """A one-process GAE trainer's checkpoint (actor, critic, both
+    optimizers, the rng) resumes at 2 ranks bit for bit; the 2-rank
+    trainer's own save resumes in one process to the same tensors."""
+    from visrag_tpu_torch.rl.critic import CriticTrainer
+    from visrag_tpu_torch.training.checkpoint import find_latest_ckpt
+    ranks, _ = two
+    got = ranks[0]["rl"][4]
+    assert got["ok"] and got["step"] == 1
+    tree, extra = load_checkpoint(find_latest_ckpt(rl["src"]))
+    for key, want in (("model", tree["model"]),
+                      ("critic", tree["critic_model"])):
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[key][k], v.numpy(), k)
+    for key in ("optimizer", "critic_optimizer"):
+        assert got[key]["count"] == tree[key]["count"] == 1
+        for g, w in zip(got[key]["state"], tree[key]["state"]):
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k].float().numpy())
+    np.testing.assert_array_equal(got["rng"], np.asarray(extra["rng"],
+                                                         np.uint8))
+    cfg = dc.replace(rl["gcfg"], trainer=dc.replace(rl["gcfg"].trainer,
+                                                    output_dir=rl["dst"]))
+    c = CriticTrainer(tiny_critic(rl["vstate"]), cfg.critic)
+    t = rl_trainer(rl["state"], cfg, None, critic=c)
+    assert t.maybe_resume() and t.step == 1
+    for module, key in ((t.model, "model"), (c.model, "critic")):
+        for k, v in module.state_dict().items():
+            np.testing.assert_array_equal(v.numpy(), got[key][k], k)
+
+
 # ---- the drivers under torchrun ---------------------------------------------
 
 
-def _torchrun(module, args, timeout=240):
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+def _torchrun(module, args):
+    """Start `module` as 2 gloo ranks under torchrun. → the process."""
+    # transformers' tokenizer classes import no TensorFlow or Flax there
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT, USE_TF="0",
+               USE_FLAX="0")
     cmd = [sys.executable, "-m", "torch.distributed.run",
            "--nproc_per_node", "2", "--master_addr", "localhost",
            "--master_port", str(free_port()), "-m", module, *args]
-    done = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=timeout)
-    assert done.returncode == 0, done.stderr[-4000:]
-    return done
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
 
-def test_drivers_under_torchrun(tmp_path):
+def _finished(proc, timeout=240):
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, err = proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+
+
+def test_drivers_under_torchrun(tmp_path, tiny_ckpt):
     """train_retriever as 2 gloo ranks under torchrun with --device cpu on
     the tiny config: the retriever trains 2 steps from the global batch of
     4 (2 rows a rank) with the losses of one process and checkpoints the
-    global data cursor."""
+    global data cursor. rl_main as 2 gloo ranks on the tiny HF checkpoint
+    (FSDP2 actor and reference policy, the rollout split over the ranks)
+    for 1 step at temperature 0: the step's metrics are one process's,
+    and rank 0 writes the checkpoint. The two launches run side by side."""
     from test_torch_slice import _img_bytes
+    from test_torch_rl import _rl_args
     import pyarrow as pa
     import pyarrow.parquet as pq
+    from visrag_tpu_torch.driver.rl_main import main as rl_main
     from visrag_tpu_torch.driver.train_retriever import main as train_main
     rng = np.random.default_rng(0)
     pq.write_table(pa.table({
@@ -345,9 +724,17 @@ def test_drivers_under_torchrun(tmp_path):
               "--device", "cpu", "--set", "train.max_steps=2",
               "--set", "train.log_every=1", "--set", "data.batch_size=4"]
     out = tmp_path / "trained"
-    _torchrun("visrag_tpu_torch.driver.train_retriever",
-              common + ["--output-dir", str(out)])
+    greedy = ["--set", "rollout.temperature=0"]
+    launches = [_torchrun("visrag_tpu_torch.driver.train_retriever",
+                          common + ["--output-dir", str(out)]),
+                _torchrun("visrag_tpu_torch.driver.rl_main",
+                          _rl_args(tiny_ckpt, tmp_path, tmp_path / "rl")
+                          + greedy)]
     assert train_main(common + ["--output-dir", str(tmp_path / "one")]) == 0
+    assert rl_main(_rl_args(tiny_ckpt, tmp_path, tmp_path / "rl_one")
+                   + greedy) == 0
+    for proc in launches:
+        _finished(proc)
     hist, one = ([json.loads(line) for line in
                   (d / "metrics.jsonl").read_text().splitlines()]
                  for d in (out, tmp_path / "one"))
@@ -358,3 +745,13 @@ def test_drivers_under_torchrun(tmp_path):
     tree, extra = load_checkpoint(str(out / "global_step_2"))
     assert extra == {"step": 2, "data": {"epoch": 0, "row": 8}}
     assert {"model", "optimizer"} <= set(tree)
+
+    (got,), (want,) = ([json.loads(line) for line in
+                        (tmp_path / d / "metrics.jsonl").read_text()
+                        .splitlines()] for d in ("rl", "rl_one"))
+    assert got["step"] == 1
+    for k in ("loss", "grad_norm", "kl_loss", "reward_mean",
+              "response_length/mean"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-7), k
+    _, extra = load_checkpoint(str(tmp_path / "rl" / "global_step_1"))
+    assert extra["step"] == 1 and extra["data"]["row"] == 4

@@ -409,6 +409,35 @@ def test_packed_update_equals_padded(shared):
                                    atol=2e-5, msg=k)
 
 
+@pytest.mark.parametrize("padding_free", [True, False])
+def test_one_rank_mesh_update_equals_one_process(shared, padding_free):
+    """compute_log_probs and update_policy with the actor and reference
+    policy sharded over a one-rank gloo mesh (FSDP2) and without a mesh:
+    log-probs, metrics and weights equal to the bit."""
+    from visrag_tpu_torch import mesh as vmesh
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.training.checkpoint import full_tensors
+    batch = _synth(7)
+    cfg = _cfg(padding_free=padding_free, kl_coef=0.02)
+    runs = []
+    for one_rank in (False, True):
+        with vmesh.distributed(f"localhost:{vmesh.free_port()}", 0, 1,
+                               "cpu"):
+            mesh = vmesh.build_mesh(MeshConfig()) if one_rank else None
+            t = _port_trainer(shared, cfg, ref_model=_port_model(shared),
+                              mesh=mesh)
+            b = dict(batch)
+            b["old_log_probs"] = t.compute_log_probs(t.model, b)
+            b["ref_log_probs"] = t.compute_log_probs(t.ref_model, b) \
+                - 0.1 * b["response_mask"]
+            runs.append((b["old_log_probs"], t.update_policy(b),
+                         full_tensors(t.model.state_dict())))
+    (logp, m, state), (logp1, m1, state1) = runs
+    np.testing.assert_array_equal(logp1, logp)
+    assert m1 == m
+    assert all(torch.equal(state1[k], v) for k, v in state.items())
+
+
 def test_micro_batches_accumulate(shared):
     """A token budget that splits the minibatch into several micro-batches
     gives the single-micro-batch update (gradients add into .grad)."""
@@ -714,9 +743,12 @@ def test_refused_configurations_raise(shared, what):
     kw = {}
     err = NotImplementedError
     if what == "mesh":
-        kw["mesh"] = object()
+        # tensor parallelism stays refused: a mesh whose model axis is 2
+        kw["mesh"] = {"model": 2}
     elif what == "ulysses":
+        # as the JAX trainer: ulysses_size needs a mesh with seq of it
         cfg = _cfg(ulysses_size=2)
+        err = ValueError
     elif what == "tensor_parallel":
         cfg = dc.replace(cfg, rollout=dc.replace(cfg.rollout,
                                                  tensor_parallel_size=2))
@@ -788,12 +820,17 @@ def test_rl_main_cli_and_resume(tiny_ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--num-processes", "2"],
-                                  ["--coordinator", "localhost:1"],
+                                  ["--set", "rollout.tensor_parallel_size=2"],
                                   ["--set", "mesh.data=4"],
-                                  ["--set", "mesh.seq=2"]])
+                                  ["--set", "mesh.model=2"]])
 def test_rl_main_refuses_what_is_not_ported(tiny_ckpt, tmp_path, flag):
+    """Tensor parallelism is the next slice (NotImplementedError); a
+    layout that one process cannot fill, and processes without a
+    coordinator, are refused (ValueError)."""
     from visrag_tpu_torch.driver.rl_main import main
-    with pytest.raises(NotImplementedError):
+    err = NotImplementedError if "model" in flag[-1] or \
+        "tensor_parallel" in flag[-1] else ValueError
+    with pytest.raises(err):
         main(_rl_args(tiny_ckpt, tmp_path, tmp_path / "out") + flag)
 
 

@@ -165,6 +165,33 @@ def test_freeze_survives_weight_decay(shared):
                if k.startswith("model."))
 
 
+def test_one_rank_mesh_equals_one_process_bit_for_bit(shared):
+    """make_sft_step over a one-rank gloo mesh (FSDP2) and without one:
+    the same loss, accuracy and grad norm to the bit in each of 2 steps,
+    the clip active, and the same weights after. (At one rank the
+    sharded step computes the one-process loss: the log-probs of the
+    first S - 1 positions, whose head gradient is the tied embedding's;
+    and both global norms sum the tensors' squared norms in one order.)"""
+    from visrag_tpu_torch import mesh as vmesh
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.training.checkpoint import full_tensors
+    cfg = SFTConfig(lr=1e-3, weight_decay=0.1, warmup_steps=0, grad_clip=0.5)
+    batch = _batch(1)
+    runs = []
+    for one_rank in (False, True):
+        with vmesh.distributed(f"localhost:{vmesh.free_port()}", 0, 1,
+                               "cpu"):
+            mesh = vmesh.build_mesh(MeshConfig()) if one_rank else None
+            model = _port_model(shared)
+            _, step = make_sft_step(model, cfg, mesh)
+            hist = [{k: float(v) for k, v in step(batch).items()}
+                    for _ in range(2)]
+            runs.append((hist, full_tensors(model.state_dict())))
+    (hist, state), (hist1, state1) = runs
+    assert hist1 == hist and hist[0]["grad_norm"] > cfg.grad_clip
+    assert all(torch.equal(state1[k], v) for k, v in state.items())
+
+
 def test_token_accuracy_by_chunks_equals_full():
     rng = np.random.default_rng(3)
     hid = torch.from_numpy(rng.normal(size=(2, 300, 8)).astype(np.float32))

@@ -283,9 +283,190 @@ def mesh_layout(rank, world, layouts, rows):
     return out
 
 
-def training_job(rank, world, retriever_args, sft_args):
-    """retriever_steps and sft_steps in one job (each argument tuple is
-    theirs after rank and world; None skips it)."""
-    return (retriever_steps(rank, world, *retriever_args)
-            if retriever_args else None,
-            sft_steps(rank, world, *sft_args) if sft_args else None)
+def training_job(rank, world, retriever_args, sft_args, lora_args=None,
+                 driver_args=None, rl_args=None):
+    """retriever_steps, sft_steps, lora_steps, driver_runs and rl_job in
+    one job (each argument tuple is theirs after rank and world; None
+    skips it)."""
+    return tuple(fn(rank, world, *args) if args else None
+                 for fn, args in ((retriever_steps, retriever_args),
+                                  (sft_steps, sft_args),
+                                  (lora_steps, lora_args),
+                                  (driver_runs, driver_args),
+                                  (rl_job, rl_args)))
+
+
+# ---- LoRA -------------------------------------------------------------------
+
+
+def lora_steps(rank, world, params, items_q, items_p, train_kw, mesh_kw,
+               lora_kw, steps):
+    """LoRA adapters (lora_init from generator seed 0) on the tiny
+    retriever, RetrieverTrainer(params=adapters, mesh=...) for `steps`
+    steps on this rank's block of the global batch → the metrics and, on
+    rank 0, the full adapters and the merged state (lora_merged_state of
+    the gathered weights)."""
+    import torch
+    from visrag_tpu_torch.config import MeshConfig, TrainConfig
+    from visrag_tpu_torch.mesh import build_mesh, local_slice
+    from visrag_tpu_torch.training.checkpoint import full_tensors
+    from visrag_tpu_torch.training.lora import lora_init, lora_merged_state
+    from visrag_tpu_torch.training.trainer import RetrieverTrainer
+    mesh = build_mesh(MeshConfig(**mesh_kw))
+    model = tiny_retriever(params)
+    adapters = lora_init(model, generator=torch.Generator().manual_seed(0),
+                         **lora_kw)
+    tr = RetrieverTrainer(model, TrainConfig(**train_kw), total_steps=10,
+                          params=adapters, mesh=mesh)
+    lq, lp = local_slice(items_q, mesh), local_slice(items_p, mesh)
+    batch = micro_batches(lq, lp, len(lq))
+    hist = [tr.train_step(batch) for _ in range(steps)]
+    state = full_tensors(tr.model.state_dict())
+    if rank:
+        return hist, None
+    return hist, _numpy({"adapters": {k: v for k, v in state.items()
+                                      if ".lora_" in k},
+                         "merged": lora_merged_state(tr.model, state)})
+
+
+def driver_runs(rank, world, argvs):
+    """A driver's main (module path, argv) in the job's group, each."""
+    import importlib
+    return [importlib.import_module(mod).main(argv) for mod, argv in argvs]
+
+
+# ---- RS-GRPO ----------------------------------------------------------------
+
+RL_TAGS = {"<think>": [50], "<evidence>": [51], "<answer>": [52]}
+RL_ENGINE = dict(num_slots=4, max_len=64, prompt_buckets=(16,))
+
+
+def tiny_qwen(state, **text_over):
+    """The tiny Qwen2.5-VL (fp32) holding `state` (numpy, port names)."""
+    import dataclasses
+    import torch
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VL, Qwen25VLConfig
+    cfg = Qwen25VLConfig.tiny()
+    if text_over:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, **text_over))
+    model = Qwen25VL(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def tiny_critic(vstate):
+    import torch
+    from visrag_tpu_torch.models.qwen25_vl import QwenForValue, \
+        QwenTextConfig
+    model = QwenForValue(QwenTextConfig.tiny())
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in vstate.items()})
+    return model
+
+
+def rl_config(actor_kw=None, **over):
+    """RLConfig with lr 1e-3, the actor's `actor_kw`, and top-level
+    sections replaced field by field from `over` ({section: {field:
+    value}})."""
+    import dataclasses
+    from visrag_tpu_torch.config import RLConfig
+    cfg = RLConfig()
+    cfg = dataclasses.replace(cfg, actor=dataclasses.replace(
+        cfg.actor, lr=1e-3, **(actor_kw or {})))
+    for section, fields in over.items():
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
+            getattr(cfg, section), **fields)})
+    return cfg
+
+
+def rl_trainer(state, cfg, mesh, text_over=None, ref=False, critic=None):
+    from visrag_tpu_torch.rl.trainer import RLTrainer
+    return RLTrainer(tiny_qwen(state, **(text_over or {})), cfg,
+                     tokenizer_decode=lambda ids: (
+                         "<answer>x</answer>" if sum(ids) % 2 == 0
+                         else "wrong"),
+                     tag_token_ids=RL_TAGS, engine_kwargs=RL_ENGINE,
+                     ref_model=tiny_qwen(state) if ref else None,
+                     critic=critic, mesh=mesh)
+
+
+def rl_update(trainer, batch):
+    """The actor's and the reference policy's log-probs, then one
+    update_policy, with ref log-probs the reference pass less 0.1 on
+    response tokens → (old log-probs, ref pass, metrics)."""
+    b = dict(batch)
+    b["old_log_probs"] = trainer.compute_log_probs(trainer.model, b)
+    ref = trainer.compute_log_probs(trainer.ref_model, b)
+    b["ref_log_probs"] = ref - 0.1 * b["response_mask"]
+    return b["old_log_probs"], ref, trainer.update_policy(b)
+
+
+def critic_update(critic, batch):
+    """compute_values, then one update on batch's values and returns →
+    (values, metrics)."""
+    values = critic.compute_values(batch)
+    return values, critic.update(dict(batch))
+
+
+def _state(module, rank):
+    from visrag_tpu_torch.training.checkpoint import full_tensors
+    full = full_tensors(module.state_dict())
+    return _numpy(full) if rank == 0 else None
+
+
+def rl_job(rank, world, state, vstate, cases):
+    """Each case (kind, mesh layout, arguments) on a fresh mesh:
+      "update" (batch, actor_kw, text_over): rl_update → (old log-probs,
+        ref pass, metrics, the actor's full weights);
+      "critic" (batch,): critic_update → (values, metrics, full weights);
+      "rollout" (prompts, n): a greedy rollout → its fields;
+      "resume" (batch, from_dir, to_dir): a GAE trainer resumes from
+        from_dir → its full state; then it saves to to_dir."""
+    import dataclasses
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.mesh import build_mesh
+    from visrag_tpu_torch.rl.critic import CriticTrainer
+    out = []
+    for kind, mesh_kw, args in cases:
+        mesh = build_mesh(MeshConfig(**mesh_kw))
+        if kind == "update":
+            batch, actor_kw, text_over = args
+            t = rl_trainer(state, rl_config(actor_kw), mesh, text_over,
+                           ref=True)
+            out.append((*rl_update(t, batch), _state(t.model, rank)))
+        elif kind == "critic":
+            cfg = rl_config(critic={"lr": 1e-3})
+            c = CriticTrainer(tiny_critic(vstate), cfg.critic, mesh=mesh,
+                              global_batch_size=cfg.trainer
+                              .global_batch_size)
+            out.append((*critic_update(c, args[0]), _state(c.model, rank)))
+        elif kind == "rollout":
+            prompts, n = args
+            t = rl_trainer(state, rl_config(), mesh)
+            rb = t.rollout(prompts, 0, n=n, temperature=0.0)
+            out.append({f.name: getattr(rb, f.name)
+                        for f in dataclasses.fields(rb)})
+        else:
+            batch, from_dir, to_dir = args
+            cfg = rl_config(algorithm={"adv_estimator": "gae"},
+                            trainer={"output_dir": from_dir})
+            c = CriticTrainer(tiny_critic(vstate), cfg.critic, mesh=mesh)
+            t = rl_trainer(state, cfg, mesh, critic=c)
+            ok = t.maybe_resume()
+            got = {"model": _state(t.model, rank),
+                   "critic": _state(c.model, rank),
+                   "optimizer": _numpy_opt(t.optimizer, rank),
+                   "critic_optimizer": _numpy_opt(c.optimizer, rank),
+                   "rng": t._rng.get_state().numpy(), "step": t.step,
+                   "ok": ok}
+            t.cfg.trainer.output_dir = to_dir
+            t.save()
+            out.append(got)
+    return out
+
+
+def _numpy_opt(optimizer, rank):
+    from visrag_tpu_torch.training.checkpoint import full_tensors
+    full = full_tensors(optimizer.state_dict())
+    return _numpy(full) if rank == 0 else None

@@ -2,8 +2,7 @@
 
 Counterpart of visrag_tpu/driver/rl_main.py (CLI parity with the
 reference's verl/trainer/main.py + run_rsgrpo.sh): YAML + dotlist merge into
-the typed RLConfig tree; the whole loop is rl.trainer.RLTrainer in this
-process, on one GPU.
+the typed RLConfig tree; the whole loop is rl.trainer.RLTrainer.
 
     python -m visrag_tpu_torch.driver.rl_main --config rl.yaml \
         --data prompts.jsonl --checkpoint qwen_ckpt --output-dir out/ \
@@ -16,8 +15,22 @@ tokenizer and weights can drive exactly the same path. With
 `actor.kl_coef > 0` main loads a second, frozen copy of the checkpoint as
 the reference policy. With `algorithm.adv_estimator=gae` it builds the
 critic (`build_critic`): a copy of the actor's text backbone under a fresh
-value head. Multi-process flags, a mesh, and sequence and tensor
-parallelism are refused (not ported).
+value head.
+
+Across GPUs, one process each:
+
+    torchrun --nproc_per_node 8 -m visrag_tpu_torch.driver.rl_main \
+        --data prompts.jsonl --checkpoint qwen_ckpt --output-dir out/ \
+        --set actor.ulysses_size=2 [--set actor.sp_backend=ring]
+
+(or --coordinator host:port --process-id i --num-processes n in each
+process; `--device cpu` runs gloo ranks). The mesh is `mesh` of the
+config with its seq axis sized from actor.ulysses_size and the replica
+axis spanning nodes (`rl_mesh`); the actor, the reference policy and the
+critic are sharded over it and the rollout is split over (replica, data)
+(rl/trainer.py). Every rank reads the same prompts; rank 0 logs and
+writes. Tensor parallelism (rollout.tensor_parallel_size > 1, a mesh
+model axis > 1) is refused: it is the next slice of the port.
 """
 
 from __future__ import annotations
@@ -54,28 +67,41 @@ def engine_settings(cfg) -> dict:
                 prefix_cache=bool(r.prefix_cache and cpt is not None))
 
 
-def _single_device(args, cfg) -> None:
-    if (args.num_processes or 1) > 1 or args.coordinator:
+def rl_mesh(cfg):
+    """The RL job's mesh (None without a process group): the config's
+    mesh with seq sized from actor.ulysses_size (the reference's
+    ulysses_sequence_parallel_size, fsdp_workers.py:119) and the replica
+    axis spanning nodes. Tensor parallelism raises NotImplementedError;
+    a layout that the processes cannot fill raises ValueError."""
+    import torch.distributed as dist
+
+    from ..mesh import (build_mesh, mesh_shape, multihost_mesh_config,
+                        num_nodes_of_job)
+    if cfg.rollout.tensor_parallel_size > 1 or cfg.mesh.model > 1:
         raise NotImplementedError(
-            "multi-process RL training is the next slice of the "
-            "multi-GPU port; run one process on one GPU")
-    m = cfg.mesh
-    sizes = {"data": m.data, "model": m.model, "seq": m.seq,
-             "replica": m.replica}
-    if any(v not in (-1, 1) for v in sizes.values()):
-        raise NotImplementedError(
-            f"mesh {sizes}: visrag_tpu_torch runs RL on one GPU (RL "
-            "across ranks is the next slice of the multi-GPU port)")
+            f"rollout.tensor_parallel_size="
+            f"{cfg.rollout.tensor_parallel_size}, mesh.model="
+            f"{cfg.mesh.model}: tensor-parallel serving and the "
+            "tensor-parallel rollout are the next slice of the multi-GPU "
+            "port")
+    mesh_cfg = cfg.mesh
+    if cfg.actor.ulysses_size > 1:
+        mesh_cfg = dataclasses.replace(mesh_cfg, seq=cfg.actor.ulysses_size)
+    mesh_cfg = multihost_mesh_config(mesh_cfg, num_nodes_of_job())
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh_shape(mesh_cfg, world)                  # the layout, or ValueError
+    return build_mesh(mesh_cfg) if dist.is_initialized() else None
 
 
-def build_critic(model, cfg, *, seed: int = 0):
+def build_critic(model, cfg, *, seed: int = 0, mesh=None):
     """The GAE critic as the reference's driver builds it (a critic worker
     over the same base model with a fresh one-label head): QwenForValue
     whose text stack is a copy of the actor's (its own buffers: the critic
     trains them) and whose fp32 score head is drawn from a generator
     seeded with `seed` (lecun-normal, the JAX Dense's init), wrapped in a
     CriticTrainer on CriticConfig's optimizer and the run's batch and
-    schedule horizon."""
+    schedule horizon; with `mesh` (rl_mesh) the critic is sharded over
+    it."""
     import torch
 
     from ..models.qwen25_vl import QwenForValue
@@ -92,15 +118,16 @@ def build_critic(model, cfg, *, seed: int = 0):
                        torch.Generator(device=device).manual_seed(seed))
     return CriticTrainer(vmodel, cfg.critic,
                          global_batch_size=cfg.trainer.global_batch_size,
-                         total_steps=cfg.trainer.total_steps)
+                         total_steps=cfg.trainer.total_steps, mesh=mesh)
 
 
 def build_trainer(model, cfg, processor, tok, *, ref_model=None,
-                  critic=None):
+                  critic=None, mesh=None):
     """The RLTrainer as the driver wires it: the reward manager and the
     token ids of its span tags, the image token banned in rollouts, the
     engine settings, batch decoding through the tokenizer; `critic` (from
-    build_critic) for adv_estimator "gae"."""
+    build_critic) for adv_estimator "gae"; `mesh` (rl_mesh) to train
+    across ranks."""
     from ..rl.reward_manager import RewardManager
     from ..rl.trainer import RLTrainer
 
@@ -125,7 +152,7 @@ def build_trainer(model, cfg, processor, tok, *, ref_model=None,
         reward_manager=reward_manager, tag_token_ids=tags,
         eos_token_ids=[tok.eos_token_id],
         engine_kwargs=engine_settings(cfg), ref_model=ref_model,
-        banned_token_ids=banned, critic=critic)
+        banned_token_ids=banned, critic=critic, mesh=mesh)
 
 
 def run_training(trainer, cfg, rows, encode_row, *, val_rows=None,
@@ -180,24 +207,32 @@ def main(argv=None):
                     choices=("none", "mlp", "full"),
                     help="recompute in the update's backward: nothing, each "
                          "block's MLP, or whole blocks")
-    # accepted for CLI parity with the JAX driver, refused beyond one process
-    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 (multi-process runs)")
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     args = ap.parse_args(argv)
+    from ..mesh import distributed
+    with distributed(args.coordinator, args.process_id, args.num_processes,
+                     args.device) as (pid, _):
+        return _run(args, pid)
 
+
+def _run(args, pid):
     from ..config import RLConfig, dump_config, load_config
+    from ..mesh import local_device
     from ..utils.tracker import Tracker
     from .common import (build_qwen25_vl, encode_qwen_prompt_row,
                          get_processor, get_tokenizer, load_safetensors_dir,
                          qwen_config_from_checkpoint)
 
     cfg = load_config(RLConfig, yaml_path=args.config, dotlist=args.set)
-    _single_device(args, cfg)
+    mesh = rl_mesh(cfg)
     # checkpoints and the tracker live under --output-dir
     cfg.trainer.output_dir = args.output_dir
     os.makedirs(args.output_dir, exist_ok=True)
-    dump_config(cfg, os.path.join(args.output_dir, "run_config.json"))
+    if pid == 0:
+        dump_config(cfg, os.path.join(args.output_dir, "run_config.json"))
 
     processor = get_processor(args.checkpoint)
     # text-only checkpoints have no processor (get_processor → None);
@@ -209,17 +244,21 @@ def main(argv=None):
     state = load_safetensors_dir(args.checkpoint)
     mcfg = qwen_config_from_checkpoint(args.checkpoint, state)
     remat = {"none": False, "mlp": "mlp", "full": True}[args.remat]
-    mcfg = dataclasses.replace(
-        mcfg, text=dataclasses.replace(mcfg.text, remat=remat))
-    model = build_qwen25_vl(mcfg, device=args.device, state=state)
+    text = dataclasses.replace(mcfg.text, remat=remat)
+    if cfg.actor.ulysses_size > 1 and cfg.actor.sp_backend != "ulysses":
+        # the update's sequence-parallel attention (ring: P2P k/v rotation)
+        text = dataclasses.replace(text, sp_backend=cfg.actor.sp_backend)
+    mcfg = dataclasses.replace(mcfg, text=text)
+    model = build_qwen25_vl(mcfg, device=local_device(args.device),
+                            state=state)
     del state
     ref_model = copy.deepcopy(model) if cfg.actor.kl_coef > 0 else None
-    critic = build_critic(model, cfg) \
+    critic = build_critic(model, cfg, mesh=mesh) \
         if cfg.algorithm.adv_estimator == "gae" else None
 
     trainer = build_trainer(model, cfg, processor, tok, ref_model=ref_model,
-                            critic=critic)
-    tracker = Tracker(args.output_dir)
+                            critic=critic, mesh=mesh)
+    tracker = Tracker(args.output_dir if pid == 0 else None)
 
     def encode_row(row):
         return encode_qwen_prompt_row(row, processor, tok, mcfg, cfg.rollout)

@@ -28,7 +28,10 @@ data.batch_size is the global batch: every rank reads the same rows, and
 builds and trains on its block of each batch (mesh.local_slice), so the
 data cursor in a checkpoint is global and a resume lands on the same row
 at any rank count. Negatives are shared across ranks and the weights are
-FSDP2-sharded (training/trainer.py); rank 0 logs and writes.
+FSDP2-sharded (training/trainer.py); rank 0 logs and writes. With
+train.lora_rank > 0 only the adapters train, sharded with their frozen
+base; every rank gathers the full weights at the end, and rank 0 merges
+the adapters and writes `merged_model`.
 """
 
 from __future__ import annotations
@@ -155,10 +158,18 @@ def _run(args, pid, nproc):
     trainer.train(batches(), checkpoint_dir=args.output_dir)
     if trainer.step > done_steps and trainer.step % tcfg.save_every:
         trainer.save(args.output_dir)      # the last step, resumable
-    if params is not None and trainer.step and pid == 0:
-        from ..training.lora import lora_merge
-        save_checkpoint(args.output_dir, trainer.step,
-                        {"merged_model": lora_merge(model).state_dict()})
+    if params is not None and trainer.step:
+        # every rank joins the gather; rank 0 merges and writes
+        from ..training.checkpoint import full_tensors
+        from ..training.lora import lora_merged_state
+        state = model.state_dict()
+        if mesh is not None:
+            state = full_tensors(state)
+        if pid == 0:
+            save_checkpoint(args.output_dir, trainer.step,
+                            {"merged_model": lora_merged_state(model, state)})
+        if mesh is not None:
+            dist.barrier()
     tracker.close()
     print(f"done: {trainer.step} steps -> {args.output_dir}", file=sys.stderr)
     return 0

@@ -11,8 +11,14 @@ token normalization (dp_actor.py:286-288):
   final      = Σ_ch loss_ch · local_tokens_ch / global_tokens_ch
                / count(loss_ch ≠ 0)
 
-One process holds the whole minibatch, so the "global" token totals are
-passed in by the trainer (`total_tokens`); there is no `axis_name`.
+The "global" token totals of the minibatch are passed in by the trainer
+(`total_tokens`). Across ranks (`group`: the process group whose ranks
+hold the micro-batch's rows and sequence blocks between them) every
+denominator, channel count and metric is the micro-batch's over the
+group, and each rank's loss is its share: its own tokens' terms over the
+group's denominators, so that the shares sum to the one-process loss and
+each rank's gradient is that of its own tokens (the JAX package's
+GSPMD sums do this implicitly).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 
@@ -63,17 +70,66 @@ def chunked_token_log_probs(head_fn, hidden, labels, chunk: int = 512):
     return torch.cat(out, dim=1)
 
 
-def masked_mean(x, mask, eps: float = 1e-8):
-    return torch.sum(x * mask) / (torch.sum(mask) + eps)
+def group_sum(x, group=None):
+    """x summed over the ranks of `group`, without gradient; x itself
+    without a group."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, group=group)
+    return x
 
 
-def average_loss(values, mask, mode: str = "token", eps: float = 1e-8):
-    """core_algos.py:362-388. 'router' → per-channel means (n_rewards,)."""
+def seq_block(x, mesh=None, dim: int = 1):
+    """This rank's contiguous block of dim `dim` over the mesh's seq axis
+    (the block the sequence-parallel model returns); x itself at seq 1."""
+    from ..mesh import SEQ, axis_index, axis_size
+    n = axis_size(mesh, SEQ)
+    if n <= 1:
+        return x
+    s, r = x.shape[dim], axis_index(mesh, SEQ)
+    return x.narrow(dim, r * s // n, s // n)
+
+
+def next_token_log_probs(head_fn, hidden, input_ids, mesh=None):
+    """log p(the next token) at every position of `hidden`, 0 at the
+    sequence's last position → (B, S') fp32. hidden: the model's output,
+    whole rows (B, S, H), or at seq > 1 on `mesh` this rank's block (B,
+    S / seq, H), whose last position takes its label from the next
+    block's first token (input_ids are the whole rows)."""
+    from ..mesh import SEQ, axis_index, axis_size
+    labels = torch.roll(input_ids, -1, dims=1)
+    n = axis_size(mesh, SEQ)
+    if n <= 1:
+        logp = chunked_token_log_probs(head_fn, hidden[:, :-1],
+                                       labels[:, :-1])
+    else:
+        logp = chunked_token_log_probs(head_fn, hidden,
+                                       seq_block(labels, mesh))
+        if axis_index(mesh, SEQ) < n - 1:
+            return logp
+        logp = logp[:, :-1]
+    return torch.cat([logp, torch.zeros_like(logp[:, :1])], dim=1)
+
+
+def masked_mean(x, mask, eps: float = 1e-8, group=None):
+    """Σ x·mask / Σ mask; with a group, this rank's share: its own Σ x·mask
+    over the group's Σ mask."""
+    return torch.sum(x * mask) / (group_sum(torch.sum(mask), group) + eps)
+
+
+def average_loss(values, mask, mode: str = "token", eps: float = 1e-8,
+                 group=None):
+    """core_algos.py:362-388. 'router' → per-channel means (n_rewards,).
+    With a group ('router' and 'token'), this rank's share of the
+    group's means."""
     if mode == "router":
         return torch.sum(values * mask, dim=(0, 2)) / \
-            (torch.sum(mask, dim=(0, 2)) + eps)
+            (group_sum(torch.sum(mask, dim=(0, 2)), group) + eps)
     if mode == "token":
-        return masked_mean(values, mask, eps)
+        return masked_mean(values, mask, eps, group)
+    if group is not None:
+        raise ValueError(f"loss mode {mode!r} has no share across ranks")
     if mode == "seq":
         return torch.mean(torch.sum(values * mask, -1)
                           / (torch.sum(mask, -1) + eps))
@@ -82,13 +138,15 @@ def average_loss(values, mask, mode: str = "token", eps: float = 1e-8):
 
 def compute_policy_loss(old_log_probs, log_probs, advantages, response_mask,
                         reward_masks, *, clip_ratio_low=0.2,
-                        clip_ratio_high=0.3, clip_ratio_dual=3.0):
+                        clip_ratio_high=0.3, clip_ratio_dual=3.0,
+                        group=None):
     """core_algos.compute_policy_loss (:391-472).
 
     old_log_probs/log_probs (bs, len); advantages (bs, n_rewards) — or
     (bs, n_rewards, len) when already scoped per token (the packed
     padding-free path precomputes advantage·mask before packing);
-    reward_masks (bs, n_rewards, len). → (pg_loss (n_rewards,), metrics)."""
+    reward_masks (bs, n_rewards, len). → (pg_loss (n_rewards,), metrics);
+    with a group, this rank's shares of both."""
     reward_masks = reward_masks.to(log_probs.dtype)
     if advantages.dim() == 3:
         adv = advantages                                         # (bs, n, len)
@@ -108,16 +166,18 @@ def compute_policy_loss(old_log_probs, log_probs, advantages, response_mask,
     clipped_lower = torch.minimum(clipped_higher, pg3)
     final = torch.where(adv < 0, clipped_lower, clipped_higher)
 
-    pg_loss = average_loss(final, reward_masks, mode="router")
+    pg_loss = average_loss(final, reward_masks, mode="router", group=group)
 
     metrics = {
-        "ppo_kl": masked_mean(-neg_kl, reward_masks),
-        "pg_clipfrac_higher": masked_mean((pg1 < pg2).float(), reward_masks),
+        "ppo_kl": masked_mean(-neg_kl, reward_masks, group=group),
+        "pg_clipfrac_higher": masked_mean((pg1 < pg2).float(), reward_masks,
+                                          group=group),
         "pg_clipfrac_lower": masked_mean(
-            ((clipped_higher > pg3) & (adv < 0)).float(), reward_masks),
+            ((clipped_higher > pg3) & (adv < 0)).float(), reward_masks,
+            group=group),
         "entropy_loss": masked_mean(-log_probs[:, None, :] *
                                     torch.ones_like(reward_masks),
-                                    reward_masks),
+                                    reward_masks, group=group),
     }
     return pg_loss, metrics
 
@@ -143,35 +203,40 @@ def compute_kl(log_probs, ref_log_probs, kind: str = "low_var_kl"):
     raise ValueError(kind)
 
 
-def combine_channel_losses(pg_loss, reward_masks, *, total_tokens=None):
+def combine_channel_losses(pg_loss, reward_masks, *, total_tokens=None,
+                           group=None):
     """Per-reward token normalization (dp_actor.py:237-238, :286-288):
     final = Σ_ch pg_ch · local_tok_ch / global_tok_ch / #nonzero.
     total_tokens: the minibatch's (n_rewards,) token totals; None → this
-    micro-batch's own."""
-    local = torch.sum(reward_masks, dim=(0, 2)).float()
+    micro-batch's own. With a group, pg_loss is this rank's share, and
+    the micro-batch's token counts and nonzero channels are the group's."""
+    local = group_sum(torch.sum(reward_masks, dim=(0, 2)).float(), group)
     if total_tokens is None:
         total_tokens = local
-    nz = torch.sum((pg_loss != 0.0).float())
+    nz = torch.sum((group_sum(pg_loss, group) != 0.0).float())
     return torch.sum(pg_loss * local / torch.clamp(total_tokens, min=1.0)) / \
         torch.clamp(nz, min=1.0)
 
 
 def compute_value_loss(vpreds, returns, values, response_mask, *,
                        cliprange_value: float = 0.5,
-                       loss_avg_mode: str = "token"):
+                       loss_avg_mode: str = "token", group=None):
     """Clipped critic loss (core_algos.compute_value_loss :475-521).
-    All args (bs, len) in the same (logp-shifted) alignment."""
+    All args (bs, len) in the same (logp-shifted) alignment. With a group:
+    this rank's share of the loss, and the metrics over the group."""
     vpredclipped = torch.clamp(vpreds, values - cliprange_value,
                                values + cliprange_value)
     l1 = torch.square(vpreds - returns)
     l2 = torch.square(vpredclipped - returns)
     clipped = torch.maximum(l1, l2)
-    vf_loss = 0.5 * average_loss(clipped, response_mask, mode=loss_avg_mode)
+    vf_loss = 0.5 * average_loss(clipped, response_mask, mode=loss_avg_mode,
+                                 group=group)
     metrics = {
-        "vf_clipfrac": masked_mean((l1 < l2).float(), response_mask),
-        "vpred_mean": masked_mean(vpreds, response_mask),
+        "vf_clipfrac": masked_mean((l1 < l2).float(), response_mask,
+                                   group=group),
+        "vpred_mean": masked_mean(vpreds, response_mask, group=group),
     }
-    return vf_loss, metrics
+    return vf_loss, {k: group_sum(v, group) for k, v in metrics.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -233,17 +298,25 @@ def ppo_loss(old_log_probs, log_probs, advantages, response_mask,
              reward_masks, *, ref_log_probs=None, kl_coef: float = 0.0,
              kl_type: str = "low_var_kl", clip_ratio_low=0.2,
              clip_ratio_high=0.3, clip_ratio_dual=3.0,
-             total_tokens=None) -> tuple:
-    """Full actor objective → (scalar loss, metrics)."""
+             total_tokens=None, group=None) -> tuple:
+    """Full actor objective → (scalar loss, metrics). With a group: this
+    rank's share of the loss, and the micro-batch's metrics over the
+    group."""
     pg, metrics = compute_policy_loss(
         old_log_probs, log_probs, advantages, response_mask, reward_masks,
         clip_ratio_low=clip_ratio_low, clip_ratio_high=clip_ratio_high,
-        clip_ratio_dual=clip_ratio_dual)
+        clip_ratio_dual=clip_ratio_dual, group=group)
     if ref_log_probs is not None and kl_coef > 0.0:
         kld = compute_kl(log_probs, ref_log_probs, kl_type)[:, None, :]
         kl_loss = average_loss(kld.expand(reward_masks.shape),
-                               reward_masks.to(kld.dtype), mode="router")
+                               reward_masks.to(kld.dtype), mode="router",
+                               group=group)
         pg = pg + kl_loss * kl_coef
-        metrics = dict(metrics, kl_loss=torch.mean(kl_loss))
-    loss = combine_channel_losses(pg, reward_masks, total_tokens=total_tokens)
+        metrics = dict(metrics, kl_loss=torch.mean(group_sum(kl_loss,
+                                                             group)))
+    loss = combine_channel_losses(pg, reward_masks, total_tokens=total_tokens,
+                                  group=group)
+    if group is not None:
+        metrics = {k: v if k == "kl_loss" else group_sum(v, group)
+                   for k, v in metrics.items()}
     return loss, metrics

@@ -1,8 +1,8 @@
-"""RS-GRPO trainer: the single-controller RL loop on one GPU.
+"""RS-GRPO trainer: the RL loop on one GPU or across ranks.
 
 Counterpart of visrag_tpu/rl/trainer.py (which replaces the reference's
 Ray/FSDP/vLLM machinery: verl/trainer/ray_trainer.py:560-704,
-workers/fsdp_workers.py, actor/dp_actor.py:219-302) in one PyTorch process:
+workers/fsdp_workers.py, actor/dp_actor.py:219-302):
 
   rollout (serving.Engine, n samples/prompt, persistent across steps)
     → rewards (host: scoped channels, rl/rewards.py)
@@ -10,8 +10,9 @@ workers/fsdp_workers.py, actor/dp_actor.py:219-302) in one PyTorch process:
       unique uids (ray_trainer._make_batch_data :467-558)
     → ROUTER/GRPO advantage (rl/advantage.py), or GAE from the critic's
       values (rl/critic.py), the critic trained after the actor
-    → minibatch / token-budget micro-batch loops with dual-clip PPO
-      (dp_actor.update_policy :219-302).
+    → seqlen-balanced reorder across dp ranks (ray_trainer._balance_batch
+      :450-465) → minibatch / token-budget micro-batch loops with
+      dual-clip PPO (dp_actor.update_policy :219-302).
 
 Token alignment: log-probs live at position t for the token generated at
 t+1 (the label shift), so the update path shifts response/reward masks into
@@ -25,11 +26,37 @@ the padded layout, whose attention is the valid-length kernel K1 with its
 backward K2 (ops/attention_lengths.py), at the text model's d = 128 with
 grouped kv heads.
 
+Across ranks (`mesh`, one process per GPU; the JAX trainer's GSPMD batch
+is logically global, and so is this one's):
+
+  * the actor's and the reference policy's text layers are sharded by
+    FSDP2 over every rank that holds the weights, (replica, data, seq), as
+    SFT's are; the frozen vision tower stays whole on every rank;
+  * the rollout: rank i of (replica, data) rolls out its contiguous share
+    of the step's prompts (only the first seq rank of a data slot; the
+    others wait) on a whole copy of the actor that the engine reads and
+    that every rank refills from the sharded weights after an update (the
+    JAX trainer's rollout_model and Engine.set_params); the engine itself
+    issues no collective. Its sampler is seeded from the step's seed and
+    i (i = 0: the step's seed, as one process). The responses are gathered
+    in rank order, so that every rank holds the step's global batch in
+    the one-process order, and rewards, advantages and GAE run on it;
+  * log-probs, the update and the critic take the micro-batches that one
+    process would form on the global minibatch; each is padded to a
+    multiple of dp with rows that count nothing and split over (replica,
+    data), and at seq > 1 its sequence is padded to a multiple of seq and
+    the model runs sequence-parallel (`sp_mesh`: Ulysses or ring); the
+    PPO denominators are the micro-batch's over the ranks (rl/ppo.py), the
+    backward is scaled by the rank count (FSDP2 averages), and log-probs
+    and values are gathered back to the global batch;
+  * checkpoints hold the full tensors (rank 0 writes the one-process
+    format; every rank loads).
+
 What differs from the JAX trainer:
 
   * the model is an nn.Module that carries its weights; the optimizer
-    updates them in place, so the engine sees the new policy without a
-    copy, and `Engine.set_params` only clears the prefix cache;
+    updates them in place, so on one GPU the engine sees the new policy
+    without a copy, and `Engine.set_params` only clears the prefix cache;
   * gradients accumulate into `.grad` across micro-batches (JAX: a donated
     accumulator); a non-finite gradient norm skips `optimizer.step()`
     entirely, so parameters and optimizer state stay untouched;
@@ -37,14 +64,15 @@ What differs from the JAX trainer:
     optimizer (no zero gradients, no weight-decay drift);
   * `offload_frozen_params` / `offload_ref_params` move the module to the
     CPU and back at the JAX trainer's points;
-  * rows are not padded to a power of two: nothing is compiled per shape;
+  * rows are padded to a multiple of dp, not to dp times a power of two:
+    nothing is compiled per shape;
   * randomness is a `torch.Generator` on the CPU: each rollout reseeds the
     engine's generator from a draw of it, and its state rides in the
     checkpoint;
-  * not ported, each raising here: a mesh (dp > 1, `ulysses_size > 1`,
-    `tensor_parallel_size > 1`); `adv_estimator="gae"` without a critic,
-    and a critic with another estimator (the JAX trainer ignores it),
-    raise ValueError.
+  * not ported, each raising here: tensor parallelism (a mesh `model` axis
+    > 1, `tensor_parallel_size > 1`); `adv_estimator="gae"` without a
+    critic, and a critic with another estimator (the JAX trainer ignores
+    it), raise ValueError.
 """
 
 from __future__ import annotations
@@ -59,6 +87,8 @@ import numpy as np
 import torch
 
 from ..config import RLConfig
+from ..mesh import (BATCH_AXES, MODEL, SEQ, WEIGHT_AXES, all_gather_rows,
+                    axis_group, axis_index, axis_size)
 from ..serving.engine import Engine
 from ..serving.sampling import SamplingParams, banned_ids_bias
 from ..training.optim import (adamw_from_config,
@@ -67,10 +97,10 @@ from ..training.optim import (adamw_from_config,
 from ..training.trainer import clip_by_global_norm_
 from .advantage import compute_advantage
 from .packing import pack_sequences
-from .ppo import chunked_token_log_probs, ppo_loss
+from .ppo import group_sum, next_token_log_probs, ppo_loss, seq_block
 from .reward_manager import RewardManager
 from .rewards import build_reward_masks
-from .seqlen import token_budget_micro_batches
+from .seqlen import reorder_for_dp, token_budget_micro_batches
 
 # batch keys indexed by row (dim 0); "positions" is (3, bs, S) → dim 1
 _ROW_KEYS = ("input_ids", "attention_mask", "response_mask", "reward_masks",
@@ -93,6 +123,62 @@ def _reindex(batch: Dict[str, np.ndarray], idx) -> Dict[str, np.ndarray]:
 def _draw_seed(rng: torch.Generator) -> int:
     """One 62-bit seed from the generator (the role of jax.random.split)."""
     return int(torch.randint(0, 2 ** 62, (1,), generator=rng).item())
+
+
+# per-token arrays of a micro-batch, sequence last (advantages too when
+# they are per token)
+_PER_TOKEN = ("input_ids", "attention_mask", "positions", "response_mask",
+              "reward_masks", "segment_ids", "slot_map", "old_log_probs",
+              "ref_log_probs", "values", "returns")
+
+
+def _rank_seed(seed: int, i: int) -> int:
+    """The rollout sampler's seed on rank i of (replica, data): the step's
+    seed at i = 0 (one process's stream), a golden-ratio step apart on
+    the others."""
+    return (int(seed) + i * 0x9E3779B97F4A7C15) % 2 ** 63
+
+
+def rank_part(micro: Dict[str, np.ndarray], mesh, axes, seq: bool):
+    """A micro-batch's host arrays → this rank's part: the rows padded to a
+    multiple of the ranks over `axes` with rows that count nothing (zeros;
+    slot map -1, a text position), this rank's contiguous block of them,
+    and with `seq` every per-token array padded to a multiple of the mesh's
+    seq size (the sequence-parallel model takes this rank's block itself).
+    positions (3, R, S) keep their rows on dim 1; entries that are not
+    numpy arrays (vision_embeds) pass whole."""
+    k = axis_size(mesh, *axes)
+    n = len(micro["input_ids"])
+    rows = -(-n // k) * k
+    per, i = rows // k, axis_index(mesh, *axes)
+    n_seq = axis_size(mesh, SEQ) if seq else 1
+    out = {}
+    for key, v in micro.items():
+        if not isinstance(v, np.ndarray):
+            out[key] = v
+            continue
+        fill = -1 if key == "slot_map" else 0
+        rd = 1 if key == "positions" else 0
+        pad = [(0, 0)] * v.ndim
+        pad[rd] = (0, rows - n)
+        if key in _PER_TOKEN or (key == "advantages" and v.ndim == 3):
+            pad[-1] = (0, -v.shape[-1] % n_seq)
+        v = np.pad(v, pad, constant_values=fill)
+        idx = [slice(None)] * v.ndim
+        idx[rd] = slice(i * per, (i + 1) * per)
+        out[key] = v[tuple(idx)]
+    return out
+
+
+def gather_parts(x: torch.Tensor, mesh, n_seq: int) -> torch.Tensor:
+    """Every rank's (b, s) block of a micro-batch's per-token output → the
+    whole (R, n_seq · s): row blocks in (replica, data) order, sequence
+    blocks in seq order (n_seq 1: each rank holds whole rows of its own)."""
+    b, s = x.shape
+    parts = all_gather_rows(x[None], axis_group(mesh, *WEIGHT_AXES))
+    k = parts.shape[0] // n_seq
+    return parts.view(k, n_seq, b, s).permute(0, 2, 1, 3) \
+        .reshape(k * b, n_seq * s)
 
 
 @dataclasses.dataclass
@@ -124,21 +210,29 @@ class RLTrainer:
                      Callable[[Sequence[Sequence[int]]], List[str]]] = None,
                  reward_manager: Optional[RewardManager] = None):
         alg = cfg.algorithm
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data parallelism, FSDP) for RS-GRPO is the next "
-                "slice of the multi-GPU port: the RL trainer runs on one "
-                "GPU")
-        if cfg.actor.ulysses_size > 1:
-            raise NotImplementedError(
-                f"actor.ulysses_size={cfg.actor.ulysses_size}: the RL "
-                "update under Ulysses is the next slice of the multi-GPU "
-                "port (SFT has it: training/sft.py)")
-        if cfg.rollout.tensor_parallel_size > 1:
+        if cfg.rollout.tensor_parallel_size > 1 or \
+                axis_size(mesh, MODEL) > 1:
             raise NotImplementedError(
                 f"rollout.tensor_parallel_size="
-                f"{cfg.rollout.tensor_parallel_size}: the tensor-parallel "
-                "rollout engine is the next slice of the multi-GPU port")
+                f"{cfg.rollout.tensor_parallel_size}, mesh model axis "
+                f"{axis_size(mesh, MODEL)}: tensor-parallel serving and the "
+                "tensor-parallel rollout are the next slice of the "
+                "multi-GPU port")
+        # dp: the ranks that split the batch; sp: the seq ranks that split
+        # each row (actor.ulysses_size sizes the mesh's seq axis in rl_main)
+        self.mesh = mesh
+        self.dp = axis_size(mesh, *BATCH_AXES)
+        self.sp = axis_size(mesh, SEQ)
+        if cfg.actor.ulysses_size > 1 and self.sp != cfg.actor.ulysses_size:
+            raise ValueError(
+                f"actor.ulysses_size={cfg.actor.ulysses_size} but the mesh "
+                f"seq axis is {self.sp} — size the mesh with "
+                "MeshConfig(seq=ulysses_size)")
+        if mesh is not None and ref_model is not None and \
+                cfg.actor.offload_ref_params:
+            raise ValueError(
+                "offload_ref_params is single-GPU: under a mesh the "
+                "reference policy is FSDP-sharded instead")
         if (alg.adv_estimator == "gae") != (critic is not None):
             raise ValueError(
                 "adv_estimator='gae' needs a critic (rl/critic.py "
@@ -222,6 +316,23 @@ class RLTrainer:
             and ref_model is not None
         if self._offload_ref:
             ref_model.to("cpu")
+        # under a mesh: the engine's whole copy of the actor on the ranks
+        # that roll out (the frozen tower shared), refilled from the
+        # sharded weights when they have changed (_stale)
+        self._rollout_model = None
+        self._stale = False
+        self._group = None
+        if mesh is not None:
+            from ..mesh import sub_mesh
+            from ..training.trainer import shard_model
+            if axis_index(mesh, SEQ) == 0:
+                self._rollout_model = self._whole_copy(model)
+            weights = sub_mesh(mesh, *WEIGHT_AXES)
+            shard_model(model, model.model.layers, mesh, weights,
+                        ignored=self._frozen)
+            if ref_model is not None:
+                shard_model(ref_model, ref_model.model.layers, mesh, weights)
+            self._group = axis_group(mesh, *WEIGHT_AXES)
         self.train_params = [p for p in model.parameters() if p.requires_grad]
         lr = constant_schedule_with_warmup(
             a.lr, resolve_warmup_steps(a.lr_warmup_steps, a.lr_warmup_ratio,
@@ -243,52 +354,93 @@ class RLTrainer:
                     else v if isinstance(v, torch.Tensor) else self._put(v))
                 for k, v in batch.items()}
 
+    # ---- the rollout copy (under a mesh) --------------------------------
+
+    def _whole_copy(self, model):
+        """A copy of the actor for the engine, with its own text weights
+        and the frozen tower shared (it never changes)."""
+        import copy
+        tower = self._frozen
+        if tower is not None:
+            model.visual = None
+        try:
+            whole = copy.deepcopy(model).requires_grad_(False)
+        finally:
+            if tower is not None:
+                model.visual = tower
+        if tower is not None:
+            whole.visual = tower
+        return whole
+
+    @torch.no_grad()
+    def _refill_rollout(self):
+        """The handoff after an update (the JAX Engine.set_params): every
+        rank gathers the actor's sharded weights, one tensor at a time and
+        in one order; the ranks that roll out copy them into their whole
+        copy."""
+        from torch.distributed.tensor import DTensor
+        own = None if self._rollout_model is None \
+            else self._rollout_model.state_dict()
+        for name, t in self.model.state_dict().items():
+            if self._frozen is not None and name.startswith("visual."):
+                continue
+            if isinstance(t, DTensor):
+                t = t.full_tensor()
+            if own is not None:
+                own[name].copy_(t)
+        self._stale = False
+
     # ---- model passes --------------------------------------------------
+
+    @property
+    def _sp_mesh(self):
+        return self.mesh if self.sp > 1 else None
 
     @staticmethod
     def _vision_kwargs(batch):
         return {k: batch[k] for k in ("vision_batch", "slot_map",
                                       "vision_embeds") if k in batch}
 
-    @staticmethod
-    def _token_logp(model, hidden, input_ids):
-        """(B, S, H) hidden → (B, S) label log-probs (0 at the last
-        position) via the chunked head: the (B, S, V) logits never exist."""
-        labels = torch.roll(input_ids, -1, dims=1)
-        logp = chunked_token_log_probs(model.compute_logits, hidden[:, :-1],
-                                       labels[:, :-1])
-        return torch.cat([logp, torch.zeros_like(logp[:, :1])], dim=1)
-
     @torch.no_grad()
     def _logp_fn(self, model, batch):
         _, hidden = model(batch["input_ids"],
                           attention_mask=batch["attention_mask"],
                           positions=batch["positions"], return_logits=False,
+                          sp_mesh=self._sp_mesh,
                           **self._vision_kwargs(batch))
-        logp = self._token_logp(model, hidden, batch["input_ids"])
+        # the chunked head: the (B, S, V) logits never exist
+        logp = next_token_log_probs(model.compute_logits, hidden,
+                                    batch["input_ids"], self._sp_mesh)
         # logp[t] = log p(token at t+1 | ...); response_mask marks generated
         # tokens, so shift: contribution of token t is at position t-1
         shifted = torch.roll(batch["response_mask"], -1, dims=1)
-        return logp * shifted
+        return logp * seq_block(shifted, self._sp_mesh)
 
     def _ppo_terms(self, logp, batch, total_tokens):
-        """Shared PPO objective; masks in batch are already logp-aligned."""
+        """Shared PPO objective; masks in batch are already logp-aligned.
+        Under a mesh: this rank's share over its rows and sequence block."""
+        sp = self._sp_mesh
+        adv = batch["advantages"]
         return ppo_loss(
-            batch["old_log_probs"], logp, batch["advantages"],
-            batch["response_mask"], batch["reward_masks"],
-            ref_log_probs=batch.get("ref_log_probs"),
+            seq_block(batch["old_log_probs"], sp), logp,
+            seq_block(adv, sp, 2) if adv.dim() == 3 else adv,
+            seq_block(batch["response_mask"], sp),
+            seq_block(batch["reward_masks"], sp, 2),
+            ref_log_probs=(seq_block(batch["ref_log_probs"], sp)
+                           if "ref_log_probs" in batch else None),
             kl_coef=self.cfg.actor.kl_coef, kl_type=self.cfg.actor.kl_type,
             clip_ratio_low=self.cfg.actor.clip_ratio_low,
             clip_ratio_high=self.cfg.actor.clip_ratio_high,
             clip_ratio_dual=self.cfg.actor.clip_ratio_dual,
-            total_tokens=total_tokens)
+            total_tokens=total_tokens, group=self._group)
 
     def micro_loss(self, batch, total_tokens, packed: bool):
         """Loss and metrics of one micro-batch (tensors on the device).
         packed: rows hold several sequences kept apart by `segment_ids`
         (the segment kernel); else right-padded rows with `attention_mask`
         (the valid-length kernel). Masks (logp-aligned) zero out
-        cross-segment label positions."""
+        cross-segment label positions. Under a mesh the loss is this
+        rank's share and the metrics the micro-batch's."""
         if packed:
             kw = dict(segment_ids=batch["segment_ids"],
                       **{k: batch[k] for k in ("vision_embeds", "slot_map")
@@ -298,16 +450,25 @@ class RLTrainer:
                       **self._vision_kwargs(batch))
         _, hidden = self.model(batch["input_ids"],
                                positions=batch["positions"],
-                               return_logits=False, **kw)
-        logp = self._token_logp(self.model, hidden, batch["input_ids"])
-        logp = logp * batch["response_mask"]      # already shifted
+                               return_logits=False, sp_mesh=self._sp_mesh,
+                               **kw)
+        logp = next_token_log_probs(self.model.compute_logits, hidden,
+                                    batch["input_ids"], self._sp_mesh)
+        logp = logp * seq_block(batch["response_mask"], self._sp_mesh)
         return self._ppo_terms(logp, batch, total_tokens)
 
     def _grad(self, batch, total_tokens, packed: bool):
-        """One micro-batch's backward; gradients add into `.grad`."""
+        """One micro-batch's backward; gradients add into `.grad`. Under a
+        mesh the share's backward is scaled by the rank count (FSDP2
+        averages the ranks' gradients) and the micro-batch's loss is
+        returned."""
         loss, metrics = self.micro_loss(batch, total_tokens, packed)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        if self.mesh is None:
+            loss.backward()
+        else:
+            (loss * axis_size(self.mesh, *WEIGHT_AXES)).backward()
+        return group_sum(loss.detach(), self._group), \
+            {k: v.detach() for k, v in metrics.items()}
 
     def _apply(self) -> Dict[str, torch.Tensor]:
         """Clip and step. A non-finite gradient norm (reference
@@ -332,18 +493,12 @@ class RLTrainer:
         ground_truth). Each prompt sampled cfg.rollout.n times (n/temperature
         overridable — the validation loop's val_override_config role). The
         engine is built once and reused across steps; `seed` reseeds its
-        generator for this rollout."""
+        generator for this rollout. Under a mesh the prompts are shared out
+        over (replica, data) and every rank gets the whole batch
+        (_generate)."""
         n = n if n is not None else self.cfg.rollout.n
         if self._offload:
             self._frozen.to(self.device)   # prefill embeds need the tower
-        if self._engine is None:
-            self._engine = Engine(self.model, eos_token_ids=self.eos,
-                                  **self.engine_kwargs)
-        else:
-            # the weights were updated in place; the cached prefix KV was
-            # computed with the old ones
-            self._engine.set_params(self.model)
-        self._engine.generator.manual_seed(int(seed))
         sampling = SamplingParams(
             temperature=(temperature if temperature is not None
                          else self.cfg.rollout.temperature),
@@ -379,12 +534,9 @@ class RLTrainer:
         # ONE prefill per prompt group; the n samples fork the prompt KV
         # blocks (outputs come back n-consecutive per prompt, matching
         # `expanded`'s layout)
-        outs = self._engine.generate(
+        outs = self._generate(
             [{k: v for k, v in p.items() if k != "ground_truth"}
-             for p in prompts], sampling=sampling, n=n)
-        # the vLLM sleep role: the KV pools' memory belongs to the update
-        # step between rollouts; run() re-wakes
-        self._engine.sleep()
+             for p in prompts], seed, sampling, n)
 
         max_len = max(len(p["input_ids"]) + len(o)
                       for p, o in zip(expanded, outs))
@@ -417,6 +569,46 @@ class RLTrainer:
                             responses=outs, response_texts=texts,
                             uid=np.asarray(uids), ground_truths=gts,
                             vision=vision, slot_map=slot_map)
+
+    def _generate(self, prompts: List[dict], seed: int,
+                  sampling: SamplingParams, n: int) -> List[List[int]]:
+        """The engine's n samples of each prompt, n-consecutive in prompt
+        order. Under a mesh, rank i of (replica, data) generates its
+        contiguous share of the prompts on its whole copy of the actor
+        (refilled first if the weights changed; every rank enters that
+        gather), the seq ranks after the first generate nothing, and the
+        shares are gathered in rank order."""
+        model = self.model
+        if self.mesh is not None:
+            if self._stale:
+                self._refill_rollout()
+            model = self._rollout_model
+            i, k = axis_index(self.mesh, *BATCH_AXES), self.dp
+            prompts = prompts[i * len(prompts) // k:
+                              (i + 1) * len(prompts) // k] \
+                if model is not None else []
+            seed = _rank_seed(seed, i)
+        outs = []
+        if model is not None:
+            if self._engine is None:
+                self._engine = Engine(model, eos_token_ids=self.eos,
+                                      **self.engine_kwargs)
+            else:
+                # the weights changed (updated in place, or refilled); the
+                # cached prefix KV was computed with the old ones
+                self._engine.set_params(model)
+            self._engine.generator.manual_seed(int(seed))
+            if prompts:
+                outs = self._engine.generate(prompts, sampling=sampling, n=n)
+            # the vLLM sleep role: the KV pools' memory belongs to the
+            # update step between rollouts; run() re-wakes
+            self._engine.sleep()
+        if self.mesh is None:
+            return outs
+        import torch.distributed as dist
+        shares = [None] * dist.get_world_size(self._group)
+        dist.all_gather_object(shares, outs, group=self._group)
+        return [o for share in shares for o in share]
 
     def make_batch(self, prompt_iter: Iterator[List[dict]],
                    rng: torch.Generator, timers=None) -> Optional[dict]:
@@ -586,7 +778,8 @@ class RLTrainer:
         """(bs, S) log-probs of `model` (the actor or the reference policy)
         at shifted positions, micro-batched under the actor token budget
         (dp_actor.compute_log_probs role). Right-padded rows: the
-        valid-length kernel, no gradient."""
+        valid-length kernel, no gradient. Under a mesh every rank computes
+        its part of each micro-batch and every rank gets the whole."""
         bs, S = batch["input_ids"].shape
         seqlens = batch["attention_mask"].sum(1)
         groups, _ = token_budget_micro_batches(
@@ -596,10 +789,28 @@ class RLTrainer:
                             "response_mask", "slot_map", "vision_embeds")
                 if k in batch]
         for g in groups:
-            micro = _reindex({k: batch[k] for k in keys}, list(g))
+            micro = self._rank_micro({k: batch[k] for k in keys}, g)
             lp = self._logp_fn(model, self._put_batch(micro))
+            if self.mesh is not None:
+                lp = gather_parts(lp, self.mesh, self.sp)[:len(g), :S]
             out[list(g)] = lp.float().cpu().numpy()
         return out
+
+    def _rank_micro(self, mini: Dict[str, np.ndarray], g: Sequence[int],
+                    zero_pad: bool = False) -> Dict[str, np.ndarray]:
+        """The padded micro-batch of rows g; under a mesh this rank's part
+        (rank_part), the rows first padded to a multiple of dp with copies
+        of row g[0] (an all-pad row would have no key to attend), whose
+        masks zero_pad zeroes."""
+        if self.mesh is None:
+            return _reindex(mini, list(g))
+        idx = list(g) + [g[0]] * (-len(g) % self.dp)
+        micro = _reindex(mini, idx)
+        if zero_pad:
+            for k in ("response_mask", "reward_masks"):
+                micro[k] = micro[k].copy()
+                micro[k][len(g):] = 0
+        return rank_part(micro, self.mesh, BATCH_AXES, seq=True)
 
     # ---- policy update ---------------------------------------------------
 
@@ -607,7 +818,8 @@ class RLTrainer:
                     seqlens, width: int) -> Dict[str, torch.Tensor]:
         """Build the packed (padding-free) micro-batch: trim each sequence to
         its true length and pack with segment ids (first-fit, so the ids in
-        a row are not ascending; 0 pads the tail)."""
+        a row are not ascending; 0 pads the tail). Under a mesh the rows
+        of the whole group are packed, and this rank takes its part."""
         nch = len(self.channels)
         seqs, extra = [], defaultdict(list)
         for i in g:
@@ -644,6 +856,9 @@ class RLTrainer:
         if "slot_map" in ex:
             batch["slot_map"] = ex["slot_map"] - 1
             batch["vision_embeds"] = mini["vision_embeds"]
+        if self.mesh is not None:
+            # pad rows: segment id 0 and masks 0 (they count nothing)
+            batch = rank_part(batch, self.mesh, BATCH_AXES, seq=True)
         return self._put_batch(batch)
 
     def update_policy(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
@@ -671,6 +886,11 @@ class RLTrainer:
 
         bs, S = batch["input_ids"].shape
         seqlens = batch["attention_mask"].sum(1)
+        if self.dp > 1 and bs % self.dp == 0:
+            # balance the dp ranks' token counts (ray_trainer._balance_batch)
+            perm = reorder_for_dp(seqlens, self.dp)
+            batch = _reindex(batch, perm)
+            seqlens = seqlens[perm]
         # packed path supports precomputed vision embeds (slot maps pack like
         # any per-token channel); raw vision_batch must go padded
         packed_ok = (cfg.actor.padding_free and "vision_batch" not in batch
@@ -683,7 +903,8 @@ class RLTrainer:
                 mini = _reindex(batch, idx)
                 mlens = seqlens[idx]
                 # the minibatch's per-channel token totals (the reference's
-                # all-reduced total_response_tokens, dp_actor.py:237-238)
+                # all-reduced total_response_tokens, dp_actor.py:237-238:
+                # global, the minibatch being the global one)
                 total = self._put(mini["reward_masks"]
                                   .sum((0, 2)).astype(np.float32))
                 groups, _ = token_budget_micro_batches(
@@ -694,13 +915,15 @@ class RLTrainer:
                     if packed_ok:
                         micro = self._pack_micro(mini, g, mlens, S)
                     else:
-                        micro = self._put_batch(_reindex(mini, list(g)))
+                        micro = self._put_batch(
+                            self._rank_micro(mini, g, zero_pad=True))
                     loss, m = self._grad(micro, total, packed_ok)
                     agg["loss"].append(loss)
                     for k, v in m.items():
                         agg[k].append(v)
                 for k, v in self._apply().items():
                     agg[k].append(v)
+        self._stale = self.mesh is not None
         return {k: float(np.mean([float(x) for x in v]))
                 for k, v in agg.items()}
 
@@ -781,7 +1004,8 @@ class RLTrainer:
                  ) -> Dict[str, float]:
         """Validation rollout + reward scoring + deterministic gen-sample
         table (ray_trainer._validate :375-448 and
-        _maybe_log_val_generations :375-391)."""
+        _maybe_log_val_generations :375-391). Under a mesh the rollout is
+        split and gathered as a step's is."""
         t = self.cfg.trainer
         rb = self.rollout(prompts, seed, n=t.val_n,
                           temperature=t.val_temperature)
@@ -810,8 +1034,10 @@ class RLTrainer:
         """Checkpoint the actor's (and the critic's) weights and optimizer
         state + host counters (step, uid counter, KL coefficient, data
         cursor, the rng's state) with tracker manifest and keep-best GC
-        (ray_trainer._save_checkpoint :312-344)."""
-        from ..training.checkpoint import save_checkpoint
+        (ray_trainer._save_checkpoint :312-344). Under a mesh every rank
+        calls it and rank 0 writes the full tensors."""
+        from ..training.checkpoint import (_ckpt_dir, full_tensors,
+                                           save_checkpoint)
         tree = {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
         if self.critic is not None:
@@ -823,23 +1049,36 @@ class RLTrainer:
             extra["data"] = self.data_iter.state()
         if self._rng is not None:
             extra["rng"] = self._rng.get_state().tolist()
-        return save_checkpoint(self.cfg.trainer.output_dir, self.step, tree,
-                               extra=extra, best_metric=best_metric,
-                               save_limit=self.cfg.trainer.save_limit)
+        kw = dict(extra=extra, best_metric=best_metric,
+                  save_limit=self.cfg.trainer.save_limit)
+        out = self.cfg.trainer.output_dir
+        if self.mesh is None:
+            return save_checkpoint(out, self.step, tree, **kw)
+        # every rank gathers the full tensors; rank 0 writes them
+        import torch.distributed as dist
+        tree = full_tensors(tree)
+        if dist.get_rank() == 0:
+            save_checkpoint(out, self.step, tree, **kw)
+        dist.barrier()
+        return _ckpt_dir(out, self.step)
 
     def maybe_resume(self) -> bool:
         """Auto-resume from the newest checkpoint under output_dir
-        (ray_trainer._load_checkpoint :346-373 with find_last_checkpoint)."""
-        from ..training.checkpoint import find_latest_ckpt, load_checkpoint
+        (ray_trainer._load_checkpoint :346-373 with find_last_checkpoint);
+        under a mesh every rank loads it, whatever rank count wrote it."""
+        from ..training.checkpoint import (find_latest_ckpt, load_checkpoint,
+                                           load_state_into)
         path = find_latest_ckpt(self.cfg.trainer.output_dir)
         if path is None:
             return False
         tree, extra = load_checkpoint(path)
-        self.model.load_state_dict(tree["model"])
+        # a sharded tensor takes its piece of the full one
+        load_state_into(self.model, tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         if self.critic is not None:
-            self.critic.model.load_state_dict(tree["critic_model"])
+            load_state_into(self.critic.model, tree["critic_model"])
             self.critic.optimizer.load_state_dict(tree["critic_optimizer"])
+        self._stale = self.mesh is not None
         self.step = int(extra["step"])
         self._uid_next = int(extra["uid_next"])
         if self.kl_ctrl is not None and extra.get("kl_coef") is not None:
@@ -939,8 +1178,9 @@ class RLTrainer:
                 self.cfg.rollout.max_response_length,
                 token_rewards=self._last_token_scores))
             m.update(compute_timing_metrics(timing_raw, num_resp, num_all))
-            m.update(compute_throughput_metrics(num_all, timing_raw["step"],
-                                                1))
+            m.update(compute_throughput_metrics(
+                num_all, timing_raw["step"],
+                1 if self.mesh is None else self.mesh.size()))
             t = self.cfg.trainer
             if val_prompts is not None and t.val_freq > 0 and \
                     self.step % t.val_freq == 0:

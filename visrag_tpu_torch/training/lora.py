@@ -9,7 +9,9 @@ resampler's kv_proj: the frozen base weight W plus trainable A (r, in) ~
 N(0, 0.02) and B (out, r) = 0 in fp32, and the forward uses
 W + (alpha/r)·B@A cast to W's dtype, as the JAX side's lora_merge does
 inside its step. Only the adapters get gradients; lora_merge folds them
-into plain nn.Linear weights for the final save.
+into plain nn.Linear weights for the final save, and lora_merged_state
+computes the merged weights from a state dict (under FSDP2 the gathered
+full tensors) without touching the model.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ import torch.nn.functional as F
 from torch import nn
 
 DEFAULT_TARGETS = ("q_proj", "v_proj")
+
+
+def _merge(weight, a, b, scale):
+    return weight + ((b @ a) * scale).to(weight.dtype)
 
 
 class LoRALinear(nn.Linear):
@@ -43,8 +49,7 @@ class LoRALinear(nn.Linear):
         self.scale = alpha / rank
 
     def merged_weight(self):
-        delta = (self.lora_b @ self.lora_a) * self.scale
-        return self.weight + delta.to(self.weight.dtype)
+        return _merge(self.weight, self.lora_a, self.lora_b, self.scale)
 
     def forward(self, x):
         return F.linear(x, self.merged_weight(), self.bias)
@@ -87,3 +92,19 @@ def lora_merge(model: nn.Module) -> nn.Module:
             parent_name, _, child = name.rpartition(".")
             setattr(model.get_submodule(parent_name), child, merged)
     return model
+
+
+@torch.no_grad()
+def lora_merged_state(model: nn.Module, state=None) -> dict:
+    """The state dict that lora_merge(model) would have, computed from
+    `state` (default: model.state_dict()): each adapted weight replaced
+    by W + (alpha/r)·B@A and the adapters dropped, the model left as it
+    is. Under FSDP2, `state` is the gathered full tensors
+    (training/checkpoint.full_tensors), and one rank merges."""
+    state = dict(model.state_dict() if state is None else state)
+    for name, module in model.named_modules():
+        if isinstance(module, LoRALinear):
+            a, b = state.pop(f"{name}.lora_a"), state.pop(f"{name}.lora_b")
+            state[f"{name}.weight"] = _merge(state[f"{name}.weight"], a, b,
+                                             module.scale)
+    return state

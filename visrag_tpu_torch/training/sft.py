@@ -40,9 +40,8 @@ import dataclasses
 from typing import Dict
 
 import torch
-import torch.distributed as dist
 
-from ..rl.ppo import chunked_token_log_probs
+from ..rl.ppo import group_sum, next_token_log_probs, seq_block
 from .optim import adamw_from_config, constant_schedule_with_warmup
 from .trainer import clip_by_global_norm_
 
@@ -82,46 +81,25 @@ def sft_loss(model, batch, mesh=None) -> tuple:
     the model must predict), optional positions / vision_batch / slot_map.
     → (loss, {"loss", "token_accuracy"}). With a mesh the batch is this
     rank's rows and the loss its share of the global loss (the metrics
-    are the global ones)."""
-    if mesh is not None:
-        return _sharded_sft_loss(model, batch, mesh)
+    are the global ones). One rank computes what one process does."""
+    from ..mesh import SEQ, WEIGHT_AXES, axis_group, axis_size
+    sp = mesh if axis_size(mesh, SEQ) > 1 else None
     ids = batch["input_ids"]
-    _, hidden = model(ids, return_logits=False,
+    _, hidden = model(ids, return_logits=False, sp_mesh=sp,
                       **{k: batch.get(k) for k in _MODEL_KEYS})
-    labels = torch.roll(ids, -1, dims=1)[:, :-1]
-    logp = chunked_token_log_probs(model.compute_logits, hidden[:, :-1],
-                                   labels)
+    logp = next_token_log_probs(model.compute_logits, hidden, ids, sp)
+    labels = seq_block(torch.roll(ids, -1, dims=1), sp)
     # token t predicts t+1 → shift the response mask left
-    mask = torch.roll(batch["response_mask"], -1, dims=1)[:, :-1].float()
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = -(logp * mask).sum() / denom
-    acc = token_accuracy(model.compute_logits, hidden[:, :-1].detach(),
-                         labels, mask) / denom
-    return loss, {"loss": loss.detach(), "token_accuracy": acc}
-
-
-def _sharded_sft_loss(model, batch, mesh):
-    from ..mesh import SEQ, WEIGHT_AXES, axis_group, axis_index, axis_size
-    ids = batch["input_ids"]
-    _, hidden = model(ids, return_logits=False, sp_mesh=mesh,
-                      **{k: batch.get(k) for k in _MODEL_KEYS})
-    s, n = ids.shape[1], axis_size(mesh, SEQ)
-    r = axis_index(mesh, SEQ)
-    blk = slice(r * s // n, (r + 1) * s // n)
-    labels = torch.roll(ids, -1, dims=1)[:, blk]
     mask = torch.roll(batch["response_mask"], -1, dims=1).float()
     mask[:, -1] = 0                      # the last token predicts nothing
-    mask = mask[:, blk]
-    logp = chunked_token_log_probs(model.compute_logits, hidden, labels)
-    group = axis_group(mesh, *WEIGHT_AXES)
-    sums = torch.stack([mask.sum(), token_accuracy(
-        model.compute_logits, hidden.detach(), labels, mask)])
-    dist.all_reduce(sums, group=group)
+    mask = seq_block(mask, sp)
+    group = None if mesh is None else axis_group(mesh, *WEIGHT_AXES)
+    sums = group_sum(torch.stack([mask.sum(), token_accuracy(
+        model.compute_logits, hidden.detach(), labels, mask)]), group)
     denom = torch.clamp(sums[0], min=1.0)
     loss = -(logp * mask).sum() / denom
-    total = loss.detach().clone()
-    dist.all_reduce(total, group=group)
-    return loss, {"loss": total, "token_accuracy": sums[1] / denom}
+    return loss, {"loss": group_sum(loss.detach(), group),
+                  "token_accuracy": sums[1] / denom}
 
 
 def _local_rows(batch, mesh):

@@ -17,6 +17,12 @@ replica axis is larger than 1, each parameter on the axis that the JAX
 rule `mesh.fsdp_param_spec` picks. The global-norm clip reduces the
 squared norms of the shards, and a checkpoint holds the full tensors
 (rank 0 writes the one-process format).
+
+With LoRA (`params` the adapters) the frozen base is sharded with its
+adapters: a block's base weights and adapters are one FSDP2 unit, the
+base all-gathered for the forward and never reduced (it takes no
+gradient), and the optimizer holds only the adapters' shards. (The JAX
+trainer FSDP-shards the LoRA tree and closes over a replicated base.)
 """
 
 from __future__ import annotations
@@ -71,26 +77,30 @@ def _sharded_norm(grads) -> torch.Tensor:
 def clip_by_global_norm_(params: Sequence[torch.Tensor],
                          max_norm: float) -> torch.Tensor:
     """Scale the gradients in place to global norm ≤ max_norm (as
-    optax.clip_by_global_norm); → the norm before clipping (fp32). Sharded
-    (FSDP2) gradients give the same norm as the full ones."""
+    optax.clip_by_global_norm); → the norm before clipping (fp32). Whole
+    and sharded (FSDP2) gradients take one order: the square root of the
+    sum of each tensor's (each shard's) squared norm, so that one rank
+    gives one process's norm to the bit."""
     grads = [p.grad for p in params if p.grad is not None]
     if grads and isinstance(grads[0], DTensor):
         norm = _sharded_norm(grads)
         grads = [g.to_local() for g in grads]
     else:
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        norm = torch.stack([torch.linalg.vector_norm(g.float()) ** 2
+                            for g in grads]).sum().sqrt()
     if norm >= max_norm:
         for g in grads:
             g.div_(norm.to(g.dtype)).mul_(max_norm)
     return norm
 
 
-def shard_model(model: torch.nn.Module, blocks, mesh, fsdp_mesh=None):
+def shard_model(model: torch.nn.Module, blocks, mesh, fsdp_mesh=None,
+                ignored: Optional[torch.nn.Module] = None):
     """FSDP2: `fully_shard` on each module of `blocks` and at the root,
     over `fsdp_mesh` (default: the mesh's data axis, or HSDP on (replica,
     data) when replica > 1), each parameter on the axis that
-    fsdp_param_spec picks for the shard count."""
+    fsdp_param_spec picks for the shard count. `ignored`: a submodule
+    whose parameters stay whole on every rank (a frozen vision tower)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
     from ..mesh import BATCH_AXES, DATA, REPLICA, axis_size, fsdp_shard_dim, \
@@ -105,7 +115,9 @@ def shard_model(model: torch.nn.Module, blocks, mesh, fsdp_mesh=None):
 
     for block in blocks:
         fully_shard(block, mesh=fsdp_mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=fsdp_mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=fsdp_mesh, shard_placement_fn=placement,
+                ignored_params=set(ignored.parameters()) if ignored
+                is not None else None)
 
 
 def retriever_blocks(model: torch.nn.Module):
@@ -145,13 +157,15 @@ class RetrieverTrainer:
         self.cfg = cfg
         self.model = model
         self.mesh = mesh
+        names = None
+        if params is not None:
+            ids = {id(p) for p in params}
+            names = {n for n, p in model.named_parameters() if id(p) in ids}
         if mesh is not None:
-            if params is not None:
-                raise NotImplementedError(
-                    "a subset of parameters (LoRA) under a mesh is not "
-                    "ported yet: FSDP2 shards every parameter of the model")
+            # FSDP2 puts new (sharded) parameters in the modules' place
             shard_model(model, retriever_blocks(model), mesh)
-        self.params = list(params) if params is not None else \
+        self.params = [p for n, p in model.named_parameters()
+                       if n in names] if names is not None else \
             [p for p in model.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.params, cfg, total_steps)
         device = self.params[0].device

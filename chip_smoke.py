@@ -252,7 +252,8 @@ is non-zero; no phase catches an error and carries on):
      greedy step's logits over the paged pool against one full forward
      (2e-2 relative, vision and text), and the batched beam against the
      sequential one (the same ids, scores within 1e-3) in fp32 at one ViT
-     block and 4 LM layers on the CPU (the bf16 pair on the card is
+     block and 2 LM layers on the CPU, on the query's 2 shorter pages
+     (the bf16 pair on the card, on all 3, is
      printed: its 9-row decode rounds otherwise than the 3-row one and
      flips near-ties of the random model); K1 at both prefill buckets and
      K5 at 36/36 d 64 against their plain versions, timed beside SDPA /
@@ -335,7 +336,30 @@ is non-zero; no phase catches an error and carries on):
      (under --dist-only both against one-device runs in the phase). 16g:
      K4 at the per-rank Ulysses shapes of phase 9's packed update (8/1 and
      4/1 heads), launched through ulysses_attention and checked and timed
-     as the SFT batch's.
+     as the SFT batch's. 16h: tensor parallelism as two processes on this
+     card over a gloo group whose collectives carry CUDA tensors (NCCL
+     takes one rank a card; the compute mode must allow two processes),
+     one job of two ranks (`--tp-child`) on a (data 1, model 2) mesh:
+     Qwen2.5-VL-7B of phase 7's seed and init served at tp 2 through
+     Engine(mesh=) with phase 7's engine settings plus a 1024-token
+     bucket, greedy, 32 new tokens, bf16 then int8 pools, on 3 of phase
+     7's requests (the text pair, the small page with its n = 2 fork),
+     against the same run in one process: the same prompt ends, every
+     prompt end's and the first decode step's logits within RTOL_BLOCK,
+     each request's tokens equal up to the first step whose top-2 margin
+     in the one-process run is below twice the largest logit error, the
+     agreement printed per request; then two RS-GRPO steps at
+     Qwen2.5-VL-3B's width with 8 of 36 text layers on phase 9's text
+     prompts (the greedy rollout over the model group, the update FSDP2
+     over data; step 1's decay moves every weight, so step 2's rollout
+     runs on shards refilled with new weights): each step's rollout held
+     to one process's greedy rollout of the same weights by the serving
+     rule, and both steps' loss and grad norm against one process's
+     update of the same batches (RTOL_TRAIN); then K5 at 14/2 (bf16,
+     int8), K1 GQA at 14/2, K3 at 8 heads (window, full, edges) and K5 at
+     the hybrid rollout's 8/1 at the shapes those runs gave them, and
+     kernel-only the tp 4 shapes (K5 7/1 and 4/1, K1 7/1), against their
+     plain versions, timed beside the library call and the bound.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq and
@@ -351,7 +375,9 @@ and K1 at SigLIP's vision and text shapes, K7 LayerNorm at SigLIP's rows
 and K6 at the int8 scan's shape (launches from phase 15),
 and K4's forward, dq and dk/dv at Ulysses' per-rank shapes of the SFT
 batch and of the RL packed update (launches from phase 16's
-ulysses_attention runs):
+ulysses_attention runs), and K5 (bf16 and int8), K1 GQA and K3 (window
+and full) at a tp 2 rank's heads (launches from 16h's serving run's rank
+0) and K5 at the hybrid rollout's 8/1 (launches from its rank 0):
 launches on its main path, ms, plain_ms, library_ms, bound_ms,
 max_abs_err, and in the same turns the earlier kernel: pr4_ms for K4's
 forward, dq and dk/dv (the mma.sync kernels), pr5_ms for K6 (the
@@ -369,6 +395,7 @@ and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -403,8 +430,13 @@ REPLACES = {"fwd": "visrag_tpu/ops/attention_lengths.py:47",
             "paged": "visrag_tpu/serving/paged_kv.py:238"}
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script
+    started."""
+    print(f"{time.perf_counter() - T_START:7.1f} s {msg}", flush=True)
 
 
 def smi():
@@ -4225,7 +4257,8 @@ def _gen_k1_check(phase, tag, gen, lens, s, h, kvh, d):
 
 BEAM_KW = dict(num_beams=3, max_new_tokens=GEN_NEW_TOKENS,
                repetition_penalty=1.2)
-BEAM_FP32_VIT_DEPTH, BEAM_FP32_LAYERS = 1, 4
+BEAM_FP32_VIT_DEPTH, BEAM_FP32_LAYERS = 1, 2
+BEAM_FP32_PAGES = 2         # the query's shortest page requests
 # the bf16 beams' summed log-probs, batched vs sequential, at each step up
 # to the first whose selection differs: rounding moves them by far less,
 # a wrong reorder or length by a log-prob's spread across the vocabulary
@@ -4302,7 +4335,8 @@ def _beam_pair_fp32(cfg, reqs):
     within 1e-3), held in fp32 at reduced depth on the CPU (plain
     versions): MiniCPM-V 2.0's widths with BEAM_FP32_VIT_DEPTH ViT blocks
     and BEAM_FP32_LAYERS LM layers, random weights from seed 0, on phase
-    12's first query's page requests. In bf16 on the card the batched
+    12's first query's BEAM_FP32_PAGES shortest page requests (the host's
+    fp32 GEMMs are the phase's cost). In bf16 on the card the batched
     decode (9 rows) rounds its GEMMs otherwise than the sequential one (3
     rows), and a random model's near-uniform scores (a mean log-prob near
     -log(vocab)) let that flip near-ties, so there the pair is held only
@@ -4437,7 +4471,8 @@ def phase12_minicpmv(gen):
     # pages, as the backend calls them (num_beams 3, repetition penalty 1.2)
     reqs = [fn.request(p, imgs) for p, imgs in beam_items[0]]
     _beam_pair_bf16(fn.engine, reqs)
-    _beam_pair_fp32(cfg, reqs)
+    _beam_pair_fp32(cfg, sorted(reqs, key=lambda r: len(r["input_ids"]))
+                    [:BEAM_FP32_PAGES])
 
     # K1 at the generation prefill shapes and K5 at MiniCPM-2B's decode
     h, d = cfg.llm.num_attention_heads, cfg.llm.head_dim
@@ -5657,11 +5692,18 @@ def _dist_lora(work):
     return launches
 
 
-def _rl_run(work, model_cfg, rcfg, mesh=None, gae=False):
+def _rl_run(work, model_cfg, rcfg, mesh=None, gae=False, keep=None,
+            replay=None, rows_path=None, rollouts=None, every_step=False):
     """rl_main's build_trainer (and build_critic with gae) on Qwen2.5-VL
-    of seed 0 and run_training over phase 9's prompts and reward, without
-    a save; with `mesh` (rl_main.rl_mesh) across its ranks. → (history,
-    each step's token ids and rewards, launch counts, seconds, peak GB)."""
+    of seed 0 and run_training over phase 9's prompts (or the jsonl at
+    `rows_path`) and reward, without a save; with `mesh` (rl_main.rl_mesh)
+    across its ranks. `keep`: a list that takes each step's whole batch
+    as make_batch made it; `replay`: one batch a step, which make_batch
+    gives the update in place of the one its rollout made; `rollouts`: a
+    list that takes each rollout's record (_tp_recording over the model
+    the engine serves, every decode step's logits with `every_step`). →
+    (history, each step's token ids and rewards, launch counts, seconds,
+    peak GB)."""
     from visrag_tpu_torch.driver.common import (build_qwen25_vl,
                                                 encode_qwen_prompt_row)
     from visrag_tpu_torch.driver.rl_main import (build_critic, build_trainer,
@@ -5672,7 +5714,7 @@ def _rl_run(work, model_cfg, rcfg, mesh=None, gae=False):
     from visrag_tpu_torch.ops import norms
     from visrag_tpu_torch.serving import paged_kv as pk
     tok = RLStandInTokenizer()
-    rows_path = _rl_rows(work)
+    rows_path = rows_path or _rl_rows(work)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_qwen25_vl(model_cfg, device=DEV, seed=0)
@@ -5680,13 +5722,29 @@ def _rl_run(work, model_cfg, rcfg, mesh=None, gae=False):
     critic = build_critic(model, rcfg, seed=0, mesh=mesh) if gae else None
     trainer = build_trainer(model, rcfg, tok, tok, ref_model=ref_model,
                             critic=critic, mesh=mesh)
+    if replay is not None or keep is not None:
+        make, steps = trainer.make_batch, iter(replay or ())
+
+        def make_batch(*a, **kw):
+            batch = make(*a, **kw)
+            if keep is not None:
+                keep.append(copy.deepcopy(batch))
+            return batch if replay is None else copy.deepcopy(next(steps))
+        trainer.make_batch = make_batch
     batches = _capture_batches(trainer)
     for mod in (al, kg, pk, seg, norms):
         mod.reset_launch_counts()
-    history = run_training(
-        trainer, rcfg, rows_path,
-        lambda row: encode_qwen_prompt_row(row, tok, tok, model_cfg,
-                                           rcfg.rollout), save_final=False)
+    served = trainer.model if trainer._rollout_model is None \
+        else trainer._rollout_model
+    with _tp_recording(served, every_step) if rollouts is not None \
+            else contextlib.nullcontext([]) as runs:
+        history = run_training(
+            trainer, rcfg, rows_path,
+            lambda row: encode_qwen_prompt_row(row, tok, tok, model_cfg,
+                                               rcfg.rollout),
+            save_final=False)
+    if rollouts is not None:
+        rollouts.extend(runs)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {**al.launch_counts(), "kvgrid": kg.launches,
@@ -5777,6 +5835,594 @@ def _dist_rl(work, rl_ref=None, gae_ref=None):
     return {"rl": launches, "gae": glaunches}
 
 
+TP_WORLD = 2              # phase 16h: two ranks on the one card over gloo
+TP_NEW_TOKENS = 32
+TP_RL_LAYERS = 8          # the hybrid rollout's 3B text depth (of 36)
+TP_RL_STEPS = 2           # step 2's rollout runs on the refilled shards
+TP_JOB_TIMEOUT = 600      # s, one job of the two ranks
+# phase 7's requests that 16h serves: the text pair (batched prefill) and
+# the small page with its n = 2 fork (whole prefill, the vision tower);
+# the 3-page requests (chunked prefill) cost ~12 s each a run over gloo,
+# and the CPU tests hold chunked prefill under tensor parallelism
+TP_REQUESTS = ("text0", "text1", "page1_small")
+
+
+@contextlib.contextmanager
+def _tp_recording(model, every_step):
+    """While open, each Engine.run over `model` appends to the yielded
+    list a record of what phase 16h compares: its requests' tokens,
+    prompts, sampling and group leaders; the logits of every prompt end
+    (the rows of each prefill and final-chunk call, in call order, and the
+    leaders in the order of their first tokens) and of the first decode
+    step, or (every_step) of every decode step, with the request each
+    active slot serves; the run's schedule, seconds and pool heads."""
+    from visrag_tpu_torch.serving.engine import Engine
+    runs, state = [], {}
+    calls = {n: getattr(model, n) for n in ("prefill", "prefill_chunk",
+                                            "decode")}
+
+    def prefill(*a, **kw):
+        out = calls["prefill"](*a, **kw)
+        state["prefill"].extend(out[0].float().cpu())
+        return out
+
+    def prefill_chunk(*a, **kw):
+        out = calls["prefill_chunk"](*a, **kw)
+        if out is not None:
+            state["prefill"].extend(out.float().cpu())
+        return out
+
+    def decode(*a, **kw):
+        out = calls["decode"](*a, **kw)
+        engine = state["engine"]
+        if every_step or not state["decode"]:
+            rids = [r.request_id if r is not None and engine.active[i]
+                    else None for i, r in enumerate(engine.slot_req)]
+            state["decode"].append((out.float().cpu(), rids))
+        return out
+
+    run = Engine.run
+
+    def recorded(engine):
+        if engine.model is not model:
+            return run(engine)
+        engine.record_schedule = True
+        n_sched = len(engine.sched_log)
+        requests = list(engine.queue)
+        state.update(engine=engine, prefill=[], decode=[])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(engine)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        first, leader = {}, {}
+        for r in requests:
+            key = id(r.group) if r.group is not None else -r.request_id
+            leader[r.request_id] = first.setdefault(key, r.request_id)
+        by_first = sorted((r for r in requests
+                           if leader[r.request_id] == r.request_id),
+                          key=lambda r: r.t_first)
+        pool = engine.k_cache.data if hasattr(engine.k_cache, "data") \
+            else engine.k_cache
+        runs.append({
+            "tokens": {r.request_id: list(r.output_ids) for r in requests},
+            "prompts": {r.request_id: r.input_ids for r in requests},
+            "sampling": {r.request_id: r.sampling for r in requests},
+            "groups": leader,
+            "prefill_order": [r.request_id for r in by_first],
+            "prefill": state["prefill"], "decode": state["decode"],
+            "secs": secs, "sched": "".join(engine.sched_log[n_sched:]),
+            "pool_kv_heads": pool.shape[2]})
+        return out
+    model.prefill, model.prefill_chunk, model.decode = \
+        prefill, prefill_chunk, decode
+    Engine.run = recorded
+    try:
+        yield runs
+    finally:
+        Engine.run = run
+        for n in calls:
+            delattr(model, n)
+
+
+def _tp_serve(engine, reqs, sp, every_step):
+    """Serve `reqs` on `engine` under _tp_recording. → the run's record,
+    with each request's name."""
+    names = {}
+    for name, req, n in reqs:
+        rid = engine.add_request(sampling=sp, n=n, **req)
+        names.update({r: name for r in (rid if isinstance(rid, list)
+                                        else [rid])})
+    with _tp_recording(engine.model, every_step) as runs:
+        engine.run()
+    return dict(runs[0], names=names)
+
+
+def _tp_engine_settings():
+    """Phase 7's engine settings (evisrag_predict.ENGINE_SETTINGS) with a
+    1024-token prompt bucket: the prompts of TP_REQUESTS then pad to 1024
+    tokens, not 4096, and gloo carries a quarter of the prefill's
+    all-reduces."""
+    from visrag_tpu_torch.driver.evisrag_predict import ENGINE_SETTINGS
+    return dict(ENGINE_SETTINGS,
+                prompt_buckets=(1024,) + ENGINE_SETTINGS["prompt_buckets"])
+
+
+def _tp_sampling():
+    from visrag_tpu_torch.driver.evisrag_predict import sampling_params
+    tok = StandInTokenizer()
+    return tok, sampling_params(tok, tok, 0.0, TP_NEW_TOKENS)
+
+
+def _tp_margins(ref, rid):
+    """The one-process run's top-2 margin at each token of request `rid`,
+    on the logits its sampler saw (its logit bias, then its repetition
+    penalty over the prompt and the tokens before): the first token from
+    its prompt end's logits (a fork: its group leader's), the others from
+    the decode steps that served it."""
+    toks, sp = ref["tokens"][rid], ref["sampling"][rid]
+    rows = [ref["prefill"][ref["prefill_order"].index(ref["groups"][rid])]]
+    for logits, rids in ref["decode"]:
+        if rid in rids and len(rows) < len(toks):
+            rows.append(logits[rids.index(rid)])
+    seen = set(int(t) for t in ref["prompts"][rid])
+    out = []
+    for j, row in enumerate(rows):
+        row = row.clone()
+        for t, b in sp.logit_bias:
+            row[t] += b
+        if sp.repetition_penalty != 1.0:
+            idx = torch.tensor(sorted(seen))
+            vals = row[idx]
+            row[idx] = torch.where(vals > 0, vals / sp.repetition_penalty,
+                                   vals * sp.repetition_penalty)
+        top = torch.topk(row, 2).values
+        out.append(float(top[0] - top[1]))
+        seen.add(int(toks[j]))
+    return out
+
+
+def _tp_compare(tag, ref, got):
+    """A tensor-parallel run (rank 0's record) against the one-process
+    run of the same requests: every prompt end's logits and the first
+    decode step's within RTOL_BLOCK (relative Frobenius); each request's
+    tokens equal up to the first step whose top-2 margin in the
+    one-process run is below twice the largest logit error of those
+    steps. → (per-request agreement, errors)."""
+    if len(got["prefill"]) != len(ref["prefill"]) or \
+            got["prefill_order"] != ref["prefill_order"]:
+        raise RuntimeError(f"{tag}: other prompt ends than one process's "
+                           f"(schedule {got['sched']} against "
+                           f"{ref['sched']})")
+    errs, abs_err = [], 0.0
+    for g, r in zip(got["prefill"], ref["prefill"]):
+        errs.append(_rel(g, r))
+        abs_err = max(abs_err, float((g - r).abs().max()))
+    (g, g_rids), (r, r_rids) = got["decode"][0], ref["decode"][0]
+    if g_rids != r_rids:
+        raise RuntimeError(f"{tag}: first decode step serves {g_rids}, one "
+                           f"process {r_rids}")
+    live = [i for i, rid in enumerate(r_rids) if rid is not None]
+    first = _rel(g[live], r[live])
+    abs_err = max(abs_err, float((g[live] - r[live]).abs().max()))
+    names = ref.get("names", {})
+    agree = {}
+    ok = max(errs) <= RTOL_BLOCK and first <= RTOL_BLOCK
+    for rid, want in ref["tokens"].items():
+        have = got["tokens"][rid]
+        n = 0
+        while n < min(len(have), len(want)) and have[n] == want[n]:
+            n += 1
+        tie = next((j for j, m in enumerate(_tp_margins(ref, rid))
+                    if m < 2 * abs_err), len(want))
+        held = n == len(want) == len(have) or n >= tie
+        agree[f"{names.get(rid, 'request')}#{rid}"] = (n, len(want), tie,
+                                                       held)
+        ok = ok and held
+    log(f"{tag} prompt ends' logits against one process, rel err "
+        f"{[round(e, 5) for e in errs]}; first decode step {first:.5f} "
+        f"(bound {RTOL_BLOCK}); max abs logit err {abs_err:.4g}; schedule "
+        f"{got['sched']} (one process {ref['sched']}) | tokens (agreeing, "
+        f"of, first step with a top-2 margin below {2 * abs_err:.4g}, held) "
+        f"{agree}")
+    if not ok:
+        raise RuntimeError(f"{tag}: the tensor-parallel run disagrees with "
+                           f"one process (prompt ends {errs}, first decode "
+                           f"step {first}, tokens {agree})")
+    return agree, {"prompt_end_rel": max(errs), "first_step_rel": first,
+                   "max_abs": abs_err}
+
+
+def _tp_live_lengths(rec, rids):
+    """Each request's prompt plus its tokens: the lengths its K5 launches
+    reach at its last decode step."""
+    return [len(rec["prompts"][r]) + len(rec["tokens"][r]) for r in rids]
+
+
+def _tp_serve_reference(reqs, qcfg):
+    """Phase 7's one-process run at TP_NEW_TOKENS: the 7B of seed 0 through
+    phase 7's engine (_tp_engine_settings), bf16 then int8 pools, every
+    decode step recorded."""
+    from visrag_tpu_torch.driver.common import build_qwen25_vl
+    from visrag_tpu_torch.serving.engine import Engine
+    tok, sp = _tp_sampling()
+    model = build_qwen25_vl(qcfg, device=DEV, seed=0)
+    out = {}
+    for dtype in ("bfloat16", "int8"):
+        engine = Engine(model, eos_token_ids=[tok.eos_token_id],
+                        cache_dtype=dtype, **_tp_engine_settings())
+        out[dtype] = _tp_serve(engine, reqs, sp, every_step=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve_child(work, mesh):
+    """A rank of 16h's serving job: the 7B of seed 0 (phase 7's init) cut
+    into this rank's shard, then phase 7's engine settings over the model
+    group, bf16 then int8 pools; each run's record and launch counts."""
+    from visrag_tpu_torch.driver.common import build_qwen25_vl
+    from visrag_tpu_torch.mesh import shard_module_tp
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.serving import paged_kv as pk
+    from visrag_tpu_torch.serving.engine import Engine
+    reqs = torch.load(f"{work}/reqs.pt", weights_only=False)
+    tok, sp = _tp_sampling()
+    t0 = time.perf_counter()
+    model = build_qwen25_vl(Qwen25VLConfig.b7(), device=DEV, seed=0)
+    shard = shard_module_tp(model, mesh)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"init_s": time.perf_counter() - t0}
+    for dtype in ("bfloat16", "int8"):
+        for mod in (al, kg, pk):
+            mod.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        engine = Engine(shard, mesh=mesh, eos_token_ids=[tok.eos_token_id],
+                        cache_dtype=dtype, **_tp_engine_settings())
+        rec = _tp_serve(engine, reqs, sp, every_step=False)
+        rec["launches"] = {"stacked": al.stacked_launches,
+                           "flat": al.flat_launches, "kvgrid": kg.launches,
+                           "paged": pk.launches,
+                           "paged_int8": pk.int8_launches,
+                           "paged_legacy": pk.legacy_launches}
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[dtype] = rec
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rl_configs(out_dir, tp):
+    """16h's RS-GRPO run: phase 9's configuration for TP_RL_STEPS steps at
+    TP_RL_LAYERS text layers, the rollout greedy over `tp` model ranks,
+    and 8192-token micro-batches (two ranks' updates share the one card).
+    A greedy group's samples are equal, so its advantages are 0 and step
+    1's gradient too; lr 1e-3 with weight decay 100 makes step 1's
+    decoupled decay scale every weight by 0.9, so that step 2's rollout
+    serves other weights than step 1's (through the refill, under a
+    mesh)."""
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    r = dataclasses.replace
+    cfg = Qwen25VLConfig.b3()
+    cfg = r(cfg, text=r(cfg.text, remat=True,
+                        num_hidden_layers=TP_RL_LAYERS))
+    rcfg = _rl_config(out_dir, TP_RL_STEPS)
+    rcfg = r(rcfg, trainer=r(rcfg.trainer, save_freq=0),
+             rollout=r(rcfg.rollout, tensor_parallel_size=tp,
+                       temperature=0.0),
+             actor=r(rcfg.actor, micro_batch_tokens=8192, lr=1e-3,
+                     weight_decay=100.0))
+    return cfg, rcfg
+
+
+def _tp_rl_rows(work):
+    """Phase 9's two text prompts, twice (a rollout batch of 4): 16h's
+    hybrid rollout without the 3-page prompts, whose vision tower costs
+    ~6 s a prompt over gloo (the serving run takes the tower at tp 2)."""
+    with open(_rl_rows(work)) as f:
+        rows = [r for r in map(json.loads, f) if not r.get("images")]
+    path = f"{work}/rl_text_prompts.jsonl"
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows * 2)
+    return path
+
+
+def _tp_rl_child(work, mesh):
+    """A rank of 16h's RS-GRPO job on a (data 1, model 2) mesh: the
+    rollout tensor-parallel over the model group, the update FSDP2 over
+    data. → its steps' metrics, token ids and rewards, whole batches,
+    rollout records (the first decode step's logits), launches."""
+    from visrag_tpu_torch.mesh import MODEL, axis_index
+    own = f"{work}/rl_rank{axis_index(mesh, MODEL)}"
+    os.makedirs(own, exist_ok=True)
+    cfg, rcfg = _tp_rl_configs(own, TP_WORLD)
+    kept, rollouts = [], []
+    hist, batches, launches, secs, peak = _rl_run(
+        own, cfg, rcfg, mesh, keep=kept, rows_path=_tp_rl_rows(own),
+        rollouts=rollouts)
+    return {"history": hist, "batches": batches, "kept": kept,
+            "rollouts": rollouts, "launches": launches, "secs": secs,
+            "peak_gb": peak}
+
+
+def _tp_child(rank, port, work):
+    """One rank of 16h's job (`python3 chip_smoke.py --tp-child ...`): a
+    gloo group of TP_WORLD processes on the one card whose collectives
+    carry CUDA tensors, on a (data 1, model TP_WORLD) mesh: the serving
+    runs, then (their memory back in the allocator's pool) the hybrid
+    RS-GRPO run; the records go to work/serve_RANK.pt and
+    work/rl_RANK.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from visrag_tpu_torch.config import MeshConfig
+    from visrag_tpu_torch.mesh import build_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=TP_WORLD,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = build_mesh(MeshConfig(model=TP_WORLD, data=1),
+                          device_type="cuda")
+        torch.save(_tp_serve_child(work, mesh), f"{work}/serve_{rank}.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.save(_tp_rl_child(work, mesh), f"{work}/rl_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _tp_spawn(work):
+    """TP_WORLD processes of 16h's job (`--tp-child`), each on the one
+    card; every one is waited for with a deadline and killed on any
+    failure. → (the serving records, the hybrid run's records), each in
+    rank order."""
+    from visrag_tpu_torch.mesh import free_port
+    port = free_port()
+    logs = [open(f"{work}/tp_{r}.log", "w") for r in range(TP_WORLD)]
+    # two processes' caching allocators share the card: segments that
+    # grow in place leave less of it reserved and unused
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-child",
+         "--tp-rank", str(r), "--tp-port", str(port), "--tp-work", work],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(TP_WORLD)]
+    deadline = time.monotonic() + TP_JOB_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = []
+        for r in range(TP_WORLD):
+            with open(f"{work}/tp_{r}.log") as f:
+                tails.append(f"rank {r} (rc {procs[r].returncode}):\n"
+                             + "".join(f.readlines()[-30:]))
+        raise RuntimeError("16h: a rank failed or hung\n" + "\n".join(tails))
+    return tuple([torch.load(f"{work}/{job}_{r}.pt", weights_only=False)
+                  for r in range(TP_WORLD)] for job in ("serve", "rl"))
+
+
+def _tp_kernel_checks(gen, by, qcfg, served, rollout):
+    """K5, K1 GQA and K3 at the per-rank shapes of tensor parallelism
+    against their plain versions, timed beside the library call and the
+    bound, at the shapes 16h's runs gave them: the 7B at tp 2 (K5 14/2 on
+    bf16 and int8 pools at the served requests' lengths after their last
+    token; K1 14/2 at the 1024-token bucket on page1_small's whole prefill
+    and on the text pair's batched one; K3 at 8 of the tower's 16 heads on
+    page1_small's window and image ids), the 3B hybrid rollout at tp 2
+    (K5 8/1 at its first 8 slots' lengths after their last token), and
+    kernel-only the tp 4 shapes of the same lengths (K5 7/1 and 4/1, K1
+    7/1)."""
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    tc, vc = qcfg.text, qcfg.vision
+    h, kvh, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    h3 = Qwen25VLConfig.b3().text.num_attention_heads
+    bucket = _tp_engine_settings()["prompt_buckets"][0]
+    whole = [len(by["page1_small"]["input_ids"])]
+    pair = [len(by[n]["input_ids"]) for n in ("text0", "text1")]
+    live = _tp_live_lengths(served, sorted(served["tokens"]))
+    slots = _tp_live_lengths(rollout, sorted(rollout["tokens"])[:8])
+
+    def k5(label, lens, hq, bs, quantized=False):
+        return _k5_check("[16h]", gen, label, lens, hq, max(kvh * hq // h,
+                                                            1),
+                         d, bs, quantized, True)
+
+    def k1(label, lens, hq):
+        return _gen_k1_check("[16h]", f"K1 GQA, {label}", gen, lens, bucket,
+                             hq, max(kvh * hq // h, 1), d)
+    return {
+        "paged": k5("7B decode, a tp 2 rank", live, h // 2, 128),
+        "paged_int8": k5("7B decode, a tp 2 rank", live, h // 2, 128, True),
+        "gqa": k1("whole prefill, a tp 2 rank", whole, h // 2),
+        "gqa_pair": k1("batched prefill, a tp 2 rank", pair, h // 2),
+        "kvgrid": _k3_checks(gen, by["page1_small"]["vision_batch"],
+                             vc.num_heads // 2, vc.head_dim),
+        "paged_rl": _k5_check("[16h]", gen, "3B hybrid rollout, a tp 2 rank",
+                              slots, h3 // 2, 1, d, 8, False, True),
+        "tp4": [k5("7B decode, a tp 4 rank", live, h // 4, 128),
+                _k5_check("[16h]", gen, "3B hybrid rollout, a tp 4 rank",
+                          slots, h3 // 4, 1, d, 8, False, True),
+                k1("whole prefill, a tp 4 rank", whole, h // 4)]}
+
+
+def _dist_tp(work, gen):
+    """16h: tensor parallelism as two processes on the one card over a
+    gloo group whose collectives carry CUDA tensors (one NCCL rank a
+    card): Qwen2.5-VL-7B served at tp 2 (Engine(mesh=), phase 7's
+    requests, weights and engine settings, greedy, TP_NEW_TOKENS new
+    tokens, bf16 then int8 pools) against the same run in one process;
+    TP_RL_STEPS RS-GRPO steps at Qwen2.5-VL-3B's width with TP_RL_LAYERS
+    text layers on a (data 1, model 2) mesh, each step's greedy rollout
+    (step 2's on the shards refilled from FSDP2) against one process's
+    greedy rollout of the same weights, and the steps' losses against one
+    process's update of the hybrid's batches; then the per-rank kernels
+    against their plain versions at the runs' shapes. → the runs'
+    launches and the kernel checks."""
+    from visrag_tpu_torch.models.qwen25_vl import Qwen25VLConfig
+    t_phase = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    if mode != "Default":
+        raise RuntimeError(f"16h needs two processes on the card; compute "
+                           f"mode {mode!r}")
+    qcfg = Qwen25VLConfig.b7()
+    reqs = [r for r in _serving_requests(StandInTokenizer(), qcfg)
+            if r[0] in TP_REQUESTS]
+    torch.save(reqs, f"{work}/reqs.pt")
+    t0 = time.perf_counter()
+    ref = _tp_serve_reference(reqs, qcfg)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve, rl = _tp_spawn(work)
+    tp_s = time.perf_counter() - t0
+    agree = {}
+    for dtype in ("bfloat16", "int8"):
+        got = serve[0][dtype]
+        agree[dtype] = _tp_compare(f"[16h] {dtype} pools:", ref[dtype], got)
+        n_layers = qcfg.text.num_hidden_layers
+        log(f"[16h] 7B at tp 2, {dtype} pools: {got['secs']:.2f} s serving "
+            f"(one process {ref[dtype]['secs']:.2f} s), pools of "
+            f"{got['pool_kv_heads']} kv heads a rank, launches a rank "
+            f"{got['launches']} ({n_layers} K1 / K5 a prefill / decode "
+            f"step, {qcfg.vision.depth} K3 a tower run), peak a rank "
+            f"{got['peak_gb']:.2f} GB | {smi()}")
+    bf16, int8 = serve[0]["bfloat16"]["launches"], \
+        serve[0]["int8"]["launches"]
+    if not (bf16["paged"] > 0 and int8["paged_int8"] > 0
+            and bf16["stacked"] > 0 and bf16["kvgrid"] > 0
+            and bf16["paged_legacy"] == int8["paged_legacy"] == 0
+            and bf16["paged_int8"] == int8["paged"] == 0):
+        raise RuntimeError(f"16h launches: bf16 {bf16}, int8 {int8}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    got = rl[0]
+    cfg, rcfg = _tp_rl_configs(f"{work}/rl_one", 1)
+    own, rollouts = [], []
+    t0 = time.perf_counter()
+    one = _rl_run(work, cfg, rcfg, keep=own, replay=got["kept"],
+                  rows_path=_tp_rl_rows(work), rollouts=rollouts,
+                  every_step=True)[0]
+    one_s = time.perf_counter() - t0
+    if not len(rollouts) == len(got["rollouts"]) == len(one) \
+            == len(got["history"]) == TP_RL_STEPS:
+        raise RuntimeError(f"16h RS-GRPO: {len(got['rollouts'])} rollouts "
+                           f"and {len(got['history'])} steps at tp 2, "
+                           f"{len(rollouts)} and {len(one)} in one process")
+    rl_agree = [_tp_compare(f"[16h] RS-GRPO step {i} greedy rollout at "
+                            f"(data 1, model 2):", want, have)
+                for i, (want, have) in enumerate(
+                    zip(rollouts, got["rollouts"]), 1)]
+    rewards = [a["reward_tensor"].shape == b["reward_tensor"].shape
+               and bool((a["reward_tensor"] == b["reward_tensor"]).all())
+               for a, b in zip(own, got["kept"])]
+    # what step 1's update moved: the same prompt's step-2 prompt-end
+    # logits against its step-1 ones, in one process
+    step1 = {tuple(rollouts[0]["prompts"][r]): rollouts[0]["prefill"][i]
+             for i, r in enumerate(rollouts[0]["prefill_order"])}
+    moved = [_rel(rollouts[1]["prefill"][i], step1[key])
+             for i, r in enumerate(rollouts[1]["prefill_order"])
+             if (key := tuple(rollouts[1]["prompts"][r])) in step1]
+    keys = ("loss", "grad_norm")
+    rel = [{k: abs(h[k] - o[k]) / max(abs(o[k]), 1e-30) for k in keys}
+           for h, o in zip(got["history"], one)]
+    log(f"[16h] RS-GRPO, Qwen2.5-VL-3B width at {TP_RL_LAYERS} of 36 text "
+        f"layers, {TP_RL_STEPS} steps on (data 1, model 2), the greedy "
+        f"rollout over the model group (phase 9's text prompts): rewards "
+        f"equal to one process's own rollout's {rewards}; step 2's prompt "
+        f"ends moved from step 1's by rel {[round(m, 4) for m in moved]} "
+        f"(step 1's decay, carried to the shards by the refill); {keys} "
+        f"{[[h[k] for k in keys] for h in got['history']]} against one "
+        f"process's update of the same batches "
+        f"{[[o[k] for k in keys] for o in one]} (rel err {rel}, bound "
+        f"{RTOL_TRAIN}; one process {one_s:.1f} s); {got['secs']:.1f} s a "
+        f"rank with init, peak a rank {got['peak_gb']:.2f} GB; launches a "
+        f"rank {got['launches']}")
+    if max(v for r in rel for v in r.values()) > RTOL_TRAIN \
+            or got["launches"]["paged"] == 0:
+        raise RuntimeError(f"16h RS-GRPO at (data 1, model 2): {keys} rel "
+                           f"err {rel}, launches {got['launches']}")
+    by = {name: req for name, req, _ in reqs}
+    checks = _tp_kernel_checks(gen, by, qcfg, serve[0]["bfloat16"],
+                               got["rollouts"][0])
+    log(f"[16h] in {time.perf_counter() - t_phase:.1f} s (one-process "
+        f"serving {ref_s:.1f} s, the two ranks' serving and hybrid runs "
+        f"{tp_s:.1f} s, the 7B's init and cut {serve[0]['init_s']:.1f} s)")
+    return {"serve": {"bfloat16": bf16, "int8": int8},
+            "rl": got["launches"], "checks": checks, "agree": agree,
+            "rl_agree": rl_agree, "vision_depth": qcfg.vision.depth,
+            "full_layers": len(qcfg.vision.fullatt_block_indexes)}
+
+
+def tp_kernel_rows(tp):
+    """16h's rows: K5 at 14/2 on bf16 and int8 pools, K1 GQA at 14/2 and
+    K3 at 8 heads (window and full layers) with launches from the tp 2
+    serving run's rank 0, K5 at 8/1 with launches from the hybrid
+    rollout's rank 0; the tp 4 shapes' checks under the K5 and K1 rows."""
+    from visrag_tpu_torch.ops import attention_kvgrid as kg
+    from visrag_tpu_torch.ops import attention_lengths as al
+    from visrag_tpu_torch.serving import paged_kv as pk
+    c, serve = tp["checks"], tp["serve"]
+    runs = serve["bfloat16"]["kvgrid"] + serve["int8"]["kvgrid"]
+    runs //= tp["vision_depth"]
+    n_full = tp["full_layers"]
+    rows = []
+    for name, source, replaces, launches, rec, extra in (
+            ("paged_decode_attention (a tp 2 rank, 14/2)", pk.SOURCE,
+             REPLACES["paged"], serve["bfloat16"]["paged"], c["paged"],
+             c["tp4"][:2]),
+            ("paged_decode_attention (int8 pools, a tp 2 rank, 14/2)",
+             pk.SOURCE, REPLACES["paged"] + " (quantized=True)",
+             serve["int8"]["paged_int8"], c["paged_int8"], []),
+            ("flash_fwd_lengths (GQA, a tp 2 rank, 14/2, d=128)", al.SOURCE,
+             REPLACES["fwd"], serve["bfloat16"]["stacked"]
+             + serve["int8"]["stacked"], c["gqa"],
+             [c["gqa_pair"]] + c["tp4"][2:]),
+            ("flash_attention_kvgrid (window layers, a tp 2 rank, 8 heads)",
+             kg.SOURCE, REPLACES["kvgrid"],
+             runs * (tp["vision_depth"] - n_full), c["kvgrid"][0],
+             c["kvgrid"][2:]),
+            ("flash_attention_kvgrid (full layers, a tp 2 rank, 8 heads)",
+             kg.SOURCE, REPLACES["kvgrid"], runs * n_full, c["kvgrid"][1],
+             []),
+            ("paged_decode_attention (the hybrid rollout, a tp 2 rank, 8/1)",
+             pk.SOURCE, REPLACES["paged"], tp["rl"]["paged"], c["paged_rl"],
+             [])):
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches,
+                     **{k: rec.get(k) for k in KEYS},
+                     "checks": [rec] + extra})
+    return rows
+
+
 def phase16_distributed(gen, scan_ids=None, phase5_losses=None,
                         phase10_history=None, rl_ref=None, gae_ref=None):
     """The multi-GPU layer on one card: every distributed entry point over
@@ -5810,6 +6456,7 @@ def phase16_distributed(gen, scan_ids=None, phase5_losses=None,
         t0 = time.perf_counter()
         rl_launches = _dist_rl(work, rl_ref, gae_ref)
         log(f"[16f] in {time.perf_counter() - t0:.1f} s")
+        tp = _dist_tp(work, gen)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[16] phase 16 in {time.perf_counter() - t_phase:.1f} s")
@@ -5817,13 +6464,13 @@ def phase16_distributed(gen, scan_ids=None, phase5_losses=None,
                          "sft": sft_launches, "scan_int8_gemm": k6,
                          "ulysses": ulysses_launches, "lora": lora_launches,
                          **rl_launches},
-            "ulysses": ulysses, "scan_ms": scan_ms}
+            "ulysses": ulysses, "scan_ms": scan_ms, "tp": tp}
 
 
 def dist_kernel_rows(dist_results):
     """K4's rows at the Ulysses per-rank shapes of the SFT batch and of
     the RL packed update (launches from phase 16's ulysses_attention runs,
-    numbers from its checks)."""
+    numbers from its checks), then 16h's (tp_kernel_rows)."""
     from visrag_tpu_torch.ops import attention as seg
     rows = []
     for tag, suffix in (("SFT batch", ""), ("RL packed update",
@@ -5842,7 +6489,7 @@ def dist_kernel_rows(dist_results):
                              **{k: rec[kind][k] for k in KEYS},
                              "pr4_ms": rec[kind].get("pr4_ms"),
                              "checks": [rec[kind]]})
-    return rows
+    return rows + tp_kernel_rows(dist_results["tp"])
 
 
 def main(argv=None):
@@ -5863,7 +6510,16 @@ def main(argv=None):
                     help="phases 0, 1, 1b and 16 only, for work on the "
                          "multi-GPU layer; the run then ends without the "
                          "ok line")
+    # one rank of phase 16h's job, started by phase 16h itself
+    ap.add_argument("--tp-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.tp_child:
+        return _tp_child(args.tp_rank, args.tp_port,
+                         args.tp_work)
     # full fp32 wherever fp32 is asked for (pos embed, the fp32 references)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -736,37 +736,31 @@ def test_token_level_estimators_run(shared, estimator):
     assert "critic/kl" in m and "critic/kl_coef" in m
 
 
-@pytest.mark.parametrize("what", ["mesh", "ulysses", "tensor_parallel", "gae",
+@pytest.mark.parametrize("what", ["ulysses", "tensor_parallel", "gae",
                                   "critic", "router_reward_kl"])
 def test_refused_configurations_raise(shared, what):
     cfg = _cfg()
     kw = {}
-    err = NotImplementedError
-    if what == "mesh":
-        # tensor parallelism stays refused: a mesh whose model axis is 2
-        kw["mesh"] = {"model": 2}
-    elif what == "ulysses":
+    if what == "ulysses":
         # as the JAX trainer: ulysses_size needs a mesh with seq of it
         cfg = _cfg(ulysses_size=2)
-        err = ValueError
     elif what == "tensor_parallel":
+        # as ulysses_size: tensor_parallel_size needs a mesh with model of
+        # it (the hybrid engine itself: tests/test_torch_tp.py)
         cfg = dc.replace(cfg, rollout=dc.replace(cfg.rollout,
                                                  tensor_parallel_size=2))
     elif what == "gae":
         # GAE is ported; without a critic it is refused
         cfg = dc.replace(cfg, algorithm=dc.replace(cfg.algorithm,
                                                    adv_estimator="gae"))
-        err = ValueError
     elif what == "critic":
         # a critic with an estimator that does not read it
         kw["critic"] = object()
-        err = ValueError
     else:
         cfg = dc.replace(cfg, algorithm=dc.replace(cfg.algorithm,
                                                    use_kl_loss=False))
         kw["ref_model"] = _port_model(shared)
-        err = ValueError
-    with pytest.raises(err):
+    with pytest.raises(ValueError):
         _port_trainer(shared, cfg, **kw)
 
 
@@ -824,13 +818,12 @@ def test_rl_main_cli_and_resume(tiny_ckpt, tmp_path):
                                   ["--set", "mesh.data=4"],
                                   ["--set", "mesh.model=2"]])
 def test_rl_main_refuses_what_is_not_ported(tiny_ckpt, tmp_path, flag):
-    """Tensor parallelism is the next slice (NotImplementedError); a
-    layout that one process cannot fill, and processes without a
-    coordinator, are refused (ValueError)."""
+    """A layout that one process cannot fill (a model axis of 2, or
+    rollout.tensor_parallel_size 2, which sizes it; data 4), and
+    processes without a coordinator, are refused (ValueError); the
+    tensor-parallel rollout on 2 ranks is tests/test_torch_tp.py's."""
     from visrag_tpu_torch.driver.rl_main import main
-    err = NotImplementedError if "model" in flag[-1] or \
-        "tensor_parallel" in flag[-1] else ValueError
-    with pytest.raises(err):
+    with pytest.raises(ValueError):
         main(_rl_args(tiny_ckpt, tmp_path, tmp_path / "out") + flag)
 
 

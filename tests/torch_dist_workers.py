@@ -422,7 +422,11 @@ def rl_job(rank, world, state, vstate, cases):
       "critic" (batch,): critic_update → (values, metrics, full weights);
       "rollout" (prompts, n): a greedy rollout → its fields;
       "resume" (batch, from_dir, to_dir): a GAE trainer resumes from
-        from_dir → its full state; then it saves to to_dir."""
+        from_dir → its full state; then it saves to to_dir;
+      "fit" (prompts, cfg over, steps): a greedy rollout of `prompts` at
+        seed 5, then `steps` steps of fit on them → (the rollout's
+        responses, each step's metrics, the actor's full weights, the
+        engine's tensor-parallel size and prefill count)."""
     import dataclasses
     from visrag_tpu_torch.config import MeshConfig
     from visrag_tpu_torch.mesh import build_mesh
@@ -447,6 +451,14 @@ def rl_job(rank, world, state, vstate, cases):
             rb = t.rollout(prompts, 0, n=n, temperature=0.0)
             out.append({f.name: getattr(rb, f.name)
                         for f in dataclasses.fields(rb)})
+        elif kind == "fit":
+            prompts, over, steps = args
+            t = rl_trainer(state, rl_config(**over), mesh)
+            rb = t.rollout([dict(p) for p in prompts], 5)
+            engine = (t._engine.tp, t._engine.prefill_count)
+            hist = t.fit(iter([prompts] * steps))
+            out.append((rb.responses, [m for _, m in hist],
+                        _state(t.model, rank), engine))
         else:
             batch, from_dir, to_dir = args
             cfg = rl_config(algorithm={"adv_estimator": "gae"},
@@ -470,3 +482,123 @@ def _numpy_opt(optimizer, rank):
     from visrag_tpu_torch.training.checkpoint import full_tensors
     full = full_tensors(optimizer.state_dict())
     return _numpy(full) if rank == 0 else None
+
+
+# ---- tensor parallelism -----------------------------------------------------
+
+
+def tp_model(spec):
+    """A port generation model from (kind, numpy state, config overrides):
+    kind "qwen" (Qwen2.5-VL tiny, overrides on its text config),
+    "minicpm" (MiniCPM-2B tiny) or "minicpmv26" (MiniCPM-V 2.6 tiny)."""
+    import torch
+    kind, state, over = spec
+    if kind == "qwen":
+        return tiny_qwen(state, **over).eval()
+    if kind == "minicpm":
+        from visrag_tpu_torch.models.minicpm import (MiniCPMForGeneration,
+                                                     MiniCPMGenConfig)
+        model = MiniCPMForGeneration(MiniCPMGenConfig.tiny(**over))
+    else:
+        from visrag_tpu_torch.models.minicpmv26 import (
+            MiniCPMV26Config, MiniCPMV26ForGeneration)
+        model = MiniCPMV26ForGeneration(MiniCPMV26Config.tiny(**over))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model.eval()
+
+
+def _tp_engine(mesh, spec, engine_kw, prompts, sampling_kw, n):
+    """Engine(mesh=) over the rank's shard → the requests' ids and summed
+    log-probabilities, and the engine's counters and pool heads."""
+    from visrag_tpu_torch.mesh import shard_module_tp
+    from visrag_tpu_torch.serving.engine import Engine
+    from visrag_tpu_torch.serving.sampling import SamplingParams
+    engine = Engine(shard_module_tp(tp_model(spec), mesh), mesh=mesh,
+                    **engine_kw)
+    engine.record_schedule = True
+    reqs = engine.generate_detailed(prompts, SamplingParams(**sampling_kw),
+                                    n=n)
+    pool = engine.k_cache.data if hasattr(engine.k_cache, "data") \
+        else engine.k_cache
+    return dict(ids=[r.output_ids for r in reqs],
+                logp=[r.cum_logprob for r in reqs],
+                prefills=(engine.prefill_count, engine.prefill_dispatches),
+                prefix_hits=engine.prefix_hits, sched=engine.sched_log,
+                kv_heads=pool.shape[2], free=len(engine.allocator.free))
+
+
+def _tp_modules(mesh, spec, ids, mask, decode_ids, vision):
+    """The rank's shard (mesh.shard_module_tp) of the Qwen model: the
+    prefill's logits (all positions) and its own kv heads' K/V, three
+    decode steps over a dense cache of those heads, the vision tower's
+    output and the forward's logits on the prefill's rows."""
+    import numpy as np
+    import torch
+    from visrag_tpu_torch.mesh import shard_module_tp
+    shard = shard_module_tp(tp_model(spec), mesh)
+    t = torch.from_numpy
+    out = {}
+    with torch.no_grad():
+        logits, k, v = shard.prefill(t(ids), attention_mask=t(mask))
+        out["prefill"] = (logits.numpy(), k.numpy(), v.numpy())
+        s = int(mask.sum())
+        layers, _, _, kvh, d = k.shape
+        kc = torch.zeros((layers, 1, s + len(decode_ids), kvh, d))
+        vc = torch.zeros_like(kc)
+        kc[:, :, :s], vc[:, :, :s] = k[:, :, :s], v[:, :, :s]
+        steps = []
+        for i, tok in enumerate(decode_ids):
+            pos = torch.full((3, 1, 1), s + i)
+            steps.append(shard.decode(torch.tensor([[tok]]), pos, kc, vc,
+                                      torch.tensor([s + i + 1])).numpy())
+        out["decode"] = np.stack(steps)
+        out["vision"] = shard.encode_images(
+            {key: t(np.asarray(a)) for key, a in vision.items()}).numpy()
+        out["forward"] = shard(t(ids), attention_mask=t(mask))[0].numpy()
+    return out
+
+
+def _tp_refusals(mesh, spec):
+    """What tensor parallelism refuses, each's ValueError message (None
+    where nothing raised): Engine(mesh=) over a whole model, and an int8
+    QuantLinear that the rule would slice."""
+    import torch
+    from visrag_tpu_torch.mesh import shard_module_tp
+    from visrag_tpu_torch.models.common import QuantLinear
+    from visrag_tpu_torch.serving.engine import Engine
+    int8 = torch.nn.ModuleDict({"q_proj": QuantLinear(8, 8)})
+    out = []
+    for make in (lambda: Engine(tp_model(spec), mesh=mesh),
+                 lambda: shard_module_tp(int8, mesh)):
+        try:
+            make()
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def tp_job(rank, world, cases, rl_args=None):
+    """Each case (kind, mesh layout, arguments) on a fresh mesh:
+      "engine" (model spec, engine kwargs, prompts, sampling kwargs, n):
+        _tp_engine;
+      "modules" (model spec, ids, mask, decode ids, vision): _tp_modules;
+      "refusals" (model spec,): _tp_refusals;
+      "rl_mesh" (tp,): rl_main.rl_mesh of a config with
+        rollout.tensor_parallel_size tp → its axis sizes;
+    then rl_job with rl_args (None skips it)."""
+    from visrag_tpu_torch.config import MeshConfig, RLConfig
+    from visrag_tpu_torch.driver.rl_main import rl_mesh
+    from visrag_tpu_torch.mesh import axis_sizes, build_mesh
+    out = []
+    for kind, mesh_kw, args in cases:
+        if kind == "rl_mesh":
+            cfg = RLConfig()
+            cfg.rollout.tensor_parallel_size = args[0]
+            out.append(axis_sizes(rl_mesh(cfg)))
+            continue
+        mesh = build_mesh(MeshConfig(**mesh_kw))
+        fn = {"engine": _tp_engine, "modules": _tp_modules,
+              "refusals": _tp_refusals}[kind]
+        out.append(fn(mesh, *args))
+    return out, (rl_job(rank, world, *rl_args) if rl_args else None)

@@ -29,8 +29,9 @@ config with its seq axis sized from actor.ulysses_size and the replica
 axis spanning nodes (`rl_mesh`); the actor, the reference policy and the
 critic are sharded over it and the rollout is split over (replica, data)
 (rl/trainer.py). Every rank reads the same prompts; rank 0 logs and
-writes. Tensor parallelism (rollout.tensor_parallel_size > 1, a mesh
-model axis > 1) is refused: it is the next slice of the port.
+writes. rollout.tensor_parallel_size > 1 sizes the mesh's model axis:
+the rollout then runs tensor-parallel over each model group (the hybrid
+engine) while the update stays FSDP2 over the other axes.
 """
 
 from __future__ import annotations
@@ -70,23 +71,20 @@ def engine_settings(cfg) -> dict:
 def rl_mesh(cfg):
     """The RL job's mesh (None without a process group): the config's
     mesh with seq sized from actor.ulysses_size (the reference's
-    ulysses_sequence_parallel_size, fsdp_workers.py:119) and the replica
-    axis spanning nodes. Tensor parallelism raises NotImplementedError;
-    a layout that the processes cannot fill raises ValueError."""
+    ulysses_sequence_parallel_size, fsdp_workers.py:119), model from
+    rollout.tensor_parallel_size (the hybrid engine's rollout TP, as the
+    JAX driver sizes it) and the replica axis spanning nodes; a layout
+    that the processes cannot fill raises ValueError."""
     import torch.distributed as dist
 
     from ..mesh import (build_mesh, mesh_shape, multihost_mesh_config,
                         num_nodes_of_job)
-    if cfg.rollout.tensor_parallel_size > 1 or cfg.mesh.model > 1:
-        raise NotImplementedError(
-            f"rollout.tensor_parallel_size="
-            f"{cfg.rollout.tensor_parallel_size}, mesh.model="
-            f"{cfg.mesh.model}: tensor-parallel serving and the "
-            "tensor-parallel rollout are the next slice of the multi-GPU "
-            "port")
     mesh_cfg = cfg.mesh
     if cfg.actor.ulysses_size > 1:
         mesh_cfg = dataclasses.replace(mesh_cfg, seq=cfg.actor.ulysses_size)
+    if cfg.rollout.tensor_parallel_size > 1:
+        mesh_cfg = dataclasses.replace(
+            mesh_cfg, model=cfg.rollout.tensor_parallel_size)
     mesh_cfg = multihost_mesh_config(mesh_cfg, num_nodes_of_job())
     world = dist.get_world_size() if dist.is_initialized() else 1
     mesh_shape(mesh_cfg, world)                  # the layout, or ValueError

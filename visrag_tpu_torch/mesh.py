@@ -23,12 +23,18 @@ On the card the groups are NCCL's on cuda:LOCAL_RANK; on the CPU they are
 gloo's. Without a process group (one process, nothing configured) the
 callers take mesh=None and run their one-device path, where every
 collective below is a no-op.
+
+Tensor parallelism (serving, the RL rollout) runs on the `model` group:
+`shard_module_tp` cuts a whole module into a rank's shard by
+`tp_param_spec` (q/k/v and their output projection by whole heads), and
+`load_tp_shard` refills it from the whole module or its FSDP2 shards.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import itertools
 import math
 import os
 from typing import Mapping, Optional, Sequence, Union
@@ -36,6 +42,7 @@ from typing import Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from .config import MeshConfig
@@ -172,17 +179,21 @@ def _groups_over(shape: Mapping[str, int], axes: Sequence[str]):
     return mine
 
 
-def build_mesh(cfg: Optional[MeshConfig] = None) -> DeviceMesh:
+def build_mesh(cfg: Optional[MeshConfig] = None,
+               device_type: Optional[str] = None) -> DeviceMesh:
     """The job's DeviceMesh with the JAX axis names, sized by the JAX fill
     rule over the world size; needs a process group (init_distributed).
     The flattened (replica, data) and (replica, data, seq) groups are kept
-    on the mesh for axis_group."""
+    on the mesh for axis_group. `device_type`: where the ranks' tensors
+    live, by default "cuda" under NCCL and "cpu" under gloo; "cuda" under
+    gloo for ranks that share one card (gloo carries CUDA tensors)."""
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs a process group: call "
                            "mesh.init_distributed first (one process "
                            "without one runs with mesh=None)")
     shape = mesh_shape(cfg, dist.get_world_size())
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = device_type or (
+        "cuda" if dist.get_backend() == "nccl" else "cpu")
     groups = [_groups_over(shape, (a,)) for a in shape]
     mesh = DeviceMesh.from_group(
         groups, device_type, mesh=torch.from_numpy(_rank_grid(shape)),
@@ -334,9 +345,7 @@ def tp_param_spec(path: Sequence[str], shape: tuple, mesh: MeshLike) -> tuple:
     spec = [None] * len(shape)
     if n_model <= 1 or len(shape) < 1:
         return tuple(spec)
-    # a module path's names, and each pair of neighbours joined by "_":
-    # the HF names attn.qkv / attn.proj are the JAX attn_qkv / attn_proj
-    names = set(path) | {f"{a}_{b}" for a, b in zip(path, path[1:])}
+    names = _names(path)
     # the JAX embedding's leaf is "embedding"; an nn.Embedding's "weight"
     embedding = bool(path) and (path[-1] == "embedding" or tuple(
         path[-2:]) == ("embed_tokens", "weight"))
@@ -348,6 +357,189 @@ def tp_param_spec(path: Sequence[str], shape: tuple, mesh: MeshLike) -> tuple:
             and shape[-1] % n_model == 0:
         spec[-1] = MODEL
     return tuple(spec)
+
+
+# column-parallel layers whose outputs feed something other than their
+# row-parallel pair: gathered over the group after the GEMM (the
+# resampler's kv_proj would be one, but the resampler stays whole)
+_TP_GATHER = ("lm_head",)
+
+
+def _names(path: Sequence[str]) -> set:
+    """A module path's names, and each pair of neighbours joined by "_"
+    (the HF attn.qkv is the JAX attn_qkv)."""
+    return set(path) | {f"{a}_{b}" for a, b in zip(path, path[1:])}
+
+
+def _head_rows(parent, attr: str, tp: int, rank: int):
+    """Head-aligned cuts inside an attention module that declares
+    `tp_heads = (h, kvh, d)`: → ("col" | "row", row or column indices) for
+    its q/k/v projections (fused `qkv`: q, k and v stacked on dim 0, each
+    third cut by heads) and its output projection, or None to keep the
+    layer whole. A fused qkv whose heads tp does not divide (a small
+    vision tower) stays whole with its projection; separate q/k/v, whose
+    K/V go to the paged pools, take serving/paged_kv.tp_head_layout, which
+    raises on a layout no rank can hold."""
+    from .serving.paged_kv import tp_head_layout
+    h, kvh, d = parent.tp_heads
+    fused = hasattr(parent, "qkv")
+    if fused and h % tp:
+        return None
+    q0, hq, k0, hk = tp_head_layout(h, kvh, tp, rank)
+    q = torch.arange(q0 * d, (q0 + hq) * d)
+    if attr in ("o_proj", "proj"):
+        return "row", q
+    if attr == "qkv":
+        return "col", torch.cat([q + i * h * d for i in range(3)])
+    if attr == "q_proj":
+        return "col", q
+    if attr in ("k_proj", "v_proj"):
+        return "col", torch.arange(k0 * d, (k0 + hk) * d)
+    return None
+
+
+_HEAD_LAYERS = ("qkv", "proj", "q_proj", "k_proj", "v_proj", "o_proj")
+
+
+def _tp_role(path, module, parent, tp: int, rank: int, mesh):
+    """How the rank holds one nn.Linear / nn.Embedding: (role, indices)
+    with role "col" (out rows), "gather" (out rows, outputs gathered),
+    "row" (in columns) or "vocab" (embedding rows); None: whole."""
+    if hasattr(parent, "tp_heads") and path[-1] in _HEAD_LAYERS:
+        return _head_rows(parent, path[-1], tp, rank)
+    shape = tuple(module.weight.shape)
+    spec = tp_param_spec(tuple(path) + ("weight",), shape, mesh)
+    if MODEL not in spec:
+        return None
+    dim = spec.index(MODEL)
+    n = shape[dim] // tp
+    idx = torch.arange(rank * n, (rank + 1) * n)
+    if isinstance(module, nn.Embedding):
+        return "vocab", idx
+    if dim == 1:
+        return "row", idx
+    gathered = any(n in _names(path) for n in _TP_GATHER)
+    return ("gather" if gathered else "col"), idx
+
+
+def _sliced_linear(cls, weight, bias):
+    """A `cls` (an nn.Linear kind) holding the given tensors, built
+    without allocating its full-size weight."""
+    new = cls.__new__(cls)
+    nn.Module.__init__(new)
+    new.in_features, new.out_features = weight.shape[1], weight.shape[0]
+    new.weight = nn.Parameter(weight, requires_grad=False)
+    new.bias = None if bias is None else nn.Parameter(bias,
+                                                      requires_grad=False)
+    return new
+
+
+@torch.no_grad()
+def shard_module_tp(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
+    """This rank's tensor-parallel shard of a whole module, for serving
+    over the mesh's `model` group (the JAX shard_params_tp, one rank's
+    part of it): a copy of `model` in which every nn.Linear and
+    nn.Embedding that tp_param_spec shards holds the rank's slice —
+    column-parallel layers their out rows (the LM head's outputs then
+    gathered: models/common.GatheredLinear), row-parallel ones their in
+    columns (common.RowParallelLinear: the partial products summed over
+    the group, the bias added once after), the embedding its vocabulary
+    rows (common.VocabParallelEmbedding) — where q/k/v and their output
+    projection are cut by whole heads (_head_rows) and every other tensor
+    is a whole copy. A subtree whose module sets `tp_whole = True` (the
+    resampler) stays whole. The shard is inference only (requires_grad
+    off) and records how each sliced tensor was cut, for load_tp_shard;
+    `model` is left as it was, and the caller may free it."""
+    import copy
+
+    from .models.common import (GatheredLinear, QuantLinear,
+                                RowParallelLinear, VocabParallelEmbedding)
+    tp = axis_size(mesh, MODEL)
+    group = axis_group(mesh, MODEL)
+    rank = dist.get_rank(group)
+    memo = {id(t): t for t in itertools.chain(model.parameters(),
+                                              model.buffers())}
+    shard = copy.deepcopy(model, memo)      # the structure; no tensor copied
+    index = {}
+    whole = set()
+    for name, m in list(shard.named_modules()):
+        if getattr(m, "tp_whole", False):
+            whole.add(name)
+        if any(name == w or name.startswith(w + ".") for w in whole) \
+                or not isinstance(m, (nn.Linear, nn.Embedding)) or not name:
+            continue
+        path = name.split(".")
+        parent = shard.get_submodule(".".join(path[:-1]))
+        role = _tp_role(path, m, parent, tp, rank, mesh)
+        if role is None:
+            continue
+        kind, idx = role
+        if isinstance(m, QuantLinear):
+            raise ValueError(
+                f"{name}: an int8 layer cannot be sliced for tensor "
+                "parallelism (a row-parallel slice would take its "
+                "activation scales over part of each row: K6 would see "
+                "other codes); serve it with quant='none'")
+        w = m.weight.index_select(1 if kind == "row" else 0,
+                                  idx.to(m.weight.device))
+        b = m.bias if isinstance(m, nn.Linear) else None
+        if kind == "vocab":
+            new = VocabParallelEmbedding.from_pretrained(w)
+            new.start = int(idx[0])
+        elif kind == "row":
+            new = _sliced_linear(RowParallelLinear, w, b)
+        elif kind == "gather":
+            new = _sliced_linear(GatheredLinear, w, None if b is None
+                                 else b.index_select(0, idx.to(b.device)))
+        else:
+            new = _sliced_linear(type(m), w, None if b is None
+                                 else b.index_select(0, idx.to(b.device)))
+        if kind != "col":
+            new.group = group
+        setattr(parent, path[-1], new)
+        dim = 1 if kind == "row" else 0
+        index[name + ".weight"] = (dim, idx)
+        if b is not None and kind != "row":
+            index[name + ".bias"] = (0, idx)
+    # every tensor not sliced above: a whole copy of the rank's own
+    for m in shard.modules():
+        for key, p in list(m._parameters.items()):
+            if p is not None and id(p) in memo:
+                m._parameters[key] = nn.Parameter(p.detach().clone(),
+                                                  requires_grad=False)
+        for key, b in list(m._buffers.items()):
+            if b is not None and id(b) in memo:
+                m._buffers[key] = b.clone()
+    shard.requires_grad_(False)
+    shard.tp_index = index
+    shard.tp_group = group
+    shard.tp_size = tp
+    return shard
+
+
+@torch.no_grad()
+def load_tp_shard(shard: Optional[nn.Module], source: nn.Module,
+                  skip: Sequence[str] = ()) -> None:
+    """Refill a shard (shard_module_tp), or a whole copy, from `source`:
+    the whole module it was cut from after an update, or that module under
+    FSDP2 (each DTensor gathered whole, one tensor at a time and in one
+    order: every rank of its mesh must call this, a rank with no shard
+    passing None). Names starting with a prefix in `skip` (a frozen tower)
+    are left out."""
+    from torch.distributed.tensor import DTensor
+    own = None if shard is None else shard.state_dict()
+    index = getattr(shard, "tp_index", {})
+    for name, t in source.state_dict().items():
+        if any(name.startswith(s) for s in skip):
+            continue
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        if own is None:
+            continue
+        cut = index.get(name)
+        if cut is not None:
+            t = t.index_select(cut[0], cut[1].to(t.device))
+        own[name].copy_(t)
 
 
 def local_batch_size(global_batch: int, mesh: Optional[MeshLike]) -> int:

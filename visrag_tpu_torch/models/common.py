@@ -7,7 +7,12 @@ dynamic-NTK scaling) applied in fp32, and the 2-D sin-cos position
 tables. Linear layers are plain `nn.Linear` with the torch (out, in)
 weight layout, which is the layout the JAX package's `Dense` stores;
 `QuantLinear` is the counterpart of its `QuantDense` (int8 w8a8,
-inference only).
+inference only). Tensor-parallel serving (mesh.shard_module_tp) puts
+`RowParallelLinear`, `GatheredLinear` and `VocabParallelEmbedding` in a
+rank's shard: the forms of nn.Linear / nn.Embedding that close a
+column / row pair with one all-reduce, gather a column-parallel output
+whole, and look up a vocabulary shard (inference only: their collectives
+have no backward).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops import norms
@@ -57,6 +63,89 @@ class QuantLinear(nn.Linear):
         from ..ops.quant import int8_linear
         wq, ws = self._codes()
         return int8_linear(x, wq, ws, self.bias, out_dtype=self.weight.dtype)
+
+
+def _inference_only(x, layer):
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or layer.weight.requires_grad):
+        raise RuntimeError(f"{type(layer).__name__} is inference only: its "
+                           "collectives have no backward")
+
+
+def gather_last(y, group):
+    """Every rank's y (same shape) of a tensor-parallel group, concatenated
+    along the last dim in group order (one all_gather)."""
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
+
+
+class GatheredLinear(nn.Linear):
+    """A column-parallel nn.Linear whose outputs feed something other than
+    its row-parallel pair (the LM head): this rank's out features, then
+    the whole output gathered over the group. `group` is set by
+    mesh.shard_module_tp."""
+
+    group = None
+
+    def forward(self, x):
+        _inference_only(x, self)
+        return gather_last(super().forward(x), self.group)
+
+
+class RowParallelLinear(nn.Linear):
+    """A row-parallel nn.Linear: this rank's in features (the slice its
+    column-parallel pair produced) and the whole bias. The partial
+    products are summed over the group in fp32 (bf16 GEMMs write fp32
+    outputs), the bias is added once after the sum, and the result is
+    rounded to the input dtype once, as one process's GEMM rounds it."""
+
+    group = None
+
+    def forward(self, x):
+        _inference_only(x, self)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            y = x2 @ self.weight.t()
+        elif x.is_cuda:
+            y = torch.mm(x2, self.weight.t(), out_dtype=torch.float32)
+        else:
+            y = x2.float() @ self.weight.float().t()
+        dist.all_reduce(y, group=self.group)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype).reshape(*x.shape[:-1], -1)
+
+
+class VocabParallelEmbedding(nn.Embedding):
+    """nn.Embedding over this rank's rows [start, start + num_embeddings)
+    of the vocabulary: ids outside them look up zeros, and the group's sum
+    is the whole lookup (exactly: one non-zero row per id). `logits`
+    is the tied LM head over the same rows, gathered."""
+
+    group = None
+    start = 0
+
+    def forward(self, ids):
+        _inference_only(ids, self)
+        local = ids.long() - self.start
+        inside = (local >= 0) & (local < self.num_embeddings)
+        y = super().forward(local.clamp(0, self.num_embeddings - 1))
+        y = y.masked_fill(~inside[..., None], 0)
+        dist.all_reduce(y, group=self.group)
+        return y
+
+    def logits(self, hidden):
+        return gather_last(hidden @ self.weight.to(hidden.dtype).T,
+                           self.group)
+
+
+def tied_logits(embedding, hidden):
+    """The LM head tied to `embedding` (its weight (V, E)): hidden @ W.T,
+    gathered over the group when the embedding is vocab-parallel."""
+    if isinstance(embedding, VocabParallelEmbedding):
+        return embedding.logits(hidden)
+    return hidden @ embedding.weight.to(hidden.dtype).T
 
 
 class LayerNorm(nn.Module):

@@ -133,14 +133,19 @@ class MiniCPMAttention(nn.Module):
         self.k_proj = linear(c.hidden_size, kvd, bias=False, dtype=c.dtype)
         self.v_proj = linear(c.hidden_size, kvd, bias=False, dtype=c.dtype)
         self.o_proj = linear(hd, c.hidden_size, bias=False, dtype=c.dtype)
+        # (q heads, kv heads, head dim): mesh.shard_module_tp cuts by heads
+        self.tp_heads = (c.num_attention_heads, c.num_key_value_heads,
+                         c.head_dim)
 
     def _qkv(self, x, positions, inv_freq):
         c = self.cfg
         b, s, _ = x.shape
-        h, hk, d = c.num_attention_heads, c.num_key_value_heads, c.head_dim
-        q = self.q_proj(x).view(b, s, h, d)
-        k = self.k_proj(x).view(b, s, hk, d)
-        v = self.v_proj(x).view(b, s, hk, d)
+        d = c.head_dim
+        # the head counts come from the projections (a tensor-parallel
+        # shard holds its own heads)
+        q = self.q_proj(x).view(b, s, -1, d)
+        k = self.k_proj(x).view(b, s, -1, d)
+        v = self.v_proj(x).view(b, s, -1, d)
         q, k = apply_rope(q, k, positions, inv_freq, scaling=c.rope_scaling)
         return q, k, v
 

@@ -57,7 +57,7 @@ from ..ops.attention import chunk_attention, flash_attention
 from ..ops.attention_kvgrid import flash_attention_kvgrid
 from ..ops.attention_lengths import flash_fwd_lengths
 from ..preprocess.qwen_vision import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
-from .common import RMSNorm, prefill_outputs, scatter_vision
+from .common import RMSNorm, prefill_outputs, scatter_vision, tied_logits
 from .mrope import apply_rope_cos_sin, mrope_cos_sin
 
 
@@ -199,6 +199,8 @@ class QwenVisionAttention(nn.Module):
         e = c.hidden_size
         self.qkv = nn.Linear(e, 3 * e, bias=True, dtype=c.dtype)
         self.proj = nn.Linear(e, e, bias=True, dtype=c.dtype)
+        # (q heads, kv heads, head dim): mesh.shard_module_tp cuts by heads
+        self.tp_heads = (c.num_heads, c.num_heads, c.head_dim)
 
 
 class QwenMLP(nn.Module):
@@ -224,18 +226,18 @@ class QwenVisionBlock(nn.Module):
         self.mlp = QwenMLP(c.hidden_size, c.intermediate_size, True, c.dtype)
 
     def forward(self, x, cos, sin, seg):
-        """x (S, E); cos/sin (S, head_dim); seg (S,) int32 segment ids."""
+        """x (S, E); cos/sin (S, head_dim); seg (S,) int32 segment ids.
+        Under tensor parallelism the block holds this rank's heads."""
         c = self.cfg
-        s, e = x.shape
-        qkv = self.attn.qkv(self.norm1(x)).view(1, s, 3, c.num_heads,
-                                                 c.head_dim)
+        s = x.shape[0]
+        qkv = self.attn.qkv(self.norm1(x)).view(1, s, 3, -1, c.head_dim)
         q, k, v = qkv.unbind(2)                     # (1, S, H, D) views
         q, k = apply_rope_cos_sin(q, k, cos[None], sin[None])
         if c.attn_impl == "packed":
             o = flash_attention(q, k, v, seg[None], seg[None], causal=False)
         else:
             o = flash_attention_kvgrid(q, k, v, seg[None])
-        x = x + self.attn.proj(o.reshape(s, e))
+        x = x + self.attn.proj(o.reshape(s, -1))
         return x + self.mlp(self.norm2(x))
 
 
@@ -302,6 +304,7 @@ class QwenTextAttention(nn.Module):
         self.k_proj = nn.Linear(e, hk * d, bias=True, dtype=c.dtype)
         self.v_proj = nn.Linear(e, hk * d, bias=True, dtype=c.dtype)
         self.o_proj = nn.Linear(h * d, e, bias=False, dtype=c.dtype)
+        self.tp_heads = (h, hk, d)
 
 
 class QwenTextBlock(nn.Module):
@@ -321,9 +324,11 @@ class QwenTextBlock(nn.Module):
         d = c.head_dim
         y = self.input_layernorm(x)
         a = self.self_attn
-        q = a.q_proj(y).view(b, s, c.num_attention_heads, d)
-        k = a.k_proj(y).view(b, s, c.num_key_value_heads, d)
-        v = a.v_proj(y).view(b, s, c.num_key_value_heads, d)
+        # the head counts come from the projections: a tensor-parallel
+        # shard holds its own heads
+        q = a.q_proj(y).view(b, s, -1, d)
+        k = a.k_proj(y).view(b, s, -1, d)
+        v = a.v_proj(y).view(b, s, -1, d)
         q, k = apply_rope_cos_sin(q, k, cos, sin)
         return q, k, v
 
@@ -364,11 +369,10 @@ class QwenTextBlock(nn.Module):
         quantized on write) at chunk_rows, then attends the whole prefix
         gathered (and dequantized) from gather_rows."""
         from ..serving.paged_kv import pool_gather, pool_write_rows
-        c = self.cfg
         q, k, v = self._qkv(x, cos, sin)
         bs = kc.shape[2]
         cl = x.shape[1]
-        kvh, d = c.num_key_value_heads, c.head_dim
+        kvh, d = k.shape[2], k.shape[3]
         pool_write_rows(kc, chunk_rows, k[0].reshape(cl // bs, bs, kvh, d)
                         .transpose(1, 2))
         pool_write_rows(vc, chunk_rows, v[0].reshape(cl // bs, bs, kvh, d)
@@ -563,7 +567,7 @@ class Qwen25VL(nn.Module):
 
     def compute_logits(self, hidden):
         if self.cfg.text.tie_word_embeddings:
-            return hidden @ self.model.embed_tokens.weight.to(hidden.dtype).T
+            return tied_logits(self.model.embed_tokens, hidden)
         return self.lm_head(hidden)
 
     def _embed(self, input_ids, vision_batch=None, slot_map=None,

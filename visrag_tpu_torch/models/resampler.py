@@ -51,6 +51,11 @@ class MultiheadAttentionParams(nn.Module):
 
 
 class Resampler(nn.Module):
+    # tensor parallelism keeps the resampler whole on every rank
+    # (mesh.shard_module_tp): its kv_proj feeds the attention's own
+    # in-projection, not a row-parallel pair
+    tp_whole = True
+
     def __init__(self, cfg: ResamplerConfig):
         super().__init__()
         c = self.cfg = cfg

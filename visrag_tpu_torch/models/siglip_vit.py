@@ -83,15 +83,19 @@ class Attention(nn.Module):
     def __init__(self, c: SiglipViTConfig):
         super().__init__()
         e = c.embed_dim
-        self.heads, self.head_dim = c.num_heads, c.head_dim
+        self.head_dim = c.head_dim
         linear = QuantLinear if c.quant == "int8" else nn.Linear
         self.qkv = linear(e, 3 * e, dtype=c.dtype)
         self.proj = nn.Linear(e, e, dtype=c.dtype)
+        # (q heads, kv heads, head dim): mesh.shard_module_tp cuts by heads
+        self.tp_heads = (c.num_heads, c.num_heads, c.head_dim)
 
     def forward(self, y, lengths):
         n, p, e = y.shape
         qkv = self.qkv(y.reshape(n * p, e))
-        o = flash_fwd_lengths_flat(qkv, lengths, n, p, self.heads,
+        # this rank's heads under tensor parallelism, else all of them
+        heads = qkv.shape[-1] // (3 * self.head_dim)
+        o = flash_fwd_lengths_flat(qkv, lengths, n, p, heads,
                                    self.head_dim, False,
                                    self.head_dim ** -0.5)
         return self.proj(o).reshape(n, p, e)

@@ -37,10 +37,17 @@ is logically global, and so is this one's):
     others wait) on a whole copy of the actor that the engine reads and
     that every rank refills from the sharded weights after an update (the
     JAX trainer's rollout_model and Engine.set_params); the engine itself
-    issues no collective. Its sampler is seeded from the step's seed and
-    i (i = 0: the step's seed, as one process). The responses are gathered
-    in rank order, so that every rank holds the step's global batch in
-    the one-process order, and rewards, advantages and GAE run on it;
+    issues no collective. With a mesh `model` axis > 1 (the hybrid engine,
+    rollout.tensor_parallel_size) the copy is each rank's tensor-parallel
+    shard of the actor (mesh.shard_module_tp) and the ranks of a model
+    group run one engine over their shards; the refill keeps each rank's
+    slice of every gathered tensor. The update stays FSDP2 over (replica,
+    data, seq): the model ranks of a slot replicate it on the same rows.
+    The sampler is seeded from the step's seed and i (i = 0: the step's
+    seed, as one process; every rank of a model group shares i). The
+    responses are gathered in rank order, so that every rank holds the
+    step's global batch in the one-process order, and rewards, advantages
+    and GAE run on it;
   * log-probs, the update and the critic take the micro-batches that one
     process would form on the global minibatch; each is padded to a
     multiple of dp with rows that count nothing and split over (replica,
@@ -69,10 +76,9 @@ What differs from the JAX trainer:
   * randomness is a `torch.Generator` on the CPU: each rollout reseeds the
     engine's generator from a draw of it, and its state rides in the
     checkpoint;
-  * not ported, each raising here: tensor parallelism (a mesh `model` axis
-    > 1, `tensor_parallel_size > 1`); `adv_estimator="gae"` without a
-    critic, and a critic with another estimator (the JAX trainer ignores
-    it), raise ValueError.
+  * `rollout.tensor_parallel_size > 1` without a mesh `model` axis of
+    that size, `adv_estimator="gae"` without a critic, and a critic with
+    another estimator (the JAX trainer ignores it), raise ValueError.
 """
 
 from __future__ import annotations
@@ -210,19 +216,21 @@ class RLTrainer:
                      Callable[[Sequence[Sequence[int]]], List[str]]] = None,
                  reward_manager: Optional[RewardManager] = None):
         alg = cfg.algorithm
-        if cfg.rollout.tensor_parallel_size > 1 or \
-                axis_size(mesh, MODEL) > 1:
-            raise NotImplementedError(
-                f"rollout.tensor_parallel_size="
-                f"{cfg.rollout.tensor_parallel_size}, mesh model axis "
-                f"{axis_size(mesh, MODEL)}: tensor-parallel serving and the "
-                "tensor-parallel rollout are the next slice of the "
-                "multi-GPU port")
         # dp: the ranks that split the batch; sp: the seq ranks that split
-        # each row (actor.ulysses_size sizes the mesh's seq axis in rl_main)
+        # each row (actor.ulysses_size sizes the mesh's seq axis in
+        # rl_main); tp: the model ranks that serve the rollout together
+        # (rollout.tensor_parallel_size sizes the model axis)
         self.mesh = mesh
         self.dp = axis_size(mesh, *BATCH_AXES)
         self.sp = axis_size(mesh, SEQ)
+        self.tp = axis_size(mesh, MODEL)
+        if cfg.rollout.tensor_parallel_size > 1 and \
+                self.tp != cfg.rollout.tensor_parallel_size:
+            raise ValueError(
+                f"rollout.tensor_parallel_size="
+                f"{cfg.rollout.tensor_parallel_size} but the mesh model "
+                f"axis is {self.tp} — size the mesh with "
+                "MeshConfig(model=tensor_parallel_size)")
         if cfg.actor.ulysses_size > 1 and self.sp != cfg.actor.ulysses_size:
             raise ValueError(
                 f"actor.ulysses_size={cfg.actor.ulysses_size} but the mesh "
@@ -316,17 +324,19 @@ class RLTrainer:
             and ref_model is not None
         if self._offload_ref:
             ref_model.to("cpu")
-        # under a mesh: the engine's whole copy of the actor on the ranks
-        # that roll out (the frozen tower shared), refilled from the
-        # sharded weights when they have changed (_stale)
+        # under a mesh: the engine's whole copy of the actor (the frozen
+        # tower shared), or at tp > 1 this rank's tensor-parallel shard of
+        # it, on the ranks that roll out, refilled from the sharded weights
+        # when they have changed (_stale)
         self._rollout_model = None
         self._stale = False
         self._group = None
         if mesh is not None:
-            from ..mesh import sub_mesh
+            from ..mesh import shard_module_tp, sub_mesh
             from ..training.trainer import shard_model
             if axis_index(mesh, SEQ) == 0:
-                self._rollout_model = self._whole_copy(model)
+                self._rollout_model = shard_module_tp(model, mesh) \
+                    if self.tp > 1 else self._whole_copy(model)
             weights = sub_mesh(mesh, *WEIGHT_AXES)
             shard_model(model, model.model.layers, mesh, weights,
                         ignored=self._frozen)
@@ -372,22 +382,14 @@ class RLTrainer:
             whole.visual = tower
         return whole
 
-    @torch.no_grad()
     def _refill_rollout(self):
         """The handoff after an update (the JAX Engine.set_params): every
         rank gathers the actor's sharded weights, one tensor at a time and
         in one order; the ranks that roll out copy them into their whole
-        copy."""
-        from torch.distributed.tensor import DTensor
-        own = None if self._rollout_model is None \
-            else self._rollout_model.state_dict()
-        for name, t in self.model.state_dict().items():
-            if self._frozen is not None and name.startswith("visual."):
-                continue
-            if isinstance(t, DTensor):
-                t = t.full_tensor()
-            if own is not None:
-                own[name].copy_(t)
+        copy, or their slices into their tensor-parallel shard."""
+        from ..mesh import load_tp_shard
+        load_tp_shard(self._rollout_model, self.model,
+                      skip=("visual.",) if self._frozen is not None else ())
         self._stale = False
 
     # ---- model passes --------------------------------------------------
@@ -574,10 +576,11 @@ class RLTrainer:
                   sampling: SamplingParams, n: int) -> List[List[int]]:
         """The engine's n samples of each prompt, n-consecutive in prompt
         order. Under a mesh, rank i of (replica, data) generates its
-        contiguous share of the prompts on its whole copy of the actor
-        (refilled first if the weights changed; every rank enters that
-        gather), the seq ranks after the first generate nothing, and the
-        shares are gathered in rank order."""
+        contiguous share of the prompts on its whole copy of the actor, or
+        with its model group on their shards (refilled first if the
+        weights changed; every rank enters that gather), the seq ranks
+        after the first generate nothing, and the shares are gathered in
+        rank order."""
         model = self.model
         if self.mesh is not None:
             if self._stale:
@@ -591,8 +594,10 @@ class RLTrainer:
         outs = []
         if model is not None:
             if self._engine is None:
-                self._engine = Engine(model, eos_token_ids=self.eos,
-                                      **self.engine_kwargs)
+                self._engine = Engine(
+                    model, eos_token_ids=self.eos,
+                    mesh=self.mesh if self.tp > 1 else None,
+                    **self.engine_kwargs)
             else:
                 # the weights changed (updated in place, or refilled); the
                 # cached prefix KV was computed with the old ones

@@ -24,8 +24,18 @@ Differences from the JAX engine:
   * `_prefill_many` inserts only the cacheable span of each prompt into
     the prefix cache (the JAX engine inserts the whole ids);
   * `set_params` takes the module (updated in place by the optimizer) and
-    clears the prefix cache; there is no resharding at one card;
-  * tensor parallelism (`mesh`) is the next slice of the multi-GPU port.
+    clears the prefix cache;
+  * tensor parallelism (`mesh` with a `model` axis > 1) runs one engine
+    per rank of the model group, each over its shard of the weights
+    (mesh.shard_module_tp: Megatron's column / row rules, heads cut
+    whole) and pools that hold only the kv heads its q heads read
+    (paged_kv.tp_head_layout). The JAX engine is one controller over
+    GSPMD-sharded arrays. Every rank is fed the same requests and takes
+    the same host decisions; the logits are gathered whole on every rank,
+    every rank samples, and the group's first rank's tokens and
+    log-probabilities are broadcast over the group, so that the ranks
+    cannot diverge. `set_params` re-slices the shard from a whole module
+    or from its FSDP2 shards (mesh.load_tp_shard).
 
 The engine calls only the model's `prefill` / `decode` and reads
 `cfg.text` for the pool's shape, plus `prefill_chunk` and `embed_prompt`
@@ -46,8 +56,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .paged_kv import BlockAllocator, KVQuant, pool_shape, write_prefill
+from ..mesh import MODEL, axis_group, axis_size, load_tp_shard
+from .paged_kv import (BlockAllocator, KVQuant, pool_shape, tp_head_layout,
+                       write_prefill)
 from .sampling import SamplingParams, bias_arrays, sample_vec
 
 MAX_LOGIT_BIAS = 8          # (id, bias) pairs per request
@@ -117,7 +130,22 @@ class Engine:
                  cache_blocks: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
                  chunked_prefill_tokens: Optional[int] = None,
-                 prefix_cache: bool = False, seed: int = 0):
+                 prefix_cache: bool = False, seed: int = 0, mesh=None):
+        """mesh: a DeviceMesh whose `model` axis > 1 makes this rank's
+        engine one of its model group's (tensor parallelism); `model` is
+        then this rank's shard, as mesh.shard_module_tp cuts it."""
+        self.tp = axis_size(mesh, MODEL)
+        self.group = None
+        tc = model.cfg.text
+        kvh = tc.num_key_value_heads
+        if self.tp > 1:
+            if getattr(model, "tp_size", 1) != self.tp:
+                raise ValueError(
+                    f"a mesh with model axis {self.tp} serves a rank's "
+                    "shard: pass mesh.shard_module_tp(model, mesh)")
+            self.group = axis_group(mesh, MODEL)
+            kvh = tp_head_layout(tc.num_attention_heads, kvh, self.tp,
+                                 dist.get_rank(self.group))[3]
         self.model = model
         self.device = next(model.parameters()).device
         self.num_slots = num_slots
@@ -125,7 +153,6 @@ class Engine:
         self.prompt_buckets = [b for b in prompt_buckets if b <= max_len]
         self.eos = set(int(e) for e in eos_token_ids)
         self.chunk = decode_chunk
-        tc = model.cfg.text
         self.vocab = tc.vocab_size
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # int8 KV: pools of int8 data plus per-(token, kv head) fp32 scales,
@@ -139,7 +166,7 @@ class Engine:
         self.max_blocks = max_len // self.block_size
         n_blocks = (cache_blocks or num_slots * self.max_blocks) + 1
         self._pool_shape = (tc.num_hidden_layers, *pool_shape(
-            n_blocks, self.block_size, tc.num_key_value_heads, tc.head_dim))
+            n_blocks, self.block_size, kvh, tc.head_dim))
         self.k_cache = self.v_cache = None
         self.wake()
         self.allocator = BlockAllocator(n_blocks)
@@ -232,9 +259,15 @@ class Engine:
         tensors in place, so the reference is usually the one the engine
         already holds; what has to happen is that the prefix cache goes:
         its KV was computed with the old weights, and serving it would
-        silently corrupt generations."""
+        silently corrupt generations. Under tensor parallelism a module
+        other than the engine's shard is the whole one, or its FSDP2
+        shards, and the shard is re-sliced from it in place (every rank of
+        the FSDP2 mesh calls this then)."""
         self._clear_prefix_cache()
-        self.model = model
+        if self.tp > 1 and model is not self.model:
+            load_tp_shard(self.model, model)
+        elif self.tp == 1:
+            self.model = model
 
     def _clear_prefix_cache(self) -> None:
         if self._prefix_cache:
@@ -347,10 +380,23 @@ class Engine:
         temp = np.asarray([sp.temperature for sp in sps], np.float32)
         top_p = np.asarray([sp.top_p for sp in sps], np.float32)
         rp = np.asarray([sp.repetition_penalty for sp in sps], np.float32)
-        return sample_vec(biased, self._dev(temp), self._dev(top_p),
-                          self._dev(rp), prows, generator=self.generator,
-                          all_greedy=bool((temp == 0).all()),
-                          any_top_p=bool((top_p < 1).any()))
+        return self._agree(*sample_vec(
+            biased, self._dev(temp), self._dev(top_p), self._dev(rp), prows,
+            generator=self.generator, all_greedy=bool((temp == 0).all()),
+            any_top_p=bool((top_p < 1).any())))
+
+    def _agree(self, tok, logp):
+        """Under tensor parallelism: the group's first rank's tokens and
+        log-probabilities, broadcast (every rank drew them from the same
+        logits and generator; the broadcast makes a divergence impossible,
+        not merely unlikely). One collective, no host sync on NCCL."""
+        if self.tp == 1:
+            return tok, logp
+        both = torch.stack([tok.to(torch.int32),
+                            logp.float().view(torch.int32)])
+        dist.broadcast(both, dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        return both[0], both[1].view(torch.float32)
 
     def _first_token(self, logits, prow, slot: int, sp: SamplingParams):
         """Sample a slot's first token from prompt-end logits (V,) and
@@ -723,9 +769,10 @@ class Engine:
                                        self.v_cache, lengths_incl, table)
             logits = logits.scatter_add(1, bias_ids,
                                         bias_vals.to(logits.dtype))
-            tok, logp = sample_vec(logits, temp, top_p, rep_pen, self.seen,
-                                   generator=self.generator,
-                                   all_greedy=all_greedy, any_top_p=any_top_p)
+            tok, logp = self._agree(*sample_vec(
+                logits, temp, top_p, rep_pen, self.seen,
+                generator=self.generator, all_greedy=all_greedy,
+                any_top_p=any_top_p))
             tok = torch.where(active, tok, last_tok)
             self.seen[rows, tok.long()] |= active
             toks.append(torch.where(active, tok, torch.full_like(tok, -1)))

@@ -142,6 +142,27 @@ def pool_shape(n_blocks: int, block_size: int, kvh: int, d: int) -> tuple:
     return (n_blocks, kvh, block_size, d)
 
 
+def tp_head_layout(h: int, kvh: int, tp: int, rank: int):
+    """The heads rank `rank` of a tensor-parallel group of `tp` holds:
+    (first q head, q heads, first kv head, kv heads). Its q heads are a
+    contiguous h / tp; its pools hold the kv heads those q heads read:
+    kvh / tp of them where tp divides kvh (the JAX shard_map route), the
+    one kv head its q heads share where kvh divides tp (ranks r·kvh/tp ..
+    share head r // (tp / kvh); the JAX engine replicates the pools
+    there). Any other layout raises ValueError."""
+    if tp <= 1:
+        return 0, h, 0, kvh
+    if h % tp or h % kvh or (kvh % tp and tp % kvh):
+        raise ValueError(
+            f"tensor parallelism over {tp} ranks needs tp to divide the "
+            f"{h} query heads and tp and the {kvh} kv heads to divide one "
+            f"another (h={h}, kvh={kvh}, tp={tp})")
+    hq = h // tp
+    if kvh % tp == 0:
+        return rank * hq, hq, rank * (kvh // tp), kvh // tp
+    return rank * hq, hq, rank // (tp // kvh), 1
+
+
 def quant_pool_shapes(n_blocks: int, block_size: int, kvh: int, d: int):
     """(data shape, scale shape) of one layer's KVQuant pool."""
     return (n_blocks, kvh, block_size, d), (n_blocks, kvh, block_size)

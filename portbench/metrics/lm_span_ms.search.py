@@ -1,0 +1,8 @@
+"""MiniCPM-2B's time on a batch of queries: the program's `minicpmv.lm`
+span, CUDA events, ms."""
+
+from portbench import program_spans
+
+
+def read(run, tracer, result):
+    return program_spans.mean_device_ms(tracer, "minicpmv.lm")

@@ -138,7 +138,7 @@ from visrag_tpu_torch.ops.gelu import fast_gelu
 from visrag_tpu_torch.preprocess import ocr
 from visrag_tpu_torch.retrieval.search import (StreamingSearcher,
                                                self_retrieve)
-from visrag_tpu_torch.utils import flops, profiling, timing
+from visrag_tpu_torch.utils import profiling, timing
 sig = SiglipModel(SiglipConfig.tiny()).eval()
 load_siglip_hf_state(sig, sig.state_dict())
 with torch.inference_mode():
@@ -152,8 +152,8 @@ assert fast_gelu(torch.ones(3, dtype=torch.bfloat16)).dtype == torch.bfloat16
 assert ocr.merge_adjacent([(0, 0, 5, 5, "a"), (6, 0, 9, 5, "b")]) == ["a b"]
 assert set(hf_export.export_visrag_ret(model)) >= {"llm.model.norm.weight"}
 assert timing.measure(lambda: None, iters=2) >= 0
-with profiling.annotate("x"):
-    flops.mfu(1.0, 1.0, peak_tflops=1.0)
+with profiling.span("x"):
+    pass
 # the multi-device layer: a one-rank gloo mesh, the sharded search and
 # the sequence-parallel attention at seq 1, Ulysses' and ring's modules
 import torch.distributed as dist

@@ -1,5 +1,5 @@
 """The port's single-GPU remainder against the JAX package, on the CPU:
-ops/gelu.py, utils/{flops,timing,profiling}.py, preprocess/ocr.py,
+ops/gelu.py, utils/{timing,profiling}.py, preprocess/ocr.py,
 models/hf_export.py and driver/synthesize_queries.py.
 
   * fast_gelu on all 65,536 bf16 patterns: the JAX fast_gelu's output on
@@ -7,8 +7,8 @@ models/hf_export.py and driver/synthesize_queries.py.
     says) and float64 erfc-GELU on every finite input; F.gelu in bf16
     differs from the JAX function, so the port's SigLIP ViT (act="erf")
     runs fast_gelu; its gradient is the exact gelu';
-  * the flops formulas equal the JAX ones; the peak table holds the H100
-    and raises for an unknown card; timing and profiling on the CPU;
+  * timing and profiling.trace on the CPU (the spans and counters are
+    tests/test_torch_tracing.py's);
   * the OCR line merging equals the JAX copy's on the same detections;
   * each exporter's state loads back through the port's own loader bit for
     bit, and its names and values are the JAX exporter's on the JAX tree
@@ -34,9 +34,8 @@ from PIL import Image
 import jax.numpy as jnp
 
 from visrag_tpu.ops.gelu import fast_gelu as jfast_gelu
-from visrag_tpu.utils import flops as jflops
 from visrag_tpu_torch.ops import gelu
-from visrag_tpu_torch.utils import flops, profiling, timing
+from visrag_tpu_torch.utils import profiling, timing
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -113,24 +112,7 @@ def test_fast_gelu_fp32_and_gradient():
 # ---- utils -----------------------------------------------------------------
 
 
-def test_flops_formulas_match_jax():
-    for dims in ((3.4e9, 2304, 40, 36), (4.0e8, 1152, 27, 16)):
-        p, j = flops.ModelDims(*dims), jflops.ModelDims(*dims)
-        assert p.head_dim == j.head_dim
-        for tokens, ssq in ((16384, None), (4096, 4096.0 ** 2 * 4)):
-            assert flops.forward_flops(p, tokens, ssq) == \
-                jflops.forward_flops(j, tokens, ssq)
-            assert flops.training_flops(p, tokens, ssq) == \
-                jflops.training_flops(j, tokens, ssq)
-        assert flops.mfu(1e15, 2.0, 1, 989.0) == \
-            jflops.mfu(1e15, 2.0, 1, 989.0)
-    assert flops.detect_peak_tflops("NVIDIA H100 80GB HBM3") == 989.0
-    assert flops.detect_peak_tflops() == 1.0          # no card here
-    with pytest.raises(KeyError):
-        flops.detect_peak_tflops("NVIDIA A100-SXM4-80GB")
-
-
-def test_timing_and_profiling_on_cpu(tmp_path, monkeypatch):
+def test_timing_and_profiling_on_cpu(tmp_path):
     calls = []
 
     def fn(a):
@@ -140,19 +122,11 @@ def test_timing_and_profiling_on_cpu(tmp_path, monkeypatch):
     t = timing.measure(fn, torch.ones(8, 8), iters=5, warmup=2)
     assert t > 0 and len(calls) == 7
     with profiling.trace(str(tmp_path / "p")) as prof:
-        with profiling.annotate("visrag_region"):
-            fn(torch.ones(16, 16))
+        fn(torch.ones(16, 16))
     names = {e.get("name") for e in json.loads(
         (tmp_path / "p" / profiling.TRACE_FILE).read_text())["traceEvents"]}
-    assert "visrag_region" in names
-    assert any(e.key == "visrag_region" for e in prof.key_averages())
-    monkeypatch.delenv("VISRAG_PROFILE_DIR", raising=False)
-    with profiling.maybe_trace() as d:
-        assert d is None
-    monkeypatch.setenv("VISRAG_PROFILE_DIR", str(tmp_path / "env"))
-    with profiling.maybe_trace() as d:
-        fn(torch.ones(4, 4))
-    assert (tmp_path / "env" / profiling.TRACE_FILE).exists()
+    assert "aten::mm" in names
+    assert any(e.key == "aten::mm" for e in prof.key_averages())
 
 
 # ---- OCR -------------------------------------------------------------------

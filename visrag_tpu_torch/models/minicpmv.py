@@ -20,6 +20,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..utils import profiling
 from .common import prefill_outputs, scatter_vision
 from .minicpm import MiniCPMConfig, MiniCPMModel, _row0
 from .resampler import Resampler, ResamplerConfig
@@ -56,8 +57,9 @@ class MiniCPMV(nn.Module):
     def get_vision_embedding(self, patches, patch_mask, pos_matrix, grid_h,
                              grid_w):
         """(N, MAX_P, patch_dim) → (N, query_num, hidden)."""
-        feats = self.vpm(patches, patch_mask, pos_matrix)
-        return self.resampler(feats, grid_h, grid_w, patch_mask)
+        with profiling.span("minicpmv.vision"):
+            feats = self.vpm(patches, patch_mask, pos_matrix)
+            return self.resampler(feats, grid_h, grid_w, patch_mask)
 
     def embed(self, input_ids, vision_batch=None, slot_map=None):
         """Token embeddings * scale_emb with the vision tokens of
@@ -80,7 +82,9 @@ class MiniCPMV(nn.Module):
         embeds = self.embed(input_ids, dict(
             patches=patches, patch_mask=patch_mask, pos_matrix=pos_matrix,
             grid_h=grid_h, grid_w=grid_w), slot_map)
-        return self.llm(inputs_embeds=embeds, attention_mask=attention_mask)
+        with profiling.span("minicpmv.lm"):
+            return self.llm(inputs_embeds=embeds,
+                            attention_mask=attention_mask)
 
 
 @dataclasses.dataclass(frozen=True)

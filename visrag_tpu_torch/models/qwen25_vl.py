@@ -57,6 +57,7 @@ from ..ops.attention import chunk_attention, flash_attention
 from ..ops.attention_kvgrid import flash_attention_kvgrid
 from ..ops.attention_lengths import flash_fwd_lengths
 from ..preprocess.qwen_vision import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+from ..utils import profiling
 from .common import RMSNorm, prefill_outputs, scatter_vision, tied_logits
 from .mrope import apply_rope_cos_sin, mrope_cos_sin
 
@@ -552,18 +553,22 @@ class Qwen25VL(nn.Module):
         model's device. uint8 patches (device mode) are CLIP-normalized
         here; the flat patch layout is channel-major, so each channel's
         constant repeats patch_dim / 3 times."""
-        patches = vision_batch["patches"]
-        if patches.dtype == torch.uint8:
-            per = patches.shape[-1] // 3
-            mean = torch.tensor(OPENAI_CLIP_MEAN, dtype=torch.float32,
-                                device=patches.device).repeat_interleave(per)
-            std = torch.tensor(OPENAI_CLIP_STD, dtype=torch.float32,
-                               device=patches.device).repeat_interleave(per)
-            patches = (patches.float() / 255.0 - mean) / std
-        return self.visual(patches, vision_batch["rot_cos"],
-                           vision_batch["rot_sin"], vision_batch["seg_window"],
-                           vision_batch["seg_full"],
-                           vision_batch["reverse_index"])
+        with profiling.span("qwen.vision"):
+            patches = vision_batch["patches"]
+            if patches.dtype == torch.uint8:
+                per = patches.shape[-1] // 3
+                mean = torch.tensor(OPENAI_CLIP_MEAN, dtype=torch.float32,
+                                    device=patches.device
+                                    ).repeat_interleave(per)
+                std = torch.tensor(OPENAI_CLIP_STD, dtype=torch.float32,
+                                   device=patches.device
+                                   ).repeat_interleave(per)
+                patches = (patches.float() / 255.0 - mean) / std
+            return self.visual(patches, vision_batch["rot_cos"],
+                               vision_batch["rot_sin"],
+                               vision_batch["seg_window"],
+                               vision_batch["seg_full"],
+                               vision_batch["reverse_index"])
 
     def compute_logits(self, hidden):
         if self.cfg.text.tie_word_embeddings:

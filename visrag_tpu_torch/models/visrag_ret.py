@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.pooling import l2_normalize, pool
+from ..utils import profiling
 from .minicpmv import MiniCPMV, MiniCPMVConfig
 
 
@@ -57,12 +58,13 @@ class VisRAGRet(nn.Module):
         """→ (B, hidden) embeddings, L2-normalised when cfg.normalize.
         generator: the torch.Generator of the pooling's dropout (drop_*
         modes in training mode)."""
-        hidden = self.backbone(
-            batch.input_ids, batch.attention_mask, batch.patches,
-            batch.patch_mask, batch.pos_matrix, batch.grid_h, batch.grid_w,
-            batch.slot_map)
-        if self.cfg.feature_fp32:
-            hidden = hidden.float()
-        reps = pool(hidden, batch.attention_mask, self.cfg.pooling,
-                    training=self.training, generator=generator)
-        return l2_normalize(reps) if self.cfg.normalize else reps
+        with profiling.span("visrag_ret.forward"):
+            hidden = self.backbone(
+                batch.input_ids, batch.attention_mask, batch.patches,
+                batch.patch_mask, batch.pos_matrix, batch.grid_h,
+                batch.grid_w, batch.slot_map)
+            if self.cfg.feature_fp32:
+                hidden = hidden.float()
+            reps = pool(hidden, batch.attention_mask, self.cfg.pooling,
+                        training=self.training, generator=generator)
+            return l2_normalize(reps) if self.cfg.normalize else reps

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models.visrag_ret import EncodeBatch
+from ..utils import profiling
 from .transform import bicubic_table
 
 
@@ -50,20 +51,35 @@ def _put(x, device):
 def finish_encode_batch(raw: dict, pos_table: torch.Tensor) -> EncodeBatch:
     """raw: numpy dict from build_encode_batch(device_mode=True) (or tensors).
     pos_table: pos_table_tensor(src_grid, device). → EncodeBatch on the
-    table's device."""
+    table's device. While traced, counts the batch's fill from the raw
+    masks: `preprocess.tokens` (valid tokens, token slots) and
+    `preprocess.patches` (valid patches, slice slots x patch bucket)."""
     device = pos_table.device
 
     def put(name):
         return _put(raw[name], device)
 
-    pixels = put("pixels")
-    grid_h, grid_w = put("grid_h"), put("grid_w")
-    patches = (pixels.float() / 255.0 - 0.5) / 0.5
-    pos_matrix = _pos_operators(pos_table, grid_h, grid_w, pixels.shape[1])
-    return EncodeBatch(
-        input_ids=put("input_ids"), attention_mask=put("attention_mask"),
-        patches=patches, patch_mask=put("patch_mask"), pos_matrix=pos_matrix,
-        grid_h=grid_h, grid_w=grid_w, slot_map=put("slot_map"))
+    if profiling.recording():
+        profiling.count("preprocess.tokens", _fill(raw["attention_mask"]))
+        profiling.count("preprocess.patches", _fill(raw["patch_mask"]))
+    with profiling.span("preprocess.finish"):
+        pixels = put("pixels")
+        grid_h, grid_w = put("grid_h"), put("grid_w")
+        patches = (pixels.float() / 255.0 - 0.5) / 0.5
+        pos_matrix = _pos_operators(pos_table, grid_h, grid_w,
+                                    pixels.shape[1])
+        return EncodeBatch(
+            input_ids=put("input_ids"), attention_mask=put("attention_mask"),
+            patches=patches, patch_mask=put("patch_mask"),
+            pos_matrix=pos_matrix, grid_h=grid_h, grid_w=grid_w,
+            slot_map=put("slot_map"))
+
+
+def _fill(mask) -> tuple:
+    """(nonzero entries, entries) of a mask, numpy or tensor."""
+    n = int(np.count_nonzero(mask)) if isinstance(mask, np.ndarray) \
+        else int(torch.count_nonzero(mask))
+    return n, int(np.prod(mask.shape))
 
 
 def _pos_operators(table, gh, gw, p: int):

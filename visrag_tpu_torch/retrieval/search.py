@@ -41,6 +41,8 @@ from typing import Iterable, List, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 QUANTS = ("none", "int8")
 
 
@@ -75,8 +77,9 @@ def topk_lower_index(scores, k: int):
 def topk_single(queries, corpus, k: int):
     """(Q, D), (C, D) tensors → (scores (Q, k) fp32, indices (Q, k)); ties
     to the lower index."""
-    scores = queries.float() @ corpus.float().T
-    return topk_lower_index(scores, k)
+    with profiling.span("search.topk"):
+        scores = queries.float() @ corpus.float().T
+        return topk_lower_index(scores, k)
 
 
 def quantize_rows(x) -> Tuple[torch.Tensor, torch.Tensor]:

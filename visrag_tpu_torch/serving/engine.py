@@ -37,6 +37,12 @@ Differences from the JAX engine:
     cannot diverge. `set_params` re-slices the shard from a whole module
     or from its FSDP2 shards (mesh.load_tp_shard).
 
+While a torch profiler runs, each prefill entry records an
+`engine.prefill` span (utils/profiling; `kind` one / many / start /
+chunk, the request ids, real and padded tokens), each decode chunk an
+`engine.decode` span with a `engine.decode.step` and a
+`engine.decode.model` span a step, and the live slots at its start.
+
 The engine calls only the model's `prefill` / `decode` and reads
 `cfg.text` for the pool's shape, plus `prefill_chunk` and `embed_prompt`
 where the model has them (Qwen25VL): it serves Qwen2.5-VL and the three
@@ -59,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from ..mesh import MODEL, axis_group, axis_size, load_tp_shard
+from ..utils import profiling
 from .paged_kv import (BlockAllocator, KVQuant, pool_shape, tp_head_layout,
                        write_prefill)
 from .sampling import SamplingParams, bias_arrays, sample_vec
@@ -421,39 +428,43 @@ class Engine:
     def _prefill_one(self, req: Request, slot: int) -> int:
         s = len(req.input_ids)
         bucket = _bucket(s, self.prompt_buckets)
-        ids = np.zeros((1, bucket), np.int32)
-        ids[0, :s] = req.input_ids
-        pos = np.zeros((3, 1, bucket), np.int32)
-        pos[:, 0, :s] = req.positions
-        mask = np.zeros((1, bucket), np.int32)
-        mask[0, :s] = 1
-        vb = sm = None
-        if req.vision_batch is not None:
-            vb = self._vision(req)
-            sm = np.full((1, bucket), -1, np.int32)
-            sm[0, :s] = req.slot_map
-            sm = self._dev(sm)
-        bs_blk = self.block_size
-        need = max(-(-bucket // bs_blk), -(-(s + self._budget(req)) // bs_blk))
-        blocks = self._alloc_slot(slot, need)
-        last, k, v = self.model.prefill(
-            self._dev(ids), attention_mask=self._dev(mask),
-            positions=self._dev(pos), vision_batch=vb, slot_map=sm,
-            last_pos=self._dev([s - 1]))
-        write_prefill(self.k_cache, self.v_cache, k, v,
-                      blocks[:bucket // bs_blk], bucket)
-        del k, v
-        prow = torch.zeros((self.vocab,), dtype=torch.bool, device=self.device)
-        prow[self._dev(req.input_ids, torch.int64)] = True
-        tok, logp = self._first_token(last[0], prow, slot, req.sampling)
-        self.prefill_count += 1
-        self.prefill_dispatches += 1
-        if self._prefix_cache is not None:
-            nc = self._cacheable_len(req)
-            if nc:
-                self._insert_prefix(req.input_ids[:nc], blocks)
-        self._publish_group(req, blocks, s, last[0], prow)
-        return self._activate_slot(req, slot, tok, logp, s)
+        with profiling.span("engine.prefill", kind="one",
+                            rid=req.request_id, tokens=s, padded=bucket):
+            ids = np.zeros((1, bucket), np.int32)
+            ids[0, :s] = req.input_ids
+            pos = np.zeros((3, 1, bucket), np.int32)
+            pos[:, 0, :s] = req.positions
+            mask = np.zeros((1, bucket), np.int32)
+            mask[0, :s] = 1
+            vb = sm = None
+            if req.vision_batch is not None:
+                vb = self._vision(req)
+                sm = np.full((1, bucket), -1, np.int32)
+                sm[0, :s] = req.slot_map
+                sm = self._dev(sm)
+            bs_blk = self.block_size
+            need = max(-(-bucket // bs_blk),
+                       -(-(s + self._budget(req)) // bs_blk))
+            blocks = self._alloc_slot(slot, need)
+            last, k, v = self.model.prefill(
+                self._dev(ids), attention_mask=self._dev(mask),
+                positions=self._dev(pos), vision_batch=vb, slot_map=sm,
+                last_pos=self._dev([s - 1]))
+            write_prefill(self.k_cache, self.v_cache, k, v,
+                          blocks[:bucket // bs_blk], bucket)
+            del k, v
+            prow = torch.zeros((self.vocab,), dtype=torch.bool,
+                               device=self.device)
+            prow[self._dev(req.input_ids, torch.int64)] = True
+            tok, logp = self._first_token(last[0], prow, slot, req.sampling)
+            self.prefill_count += 1
+            self.prefill_dispatches += 1
+            if self._prefix_cache is not None:
+                nc = self._cacheable_len(req)
+                if nc:
+                    self._insert_prefix(req.input_ids[:nc], blocks)
+            self._publish_group(req, blocks, s, last[0], prow)
+            return self._activate_slot(req, slot, tok, logp, s)
 
     def _publish_group(self, req: Request, blocks, s: int, last, prow):
         """Group leader: publish the shared prompt blocks and prompt-end
@@ -476,54 +487,59 @@ class Engine:
         K = len(reqs)
         bucket = _bucket(max(len(r.input_ids) for r in reqs),
                          self.prompt_buckets)
-        bs_blk = self.block_size
-        nb = bucket // bs_blk
-        ids = np.zeros((K, bucket), np.int32)
-        pos = np.zeros((3, K, bucket), np.int32)
-        mask = np.zeros((K, bucket), np.int32)
-        rows = np.zeros((K, nb), np.int32)
-        lens = np.zeros((K,), np.int32)
-        b_ids = np.zeros((K, self.max_bias), np.int32)
-        b_vals = np.zeros((K, self.max_bias), np.float32)
-        blocks_per = []
-        for i, (req, slot) in enumerate(zip(reqs, slots)):
-            s = len(req.input_ids)
-            ids[i, :s] = req.input_ids
-            pos[:, i, :s] = req.positions
-            mask[i, :s] = 1
-            lens[i] = s
-            b_ids[i], b_vals[i] = bias_arrays(req.sampling, self.max_bias)
-            need = max(nb, -(-(s + self._budget(req)) // bs_blk))
-            blocks = self._alloc_slot(slot, need)
-            rows[i] = blocks[:nb]
-            blocks_per.append(blocks)
-        last, k, v = self.model.prefill(
-            self._dev(ids), attention_mask=self._dev(mask),
-            positions=self._dev(pos), last_pos=self._dev(lens - 1))
-        write_prefill(self.k_cache, self.v_cache, k, v, rows, bucket)
-        del k, v
-        rr, cc = np.nonzero(mask)          # the prompts' real tokens only
-        prows = torch.zeros((K, self.vocab), dtype=torch.bool,
-                            device=self.device)
-        prows[self._dev(rr, torch.int64), self._dev(ids[rr, cc],
-                                                    torch.int64)] = True
-        tok, logp = self._sample(last, prows, [r.sampling for r in reqs],
-                                 b_ids, b_vals)
-        rows_seen = prows.clone()
-        rows_seen[torch.arange(K, device=self.device), tok.long()] = True
-        self.seen[self._dev(slots, torch.int64)] = rows_seen
-        self.prefill_count += K
-        self.prefill_dispatches += 1
-        toks, logps = tok.cpu().numpy(), logp.cpu().numpy()
-        for i, (req, slot) in enumerate(zip(reqs, slots)):
-            if self._prefix_cache is not None:
-                nc = self._cacheable_len(req)
-                if nc:
-                    self._insert_prefix(req.input_ids[:nc], blocks_per[i])
-            self._publish_group(req, blocks_per[i], len(req.input_ids),
-                                last[i], prows[i])
-            self._activate_slot(req, slot, toks[i], logps[i],
-                                len(req.input_ids))
+        with profiling.span(
+                "engine.prefill", kind="many",
+                rid=tuple(r.request_id for r in reqs),
+                tokens=tuple(len(r.input_ids) for r in reqs),
+                padded=K * bucket):
+            bs_blk = self.block_size
+            nb = bucket // bs_blk
+            ids = np.zeros((K, bucket), np.int32)
+            pos = np.zeros((3, K, bucket), np.int32)
+            mask = np.zeros((K, bucket), np.int32)
+            rows = np.zeros((K, nb), np.int32)
+            lens = np.zeros((K,), np.int32)
+            b_ids = np.zeros((K, self.max_bias), np.int32)
+            b_vals = np.zeros((K, self.max_bias), np.float32)
+            blocks_per = []
+            for i, (req, slot) in enumerate(zip(reqs, slots)):
+                s = len(req.input_ids)
+                ids[i, :s] = req.input_ids
+                pos[:, i, :s] = req.positions
+                mask[i, :s] = 1
+                lens[i] = s
+                b_ids[i], b_vals[i] = bias_arrays(req.sampling, self.max_bias)
+                need = max(nb, -(-(s + self._budget(req)) // bs_blk))
+                blocks = self._alloc_slot(slot, need)
+                rows[i] = blocks[:nb]
+                blocks_per.append(blocks)
+            last, k, v = self.model.prefill(
+                self._dev(ids), attention_mask=self._dev(mask),
+                positions=self._dev(pos), last_pos=self._dev(lens - 1))
+            write_prefill(self.k_cache, self.v_cache, k, v, rows, bucket)
+            del k, v
+            rr, cc = np.nonzero(mask)          # the prompts' real tokens only
+            prows = torch.zeros((K, self.vocab), dtype=torch.bool,
+                                device=self.device)
+            prows[self._dev(rr, torch.int64), self._dev(ids[rr, cc],
+                                                        torch.int64)] = True
+            tok, logp = self._sample(last, prows, [r.sampling for r in reqs],
+                                     b_ids, b_vals)
+            rows_seen = prows.clone()
+            rows_seen[torch.arange(K, device=self.device), tok.long()] = True
+            self.seen[self._dev(slots, torch.int64)] = rows_seen
+            self.prefill_count += K
+            self.prefill_dispatches += 1
+            toks, logps = tok.cpu().numpy(), logp.cpu().numpy()
+            for i, (req, slot) in enumerate(zip(reqs, slots)):
+                if self._prefix_cache is not None:
+                    nc = self._cacheable_len(req)
+                    if nc:
+                        self._insert_prefix(req.input_ids[:nc], blocks_per[i])
+                self._publish_group(req, blocks_per[i], len(req.input_ids),
+                                    last[i], prows[i])
+                self._activate_slot(req, slot, toks[i], logps[i],
+                                    len(req.input_ids))
 
     def _place_fork(self, req: Request, slot: int) -> int:
         """One decode fork of a prefilled group: share the full prompt
@@ -615,40 +631,44 @@ class Engine:
         public table row stays on the null block until the final chunk
         lands. With the prefix cache, cached full blocks below the first
         uncached chunk boundary are shared and prefill resumes there."""
-        s = len(req.input_ids)
-        bs_blk = self.block_size
-        C = self.chunk_tokens
-        shared: List[int] = []
-        nc = self._cacheable_len(req) if self._prefix_cache is not None else 0
-        if nc:
-            shared = self._match_prefix(req.input_ids[:nc])
-        lo0 = (len(shared) * bs_blk) // C * C
-        lo0 = min(lo0, (s - 1) // C * C)
-        shared = shared[:lo0 // bs_blk]
-        self.prefix_hits += len(shared)
-        grid_hi = lo0 + -(-(s - lo0) // C) * C
-        need = max(-(-(s + self._budget(req)) // bs_blk), grid_hi // bs_blk)
-        if shared:
-            self.allocator.retain(shared)
-        blocks = shared + self.allocator.alloc(need - len(shared))
-        self.slot_blocks[slot] = blocks
-        self.slot_req[slot] = req
-        self.active[slot] = False
-        self.lengths[slot] = 0
-        self.table[slot] = self.null_block
-        embeds = None
-        if req.vision_batch is not None:
-            # the vision tower once, up front; chunks slice this table
-            ids = np.zeros((1, grid_hi), np.int32)
-            ids[0, :s] = req.input_ids
-            sm = np.full((1, grid_hi), -1, np.int32)
-            sm[0, :s] = req.slot_map
-            embeds = self.model.embed_prompt(self._dev(ids), self._vision(req),
-                                             self._dev(sm))
-        self._chunking[slot] = dict(req=req, blocks=blocks, lo=lo0, s=s,
-                                    embeds=embeds)
-        if req.group is not None:
-            self._chunk_groups.add(id(req.group))
+        with profiling.span("engine.prefill", kind="start",
+                            rid=req.request_id):
+            s = len(req.input_ids)
+            bs_blk = self.block_size
+            C = self.chunk_tokens
+            shared: List[int] = []
+            nc = self._cacheable_len(req) \
+                if self._prefix_cache is not None else 0
+            if nc:
+                shared = self._match_prefix(req.input_ids[:nc])
+            lo0 = (len(shared) * bs_blk) // C * C
+            lo0 = min(lo0, (s - 1) // C * C)
+            shared = shared[:lo0 // bs_blk]
+            self.prefix_hits += len(shared)
+            grid_hi = lo0 + -(-(s - lo0) // C) * C
+            need = max(-(-(s + self._budget(req)) // bs_blk),
+                       grid_hi // bs_blk)
+            if shared:
+                self.allocator.retain(shared)
+            blocks = shared + self.allocator.alloc(need - len(shared))
+            self.slot_blocks[slot] = blocks
+            self.slot_req[slot] = req
+            self.active[slot] = False
+            self.lengths[slot] = 0
+            self.table[slot] = self.null_block
+            embeds = None
+            if req.vision_batch is not None:
+                # the vision tower once, up front; chunks slice this table
+                ids = np.zeros((1, grid_hi), np.int32)
+                ids[0, :s] = req.input_ids
+                sm = np.full((1, grid_hi), -1, np.int32)
+                sm[0, :s] = req.slot_map
+                embeds = self.model.embed_prompt(
+                    self._dev(ids), self._vision(req), self._dev(sm))
+            self._chunking[slot] = dict(req=req, blocks=blocks, lo=lo0, s=s,
+                                        embeds=embeds)
+            if req.group is not None:
+                self._chunk_groups.add(id(req.group))
 
     def _advance_chunk(self, slot: int) -> None:
         st = self._chunking[slot]
@@ -656,48 +676,54 @@ class Engine:
         lo, s = st["lo"], st["s"]
         bs_blk = self.block_size
         hi = min(lo + C, s)
-        ids = np.zeros((1, C), np.int32)
-        ids[0, :hi - lo] = req.input_ids[lo:hi]
-        pos = np.zeros((3, 1, C), np.int32)
-        pos[:, 0, :hi - lo] = req.positions[:, lo:hi]
-        if hi - lo < C:
-            # pad positions continue monotonically (their K/V lands in the
-            # decode region and is overwritten token by token)
-            pad = np.arange(1, C - (hi - lo) + 1, dtype=np.int32)
-            pos[:, 0, hi - lo:] = pos[:, 0, hi - lo - 1:hi - lo] + pad
-        blocks = st["blocks"]
-        final = hi >= s
-        emb = None if st["embeds"] is None else st["embeds"][:, lo:lo + C]
-        logits = self.model.prefill_chunk(
-            self._dev(ids), self._dev(pos), self.k_cache, self.v_cache,
-            self._dev(blocks[lo // bs_blk:(lo + C) // bs_blk], torch.int64),
-            self._dev(blocks[:(lo + C) // bs_blk], torch.int64),
-            self._dev(lo), last_pos=self._dev([s - 1 - lo]) if final else None,
-            inputs_embeds=emb)
-        st["lo"] = lo + C
-        self.prefill_dispatches += 1
-        if not final:
-            return
-        del self._chunking[slot]
-        self.prefill_count += 1
-        if len(blocks) > self.max_blocks:
-            # the C-aligned grid can round past max_len; the excess blocks
-            # hold only pad K/V that lengths never reach
-            self.allocator.release(blocks[self.max_blocks:])
-            blocks = blocks[:self.max_blocks]
-            self.slot_blocks[slot] = blocks
-        self.table[slot, :len(blocks)] = blocks
-        if self._prefix_cache is not None:
-            nc = self._cacheable_len(req)
-            if nc:
-                self._insert_prefix(req.input_ids[:nc], blocks)
-        prow = torch.zeros((self.vocab,), dtype=torch.bool, device=self.device)
-        prow[self._dev(req.input_ids, torch.int64)] = True
-        tok, logp = self._first_token(logits[0], prow, slot, req.sampling)
-        if req.group is not None:
-            self._chunk_groups.discard(id(req.group))
-            self._publish_group(req, blocks, s, logits[0], prow)
-        self._activate_slot(req, slot, tok, logp, s)
+        with profiling.span("engine.prefill", kind="chunk",
+                            rid=req.request_id, tokens=hi - lo, padded=C):
+            ids = np.zeros((1, C), np.int32)
+            ids[0, :hi - lo] = req.input_ids[lo:hi]
+            pos = np.zeros((3, 1, C), np.int32)
+            pos[:, 0, :hi - lo] = req.positions[:, lo:hi]
+            if hi - lo < C:
+                # pad positions continue monotonically (their K/V lands in
+                # the decode region and is overwritten token by token)
+                pad = np.arange(1, C - (hi - lo) + 1, dtype=np.int32)
+                pos[:, 0, hi - lo:] = pos[:, 0, hi - lo - 1:hi - lo] + pad
+            blocks = st["blocks"]
+            final = hi >= s
+            emb = None if st["embeds"] is None \
+                else st["embeds"][:, lo:lo + C]
+            logits = self.model.prefill_chunk(
+                self._dev(ids), self._dev(pos), self.k_cache, self.v_cache,
+                self._dev(blocks[lo // bs_blk:(lo + C) // bs_blk],
+                          torch.int64),
+                self._dev(blocks[:(lo + C) // bs_blk], torch.int64),
+                self._dev(lo),
+                last_pos=self._dev([s - 1 - lo]) if final else None,
+                inputs_embeds=emb)
+            st["lo"] = lo + C
+            self.prefill_dispatches += 1
+            if not final:
+                return
+            del self._chunking[slot]
+            self.prefill_count += 1
+            if len(blocks) > self.max_blocks:
+                # the C-aligned grid can round past max_len; the excess
+                # blocks hold only pad K/V that lengths never reach
+                self.allocator.release(blocks[self.max_blocks:])
+                blocks = blocks[:self.max_blocks]
+                self.slot_blocks[slot] = blocks
+            self.table[slot, :len(blocks)] = blocks
+            if self._prefix_cache is not None:
+                nc = self._cacheable_len(req)
+                if nc:
+                    self._insert_prefix(req.input_ids[:nc], blocks)
+            prow = torch.zeros((self.vocab,), dtype=torch.bool,
+                               device=self.device)
+            prow[self._dev(req.input_ids, torch.int64)] = True
+            tok, logp = self._first_token(logits[0], prow, slot, req.sampling)
+            if req.group is not None:
+                self._chunk_groups.discard(id(req.group))
+                self._publish_group(req, blocks, s, logits[0], prow)
+            self._activate_slot(req, slot, tok, logp, s)
 
     def _activate_slot(self, req: Request, slot: int, tok, logp,
                        s: int) -> int:
@@ -740,81 +766,89 @@ class Engine:
         copy to the host: [tokens (T*B) | lengths | cur_pos | gen_left |
         active | last_tok | logp bits]. Inactive slots re-write their own
         last position (or the null block) and record nothing."""
-        B, T = self.num_slots, self.chunk
-        # the table's live columns, rounded up to a power of two
-        need = int(self.lengths.max()) + T + 1
-        mbk = 1
-        while mbk * self.block_size < need and mbk < self.max_blocks:
-            mbk *= 2
-        mbk = min(mbk, self.max_blocks)
-        table = self._dev(np.ascontiguousarray(self.table[:, :mbk]))
-        lengths = self._dev(self.lengths)
-        last_tok = self._dev(self.last_tok)
-        cur_pos = self._dev(self.cur_pos)
-        active = self._dev(self.active)
-        gen_left = self._dev(self.gen_left)
-        temp, top_p = self._dev(self.temp), self._dev(self.top_p)
-        rep_pen = self._dev(self.rep_pen)
-        bias_ids = self._dev(self.bias_ids, torch.int64)
-        bias_vals = self._dev(self.bias_vals)
-        all_greedy = bool((self.temp == 0).all())
-        any_top_p = bool((self.top_p < 1).any())
-        rows = torch.arange(B, device=self.device)
-        logp_acc = torch.zeros((B,), dtype=torch.float32, device=self.device)
-        toks = []
-        for _ in range(T):
-            lengths_incl = torch.clamp(lengths + active.int(), min=1)
-            pos3 = cur_pos[None, :, None].expand(3, B, 1)
-            logits = self.model.decode(last_tok[:, None], pos3, self.k_cache,
-                                       self.v_cache, lengths_incl, table)
-            logits = logits.scatter_add(1, bias_ids,
-                                        bias_vals.to(logits.dtype))
-            tok, logp = self._agree(*sample_vec(
-                logits, temp, top_p, rep_pen, self.seen,
-                generator=self.generator, all_greedy=all_greedy,
-                any_top_p=any_top_p))
-            tok = torch.where(active, tok, last_tok)
-            self.seen[rows, tok.long()] |= active
-            toks.append(torch.where(active, tok, torch.full_like(tok, -1)))
-            is_eos = (tok[:, None] == self._eos_t[None, :]).any(-1)
-            step = active.int()
-            lengths = lengths + step
-            cur_pos = cur_pos + step
-            gen_left = gen_left - step
-            logp_acc = logp_acc + torch.where(active, logp,
-                                              torch.zeros_like(logp))
-            active = active & ~is_eos & (gen_left > 0) & \
-                (lengths + 1 < self.max_len)
-            last_tok = tok
-        packed = torch.cat([torch.stack(toks).reshape(-1), lengths, cur_pos,
-                            gen_left, active.int(), last_tok,
-                            logp_acc.view(torch.int32)]).cpu().numpy()
-        toks_np = packed[:T * B].reshape(T, B)
-        off = T * B
-        self.lengths = packed[off:off + B].astype(np.int32)
-        self.cur_pos = packed[off + B:off + 2 * B].astype(np.int32)
-        self.gen_left = packed[off + 2 * B:off + 3 * B].astype(np.int32)
-        new_active = packed[off + 3 * B:off + 4 * B].astype(bool)
-        self.last_tok = packed[off + 4 * B:off + 5 * B].astype(np.int32)
-        logp_np = packed[off + 5 * B:off + 6 * B].view(np.float32)
-        toks_T = np.ascontiguousarray(toks_np.T)
-        now = time.monotonic()
-        for i in range(B):
-            req = self.slot_req[i]
-            if req is None or i in self._chunking:
-                # mid-chunk-prefill slots are decode-inactive by design
-                continue
-            row = toks_T[i]
-            new_toks = row[row >= 0].tolist()
-            req.output_ids.extend(new_toks)
-            if new_toks:
-                req.emits.append((now, len(new_toks)))
-            req.cum_logprob += float(logp_np[i])
-            if not new_active[i]:
-                req.done = True
-                self._finish_slot(i)
-        self.active = new_active & np.asarray(
-            [r is not None for r in self.slot_req])
+        if profiling.recording():
+            profiling.count("engine.live_slots", int(self.active.sum()))
+        with profiling.span("engine.decode", steps=self.chunk):
+            B, T = self.num_slots, self.chunk
+            # the table's live columns, rounded up to a power of two
+            need = int(self.lengths.max()) + T + 1
+            mbk = 1
+            while mbk * self.block_size < need and mbk < self.max_blocks:
+                mbk *= 2
+            mbk = min(mbk, self.max_blocks)
+            table = self._dev(np.ascontiguousarray(self.table[:, :mbk]))
+            lengths = self._dev(self.lengths)
+            last_tok = self._dev(self.last_tok)
+            cur_pos = self._dev(self.cur_pos)
+            active = self._dev(self.active)
+            gen_left = self._dev(self.gen_left)
+            temp, top_p = self._dev(self.temp), self._dev(self.top_p)
+            rep_pen = self._dev(self.rep_pen)
+            bias_ids = self._dev(self.bias_ids, torch.int64)
+            bias_vals = self._dev(self.bias_vals)
+            all_greedy = bool((self.temp == 0).all())
+            any_top_p = bool((self.top_p < 1).any())
+            rows = torch.arange(B, device=self.device)
+            logp_acc = torch.zeros((B,), dtype=torch.float32,
+                                   device=self.device)
+            toks = []
+            for _ in range(T):
+                with profiling.span("engine.decode.step"):
+                    lengths_incl = torch.clamp(lengths + active.int(), min=1)
+                    pos3 = cur_pos[None, :, None].expand(3, B, 1)
+                    with profiling.span("engine.decode.model"):
+                        logits = self.model.decode(
+                            last_tok[:, None], pos3, self.k_cache,
+                            self.v_cache, lengths_incl, table)
+                    logits = logits.scatter_add(1, bias_ids,
+                                                bias_vals.to(logits.dtype))
+                    tok, logp = self._agree(*sample_vec(
+                        logits, temp, top_p, rep_pen, self.seen,
+                        generator=self.generator, all_greedy=all_greedy,
+                        any_top_p=any_top_p))
+                    tok = torch.where(active, tok, last_tok)
+                    self.seen[rows, tok.long()] |= active
+                    toks.append(torch.where(active, tok,
+                                            torch.full_like(tok, -1)))
+                    is_eos = (tok[:, None] == self._eos_t[None, :]).any(-1)
+                    step = active.int()
+                    lengths = lengths + step
+                    cur_pos = cur_pos + step
+                    gen_left = gen_left - step
+                    logp_acc = logp_acc + torch.where(active, logp,
+                                                      torch.zeros_like(logp))
+                    active = active & ~is_eos & (gen_left > 0) & \
+                        (lengths + 1 < self.max_len)
+                    last_tok = tok
+            packed = torch.cat([torch.stack(toks).reshape(-1), lengths,
+                                cur_pos, gen_left, active.int(), last_tok,
+                                logp_acc.view(torch.int32)]).cpu().numpy()
+            toks_np = packed[:T * B].reshape(T, B)
+            off = T * B
+            self.lengths = packed[off:off + B].astype(np.int32)
+            self.cur_pos = packed[off + B:off + 2 * B].astype(np.int32)
+            self.gen_left = packed[off + 2 * B:off + 3 * B].astype(np.int32)
+            new_active = packed[off + 3 * B:off + 4 * B].astype(bool)
+            self.last_tok = packed[off + 4 * B:off + 5 * B].astype(np.int32)
+            logp_np = packed[off + 5 * B:off + 6 * B].view(np.float32)
+            toks_T = np.ascontiguousarray(toks_np.T)
+            now = time.monotonic()
+            for i in range(B):
+                req = self.slot_req[i]
+                if req is None or i in self._chunking:
+                    # mid-chunk-prefill slots are decode-inactive by design
+                    continue
+                row = toks_T[i]
+                new_toks = row[row >= 0].tolist()
+                req.output_ids.extend(new_toks)
+                if new_toks:
+                    req.emits.append((now, len(new_toks)))
+                req.cum_logprob += float(logp_np[i])
+                if not new_active[i]:
+                    req.done = True
+                    self._finish_slot(i)
+            self.active = new_active & np.asarray(
+                [r is not None for r in self.slot_req])
 
     # ---- main loop ---------------------------------------------------
 

@@ -130,9 +130,12 @@ is non-zero; no phase catches an error and carries on):
      each again at lengths 1, bs and bs + 1: 2e-2 relative and 2e-2 max
      abs, finite, timed beside the plain version, gather + SDPA (no one
      call computes K5) and the bound, with the split count (the cluster
-     size) and the blocks that hold work; then one full-width vision
-     block and one 7B text layer, bf16 on the card against fp32 on the
-     CPU;
+     size) and the blocks that hold work; K8 (chunked-prefill
+     attention, csrc/attention_chunk_hopper.cu) at the 7B's 2048-token
+     chunks over L 2048 / 4096 / 6144 (28/4, d 128) against its plain
+     version, timed beside it, SDPA with the explicit chunk mask and the
+     bound; then one full-width vision block and one 7B text layer, bf16
+     on the card against fp32 on the CPU;
   7. Qwen2.5-VL-7B at full width on random weights from seed 0 and the
      engine from evisrag_predict.build_engine (4 slots, 16k tokens, 2048-
      token chunked prefill, prefix cache): six requests, one of them an
@@ -141,8 +144,9 @@ is non-zero; no phase catches an error and carries on):
      repetition penalty 1.05 and the image token banned, 64 new tokens each
      (the driver's default is 2048). Checks complete outputs without the
      image token, a schedule with P, C/c and D, launch counts of exactly
-     32 K3 per vision-tower run, 28 K1 per whole or batched prefill and 28
-     K5 per decode step (none on the first kernel), and decode logits
+     32 K3 per vision-tower run, 28 K1 per whole or batched prefill, 28 K8
+     per prefill chunk and 28 K5 per decode step (none on the first
+     kernel), and decode logits
      over the paged pool within 2e-2
      relative of a full causal pass at the same positions, after a whole
      and after a chunked prefill; prints the vision tower's ms per request
@@ -155,7 +159,7 @@ is non-zero; no phase catches an error and carries on):
      on bf16 pools of the dequantized values; then the same six requests
      through build_engine(cache_dtype="int8") on the same 7B weights:
      complete outputs, K5 int8 28 per decode step (none on bf16 K5 or the
-     first kernel), output tokens/s, ms per
+     first kernel), K8 28 per prefill chunk, output tokens/s, ms per
      decode step, peak memory, pool bytes against bf16, and decode logits
      over int8 pools against phase 7's over bf16 pools at the same steps
      (0.1 relative);
@@ -206,8 +210,8 @@ is non-zero; no phase catches an error and carries on):
      dispatch and per log-prob micro-batch; K3 32 per vision-tower run; K5
      36 per decode step, none on the first kernel, the engine at rl_main's
      8-token pool blocks), every K4 launch on the Hopper kernels (the route
-     counters; so in phase 11), a finite non-zero grad_norm and no skipped
-     step,
+     counters; so in phase 11), K8 36 per prefill chunk, a finite
+     non-zero grad_norm and no skipped step,
      changed text weights and a bit-identical tower, an empty prefix cache
      after each rollout, complete responses without the image token; then
      one packed micro-batch's loss against the padded forward's (K1, no
@@ -364,7 +368,9 @@ is non-zero; no phase catches an error and carries on):
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel (K1 flat, K1 stacked, K1 + LSE, K2 dq and
 K2 dk/dv for the ViT (d 72) and for the LM (d 64), K1 stacked GQA, K5, K3
-in the window and in the full-attention layers,
+in the window and in the full-attention layers, K8 (launches from phase
+7's chunks, numbers at L 6144), K8 at the 3B's 16/2 (launches from phase
+9's chunks, numbers at L 6144),
 K6, K5 int8, K4 forward, K4 dq, K4 dk/dv, K1 + LSE, K2 dq and K2 dk/dv at
 d = 128 with grouped kv heads, K7 as
 `rmsnorm` (launches from phase 10's SFT run, numbers at its batch) and
@@ -2129,7 +2135,8 @@ def phase6_serving_kernels(gen, reqs, cfg):
     """K3, K1 (stacked causal, GQA 28/4, d = 128) and K5 against their plain
     versions on the card at the serving path's shapes and at edge cases;
     one full-width vision block and one 7B text layer against fp32 on the
-    CPU. → {"kvgrid": [...], "gqa": [...], "paged": [...]}."""
+    CPU; K8 at the 7B's chunk shapes. → {"kvgrid": [...], "gqa": [...],
+    "paged": [...], "chunk": [...]}."""
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
     from visrag_tpu_torch.serving import paged_kv as pk
@@ -2200,8 +2207,72 @@ def phase6_serving_kernels(gen, reqs, cfg):
     live = [len(by[n]["input_ids"]) + SERVE_MAX_TOKENS
             for n in ("pages3_0", "pages3_1", "pages3_2", "page1_small")]
     res["paged"] = _k5_checks("[6]", gen, live, tc, quantized=False)
+    res["chunk"] = _k8_checks(gen, h, kvh, d)
     _qwen_full_width_blocks(gen, cfg, vb)
     return res
+
+
+# K8's shapes: 2048-token chunks over the gathered prefix L = start + C,
+# the answer cell's prompts (and phase 9's 3-page prompts) reaching L 6144
+K8_LENGTHS = (2048, 4096, 6144)
+K8_REPLACES = ("none: visrag_tpu/ops/attention.py:86 xla_chunk_attention "
+               "is XLA")
+
+
+def k8_bound(c, L, starts, h, kvh, d):
+    """(bound_ms, bound_by) of one K8 call: QK^T and PV over each row's
+    visible keys (key <= start + query, key < L), q and o at h heads, the
+    gathered k and v at kvh, each read or written once."""
+    visible = sum(min(st + i + 1, L) for st in starts for i in range(c))
+    return _bound(4 * visible * h * d,
+                  2 * len(starts) * d * (2 * c * h + 2 * L * kvh))
+
+
+def _k8_checks(gen, h, kvh, d, c=2048, phase="[6]"):
+    """K8 against its plain version on the card at a chunked prefill's
+    shapes (h / kvh heads, C 2048 over K8_LENGTHS), with SDPA under the
+    explicit chunk mask (GQA) as the library yardstick, timed only.
+    → [record per L]."""
+    from visrag_tpu_torch.ops import attention as at
+    recs = []
+    for L in K8_LENGTHS:
+        start = L - c
+        q = torch.randn(1, c, h, d, generator=gen, device=DEV).bfloat16()
+        k, v = (torch.randn(1, L, kvh, d, generator=gen, device=DEV)
+                .bfloat16() for _ in range(2))
+        st = torch.tensor([start], device=DEV)
+        kern = lambda: at.chunk_attention(q, k, v, st)
+        plain = lambda: at.chunk_attention_reference(q, k, v, st)
+        mask = (torch.arange(L, device=DEV)[None, :]
+                <= start + torch.arange(c, device=DEV)[:, None])[None, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=d ** -0.5, enable_gqa=True)
+        n0 = at.chunk_launches
+        out = kern()
+        if at.chunk_launches != n0 + 1:
+            raise RuntimeError("K8: chunk_attention did not launch the "
+                               "kernel")
+        rec = _timed_check(
+            "K8", f"chunk C={c} at start {start} (L={L}) H={h}/{kvh} d={d}",
+            kern, plain, lib, out, plain(), slice(None),
+            k8_bound(c, L, [start], h, kvh, d), phase)
+        rec["roofline_pct"] = 100 * rec["bound_ms"] / rec["ms"]
+        recs.append(rec)
+        del q, k, v, mask, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return recs
+
+
+def k8_row(name, launches, recs):
+    """The kernel JSON's K8 row: a path's launches, the numbers at the
+    last (longest) checked L, every check."""
+    from visrag_tpu_torch.ops.attention import CHUNK_SOURCE
+    last = recs[-1]
+    return {"name": name, "route": "cuda", "source": CHUNK_SOURCE,
+            "replaces": K8_REPLACES, "launches": launches,
+            **{k: last[k] for k in KEYS}, "sdpa_ms": last["library_ms"],
+            "checks": recs}
 
 
 def _qwen_full_width_blocks(gen, cfg, vb):
@@ -2386,6 +2457,7 @@ def phase7_serving(reqs, cfg):
     from visrag_tpu_torch.driver.common import build_qwen25_vl
     from visrag_tpu_torch.driver.evisrag_predict import (build_engine,
                                                          sampling_params)
+    from visrag_tpu_torch.ops import attention as at
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
     from visrag_tpu_torch.ops import norms
@@ -2414,6 +2486,7 @@ def phase7_serving(reqs, cfg):
     kg.reset_launch_counts()
     pk.reset_launch_counts()
     norms.reset_launch_counts()
+    chunk0 = at.chunk_launches
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
@@ -2421,7 +2494,8 @@ def phase7_serving(reqs, cfg):
     launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
                 "paged": pk.launches, "flat": al.flat_launches,
                 "fwd_lse": al.fwd_lse_launches,
-                "paged_legacy": pk.legacy_launches}
+                "paged_legacy": pk.legacy_launches,
+                "chunk": at.chunk_launches - chunk0}
     _lengths_routes("[7]", launches)
     _kvgrid_routes("[7]")
     norm_launches = norms.launch_counts()
@@ -2446,8 +2520,9 @@ def phase7_serving(reqs, cfg):
     want = {"stacked": layers * whole,
             "kvgrid": cfg.vision.depth * vision_runs,
             "paged": layers * steps, "flat": 0, "fwd_lse": 0,
-            "paged_legacy": 0}
-    if launches != want:
+            "paged_legacy": 0,
+            "chunk": layers * timers["_advance_chunk"].calls}
+    if launches != want or not want["chunk"]:
         raise RuntimeError(f"serving launches {launches} != {want}")
 
     # latencies and rates of the run
@@ -2558,6 +2633,7 @@ def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
     launch counts of the run)."""
     from visrag_tpu_torch.driver.evisrag_predict import (build_engine,
                                                          sampling_params)
+    from visrag_tpu_torch.ops import attention as at
     from visrag_tpu_torch.ops import attention_kvgrid as kg
     from visrag_tpu_torch.ops import attention_lengths as al
     from visrag_tpu_torch.ops import matmul_int8 as mi
@@ -2573,11 +2649,12 @@ def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
     requests = list(engine.queue)
     counts = {}
     undo = [_count_calls(engine, name, counts)
-            for name in ("_prefill_one", "_prefill_many")]
+            for name in ("_prefill_one", "_prefill_many", "_advance_chunk")]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in (al, kg, pk, mi):
         mod.reset_launch_counts()
+    chunk0 = at.chunk_launches
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
@@ -2588,7 +2665,8 @@ def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
     launches = {"stacked": al.stacked_launches, "kvgrid": kg.launches,
                 "paged": pk.launches, "paged_int8": pk.int8_launches,
                 "paged_legacy": pk.legacy_launches,
-                "int8_gemm": mi.launches}
+                "int8_gemm": mi.launches,
+                "chunk": at.chunk_launches - chunk0}
     _kvgrid_routes("[7b]")
     layers = cfg.text.num_hidden_layers
     log_s = "".join(engine.sched_log)
@@ -2597,8 +2675,9 @@ def phase7b_int8_serving(gen, reqs, cfg, model, dec_ref):
     vision_runs = sum(1 for _, req, _ in reqs if "vision_batch" in req)
     want = {"stacked": layers * whole, "kvgrid": cfg.vision.depth * vision_runs,
             "paged": 0, "paged_int8": layers * steps, "paged_legacy": 0,
-            "int8_gemm": 0}
-    if launches != want:
+            "int8_gemm": 0,
+            "chunk": layers * counts.get("_advance_chunk", 0)}
+    if launches != want or not want["chunk"]:
         raise RuntimeError(f"int8 serving launches {launches} != {want}")
     image_id = StandInTokenizer.SPECIAL["<|image_pad|>"]
     for r in requests:
@@ -3461,7 +3540,8 @@ def phase9_rl(rows_path, cfg, tmp):
 
     counts, stash, rollouts = {}, {}, []
     undo = [_count_calls(Engine, name, counts) for name in (
-        "_prefill_one", "_prefill_many", "_decode_chunk", "set_params")]
+        "_prefill_one", "_prefill_many", "_advance_chunk", "_decode_chunk",
+        "set_params")]
     undo.append(_count_calls(trainer, "_logp_fn", counts))
     undo.append(_count_calls(model, "encode_images", counts))
     pack, roll = trainer._pack_micro, trainer.rollout
@@ -3521,7 +3601,7 @@ def phase9_rl(rows_path, cfg, tmp):
     launches = {**al.launch_counts(), "kvgrid": kg.launches,
                 "kvgrid_lse": kg.lse_launches, "paged": pk.launches,
                 "paged_legacy": pk.legacy_launches,
-                **seg.launch_counts()}
+                **seg.launch_counts(), "chunk": seg.chunk_launches}
     _lengths_routes("[9]", launches)
     _segment_routes("[9]", launches)
     _kvgrid_routes("[9]")
@@ -3546,8 +3626,9 @@ def phase9_rl(rows_path, cfg, tmp):
             "paged": layers * counts["_decode_chunk"] * engine.chunk,
             "paged_legacy": 0,
             "seg_fwd": 2 * layers * micro_n, "seg_dq": layers * micro_n,
-            "seg_dkv": layers * micro_n}
-    if launches != want:
+            "seg_dkv": layers * micro_n,
+            "chunk": layers * counts.get("_advance_chunk", 0)}
+    if launches != want or not want["chunk"]:
         raise RuntimeError(f"RL launches {launches} != {want} (calls "
                            f"{counts})")
     image_id = StandInTokenizer.SPECIAL["<|image_pad|>"]
@@ -4010,6 +4091,10 @@ def rl_phases(gen):
         # collect them before the next 3B model is built
         gc.collect()
         torch.cuda.empty_cache()
+        tc = rl_cfg.text        # K8 at the rollout's chunks: 16/2, d 128
+        rl_launches["chunk_checks"] = _k8_checks(
+            gen, tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim,
+            phase="[9]")
         sft_launches = phase10_sft(work)
         gc.collect()
         torch.cuda.empty_cache()
@@ -6531,8 +6616,10 @@ def main(argv=None):
         seg_results, rl_launches, sft_launches, _ = rl_phases(gen)
         print(smi())
         print(json.dumps({"kernels": segment_kernel_rows(
-            seg_results, rl_launches) + norm_kernel_rows(
-                norm_results, sft_launches, None)}))
+            seg_results, rl_launches) + [k8_row(
+                "chunk_attention (K8, 3B rollout 16/2, d=128)",
+                rl_launches["chunk"], rl_launches["chunk_checks"])]
+            + norm_kernel_rows(norm_results, sft_launches, None)}))
         print(json.dumps({"ok": False, "partial": "--rl-only"}))
         return 1
     if args.gen_only:
@@ -6670,6 +6757,11 @@ def main(argv=None):
                         "pr3_ms": first["pr3_ms"],
                         "legacy_source": kg.LEGACY_SOURCE,
                         "checks": qwen_results["kvgrid"] if at == 0 else []})
+    # K8 at the 7B's 2048-token chunks, launches from phase 7's chunks
+    # (asserted: one a layer a chunk); numbers at L 6144, the last chunk of
+    # the answer cell's longest prompts
+    kernels.append(k8_row("chunk_attention (K8, 28/4, d=128)",
+                          qwen_launches["chunk"], qwen_results["chunk"]))
     kernels.append({"name": "int8_matmul_fused", "route": "cuda",
                     "source": mi.SOURCE, "replaces": INT8_REPLACES,
                     "launches": int8_launches["int8_gemm"],
@@ -6686,6 +6778,8 @@ def main(argv=None):
                     "legacy_source": pk.LEGACY_SOURCE,
                     "checks": k5q_checks})
     kernels += segment_kernel_rows(seg_results, rl_launches)
+    kernels.append(k8_row("chunk_attention (K8, 3B rollout 16/2, d=128)",
+                          rl_launches["chunk"], rl_launches["chunk_checks"]))
     for phase in ("12", "13"):      # K7 at the generation runs' shapes
         k7 = gen_results[phase][1]["k7"]
         norm_results["rmsnorm"] += k7["rms"]

@@ -23,6 +23,7 @@ from visrag_tpu.serving.paged_kv import (_xla_paged_decode,
 from visrag_tpu_torch.ops import attention_kvgrid as kg
 from visrag_tpu_torch.ops import attention_lengths as al
 from visrag_tpu_torch.ops.attention import (chunk_attention,
+                                            chunk_attention_reference,
                                             segment_attention_reference)
 from visrag_tpu_torch.serving import paged_kv as pk
 
@@ -288,11 +289,13 @@ def test_chunk_attention_matches_jax():
     start = np.array([48], np.int32)
     want = xla_chunk_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                jnp.asarray(start), kv_block=32)
-    got = chunk_attention(torch.from_numpy(q), torch.from_numpy(k),
-                          torch.from_numpy(v), torch.from_numpy(start),
-                          kv_block=32)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
-                               rtol=1e-5)
+    args = [torch.from_numpy(a) for a in (q, k, v, start)]
+    # the plain version in 32-key blocks, as the JAX call's, and the public
+    # function on the CPU (one block of the default size)
+    for got in (chunk_attention_reference(*args, kv_block=32),
+                chunk_attention(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_cpu_tensors_count_no_launch():

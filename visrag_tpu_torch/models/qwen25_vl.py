@@ -19,7 +19,8 @@ checkpoint (`visual.blocks.{i}.attn.qkv`,
     grouped kv heads (ops/attention_lengths.py, K1); decode reads the paged
     pool through K5 (serving/paged_kv.py) or, without a block table, a dense
     cache; chunked prefill writes the chunk into the pool and attends the
-    gathered prefix with plain torch ops (ops/attention.chunk_attention).
+    prefix gathered (and dequantized) from it through the chunk kernel
+    (ops/attention.chunk_attention, K8).
   * Training forward (the RL update): `segment_ids` runs packed rows
     through the segment kernel K4 (ops/attention.flash_attention, causal),
     whose backward is K4's dq and dk/dv; `attention_mask` rows keep K1.

@@ -23,6 +23,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("attention_lengths_hopper", "attention_lengths_bwd_hopper",
            "attention_segment_hopper", "attention_kvgrid_hopper",
+           "attention_chunk_hopper",
            "attention_lengths", "attention_lengths_bwd", "attention_kvgrid",
            "paged_decode_hopper", "paged_decode", "attention_segment",
            "matmul_int8_hopper", "matmul_int8", "norms")

@@ -1,5 +1,5 @@
 """Segment-id flash attention (K4), the public `flash_attention`, and the
-plain chunked-prefill attention.
+chunked-prefill attention (K8).
 
 Counterpart of visrag_tpu/ops/attention.py.
 
@@ -29,8 +29,12 @@ Counterpart of visrag_tpu/ops/attention.py.
     go to K4; no ids at a head dim K4 does not compile (d = 72, Sq == Sk)
     go to K1/K2 with full lengths.
   * `chunk_attention` (`xla_chunk_attention`): the chunked-prefill
-    attention. The JAX package runs it as plain XLA, not as a Pallas kernel,
-    so plain PyTorch is its port.
+    attention, a chunk's queries at a global offset over the gathered
+    prefix. The JAX package runs it as plain XLA, not as a Pallas kernel;
+    on the card it is K8, csrc/attention_chunk_hopper.cu, the Hopper
+    forward body with a closed-form mask at the query offset
+    (`chunk_pair_classes_reference` is its tile classes' plain version),
+    and `chunk_attention_reference` is its plain version.
 
 The segment contract. q (B, Sq, H, D), k/v (B, Sk, H_kv, D) with H_kv
 dividing H, ids (B, Sq) and (B, Sk) ints in any order. A (query, key) pair
@@ -46,7 +50,8 @@ A CPU tensor takes `segment_attention_reference`, the plain PyTorch
 version, and autograd through it is the plain backward. A CUDA tensor
 launches the kernels or raises; there is no fallback. Launch counters, one
 per kernel: `seg_fwd_launches`, `seg_dq_launches`, `seg_dkv_launches`;
-`route_counts()` splits each kernel's launches by source.
+`route_counts()` splits each kernel's launches by source; `chunk_launches`
+counts K8's.
 """
 
 from __future__ import annotations
@@ -55,8 +60,9 @@ import ctypes
 
 import torch
 
-from .attention_lengths import KERNEL_HEAD_DIMS, LSE_PAD, _check_cuda, \
-    _stream, _strides, _wants_grad
+from ..utils import profiling
+from .attention_lengths import KERNEL_HEAD_DIMS, LOG2E, LSE_PAD, \
+    _check_cuda, _stream, _strides, _wants_grad
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 SEG_HEAD_DIMS = (64, 80, 128)   # MiniCPM LM, Qwen vision tower, Qwen text
@@ -72,16 +78,22 @@ _LEGACY_ENTRY = {"fwd": "visrag_segment_attention_fwd",
                  "dq": "visrag_segment_attention_bwd_dq",
                  "dkv": "visrag_segment_attention_bwd_dkv"}
 SKIP, MASKED, UNMASKED = 0, 1, 2    # classes of a (query tile, key tile) pair
+CHUNK_SOURCE = "visrag_tpu_torch/csrc/attention_chunk_hopper.cu"
+CHUNK_HEAD_DIMS = (128,)            # K8: the Qwen2.5 text stack
+CHUNK_TILES = (128, 128)            # K8's (query rows, keys) per tile
 
 seg_fwd_launches = 0    # K4 forward, by segment_fwd
 seg_dq_launches = 0     # K4 dq, by segment_bwd_dq
 seg_dkv_launches = 0    # K4 dk/dv, by segment_bwd_dkv
+chunk_launches = 0      # K8, by chunk_attention on a CUDA tensor
 _routes = {kind: {"hopper": 0, "legacy": 0} for kind in _LEGACY_ENTRY}
 
 
 def reset_launch_counts() -> None:
-    global seg_fwd_launches, seg_dq_launches, seg_dkv_launches
+    global seg_fwd_launches, seg_dq_launches, seg_dkv_launches, \
+        chunk_launches
     seg_fwd_launches = seg_dq_launches = seg_dkv_launches = 0
+    chunk_launches = 0
     for counts in _routes.values():
         counts["hopper"] = counts["legacy"] = 0
 
@@ -197,9 +209,9 @@ def segment_backward_reference(q, k, v, do, q_seg, kv_seg, causal: bool,
     return dq, dk, dv
 
 
-def chunk_attention(q, k_all, v_all, start, *, sm_scale=None,
-                    kv_block: int = 1024):
-    """Chunked-prefill attention: q (B, C, H, D) at global positions
+def chunk_attention_reference(q, k_all, v_all, start, *, sm_scale=None,
+                              kv_block: int = 1024):
+    """Plain PyTorch version of K8: q (B, C, H, D) at global positions
     start + arange(C) (start (B,) int); k_all/v_all (B, L, H_kv, D) cover
     [0, L) with this chunk already written. Mask: key <= start + query.
     fp32 scores and online softmax over kv_block-key blocks; P rounded to
@@ -232,6 +244,96 @@ def chunk_attention(q, k_all, v_all, start, *, sm_scale=None,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,g,r,C,D)
     return o.permute(0, 3, 1, 2, 4).reshape(b, cq, h, d).to(q.dtype)
+
+
+def chunk_pair_classes_reference(start, c: int, L: int, bq: int, bk: int):
+    """Plain version of K8's tile classes: start (B,) int → (B, ceil(c /
+    bq), ceil(L / bk)) int32, per (query tile at q0, key tile at k0) SKIP
+    when k0 > start + q0 + bq - 1, UNMASKED when k0 + bk - 1 <= start + q0
+    and k0 + bk <= L, MASKED otherwise (the kernel masks those per element
+    on key <= start + query and key < L)."""
+    st = torch.as_tensor(start).long()[:, None, None]
+    q0 = torch.arange(0, c, bq)[None, :, None]
+    k0 = torch.arange(0, L, bk)[None, None, :]
+    skip = k0 > st + q0 + bq - 1
+    full = (k0 + bk - 1 <= st + q0) & (k0 + bk <= L)
+    out = torch.full(skip.shape, MASKED, dtype=torch.int32)
+    out[full] = UNMASKED
+    out[skip] = SKIP
+    return out
+
+
+def _launch_chunk(q, k_all, v_all, starts, o, sm_scale):
+    """K8 into `o`: q / o (B, C, H, D), k_all / v_all (B, L, H_kv, D), bf16
+    views with a contiguous head dim and 16-byte-aligned strides; starts
+    (B,) int32 on the card. Raises unless the kernel launched."""
+    from ._build import load_library
+    for name, t in (("q", q), ("k_all", k_all), ("v_all", v_all), ("o", o)):
+        _check_cuda(name, t)
+    b, cq, h, d = q.shape
+    L, kvh = k_all.shape[1], k_all.shape[2]
+    fn = load_library("attention_chunk_hopper").visrag_chunk_hopper_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+                o.data_ptr(), starts.data_ptr(), b, cq, L, h, kvh, d,
+                *_strides(q, k_all, v_all, o), float(sm_scale) * LOG2E,
+                _stream(q))
+    if rc == -1:
+        raise RuntimeError(f"attention_chunk_hopper: the driver refused a "
+                           f"TMA tensor map for q {tuple(q.shape)} strides "
+                           f"{q.stride()}, k {tuple(k_all.shape)} strides "
+                           f"{k_all.stride()}")
+    if rc != 0:
+        raise RuntimeError(f"attention_chunk_hopper launch failed: CUDA "
+                           f"error {rc}")
+
+
+def chunk_attention(q, k_all, v_all, start, *, sm_scale=None):
+    """Chunked-prefill attention: q (B, C, H, D) at global positions
+    start + arange(C) (start (B,) int); k_all/v_all (B, L, H_kv, D) cover
+    [0, L) with this chunk already written (L >= start + C). Key j is
+    visible to query i iff j <= start + i; query head h reads kv head
+    h // (H / H_kv). → (B, C, H, D) in q's dtype.
+
+    A CPU tensor takes `chunk_attention_reference`; a CUDA tensor launches
+    K8 (bf16, d 128) or raises. Under a profiler each call records the
+    counter `attention.chunk` (heads, kv heads, d, C, L, starts), the
+    starts as an int32 copy of its own."""
+    if q.dim() != 4 or k_all.dim() != 4 or v_all.shape != k_all.shape \
+            or k_all.shape[0] != q.shape[0] or k_all.shape[3] != q.shape[3] \
+            or k_all.shape[2] == 0 or q.shape[2] % k_all.shape[2]:
+        raise ValueError(f"q (B, C, H, D) and k/v (B, L, H_kv, D) with H_kv "
+                         f"dividing H expected, got {tuple(q.shape)} "
+                         f"{tuple(k_all.shape)} {tuple(v_all.shape)}")
+    b, cq, h, d = q.shape
+    L, kvh = k_all.shape[1], k_all.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    starts = torch.as_tensor(start).reshape(-1)
+    if starts.shape != (b,):
+        raise ValueError(f"start {tuple(starts.shape)} != ({b},)")
+    if profiling.recording():
+        # a copy, on the device: recorded() reads it after the sync, and a
+        # caller may reuse its own start buffer meanwhile
+        profiling.count("attention.chunk", (h, kvh, d, cq, L, starts.to(
+            device=q.device, dtype=torch.int32, copy=True)))
+    if q.device.type == "cpu":
+        return chunk_attention_reference(q, k_all, v_all, starts,
+                                          sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if d not in CHUNK_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not compiled into the chunk kernel "
+                         f"(have {CHUNK_HEAD_DIMS})")
+    global chunk_launches
+    starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
+    o = torch.empty((b, cq, h, d), dtype=q.dtype, device=q.device)
+    _launch_chunk(q, k_all, v_all, starts, o, sm_scale)
+    chunk_launches += 1
+    return o
 
 
 def segment_lse_reference(q, k, q_seg, kv_seg, causal: bool, sm_scale: float):

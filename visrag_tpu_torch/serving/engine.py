@@ -696,7 +696,7 @@ class Engine:
                 self._dev(blocks[lo // bs_blk:(lo + C) // bs_blk],
                           torch.int64),
                 self._dev(blocks[:(lo + C) // bs_blk], torch.int64),
-                self._dev(lo),
+                self._dev(lo, torch.int32),
                 last_pos=self._dev([s - 1 - lo]) if final else None,
                 inputs_embeds=emb)
             st["lo"] = lo + C

@@ -196,7 +196,9 @@ def count(name: str, value) -> None:
 def recorded() -> Tuple[List[Span], List[Counter], int]:
     """→ (the spans in the order they opened, the counters, how many of
     either were dropped at the cap). Reads each closed span's CUDA events
-    into device_ms, waiting for its end event; call it after the work's
+    into device_ms, waiting for its end event, and each tensor in a
+    counter's value (or in a tuple that is its value) into a list, so that
+    recording a device quantity costs no sync; call it after the work's
     sync."""
     with _REC.lock:
         spans, counters, dropped = list(_REC.spans), list(_REC.counters), \
@@ -207,6 +209,13 @@ def recorded() -> Tuple[List[Span], List[Counter], int]:
             end.synchronize()
             s.device_ms = start.elapsed_time(end)
             s._events = None
+    for c in counters:
+        if isinstance(c.value, torch.Tensor):
+            c.value = c.value.tolist()
+        elif isinstance(c.value, tuple) and any(
+                isinstance(x, torch.Tensor) for x in c.value):
+            c.value = tuple(x.tolist() if isinstance(x, torch.Tensor) else x
+                            for x in c.value)
     return spans, counters, dropped
 
 
